@@ -1,0 +1,282 @@
+"""Continuous whole-shot disruption-probability sweeps (video).
+
+Port of the video half of ``kstar_tpu/infer/continuous.py``. The shot's
+frames are centre-cropped and uploaded to the device once; windows are
+gathered on the device with a (B, L) index matrix; the sweep runs over
+fixed-size window chunks, bucketed so that ragged shot lengths give a
+handful of shapes (CUDA graphs will want them fixed).
+
+ViViT gets the two exact fast paths of the JAX sweep: per-frame patch
+embeddings are computed once per shot, and the spatial transformer, which
+depends only on (frame, in-window offset), is precomputed as the
+(offset x frame) cls table by the spatial-table kernel
+(ops/spatial_table.py), so each window runs only the temporal transformer.
+
+Output alignment and startup suppression follow the reference
+(generate_prob_curve, src/utils/utility.py:896-977):
+prob = [0]*(seq_len + frame_srt) + probs[1:-1]; zero any p >= 0.5 in the
+first second; time axis = arange(n)/fps.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..config import FPS, PIXEL_MEAN_BGR
+from ..ops.spatial_table import (extract_spatial_weights, spatial_table,
+                                 spatial_table_reference)
+
+
+def moving_average(x: np.ndarray, k: int, method: str = "backward") -> np.ndarray:
+    """Moving-average smoothing, clipped to [0, 1]
+    (reference moving_avarage_smoothing, src/utils/utility.py:872-893).
+
+    backward: S[t] = mean(x[:t+1]) for t < k else sum(x[t-k:t]) / k
+    (excludes x[t]); center: expanding head/tail means with a [t-hw, t+hw)
+    body — one float64 cumulative sum."""
+    n = len(x)
+    if n == 0:
+        return np.zeros(0)
+    c = np.concatenate([[0.0], np.cumsum(np.asarray(x, np.float64))])
+    t = np.arange(n)
+    head = c[t + 1] / (t + 1)                       # mean(x[:t+1])
+    if method == "backward":
+        lo = np.maximum(t - k, 0)
+        s = np.where(t < k, head, (c[t] - c[lo]) / k)
+    else:
+        hw = k // 2
+        lo = np.maximum(t - hw, 0)
+        hi = np.minimum(t + hw, n)
+        body = (c[hi] - c[lo]) / np.maximum(hi - lo, 1)  # mean(x[t-hw:t+hw])
+        tail = (c[n] - c[lo]) / np.maximum(n - lo, 1)    # mean(x[t-hw:])
+        s = np.where(t < hw, head, np.where(t < n - hw, body, tail))
+    return np.clip(s, 0, 1)
+
+
+def startup_suppression(probs: np.ndarray, n_samples: int) -> np.ndarray:
+    """Zero p >= 0.5 within the first second of the shot (reference
+    src/utils/utility.py:957-960): the plasma-startup flash false positive."""
+    out = probs.copy()
+    head = out[:n_samples]
+    head[head >= 0.5] = 0.0
+    out[:n_samples] = head
+    return out
+
+
+def bucket_len(n: int) -> int:
+    """Sub-octave shape bucket: smallest of {2^k, 1.25*2^k, 1.5*2^k} >= n
+    (padding waste at most 33%)."""
+    if n <= 1:
+        return 1
+    p = 1 << (n - 1).bit_length()
+    for b in (5 * p // 8, 3 * p // 4, p):
+        if b >= n:
+            return b
+    return p
+
+
+def chunkify_starts(starts: np.ndarray, batch_size: int) -> np.ndarray:
+    """Pad window starts to a sub-octave chunk-count bucket (bucket_len) and
+    reshape to (n_buck, B)."""
+    n = len(starts)
+    n_chunks = max((n + batch_size - 1) // batch_size, 1)
+    n_buck = bucket_len(n_chunks)
+    padded = np.zeros(n_buck * batch_size, np.int64)
+    padded[:n] = starts
+    return padded.reshape(n_buck, batch_size)
+
+
+def _make_cls_table_fn(model, seq_len: int, compute_dtype, use_kernel: bool = True):
+    """``tokens (T, N-1, D) -> (L, T, D)`` spatial-cls-table closure.
+
+    ``spatial_table`` launches the CUDA kernel for tokens on the GPU (and
+    raises for a shape it does not take) and runs the plain version for
+    tokens on the CPU; ``use_kernel=False`` takes the plain version on any
+    device."""
+    weights = extract_spatial_weights(model, seq_len, depth=model.depth,
+                                      dtype=compute_dtype)
+    table_fn = spatial_table if use_kernel else spatial_table_reference
+
+    def cls_table(tokens):
+        tokens_cls = torch.nn.functional.pad(tokens, (0, 0, 1, 0))  # zero cls row
+        return table_fn(tokens_cls, weights, seq_len, depth=model.depth,
+                        n_heads=model.n_heads, d_head=model.d_head,
+                        compute_dtype=compute_dtype)
+
+    return cls_table
+
+
+class VideoSweeper:
+    """Stride-1 sliding-window sweep over device-resident frames.
+
+    The shot is cropped and uploaded once; per chunk of B windows the sweep
+    gathers the windows on the device, runs the forward and takes the
+    disruption probability softmax[:, 0]. ``device=None`` means the GPU
+    (raising without one); the model is moved to ``device``.
+    ``use_fused_table=False`` computes the spatial-cls table with the plain
+    version instead of the kernel.
+    """
+
+    def __init__(self, model, seq_len: int, crop_size: int, batch_size: int = 64,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 use_fused_table: bool = True, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.seq_len, self.crop_size = seq_len, crop_size
+        self.batch_size, self.compute_dtype = batch_size, compute_dtype
+        # window s covers frames [s+1, s+L]: frame s+1+k sits at offset k
+        self._offsets = torch.arange(1, seq_len + 1, device=self.device)
+        # uint8 values and the integer channel means are exact in bf16, so
+        # normalising directly in the compute dtype is lossless
+        self._mean = torch.tensor(PIXEL_MEAN_BGR, dtype=compute_dtype,
+                                  device=self.device)
+        self._use_tokens = hasattr(model, "spatial_cls")
+        if self._use_tokens:
+            self._cls_table = _make_cls_table_fn(self.model, seq_len, compute_dtype,
+                                                 use_fused_table)
+        self._frames_dev = None
+
+    def _normalize(self, frames_u8: torch.Tensor) -> torch.Tensor:
+        return frames_u8.to(self.compute_dtype) - self._mean
+
+    @torch.no_grad()
+    def embed_tokens(self, frames_dev: torch.Tensor) -> torch.Tensor:
+        """(T, h, w, C) uint8 on the device -> (T, N-1, D) patch embeddings."""
+        return self.model.embed_frames(self._normalize(frames_dev))
+
+    @torch.no_grad()
+    def embed_all(self, frames_dev: torch.Tensor) -> torch.Tensor:
+        """Per-shot preprocessing: the (L, T, D) spatial-cls table (ViViT),
+        or the frames themselves for a model without the token path."""
+        if not self._use_tokens:
+            return frames_dev
+        return self._cls_table(self.embed_tokens(frames_dev))
+
+    @torch.no_grad()
+    def chunk_probs(self, data: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+        """p_disrupt for the windows starting at ``starts`` (B,)."""
+        n_frames = data.shape[1] if self._use_tokens else data.shape[0]
+        idx = torch.clamp(starts[:, None] + self._offsets[None, :], 0, n_frames - 1)
+        if self._use_tokens:
+            off_idx = torch.arange(self.seq_len, device=self.device)[None, :]
+            logits = self.model.forward_spatial_cls(data[off_idx, idx])  # (B, L, D)
+        else:
+            logits = self.model(self._normalize(data[idx]))  # (B, L, h, w, C)
+        return torch.softmax(logits.float(), dim=-1)[:, 0]
+
+    @torch.no_grad()
+    def sweep_table(self, data: torch.Tensor, starts: np.ndarray) -> np.ndarray:
+        """All windows over preprocessed ``data`` (``embed_all``'s output)."""
+        n = len(starts)
+        if n == 0:
+            return np.zeros(0, np.float32)
+        chunks = torch.from_numpy(chunkify_starts(starts, self.batch_size)).to(self.device)
+        probs = torch.cat([self.chunk_probs(data, c) for c in chunks])
+        return probs.cpu().numpy()[:n]
+
+    def load_shot(self, frames_u8: np.ndarray) -> torch.Tensor:
+        """Crop, upload once and preprocess (ViViT: embed + cls table)."""
+        self._frames_dev = self.embed_all(self.upload_shot(frames_u8))
+        return self._frames_dev
+
+    def sweep(self, frames_u8: Optional[np.ndarray], starts: np.ndarray) -> np.ndarray:
+        """Run all window starts; returns p_disrupt per window. Pass
+        frames_u8=None to reuse the previously loaded shot."""
+        if frames_u8 is not None:
+            self.load_shot(frames_u8)
+        return self.sweep_table(self._frames_dev, starts)
+
+    def upload_shot(self, frames_u8: np.ndarray) -> torch.Tensor:
+        """Centre-crop on the host and upload the raw uint8 frames."""
+        H, W = frames_u8.shape[1], frames_u8.shape[2]
+        y0 = H // 2 - self.crop_size // 2
+        x0 = W // 2 - self.crop_size // 2
+        cropped = frames_u8[:, y0:y0 + self.crop_size, x0:x0 + self.crop_size, :]
+        return torch.from_numpy(np.ascontiguousarray(cropped)).to(self.device)
+
+    def sweep_device(self, frames_dev: torch.Tensor, starts: np.ndarray) -> np.ndarray:
+        """Whole-shot sweep including the per-shot preprocessing (embedding
+        + spatial table) over device-resident cropped frames."""
+        if len(starts) == 0:
+            return np.zeros(0, np.float32)
+        return self.sweep_table(self.embed_all(frames_dev), starts)
+
+
+def predict_video_shot(
+    model,
+    frames_u8: np.ndarray,        # (T, H, W, C) the full shot
+    frame_srt: int,
+    frame_end: int,
+    seq_len: int = 21,
+    dist: int = 3,
+    crop_size: int = 128,
+    batch_size: int = 64,
+    fps: float = FPS,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Whole-shot video probability curve (reference generate_prob_curve).
+
+    Returns (time_x, prob): prob[i] is the disruption probability at frame
+    i. ``device=None`` means the GPU."""
+    # reference slices paths[frame_srt : frame_end + 210]
+    sub = frames_u8[frame_srt: frame_end + int(fps)]
+    n_windows = max(len(sub) - seq_len - dist, 0)
+    starts = np.arange(n_windows, dtype=np.int64)
+
+    sweeper = VideoSweeper(model, seq_len, crop_size, batch_size, compute_dtype,
+                           device=device)
+    probs = sweeper.sweep(sub, starts)
+
+    prob_list = np.concatenate([
+        np.zeros(seq_len + frame_srt, np.float32),
+        probs[1:-1] if len(probs) > 2 else probs[:0],
+    ])
+    prob_list = startup_suppression(prob_list, int(fps * 1))
+    time_x = np.arange(len(prob_list)) / fps
+    return time_x, prob_list
+
+
+# ---------------------------------------------------------------------------
+# Alarm logic
+# ---------------------------------------------------------------------------
+
+def alarm_times(time_x: np.ndarray, probs: np.ndarray, threshold: float = 0.5,
+                t_min: float = 1.0, min_dwell_s: float = 0.0) -> Optional[float]:
+    """First time the disruption probability crosses the threshold after the
+    startup window (reference utility.py:843-853).
+
+    ``min_dwell_s > 0`` trips the alarm at the END of the first run of
+    samples that stays above threshold for ``min_dwell_s`` of continuous
+    armed time (``time_x >= t_min``), counted on a uniform time grid (one
+    median dt). ``min_dwell_s = 0`` is the reference first-crossing rule."""
+    mask = (probs > threshold) & (time_x >= t_min)
+    if not mask.any():
+        return None
+    if min_dwell_s > 0.0:
+        if len(time_x) <= 1:
+            # a single sample cannot hold a positive continuous dwell
+            return None
+        dt = float(np.median(np.diff(time_x)))
+        # ceil so the continuous armed time (k-1)*dt >= min_dwell_s; the
+        # 1e-9 guard keeps exact multiples from ceiling up on float noise
+        k = int(np.ceil(min_dwell_s / dt - 1e-9)) + 1 if dt > 0 else 1
+        if k > 1:
+            if k > len(mask):
+                return None
+            runs = np.convolve(mask.astype(np.int64),
+                               np.ones(k, np.int64), "valid")
+            hits = np.flatnonzero(runs == k)
+            return float(time_x[hits[0] + k - 1]) if len(hits) else None
+    return float(time_x[int(np.argmax(mask))])
+
+
+def warning_time(t_alarm: Optional[float], t_current_quench: float) -> Optional[float]:
+    """Warning margin: how long before the current quench the alarm fired."""
+    if t_alarm is None:
+        return None
+    return t_current_quench - t_alarm

@@ -1,0 +1,121 @@
+"""Build and load the hand-written CUDA kernels under ``kstar_torch/csrc``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, ``build/kstar_torch/<name>-<hash>.so``
+at the repository root (git-ignored), and loaded with ``ctypes``. The hash
+covers the source, the shared headers and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. Sources are compiled in
+parallel, one ``nvcc`` each.
+
+Nothing here runs at import time: the first kernel launch builds. Every C
+entry point returns ``cudaGetLastError()`` after its launch, and
+``check`` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kstar_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_lock = threading.Lock()
+_loaded: dict = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = [shutil.which("nvcc")]
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    for path in candidates:
+        if path and os.path.exists(path):
+            return path
+    raise RuntimeError("nvcc not found: the CUDA kernels of kstar_torch need "
+                       "the CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def sources() -> list:
+    """Names of the kernel sources (``csrc/*.cu`` without the suffix)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build(names=None) -> dict:
+    """Compile the named sources (all by default) that are not built yet,
+    all at once; raise with the compiler's output if one fails. Returns
+    ``{name: ptxas report}`` for the sources compiled by this call."""
+    names = sources() if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    reports, failed = {}, []
+    for name, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{out}")
+            continue
+        os.replace(tmp, target)
+        reports[name] = out
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            lib.kstar_error_string.argtypes = [ctypes.c_int]
+            lib.kstar_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
+        return lib
+
+
+def function(name: str, symbol: str, argtypes: list, restype=ctypes.c_int):
+    """``symbol`` of ``csrc/<name>.cu``'s library with its C signature set
+    (``c_void_p`` for pointers and the stream); built and loaded on first
+    use."""
+    key = (name, symbol)
+    with _lock:
+        fn = _loaded.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = argtypes, restype
+        with _lock:
+            _loaded[key] = fn
+    return fn
+
+
+def check(name: str, err: int, what: str) -> None:
+    """Raise if a C entry point of ``csrc/<name>.cu`` reported a CUDA error."""
+    if err != 0:
+        msg = load(name).kstar_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
