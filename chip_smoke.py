@@ -4,15 +4,27 @@
     python3 chip_smoke.py [--seed 0] [--frames 4096]
 
 Builds the hand-written kernels from kstar_torch/csrc, holds each against
-its plain PyTorch version on the card, then drives the port's main path:
-the stride-1 whole-shot sweep of the flagship ViViT (dim 128, depth 2,
-4 heads x 64, MLP 1024, 128 px crop, 21-frame windows, bf16, random
-weights from --seed) over a synthetic 4096-frame shot, followed by the
-probability curve and its alarm. Every phase prints one JSON line and any
-failure exits non-zero. Then come the per-kernel summary line, the card's
-name and power limit as nvidia-smi reports them, and the result line
-{"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
-no result.
+its plain PyTorch version on the card, then drives the port's paths at the
+width of the flagship ViViT (dim 128, depth 2, 4 heads x 64, MLP 1024,
+128 px crop, 21-frame windows, bf16, random weights from --seed):
+
+  sweep         the stride-1 whole-shot sweep over a synthetic 4096-frame
+                shot, the probability curve and its alarm (spatial-table
+                kernel)
+  vivit_pallas  the ViViT forward with the fused-attention kernel
+  stream        frames in, alarms out: block size chosen by probing at the
+                camera's 210 fps, block times and frame-to-alarm latency,
+                blocks against single pushes and against the plain gather
+                (window-gather kernel; fused attention in a second model)
+  raw_sweep     the sweep of a model without the token path (window-gather
+                kernel per chunk) against the token path
+  library       sweep_shots over six ragged shots in two groups against
+                per-shot sweeps, then alarm scoring of the curves
+
+Every phase prints one JSON line and any failure exits non-zero. Then come
+the per-kernel summary line, the card's name and power limit as nvidia-smi
+reports them, and the result line {"ok": true, "device": {...}}. Without
+CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -37,17 +50,49 @@ def emit(phase: str, **fields) -> None:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over iters launches (CUDA events), after
-    one warm-up call."""
+    """Mean device time of fn() over iters launches (CUDA events), after a
+    warm-up call. The launches are queued behind a busy-wait on the device
+    that outlasts their enqueueing (measured in a first pass), so a kernel
+    shorter than its wrapper's host time is timed at the device's rate and
+    not at the host's launch rate."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(enqueue_s, 0.25) * 2 * 2e9))   # cycles; the SM clock is < 2 GHz
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def rotating(fn, n: int = 4):
+    """fn with its last n results kept alive, so that a wrapper that
+    allocates its output gets other memory each launch and a result smaller
+    than the 50 MB L2 is not rewritten in place there."""
+    keep, i = [None] * n, [0]
+
+    def run():
+        keep[i[0] % n] = fn()
+        i[0] += 1
+    return run
+
+
+def wall_ms(fn, warmup: bool = True) -> float:
+    """Host time of fn() followed by a synchronise, after a warm-up call."""
+    if warmup:
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def compare(got, want, atol: float, rtol: float, mean_tol: float) -> dict:
@@ -100,12 +145,17 @@ def main() -> int:
     import torch.nn.functional as F
 
     from kstar_torch.config import FPS, PIXEL_MEAN_BGR, ViViTConfig
-    from kstar_torch.infer import (VideoSweeper, alarm_times,
-                                   predict_video_shot, warning_time)
+    from kstar_torch.eval.alarms import score_alarm_rows
+    from kstar_torch.infer import (StreamingPredictor, VideoSweeper, alarm_times,
+                                   choose_block_size, predict_video_shot,
+                                   probe_stream_blocks, startup_suppression,
+                                   warning_time)
     from kstar_torch.models import ViViT, build_video_model
     from kstar_torch.ops import _build
     from kstar_torch.ops.attention import (fused_attention,
                                            fused_attention_reference)
+    from kstar_torch.ops.preprocess import (gather_normalize,
+                                            gather_normalize_reference)
     from kstar_torch.ops.spatial_table import (extract_spatial_weights,
                                                spatial_table,
                                                spatial_table_reference)
@@ -207,6 +257,43 @@ def main() -> int:
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, scale=scale), 50)))
             emit("kernel_check", **checks[-1])
+
+    # window gather + normalise: exact (uint8 minus an integer mean is
+    # representable in bf16 and f32), so the tolerance is 0. Bytes: every
+    # output element written once, every distinct frame the windows touch
+    # and the starts read once; one subtraction per element.
+    T = args.frames
+    small_frames = small.upload_shot(frames[:64])                     # 64 frames
+    for label, src, st, cd, iters in (
+            ("stream block k=16, 37 frames bf16 (main path)", frames_dev[:SEQ_LEN + 16],
+             torch.arange(16, device=dev), torch.bfloat16, 50),
+            (f"sweep chunk B={BATCH}, T={T} bf16 (main path)", frames_dev,
+             torch.arange(BATCH, device=dev) + T // 2, torch.bfloat16, 20),
+            (f"small crop {SMALL_CROP} px, 8 windows f32", small_frames,
+             torch.arange(8, device=dev) * 5, torch.float32, 50),
+            (f"clipped at both ends, T={T} bf16", frames_dev,
+             torch.tensor([-40, -SEQ_LEN, -1, 0, T - SEQ_LEN - 1, T - SEQ_LEN, T - 2,
+                           T + 9], device=dev), torch.bfloat16, 50)):
+        got = gather_normalize(src, st, SEQ_LEN, cd)
+        want = gather_normalize_reference(src, st, SEQ_LEN, cd)
+        torch.cuda.synchronize()
+        res = compare(got, want, 0.0, 0.0, 0.0)
+        idx = torch.clamp(st[:, None] + torch.arange(1, SEQ_LEN + 1, device=dev), 0,
+                          len(src) - 1)
+        frame_bytes = src[0].numel()
+        nbytes = (got.numel() * got.element_size()
+                  + int(torch.unique(idx).numel()) * frame_bytes + st.numel() * 8)
+        bound_ms, bound_by = bound(got.numel(), nbytes, "float32")   # no tensor-core work
+        checks.append(dict(
+            name="gather_normalize", case=label, dtype=str(cd).split(".")[1],
+            shape=[list(src.shape), list(st.shape)], route="cuda",
+            source="kstar_torch/csrc/preprocess.cu",
+            replaces="kstar_tpu/ops/preprocess.py:76", **res,
+            ms=time_ms(rotating(lambda: gather_normalize(src, st, SEQ_LEN, cd)), iters),
+            plain_ms=time_ms(rotating(
+                lambda: gather_normalize_reference(src, st, SEQ_LEN, cd)), iters),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        emit("kernel_check", **checks[-1])
     failures += [f"{c['name']} {c['case']}" for c in checks if not c["ok"]]
 
     # ---- sweep: the main path ----
@@ -223,14 +310,6 @@ def main() -> int:
     launches = {"spatial_table": spatial_table.launches,
                 "fused_attention": fused_attention.launches}
     sweep_s = float(np.median(walls))
-
-    def wall_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
 
     w_main = extract_spatial_weights(model, SEQ_LEN, cfg.depth, torch.bfloat16)
     table = sweeper.embed_all(frames_dev)
@@ -292,7 +371,213 @@ def main() -> int:
     if not pallas_ok:
         failures.append("vivit_pallas")
 
-    summary = []
+
+    # ---- stream: frames in, alarms out ----
+    budget_ms = 1e3 / FPS
+    probe = probe_stream_blocks(model, SEQ_LEN, CROP, torch.bfloat16, device=dev)
+    k, report = choose_block_size(probe, fps=FPS)
+    c0 = RESIZE // 2 - CROP // 2                             # the crop _prep makes
+    cropped = np.ascontiguousarray(frames[:, c0:c0 + CROP, c0:c0 + CROP])
+
+    def stream(**kw):
+        return StreamingPredictor(kw.pop("model", model), seq_len=SEQ_LEN, crop_size=CROP,
+                                  compute_dtype=torch.bfloat16, device=dev, **kw)
+
+    def timed_blocks(kb: int, n: int = 30) -> tuple:
+        """n push_block steps of kb frames, host clock around each (a step
+        ends in the host copy of its probabilities); returns the block times
+        in ms and the gather launches counted over the n steps."""
+        sp = stream(block_size=kb)
+        sp.push_block(cropped[:kb])                          # allocate + warm
+        gather_normalize.launches = fused_attention.launches = 0
+        times = []
+        for i in range(1, n + 1):
+            t0 = time.perf_counter()
+            sp.push_block(cropped[i * kb:(i + 1) * kb])
+            times.append((time.perf_counter() - t0) * 1e3)
+        return np.asarray(times), gather_normalize.launches
+
+    block_ms, stream_launches = timed_blocks(k)
+    steps_ok = stream_launches == 30 and fused_attention.launches == 0
+    # frame i of a block waits (k-1-i)/fps for the block to fill, then the block
+    fill_ms = (k - 1 - np.arange(k)) / FPS * 1e3
+    lat = block_ms[:, None] + fill_ms[None, :]
+
+    def breakdown(kb: int, n: int = 20) -> dict:
+        """Where a block of kb frames spends its time: each stage alone and
+        the whole block, host clock around a synchronised call, taken in
+        turns (the host's speed drifts) and reported as medians of n."""
+        stage = torch.from_numpy(cropped[:kb]).pin_memory()
+        ext = torch.empty((SEQ_LEN + kb, CROP, CROP, 3), dtype=torch.uint8, device=dev)
+        st = torch.arange(kb, device=dev)
+        x = gather_normalize(ext, st, SEQ_LEN)
+        forward = torch.no_grad()(lambda: torch.softmax(model(x).float(), dim=-1)[:, 0])
+        p = forward()
+        sp = stream(block_size=kb)
+        stages = {"upload_ms": lambda: ext[SEQ_LEN:].copy_(stage, non_blocking=True),
+                  "gather_ms": lambda: gather_normalize(ext, st, SEQ_LEN),
+                  "forward_ms": forward,
+                  "download_ms": p.cpu,
+                  "block_ms": lambda: sp.push_block(cropped[:kb])}
+        times = {name: [] for name in stages}
+        for i in range(n + 1):                               # the first turn warms up
+            for name, fn in stages.items():
+                ms = wall_ms(fn, warmup=False)
+                if i:
+                    times[name].append(ms)
+        parts = {name: float(np.median(t)) for name, t in times.items()}
+        parts["upload_share"] = parts["upload_ms"] / parts["block_ms"]
+        parts["per_frame_ms"] = parts["block_ms"] / kb
+        return parts
+
+    breakdowns = {str(kb): breakdown(kb) for kb in sorted({k, 16})}
+
+    # the same frames (uncropped: the predictor crops on push) through the
+    # kernel, the plain gather and single pushes; suppress_s 0 arms the alarm
+    # after the 21 frames that fill the window
+    kk = max(k, 16)
+    seq = frames[:2 * kk].copy()
+    seq[:SEQ_LEN + 3] //= 4                                   # a dark start, so p moves
+    runs = {}
+    for name, kw in (("kernel", {}), ("plain", dict(use_fused_gather=False))):
+        gather_normalize.launches = 0
+        pred = stream(block_size=kk, suppress_s=0.0, **kw)
+        probs = np.concatenate([pred.push_block(seq[:kk])[0], pred.push_block(seq[kk:])[0]])
+        runs[name] = (probs, gather_normalize.launches)
+    bit_identical = bool(np.array_equal(runs["kernel"][0], runs["plain"][0]))
+    gather_ok = bit_identical and runs["kernel"][1] == 2 and runs["plain"][1] == 0
+    # threshold in the widest gap of the armed frames' probabilities
+    armed = np.sort(runs["kernel"][0][SEQ_LEN:])
+    gap_at = int(np.argmax(np.diff(armed)))
+    thr, gap = float(armed[gap_at:gap_at + 2].mean()), float(armed[gap_at + 1] - armed[gap_at])
+    blk = stream(block_size=kk, suppress_s=0.0, threshold=thr)
+    blk_out = [blk.push_block(seq[:kk]), blk.push_block(seq[kk:])]
+    blk_p, blk_a = (np.concatenate([o[i] for o in blk_out]) for i in (0, 1))
+    one = stream(block_size=1, suppress_s=0.0, threshold=thr)
+    gather_normalize.launches = 0
+    one_out = [one.push(f) for f in seq]
+    one_p, one_a = np.array([o[0] for o in one_out]), np.array([o[1] for o in one_out])
+    single_launches = gather_normalize.launches
+    # batch 1 and batch kk may take other cuBLAS kernels, so the bf16
+    # activations round apart: probabilities agree to 2e-2, not bit for bit;
+    # an alarm is compared where the threshold gap exceeds twice that error
+    push_err = float(np.abs(blk_p - one_p).max())
+    decidable = gap > 2 * push_err
+    push_ok = (push_err <= 2e-2 and single_launches == 2 * kk
+               and (not decidable or (np.array_equal(blk_a, one_a)
+                                      and blk.alarm_time == one.alarm_time)))
+    # the same blocks through the model with the fused-attention kernel
+    gather_normalize.launches = fused_attention.launches = 0
+    fa = stream(model=pallas, block_size=kk, suppress_s=0.0)
+    fa_p = np.concatenate([fa.push_block(seq[:kk])[0], fa.push_block(seq[kk:])[0]])
+    fa_err = float(np.abs(fa_p - runs["kernel"][0]).max())
+    fa_ok = (fused_attention.launches == 2 * expect and gather_normalize.launches == 2
+             and bool(np.isfinite(fa_p).all()) and fa_err <= 0.05)
+    p50_block = float(np.median(block_ms))
+    stream_ok = (steps_ok and gather_ok and push_ok and fa_ok
+                 and bool(np.isfinite(blk_p).all()) and blk_p.shape == (2 * kk,))
+    emit("stream", fps=FPS, budget_ms_per_frame=budget_ms, chosen_k=k,
+         probe_report={str(kp): r for kp, r in report.items()},
+         p50_frame_to_alarm_ms=float(np.median(lat)),
+         block_p50_ms=p50_block, block_p99_ms=float(np.percentile(block_ms, 99)),
+         block_runs_ms=block_ms.tolist(),
+         per_frame_ms=p50_block / k, sustains=p50_block / k <= budget_ms,
+         breakdown=breakdowns, launches={"gather_normalize": stream_launches, "steps": 30},
+         plain_gather_bit_identical=bit_identical, compared_block=kk,
+         blocks_vs_single_max_abs=push_err, blocks_vs_single_tol=2e-2,
+         threshold=thr, threshold_gap=gap, alarms_decidable=bool(decidable),
+         alarms_equal=bool(np.array_equal(blk_a, one_a)), n_alarms=int(blk_a.sum()),
+         alarm_time_blocks=blk.alarm_time, alarm_time_single=one.alarm_time,
+         single_push_launches=single_launches,
+         fused_attention_launches=fused_attention.launches,
+         expect_fused_attention_launches=2 * expect,
+         fused_attention_probs_max_abs=fa_err, ok=stream_ok)
+    launches["gather_normalize"] = stream_launches
+    if not stream_ok:
+        failures.append("stream")
+
+    # ---- raw_sweep: a model without the token path gathers raw windows ----
+    class PixelsOnly(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, x):
+            return self.inner(x)
+
+    raw = VideoSweeper(PixelsOnly(model), SEQ_LEN, CROP, BATCH, torch.bfloat16, device=dev)
+    sub = frames_dev[:512]
+    sub_starts = np.arange(len(sub) - SEQ_LEN - 1, dtype=np.int64)
+    n_chunks = -(-len(sub_starts) // BATCH)
+    raw.sweep_device(sub, sub_starts)                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gather_normalize.launches = spatial_table.launches = 0
+    t0 = time.perf_counter()
+    p_raw = raw.sweep_device(sub, sub_starts)
+    raw_ms = (time.perf_counter() - t0) * 1e3
+    raw_launches = {"gather_normalize": gather_normalize.launches,
+                    "spatial_table": spatial_table.launches}
+    p_tok = sweeper.sweep_device(sub, sub_starts)
+    raw_err = np.abs(p_raw - p_tok)
+    # both paths compute the same windows in bf16, rounding at other points
+    raw_ok = (raw_launches == {"gather_normalize": n_chunks, "spatial_table": 0}
+              and p_raw.shape == sub_starts.shape and bool(np.isfinite(p_raw).all())
+              and raw_err.max() <= 5e-2 and raw_err.mean() <= 5e-3)
+    emit("raw_sweep", frames=len(sub), windows=len(sub_starts), batch=BATCH,
+         chunks=n_chunks, launches=raw_launches, sweep_ms=raw_ms,
+         clips_per_s=len(sub_starts) / raw_ms * 1e3,
+         vs_token_path_max_abs=float(raw_err.max()),
+         vs_token_path_mean_abs=float(raw_err.mean()),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30, ok=bool(raw_ok))
+    if not raw_ok:
+        failures.append("raw_sweep")
+
+    # ---- library: sweep_shots over ragged shots, then alarm scoring ----
+    lengths = [1500, 700, 2048, 1100, 900, 1300]             # frame buckets 1280 and 2048
+    lib = [frames[a:a + n] for a, n in zip((0, 300, 2048, 1700, 2900, 600), lengths)]
+    lib_starts = [np.arange(n - SEQ_LEN - 1, dtype=np.int64) for n in lengths]
+    shot_bytes = 2048 * CROP * CROP * 3                      # the largest bucket
+    timings = {}
+    spatial_table.launches = gather_normalize.launches = 0
+    t0 = time.perf_counter()
+    lib_probs = sweeper.sweep_shots(lib, lib_starts, hbm_budget_bytes=3 * shot_bytes + 1,
+                                    timings=timings)
+    lib_s = time.perf_counter() - t0
+    lib_launches = spatial_table.launches
+    shapes = [[list(f), list(c)] for f, c in timings.pop("group_shapes")]
+    lib_max = lib_mean = 0.0
+    for shot, st, got in zip(lib, lib_starts, lib_probs):
+        alone = sweeper.sweep_device(sweeper.upload_shot(shot), st)
+        err = np.abs(got - alone)
+        lib_max, lib_mean = max(lib_max, float(err.max())), max(lib_mean, float(err.mean()))
+    curves = []
+    all_p = np.concatenate(lib_probs)
+    lib_thr = float(np.quantile(all_p, 0.999))             # a few crossings in the library
+    for i, (n, raw_p) in enumerate(zip(lengths, lib_probs)):
+        prob = startup_suppression(np.concatenate(
+            [np.zeros(SEQ_LEN, np.float32), raw_p[1:-1]]), int(FPS))
+        disrupt = i % 2 == 0
+        row = types.SimpleNamespace(tipminf=(n - 20) / FPS if disrupt else float("nan"),
+                                    tftsrt=0.0, is_disrupt=disrupt)
+        curves.append((30000 + i, row, np.arange(len(prob)) / FPS, prob))
+    rows, summary = score_alarm_rows(curves, threshold=lib_thr, t_min=1.0)
+    lib_ok = (len(lib_probs) == 6 and lib_launches == 6
+              and [len(p) for p in lib_probs] == [len(st) for st in lib_starts]
+              and bool(np.isfinite(all_p).all())
+              and [sh[0][:2] for sh in shapes] == [[3, 1280], [3, 2048]]
+              and lib_max <= 5e-2 and lib_mean <= 5e-3
+              and summary["n_shots"] == 6 and summary["n_disrupt"] == 3
+              and summary["detected"] + summary["missed"] == 3
+              and [r["shot"] for r in rows] == [c[0] for c in curves])
+    emit("library", shots=lengths, group_shapes=shapes, launches={"spatial_table": lib_launches},
+         sweep_s=lib_s, clips_per_s=len(all_p) / lib_s, timings=timings,
+         vs_single_shot_max_abs=lib_max, vs_single_shot_mean_abs=lib_mean,
+         alarm_threshold=lib_thr, alarm_summary=summary, ok=bool(lib_ok))
+    if not lib_ok:
+        failures.append("library")
+
+    kernel_rows = []
     for c in checks:
         entry = {k: c[k] for k in ("name", "route", "source", "replaces")}
         entry.update(launches=launches[c["name"]], max_abs_err=c["max_abs_err"],
@@ -300,8 +585,8 @@ def main() -> int:
                      bound_by=c["bound_by"], library_ms=c["library_ms"],
                      case=c["case"], max_rel_err=c["max_rel_err"],
                      atol=c["atol"], rtol=c["rtol"], ok=c["ok"])
-        summary.append(entry)
-    print(json.dumps({"kernels": summary}), flush=True)
+        kernel_rows.append(entry)
+    print(json.dumps({"kernels": kernel_rows}), flush=True)
     if failures:
         print(f"chip_smoke: failed: {', '.join(failures)}", file=sys.stderr)
         return 1

@@ -2,9 +2,12 @@
 
 Port of the video half of ``kstar_tpu/infer/continuous.py``. The shot's
 frames are centre-cropped and uploaded to the device once; windows are
-gathered on the device with a (B, L) index matrix; the sweep runs over
-fixed-size window chunks, bucketed so that ragged shot lengths give a
-handful of shapes (CUDA graphs will want them fixed).
+gathered on the device (raw frames by the window-gather kernel,
+ops/preprocess.py; ViViT's cls table with a (B, L) index matrix); the sweep
+runs over fixed-size window chunks, bucketed so that ragged shot lengths
+give a handful of shapes (CUDA graphs will want them fixed).
+``sweep_shots`` sweeps a shot library in groups that fit a device-memory
+budget.
 
 ViViT gets the two exact fast paths of the JAX sweep: per-frame patch
 embeddings are computed once per shot, and the spatial transformer, which
@@ -20,6 +23,7 @@ first second; time axis = arange(n)/fps.
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -27,6 +31,7 @@ import torch
 
 from .. import resolve_device
 from ..config import FPS, PIXEL_MEAN_BGR
+from ..ops.preprocess import gather_normalize
 from ..ops.spatial_table import (extract_spatial_weights, spatial_table,
                                  spatial_table_reference)
 
@@ -159,13 +164,15 @@ class VideoSweeper:
     @torch.no_grad()
     def chunk_probs(self, data: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
         """p_disrupt for the windows starting at ``starts`` (B,)."""
-        n_frames = data.shape[1] if self._use_tokens else data.shape[0]
-        idx = torch.clamp(starts[:, None] + self._offsets[None, :], 0, n_frames - 1)
         if self._use_tokens:
+            idx = torch.clamp(starts[:, None] + self._offsets[None, :], 0,
+                              data.shape[1] - 1)
             off_idx = torch.arange(self.seq_len, device=self.device)[None, :]
             logits = self.model.forward_spatial_cls(data[off_idx, idx])  # (B, L, D)
         else:
-            logits = self.model(self._normalize(data[idx]))  # (B, L, h, w, C)
+            # raw frames: the window-gather kernel (ops/preprocess.py)
+            logits = self.model(gather_normalize(data, starts, self.seq_len,
+                                                 self.compute_dtype))  # (B, L, h, w, C)
         return torch.softmax(logits.float(), dim=-1)[:, 0]
 
     @torch.no_grad()
@@ -175,8 +182,11 @@ class VideoSweeper:
         if n == 0:
             return np.zeros(0, np.float32)
         chunks = torch.from_numpy(chunkify_starts(starts, self.batch_size)).to(self.device)
-        probs = torch.cat([self.chunk_probs(data, c) for c in chunks])
-        return probs.cpu().numpy()[:n]
+        return self._sweep_chunks(data, chunks).cpu().numpy()[:n]
+
+    def _sweep_chunks(self, data: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
+        """(n_buck, B) window starts on the device -> (n_buck * B,) p_disrupt."""
+        return torch.cat([self.chunk_probs(data, c) for c in chunks])
 
     def load_shot(self, frames_u8: np.ndarray) -> torch.Tensor:
         """Crop, upload once and preprocess (ViViT: embed + cls table)."""
@@ -192,11 +202,14 @@ class VideoSweeper:
 
     def upload_shot(self, frames_u8: np.ndarray) -> torch.Tensor:
         """Centre-crop on the host and upload the raw uint8 frames."""
+        return torch.from_numpy(self._crop(frames_u8)).to(self.device)
+
+    def _crop(self, frames_u8: np.ndarray) -> np.ndarray:
         H, W = frames_u8.shape[1], frames_u8.shape[2]
         y0 = H // 2 - self.crop_size // 2
         x0 = W // 2 - self.crop_size // 2
-        cropped = frames_u8[:, y0:y0 + self.crop_size, x0:x0 + self.crop_size, :]
-        return torch.from_numpy(np.ascontiguousarray(cropped)).to(self.device)
+        return np.ascontiguousarray(
+            frames_u8[:, y0:y0 + self.crop_size, x0:x0 + self.crop_size, :])
 
     def sweep_device(self, frames_dev: torch.Tensor, starts: np.ndarray) -> np.ndarray:
         """Whole-shot sweep including the per-shot preprocessing (embedding
@@ -204,6 +217,108 @@ class VideoSweeper:
         if len(starts) == 0:
             return np.zeros(0, np.float32)
         return self.sweep_table(self.embed_all(frames_dev), starts)
+
+    def _hbm_budget_bytes(self) -> int:
+        """Bytes the library stack may occupy in device memory: half the
+        free device memory, floored at 512 MB; 4 GB on the CPU (grouping
+        granularity only)."""
+        if self.device.type != "cuda":
+            return 4 << 30
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return max(free // 2, 512 << 20)
+
+    @torch.no_grad()
+    def _sweep_group(self, cropped_list, starts_list, s_pad: int = 0,
+                     timings: Optional[dict] = None) -> list:
+        """One upload and one download for a group of already-cropped shots:
+        pad to the group's half-octave frame/chunk buckets (plus ``s_pad``
+        repeats of the last shot so groups share one shape), stack, sweep
+        the real shots one by one on the device, slice.
+
+        ``timings``: optional dict accumulating the group's phase walls
+        (``host_prep_s`` pad+stack, ``h2d_s`` host->device transfer,
+        ``dispatch_s`` sweep+fetch), ``h2d_bytes`` and, per group, the
+        shapes of the two stacks it uploaded (``group_shapes``)."""
+        t0 = time.perf_counter()
+        if s_pad:
+            cropped_list = list(cropped_list) + [cropped_list[-1]] * s_pad
+            starts_list = list(starts_list) + [starts_list[-1]] * s_pad
+        S, n_real = len(cropped_list), len(cropped_list) - s_pad
+        B = self.batch_size
+        t_buck = bucket_len(max(len(f) for f in cropped_list))
+        n_buck = max(bucket_len(max((len(s) + B - 1) // B, 1))
+                     for s in starts_list)
+
+        frames_stack = np.empty((S, t_buck) + cropped_list[0].shape[1:], np.uint8)
+        chunks_stack = np.zeros((S, n_buck * B), np.int64)
+        for i, (cropped, starts) in enumerate(zip(cropped_list, starts_list)):
+            frames_stack[i, :len(cropped)] = cropped
+            frames_stack[i, len(cropped):] = cropped[-1]      # repeat the last frame
+            chunks_stack[i, :len(starts)] = starts
+        chunks_stack = chunks_stack.reshape(S, n_buck, B)
+        if timings is not None:
+            t1 = time.perf_counter()
+            timings["host_prep_s"] = timings.get("host_prep_s", 0.0) + t1 - t0
+            timings["h2d_bytes"] = (timings.get("h2d_bytes", 0)
+                                    + frames_stack.nbytes + chunks_stack.nbytes)
+            timings.setdefault("group_shapes", []).append(
+                (frames_stack.shape, chunks_stack.shape))
+            t0 = t1
+        fd = torch.from_numpy(frames_stack).to(self.device)
+        cd = torch.from_numpy(chunks_stack).to(self.device)
+        if timings is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t1 = time.perf_counter()
+            timings["h2d_s"] = timings.get("h2d_s", 0.0) + t1 - t0
+            t0 = t1
+        probs = torch.stack([self._sweep_chunks(self.embed_all(fd[i]), cd[i])
+                             for i in range(n_real)]).cpu().numpy()
+        if timings is not None:
+            timings["dispatch_s"] = (timings.get("dispatch_s", 0.0)
+                                     + time.perf_counter() - t0)
+        return [probs[i, :len(starts_list[i])] for i in range(n_real)]
+
+    def sweep_shots(self, frames_list, starts_list,
+                    hbm_budget_bytes: Optional[int] = None,
+                    timings: Optional[dict] = None) -> list:
+        """Sweep a whole shot library: shots are cropped on the host, grouped
+        so that a group's stacked frames fit the device-memory budget (half
+        the free memory by default: stacking hundreds of full-length shots
+        unconditionally runs out of memory by construction), and each group
+        is uploaded in one transfer — shots padded to a common half-octave
+        frame bucket (repeating the last frame) and chunk bucket — swept on
+        the device, and the per-shot probability arrays sliced back out.
+
+        Groups are a FIXED size (budget // the library's largest frame
+        bucket, capped at bucket_len(S)); a partial final group repeats its
+        last shot up to its own shot-count bucket. Shots are packed in
+        ascending length order so a group shares a tight frame bucket, and
+        the fixed shot count keeps the set of group shapes small. Results
+        return in input order."""
+        S = len(frames_list)
+        if S == 0:
+            return []
+        cropped_list = [self._crop(frames_u8) for frames_u8 in frames_list]
+
+        budget = hbm_budget_bytes or self._hbm_budget_bytes()
+        itembytes = self.crop_size * self.crop_size * 3
+        max_buck = max(bucket_len(len(c)) for c in cropped_list)
+        s_chunk = max(min(int(budget // (max_buck * itembytes)),
+                          bucket_len(S)), 1)
+        order = sorted(range(S), key=lambda i: len(cropped_list[i]))
+        groups = [order[i:i + s_chunk] for i in range(0, S, s_chunk)]
+
+        out: list = [None] * S
+        for g in groups:
+            target = s_chunk if len(g) == s_chunk else min(
+                bucket_len(len(g)), s_chunk)
+            probs = self._sweep_group([cropped_list[i] for i in g],
+                                      [starts_list[i] for i in g],
+                                      s_pad=target - len(g), timings=timings)
+            for i, p in zip(g, probs):
+                out[i] = p
+        return out
 
 
 def predict_video_shot(

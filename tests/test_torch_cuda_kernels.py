@@ -10,6 +10,7 @@ import torch.nn.functional as F
 
 from kstar_torch.models.vivit import ViViT
 from kstar_torch.ops import attention as tat
+from kstar_torch.ops import preprocess as tpp
 from kstar_torch.ops import spatial_table as tst
 
 pytestmark = pytest.mark.cuda
@@ -73,3 +74,40 @@ def test_fused_attention_rejects_wide_heads(dev):
     q = torch.zeros(1, 1, 4, 264, device=dev)
     with pytest.raises(ValueError, match="not supported"):
         tat.fused_attention(q, q, q, 0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hw,skip", [((128, 128), 0), ((64, 64), 0), ((5, 7), 0),
+                                     ((16, 16), 1), ((5, 5), 1)],
+                         ids=["128", "64", "5x7-scalar", "16-offset", "5-misaligned"])
+def test_gather_normalize_kernel_equals_plain(dev, dtype, hw, skip):
+    """Exact (uint8 minus an integer mean is representable): vector path,
+    scalar path for a frame that is no multiple of the chunk, and frames
+    that start ``skip`` frames into their storage (a view, as the streaming
+    buffer's tail is)."""
+    g = torch.Generator().manual_seed(2)
+    frames = torch.randint(0, 256, (41, *hw, 3), dtype=torch.uint8, generator=g).to(dev)[skip:]
+    starts = torch.tensor([-9, -1, 0, 7, 18, 19, 20, 36, 39, 500], device=dev)
+    before = tpp.gather_normalize.launches
+    got = tpp.gather_normalize(frames, starts, 21, dtype)
+    torch.cuda.synchronize()
+    assert tpp.gather_normalize.launches == before + 1
+    assert torch.equal(got, tpp.gather_normalize_reference(frames, starts, 21, dtype))
+
+
+def test_gather_normalize_offsets_beyond_2_31_bytes(dev):
+    frames = torch.zeros(45_000, 128, 128, 3, dtype=torch.uint8, device=dev)  # 2.2 GB
+    frames[-30:] = torch.randint(0, 256, (30, 128, 128, 3), dtype=torch.uint8, device=dev)
+    starts = torch.tensor([44_970, 44_975, 44_999], device=dev)
+    got = tpp.gather_normalize(frames, starts, 21)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tpp.gather_normalize_reference(frames, starts, 21))
+
+
+def test_gather_normalize_rejects_on_the_gpu(dev):
+    with pytest.raises(ValueError, match="channels"):
+        tpp.gather_normalize(torch.zeros(4, 8, 8, 4, dtype=torch.uint8, device=dev),
+                             torch.zeros(2, dtype=torch.int64, device=dev), 2)
+    with pytest.raises(ValueError, match="not supported"):
+        tpp.gather_normalize(torch.zeros(4, 8, 8, 3, dtype=torch.uint8, device=dev),
+                             torch.zeros(2, dtype=torch.int64, device=dev), 2, torch.float16)

@@ -55,7 +55,7 @@ print(len(mods))
 """
     out = _run(["-c", code])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 10
+    assert int(out.stdout.split()[-1]) >= 15
 
 
 def test_chip_smoke_fails_without_cuda():
