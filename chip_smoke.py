@@ -209,6 +209,10 @@ def main() -> int:
             ("flagship T=4096 bf16 (main path)", tokens, torch.bfloat16, 3),
             ("flagship T=64 f32", tokens[:64], torch.float32, 5),
             ("flagship T=64 bf16", tokens[:64], torch.bfloat16, 10),
+            ("flagship T=61 bf16 (T no multiple of the frames per block)", tokens[:61],
+             torch.bfloat16, 10),
+            ("flagship T=1 bf16 (one frame in a block of several)", tokens[100:101],
+             torch.bfloat16, 10),
             ("small crop N=17 T=64 bf16", tokens_small, torch.bfloat16, 10)):
         w = extract_spatial_weights(model, SEQ_LEN, cfg.depth, cd)
         x = toks.to(cd)
@@ -227,12 +231,22 @@ def main() -> int:
             route="cuda", source="kstar_torch/csrc/spatial_table.cu",
             replaces="kstar_tpu/ops/spatial_table.py:371", **res,
             ms=time_ms(run, iters), plain_ms=time_ms(plain, max(iters // 3, 1)),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            instance=spatial_table.instance,
+            frames_per_block=spatial_table.frames_per_block))
         emit("kernel_check", **checks[-1])
+    # the ragged case must take the fast instance with several frames per block
+    ragged = next(c for c in checks if "T=61" in c["case"])
+    if ragged["frames_per_block"] < 2 or 61 % ragged["frames_per_block"] == 0:
+        failures.append(f"spatial_table ragged case ran {ragged['instance']}")
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
+    # the forward's shapes at 8 windows (vivit_pallas) and at the stream's
+    # block of 16
     for shape in ((8 * SEQ_LEN, cfg.n_heads, 65, cfg.d_head),
-                  (8, cfg.n_heads, SEQ_LEN + 1, cfg.d_head)):
+                  (8, cfg.n_heads, SEQ_LEN + 1, cfg.d_head),
+                  (16 * SEQ_LEN, cfg.n_heads, 65, cfg.d_head),
+                  (16, cfg.n_heads, SEQ_LEN + 1, cfg.d_head)):
         for cd in (torch.bfloat16, torch.float32):
             q, k, v = (torch.randn(shape, generator=g, device=dev).to(cd)
                        for _ in range(3))
@@ -255,7 +269,8 @@ def main() -> int:
                 plain_ms=time_ms(lambda: fused_attention_reference(q, k, v, scale), 50),
                 bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, scale=scale), 50)))
+                    q, k, v, scale=scale), 50),
+                instance=fused_attention.instance))
             emit("kernel_check", **checks[-1])
 
     # window gather + normalise: exact (uint8 minus an integer mean is
@@ -292,7 +307,8 @@ def main() -> int:
             ms=time_ms(rotating(lambda: gather_normalize(src, st, SEQ_LEN, cd)), iters),
             plain_ms=time_ms(rotating(
                 lambda: gather_normalize_reference(src, st, SEQ_LEN, cd)), iters),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            instance=gather_normalize.instance))
         emit("kernel_check", **checks[-1])
     failures += [f"{c['name']} {c['case']}" for c in checks if not c["ok"]]
 
@@ -584,7 +600,9 @@ def main() -> int:
                      ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
                      bound_by=c["bound_by"], library_ms=c["library_ms"],
                      case=c["case"], max_rel_err=c["max_rel_err"],
-                     atol=c["atol"], rtol=c["rtol"], ok=c["ok"])
+                     atol=c["atol"], rtol=c["rtol"], ok=c["ok"], instance=c["instance"])
+        if "frames_per_block" in c:
+            entry["frames_per_block"] = c["frames_per_block"]
         kernel_rows.append(entry)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     if failures:

@@ -1,0 +1,215 @@
+// Register-resident tensor-core attention core for Hopper (sm_90a), shared
+// by the fused-attention kernel (attention.cu) and the spatial-table kernel
+// (spatial_table.cu), with the ldmatrix and mma.sync wrappers both use.
+//
+// One warp owns a strip of 16 queries of one sequence. Q, K and V sit in
+// shared memory in bf16, row-major (one token per row, the head dimension
+// contiguous) with a row stride that is an odd multiple of 16 bytes, so the
+// eight rows of an ldmatrix tile fall into different banks. The strip's Q
+// fragments are loaded once; S = Q K^T runs on mma.sync.m16n8k16 (bf16
+// operands, f32 sum) straight into registers; scale, key mask, row max and
+// row sum are taken on the accumulator fragments with the quad's shuffles
+// (a row of S lives in the four lanes of one quad); the probabilities are
+// repacked in registers as the A fragments of P V, and V's B fragments come
+// from row-major V through ldmatrix.trans. Scores and probabilities never
+// touch shared memory and no block barrier is needed inside a strip.
+//
+// bf16 x bf16 products are exact in f32, so Q K^T differs from a plain f32
+// product only in summation order. P's precision is the caller's choice:
+//   kPNormBf16  the probabilities are normalised (e / sum) and rounded to
+//               bf16 before P V, the cast point of the spatial-table
+//               kernel's plain version; all keys are in one block;
+//   kPHiLo      P stays unnormalised and is split into a bf16 pair
+//               hi + lo (lo = bf16(p - hi)), two products, ~2^-17 relative:
+//               the fused-attention kernel, whose plain version keeps P in
+//               f32. A single bf16 P would hold that kernel's tolerance
+//               (1e-2 + 1e-2 |x|) on normal inputs but spends it: two keys
+//               of p ~ 0.5 against |v| ~ 3 already cost 2^-9 * 3 = 6e-3
+//               before the output's own rounding, and the strip-wise
+//               arithmetic in plain PyTorch (strip_attention_emulation,
+//               tests/test_torch_attention.py) reads two output ulps with
+//               one bf16 P (1.56e-2 at |x| ~ 1.5) against one ulp (7.8e-3)
+//               with the pair, which equals an f32 P. So the pair it is;
+//               the kernel is bound by bytes, not by these products.
+// Keys come in blocks of KT16 * 16; with more than one block the running
+// max, sum and output are rescaled between blocks (online softmax).
+#pragma once
+
+#include "common.cuh"
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 bf16 tiles: lane i gives the address of row i % 8 of tile i / 8;
+// register j holds tile j, this lane's row lane / 4, columns 2 * (lane % 4)
+// and the next (transposed: column lane / 4, rows 2 * (lane % 4) and next).
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Lane offsets (in elements) into a row-major bf16 tile with row stride ld
+// for ldmatrix.x4: A operand (16 rows x 16 k), B operand from rows = output
+// columns with k contiguous (16 n x 16 k), and B operand from rows = k with
+// the output columns contiguous, through ldmatrix.trans (16 k x 16 n). An
+// m16n8k16 accumulator fragment holds, in element i, row lane / 4 + 8 *
+// (i / 2) and column 2 * (lane % 4) + i % 2 of its 16 x 8 tile.
+__device__ __forceinline__ int lane_off_a(int lane, int ld) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int lane_off_b(int lane, int ld) {
+  return ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int lane_off_bt(int lane, int ld) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 8;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+enum PMode { kPNormBf16, kPHiLo };
+
+// The strip's Q fragments: 16 rows at qs (stride ld), DH columns.
+template <int DH>
+__device__ __forceinline__ void attn_load_q(uint32_t (&qf)[DH / 16][4], const bf16* qs,
+                                            int ld) {
+  const bf16* p = qs + lane_off_a(threadIdx.x & 31, ld);
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) ldsm4(qf[kk], p + kk * 16);
+}
+
+// One block of keys for one 16-query strip. ks and vs point at the block's
+// first key row; n_keys (>= 1) of its KT16 * 16 rows are real, the rest are
+// masked out of the softmax (their V rows must be finite, up to the next
+// multiple of 16; 16-key tiles wholly past n_keys are skipped, or, with
+// kAllTiles, the caller promises n_keys > (KT16 - 1) * 16 and the loops
+// carry no branch). m, l and o
+// carry the running max, sum and output of the strip's two rows per lane
+// (lane / 4 and lane / 4 + 8): start them at -inf, 0, 0. kPHiLo leaves o
+// unnormalised (divide by l at the end); kPNormBf16 takes one block only
+// and leaves the final output in o.
+template <int DH, int KT16, PMode kMode, bool kAllTiles = false>
+__device__ __forceinline__ void attn_strip_block(const uint32_t (&qf)[DH / 16][4],
+                                                 const bf16* ks, const bf16* vs, int ld,
+                                                 int n_keys, float scale, float (&m)[2],
+                                                 float (&l)[2], float (&o)[DH / 8][4]) {
+  const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2;
+  float s[2 * KT16][4];
+  const bf16* kp = ks + lane_off_b(lane, ld);
+#pragma unroll
+  for (int t = 0; t < 2 * KT16; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[t][i] = 0.f;
+  // k step outside, key tile inside: neighbouring MMAs add to different
+  // accumulators, so they do not wait for each other
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+#pragma unroll
+    for (int kt = 0; kt < KT16; ++kt) {
+      if (kAllTiles || kt * 16 < n_keys) {
+        uint32_t b[4];
+        ldsm4(b, kp + kt * 16 * ld + kk * 16);
+        mma_bf16(s[2 * kt], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * kt + 1], qf[kk], b[2], b[3]);
+      }
+    }
+  }
+
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int t = 0; t < 2 * KT16; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[t][i] = t * 8 + c2 + (i & 1) < n_keys ? s[t][i] * scale : -INFINITY;
+      mx[i >> 1] = fmaxf(mx[i >> 1], s[t][i]);
+    }
+  float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));   // finite: n_keys >= 1
+    corr[r] = __expf(m[r] - m_new);                     // 0 for the first block
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int t = 0; t < 2 * KT16; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[t][i] = __expf(s[t][i] - m[i >> 1]);
+      sum[i >> 1] += s[t][i];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] = quad_sum(sum[r]);
+    l[r] = l[r] * corr[r] + sum[r];
+  }
+  if (kMode == kPNormBf16) {
+    const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+#pragma unroll
+    for (int t = 0; t < 2 * KT16; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[t][i] *= inv[i >> 1];
+  } else {
+#pragma unroll
+    for (int t = 0; t < DH / 8; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[t][i] *= corr[i >> 1];
+  }
+
+  const bf16* vp = vs + lane_off_bt(lane, ld);
+#pragma unroll
+  for (int kt = 0; kt < KT16; ++kt) {
+    if (kAllTiles || kt * 16 < n_keys) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // A fragment j: rows lane/4 + 8*(j%2), keys kt*16 + 8*(j/2) + c2, +1
+        const float p0 = s[2 * kt + (j >> 1)][(j & 1) * 2];
+        const float p1 = s[2 * kt + (j >> 1)][(j & 1) * 2 + 1];
+        hi[j] = pack_bf16(p0, p1);
+        if (kMode == kPHiLo) {
+          const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi[j]);
+          lo[j] = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
+        }
+      }
+#pragma unroll
+      for (int dn = 0; dn < DH / 16; ++dn) {
+        uint32_t b[4];
+        ldsm4_t(b, vp + kt * 16 * ld + dn * 16);
+        mma_bf16(o[2 * dn], hi, b[0], b[1]);
+        mma_bf16(o[2 * dn + 1], hi, b[2], b[3]);
+        if (kMode == kPHiLo) {
+          mma_bf16(o[2 * dn], lo, b[0], b[1]);
+          mma_bf16(o[2 * dn + 1], lo, b[2], b[3]);
+        }
+      }
+    }
+  }
+}

@@ -13,30 +13,68 @@
 //
 // What bounds it: at the flagship widths (N 65, D 128, 4 heads x 64, MLP
 // 1024, 21 offsets) a 4096-frame shot is ~10 TFLOP against ~90 MB of tokens
-// in and table out, so it is compute-bound on this card (the bf16 tensor
-// cores' 989 TFLOP/s, or 67 TFLOP/s for f32 outside them).
+// in and table out, so it is bound by operations (the bf16 tensor cores'
+// 989 TFLOP/s). Short of that peak a block loses time in four places: the
+// shared-memory rate that feeds the tensor cores (128 bytes a clock per
+// SM), block barriers between products too small to hide them, the work
+// outside the tensor cores (GELU, softmax, LayerNorm, residuals), and the
+// weights (1.7 MB for two layers), which every block streams from L2.
 //
-// Design: the TPU kernel holds all ~1.5 MB of weights and a block of frames
-// in VMEM; a Hopper block has 227 KB of shared memory, so here one block
-// owns one (offset, frame) pair and keeps only that frame's activations in
-// shared memory, in T: the residual x and the LN output h (N x D), one head
-// of q, k, v^T (N x d_head) with its f32 scores, an f32 accumulator (N x D)
-// that collects the out-projection head by head and FF2 over chunks of 128
-// MLP columns. The weights (~1.5 MB at the flagship) stay resident in the
-// 50 MB L2 across blocks. In bf16 every product runs on the tensor cores
-// through mma.sync m16n8k16 with f32 accumulation, with both operands in
-// shared memory: the weight panel each product needs (a head's q, k or v
-// columns, its out-projection rows, an FF chunk) is copied in with cp.async
-// one product ahead, into one of two buffers, so the copy overlaps the
-// product before it. The f32 instantiation (used to hold the algorithm to
-// a tight tolerance) uses scalar FMAs and reads the weights from global
-// memory. Rows are padded to a multiple of 16 for the MMA tiles; padded
-// keys are masked out of the softmax, and padded query rows are computed
-// and never stored. wgmma with TMA-fed weight tiles is the next step.
+// Two hand-written instances, chosen by shape in the C launcher
+// (spatial_table_plan), as the window-gather kernel chooses its aligned and
+// unaligned ones:
+//
+//  * fast (bf16, D 128, d_head 64, MLP a multiple of 128, N <= 80: the
+//    flagship and its smaller crops). One block of three warpgroups owns F
+//    neighbouring frames of one offset, their tokens packed without padding
+//    into rows of shared memory (F = 2 at N 65, 8 at N 17), so every weight
+//    panel is fetched once per F frames and a barrier is paid once per F
+//    frames. T that is no multiple of F is masked at the edge.
+//    - The row-wise products (qkv, out-projection, FF1, FF2: 92% of the
+//      operations) run on wgmma.m64n64k16 for rows 0..127 (two warpgroups;
+//      A fragments from ldmatrix, loaded once per product, B straight from
+//      the weight panel through a matrix descriptor: the panel is read from
+//      shared memory once per warpgroup, not once per warp), and on
+//      mma.sync for rows 128..143 (the third warpgroup, B fragments from
+//      the same panel through ldmatrix). 2 x 64 + 16 = 144 rows hold two
+//      frames of 65 tokens with 14 rows to spare, where three 64-row wgmma
+//      tiles would spend a third of the tensor time on padding.
+//    - Attention goes through the register-resident core of attn_core.cuh,
+//      one warp per (frame, 16-query strip), compiled per count of key
+//      tiles: scores and probabilities never touch shared memory, and a
+//      frame's padding keys (the next frame's rows) are masked in the
+//      fragments.
+//    - The out-projection (over heads) and FF2 (over MLP chunks) accumulate
+//      in registers and are rounded once; bias pairs are loaded ahead of
+//      each epilogue.
+//    - The wrapper packs the weights in the order the kernel consumes them,
+//      each panel contiguous in the blocked layout wgmma reads (wgmma.cuh),
+//      so a panel is one flat cp.async copy into one of two buffers, issued
+//      one product ahead; one block barrier per product covers the panel's
+//      arrival, the operands' visibility and the reuse of the other buffer.
+//    - The table keeps the cls row only, so the last layer computes K and V
+//      for all rows and the query, attention, out-projection, LayerNorm and
+//      FF for the F cls rows alone, gathered into 16-row tiles: 41% fewer
+//      operations per sequence, the same arithmetic for the rows kept. That
+//      layer then runs at the rate its panels stream from L2.
+//    Shared memory: x, LN output, one head's q, k, v (q and k reused by the
+//    MLP chunk, q's region by the cls tiles) and two panel buffers, 221,696
+//    bytes; 168 registers a thread (the cap at 384 threads).
+//  * general (f32, and bf16 at any other width the wrapper accepts): one
+//    block per (offset, frame), 16 x 16 warp tiles with 32-bit fragment
+//    loads, scores through shared memory, f32 on scalar FMAs with the
+//    weights read from global memory. It holds the algorithm to the f32
+//    tolerance and is not tuned.
 
-#include "common.cuh"
+#include "attn_core.cuh"
+#include "wgmma.cuh"
 
 namespace {
+
+
+// ---------------------------------------------------------------------------
+// general instance
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 512;
 constexpr int kMlpChunk = 128;
@@ -108,16 +146,6 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // C[r, c] = sum_k A[r, k] * B[c, k] for r < rows, c < cols, handed to
 // epi(r, c, value) once per element. A is row-major (k contiguous) with
 // stride lda; brow(n) points at row n of B, whose k run is contiguous (a
@@ -141,8 +169,9 @@ __device__ __forceinline__ void gemm(const bf16* A, int lda, BRow brow, int rows
     for (int k = 0; k < K; k += 16) {
       const uint32_t a0 = ld32(a_lo + k), a1 = ld32(a_hi + k);
       const uint32_t a2 = ld32(a_lo + k + 8), a3 = ld32(a_hi + k + 8);
-      mma_bf16(c0, a0, a1, a2, a3, ld32(b_0 + k), ld32(b_0 + k + 8));
-      mma_bf16(c1, a0, a1, a2, a3, ld32(b_1 + k), ld32(b_1 + k + 8));
+      const uint32_t a[4] = {a0, a1, a2, a3};
+      mma_bf16(c0, a, ld32(b_0 + k), ld32(b_0 + k + 8));
+      mma_bf16(c1, a, ld32(b_1 + k), ld32(b_1 + k + 8));
     }
     epi(m0 + g, n0 + q2, c0[0]);
     epi(m0 + g, n0 + q2 + 1, c0[1]);
@@ -456,20 +485,691 @@ int launch(const void* tokens, const void* base, const void* wmat, const void* w
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fast instance: bf16, D 128, d_head 64, MLP a multiple of 128, N <= 80
+// ---------------------------------------------------------------------------
+
+namespace fast {
+
+constexpr int kD = 128, kDh = 64, kMc = 128;
+constexpr int kRows = 160;                  // packed token rows in shared memory
+constexpr int kProdRows = 144;              // rows the products compute: 2 x 64 + 16
+constexpr int kWarps = 12, kThreads = kWarps * 32;   // three warpgroups
+constexpr int kMaxN = 80;                   // five 16-key tiles in the core
+constexpr int kMaxFrames = 16;              // rows of the last layer's cls tiles
+constexpr int kLdx = kD + 8;                // x, h and mid: 272-byte rows
+constexpr int kLdq = kDh + 8;               // q, k, v: 144-byte rows
+// weight panels as the wrapper packs them: blocked (wgmma.cuh), no padding
+constexpr int kQkPanel = 2 * kDh * kD;      // a head's q rows, then its k rows
+constexpr int kVPanel = kDh * kD;
+constexpr int kOutPanel = kD * kDh;
+constexpr int kFfPanel = kMc * kD;          // FF1 chunk (mc x D) and FF2 chunk (D x mc)
+constexpr int kPanelMax = kFfPanel;
+
+constexpr size_t kOffX = 0;
+constexpr size_t kOffH = kOffX + sizeof(bf16) * kRows * kLdx;
+constexpr size_t kOffQ = kOffH + sizeof(bf16) * kRows * kLdx;
+constexpr size_t kOffK = kOffQ + sizeof(bf16) * kRows * kLdq;
+constexpr size_t kOffV = kOffK + sizeof(bf16) * kRows * kLdq;
+constexpr size_t kOffMid = kOffQ;           // the FF chunk reuses q and k
+constexpr size_t kOffPanel = kOffV + sizeof(bf16) * kRows * kLdq;
+constexpr size_t kSmemBytes = kOffPanel + 2 * sizeof(bf16) * kPanelMax;
+static_assert(sizeof(bf16) * kRows * kLdx <= kOffV - kOffMid, "mid fits in q and k");
+static_assert(kOffPanel % 128 == 0, "panels start on a core-matrix boundary");
+static_assert(kSmemBytes <= 232448, "fits in one block's shared memory");
+
+// Frames per block: the most whose packed rows fit in the kProdRows rows
+// the products compute and, with the last frame's keys padded to a multiple
+// of 16, in the kRows rows of shared memory; at most the 16 rows of the last
+// layer's cls tiles. 0 where the instance does not apply.
+__host__ __device__ inline int frames_per_block(int N) {
+  if (N < 1 || N > kMaxN) return 0;
+  int fit = (kRows - (N + 15) / 16 * 16) / N + 1;
+  if (fit > kProdRows / N) fit = kProdRows / N;
+  return fit < kMaxFrames ? fit : kMaxFrames;
+}
+
+// Phase profile of a throw-away build (-DKSTAR_PROFILE, see
+// kstar_torch/analysis/profile_spatial_table.py): thread 0 of every block
+// adds the clock64() cycles it spent since its last stamp to prof[phase].
+// It reads warp 0's view: a phase's time includes that warp's wait for the
+// others at the barrier that ends it. A normal build compiles none of it.
+enum Phase {
+  kPhOther, kPhPanelWait, kPhLayerNorm, kPhAttention, kPhResidual,
+  kPhQk, kPhV, kPhOut, kPhFf1, kPhFf2,               // all-row layers
+  kPhLastKq, kPhLastOut, kPhLastFf1, kPhLastFf2,     // last layer, cls rows
+  kPhases
+};
+#ifdef KSTAR_PROFILE
+unsigned long long* g_prof = nullptr;
+#define KSTAR_STAMP(ph) stamp(ph)
+#define KSTAR_NEXT(ph) next_phase = (ph)
+#else
+#define KSTAR_STAMP(ph)
+#define KSTAR_NEXT(ph)
+#endif
+
+struct Params {
+#ifdef KSTAR_PROFILE
+  unsigned long long* prof;
+#endif
+  const bf16* tokens;   // (T, N, D)
+  const bf16* base;     // (n_off, N, D)
+  const bf16* wmat;     // packed panels and biases, see pack_fast in the wrapper
+  const float* wln;     // per layer 4 x D, then 2 x D
+  bf16* out;            // (n_off, T, D)
+  int T, N, F, depth, H, M;
+  float scale;
+};
+
+// tanh-GELU as x * sigmoid(2u), u = sqrt(2/pi) (x + 0.044715 x^3): the same
+// function as 0.5 x (1 + tanh u), one fast exponential and one division
+__device__ __forceinline__ float gelu_fast(float x) {
+  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
+  return __fdividef(x, 1.f + __expf(-2.f * u));
+}
+
+// flax LayerNorm in f32 (eps 1e-6) of `rows` rows of kD bf16. Eight lanes
+// share a row, 16 elements each, so a warp has four rows in flight. Row r is
+// read at x + src(r) * kLdx and written at y + r * kLdx.
+template <typename Src>
+__device__ __forceinline__ void layer_norm_fast(const bf16* x, bf16* y, int rows, Src src,
+                                                const float* scale, const float* bias) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sub = lane >> 3, c0 = (lane & 7) * 16;
+  float sc[16], bi[16];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    *reinterpret_cast<float4*>(sc + 4 * j) = *reinterpret_cast<const float4*>(scale + c0 + 4 * j);
+    *reinterpret_cast<float4*>(bi + 4 * j) = *reinterpret_cast<const float4*>(bias + c0 + 4 * j);
+  }
+  for (int r0 = warp * 4; r0 < rows; r0 += kWarps * 4) {
+    const int r = r0 + sub < rows ? r0 + sub : rows - 1;   // idle lanes repeat the last row
+    const bf16* xr = x + src(r) * kLdx + c0;
+    uint4 raw[2] = {*reinterpret_cast<const uint4*>(xr), *reinterpret_cast<const uint4*>(xr + 8)};
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(raw);
+    float v[16], s = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      v[2 * j] = __low2float(h2[j]);
+      v[2 * j + 1] = __high2float(h2[j]);
+      s += v[2 * j] + v[2 * j + 1];
+      s2 += v[2 * j] * v[2 * j] + v[2 * j + 1] * v[2 * j + 1];
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    const float mean = s / kD;
+    const float inv = rsqrtf(fmaxf(s2 / kD - mean * mean, 0.f) + 1e-6f);
+    uint32_t res[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      res[j] = pack_bf16((v[2 * j] - mean) * (inv * sc[2 * j]) + bi[2 * j],
+                         (v[2 * j + 1] - mean) * (inv * sc[2 * j + 1]) + bi[2 * j + 1]);
+    if (r0 + sub < rows) {
+      bf16* yr = y + r * kLdx + c0;
+      *reinterpret_cast<uint4*>(yr) = make_uint4(res[0], res[1], res[2], res[3]);
+      *reinterpret_cast<uint4*>(yr + 8) = make_uint4(res[4], res[5], res[6], res[7]);
+    }
+  }
+}
+
+// 16 rows x NT2 * 8 columns on mma.sync with B from a blocked panel (K
+// columns): acc[j] (+)= A[0..15, :] * panel[n0 + 8 j .., :]^T. A is row-major
+// with stride lda; n0 is a multiple of 16.
+template <int NT2, int K>
+__device__ __forceinline__ void mma_gemm_blocked(float (*acc)[4], const bf16* A, int lda,
+                                                 const bf16* panel, int n0) {
+  const int lane = threadIdx.x & 31;
+  const bf16* ap = A + lane_off_a(lane, lda);
+  // ldmatrix.x4: tiles (n, k), (n, k + 8), (n + 8, k), (n + 8, k + 8)
+  const bf16* bp = panel + blocked_off(n0 + (lane >> 4) * 8 + (lane & 7), ((lane >> 3) & 1) * 8, K);
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    uint32_t a[4];
+    ldsm4(a, ap + kk * 16);
+#pragma unroll
+    for (int nj = 0; nj < NT2 / 2; ++nj) {
+      uint32_t b[4];
+      ldsm4(b, bp + blocked_off(nj * 16, kk * 16, K));
+      mma_bf16(acc[2 * nj], a, b[0], b[1]);
+      mma_bf16(acc[2 * nj + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The all-row product, 64 output columns at a time: acc (+)= A * panel^T for
+// the kProdRows rows of A (row-major, stride lda) and HALVES * 64 rows of a
+// blocked panel with K columns; output columns 64 h .. 64 h + 63 go to
+// acc[8 h .. 8 h + 7]. Warps 0..7 are two warpgroups on wgmma, warp w
+// holding rows 16 w .. 16 w + 15 and all 64 columns of a half (A fragments
+// from ldmatrix, loaded once for all halves; B through the descriptor; one
+// commit and one wait for the lot). The third warpgroup takes rows 128..143
+// on mma.sync, warp 8 + i columns 16 i .. 16 i + 15 of each half, in
+// acc[8 h], acc[8 h + 1].
+template <int K, int HALVES>
+__device__ __forceinline__ void rows_gemm64(float (*acc)[4], const bf16* A, int lda,
+                                            const bf16* panel) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < 8) {
+    uint32_t a[K / 16][4];
+    const bf16* ap = A + warp * 16 * lda + lane_off_a(lane, lda);
+#pragma unroll
+    for (int kk = 0; kk < K / 16; ++kk) ldsm4(a[kk], ap + kk * 16);
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h) {
+      uint64_t desc = wgmma_desc(panel + blocked_off(h * 64, 0, K), K);
+#pragma unroll
+      for (int kk = 0; kk < K / 16; ++kk) {
+        wgmma_m64n64k16(acc + 8 * h, a[kk], desc);
+        desc = wgmma_desc_next_k(desc);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait();
+  } else {
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h)
+      mma_gemm_blocked<2, K>(acc + 8 * h, A + 128 * lda, lda, panel + blocked_off(h * 64, 0, K),
+                             (warp - 8) * 16);
+  }
+}
+
+// This thread's first column of the 64 that rows_gemm64 produces (its
+// pairs are at this column + 8 j) and the number of its column pairs.
+__device__ __forceinline__ int out64_col0() {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  return (warp < 8 ? 0 : (warp - 8) * 16) + (lane & 3) * 2;
+}
+__device__ __forceinline__ int out64_pairs() { return threadIdx.x < 256 ? 8 : 2; }
+
+// epi(row, col, j, v0, v1) for every pair of neighbouring columns this warp
+// holds after rows_gemm64 (row in 0..143, col = out64_col0() + 8 j).
+template <typename Epi>
+__device__ __forceinline__ void for_each_out64(float (*acc)[4], Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = (warp < 8 ? warp * 16 : 128) + (lane >> 2);
+  const int col = out64_col0(), pairs = out64_pairs();
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < pairs) {
+      epi(row, col + j * 8, j, acc[j][0], acc[j][1]);
+      epi(row + 8, col + j * 8, j, acc[j][2], acc[j][3]);
+    }
+  }
+}
+
+// The bias pairs of this thread's columns, loaded ahead of an epilogue so
+// that no global load sits between its shared-memory stores: bias points at
+// the first of the 64 columns.
+__device__ __forceinline__ void load_bias64(__nv_bfloat162 (&b)[8], const bf16* bias) {
+  const int col = out64_col0(), pairs = out64_pairs();
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (j < pairs) b[j] = *reinterpret_cast<const __nv_bfloat162*>(bias + col + j * 8);
+}
+
+// round(round(v) + bias) in bf16, as f32
+__device__ __forceinline__ float add_bias(float v, float bias) {
+  return round_to<bf16>(round_to<bf16>(v) + bias);
+}
+
+// softmax(q k^T * scale) v for one 16-query strip against the n_keys keys
+// at k and v (KT16 = ceil(n_keys / 16) tiles), P rounded to bf16
+template <int KT16>
+__device__ __forceinline__ void attend_strip(const bf16* q_rows, const bf16* k, const bf16* v,
+                                             int n_keys, float scale, float (&o)[kDh / 8][4]) {
+  uint32_t qf[kDh / 16][4];
+  attn_load_q<kDh>(qf, q_rows, kLdq);
+  float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int t = 0; t < kDh / 8; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[t][i] = 0.f;
+  attn_strip_block<kDh, KT16, kPNormBf16, true>(qf, k, v, kLdq, n_keys, scale, m, lsum, o);
+}
+
+__device__ __forceinline__ void zero8(float (*acc)[4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem + kOffX);
+  bf16* hs = reinterpret_cast<bf16*>(smem + kOffH);
+  bf16* qs = reinterpret_cast<bf16*>(smem + kOffQ);
+  bf16* ks = reinterpret_cast<bf16*>(smem + kOffK);
+  bf16* vs = reinterpret_cast<bf16*>(smem + kOffV);
+  bf16* mid = reinterpret_cast<bf16*>(smem + kOffMid);
+  // The last layer's 16-row tiles for the cls rows (row f = frame f's cls
+  // token) live in q's region, which that layer does not fill: LN output,
+  // q (32 rows: strip f reads rows f..f+15), attention output, FF chunk.
+  bf16* hc = qs;
+  bf16* qc = hc + 16 * kLdx;
+  bf16* oc = qc + 32 * kLdq;
+  bf16* midc = oc + 16 * kLdq;
+  static_assert(16 * kLdx * 2 + 48 * kLdq <= kRows * kLdq, "cls tiles fit in q's region");
+  bf16* const buf[2] = {reinterpret_cast<bf16*>(smem + kOffPanel),
+                        reinterpret_cast<bf16*>(smem + kOffPanel) + kPanelMax};
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int N = p.N, F = p.F, H = p.H, M = p.M;
+  const int frame0 = blockIdx.x * F, off = blockIdx.y;
+  const int n_chunks = M / kMc;
+  const int per_layer = 3 * H + 2 * n_chunks;
+  const int n_panels = p.depth * per_layer;
+  const size_t layer_panels = static_cast<size_t>(H) * (kQkPanel + kVPanel + kOutPanel) +
+                              static_cast<size_t>(n_chunks) * 2 * kFfPanel;
+  const size_t layer_elems = layer_panels + 2 * kD + M;
+
+  // The weight panels lie in wmat in the order they are used, each in the
+  // layout it has in shared memory, so a panel is one flat copy. Panel i
+  // goes to buffer i % 2 while panel i - 1 is multiplied.
+#ifdef KSTAR_PROFILE
+  long long last_stamp = clock64();
+  int next_phase = kPhOther;           // what the time up to the next barrier counts as
+  auto stamp = [&](int ph) {
+    if (threadIdx.x == 0) {
+      const long long t = clock64();
+      atomicAdd(&p.prof[ph], static_cast<unsigned long long>(t - last_stamp));
+      last_stamp = t;
+    }
+  };
+#endif
+  const bf16* wnext = p.wmat;
+  int issued = 0, consumed = 0;
+  auto issue_next = [&]() {
+    if (issued < n_panels) {
+      const int i = issued % per_layer;
+      const int n = i >= 3 * H ? kFfPanel : i % 3 == 0 ? kQkPanel : i % 3 == 1 ? kVPanel
+                                                                               : kOutPanel;
+      bf16* dst = buf[issued & 1];
+      for (int e = tid * 8; e < n; e += kThreads * 8)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst + e)),
+                     "l"(wnext + e));
+      wnext += n;
+      if (i == per_layer - 1) wnext += 2 * kD + M;      // the layer's biases
+      ++issued;
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // One barrier per product: after it this product's panel has landed for
+  // every thread (and is visible to wgmma's proxy), what earlier stages
+  // wrote to shared memory is visible, and every warp is done with the
+  // product before, so its panel buffer takes the next panel's copy, which
+  // then runs under this product.
+  auto next_panel = [&]() -> const bf16* {
+    KSTAR_STAMP(next_phase);
+    KSTAR_NEXT(kPhOther);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    fence_proxy_async();
+    __syncthreads();
+    KSTAR_STAMP(kPhPanelWait);
+    issue_next();
+    return buf[consumed++ & 1];
+  };
+  issue_next();
+
+  // x = tokens + base, rounded to bf16, frames packed without padding: row
+  // f * N + i is token i of frame frame0 + f. Rows of frames past T and
+  // rows past F * N are zero (finite through every layer, never stored).
+  for (int i = tid; i < kRows * (kD / 8); i += kThreads) {
+    const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
+    const int f = r / N, tok = r % N;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (f < F && frame0 + f < p.T) {
+      const uint4 a = *reinterpret_cast<const uint4*>(
+          p.tokens + (static_cast<size_t>(frame0 + f) * N + tok) * kD + c);
+      const uint4 b = *reinterpret_cast<const uint4*>(
+          p.base + (static_cast<size_t>(off) * N + tok) * kD + c);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+      uint32_t* v = reinterpret_cast<uint32_t*>(&val);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = pack_bf16(__low2float(a2[j]) + __low2float(b2[j]),
+                         __high2float(a2[j]) + __high2float(b2[j]));
+    }
+    *reinterpret_cast<uint4*>(xs + r * kLdx + c) = val;
+  }
+  // The products fill rows 0..143 of q, k and v; the last frame's padding
+  // keys may reach up to row 159. Masked keys never count, but their V rows
+  // are multiplied by p = 0, so they must be finite: zero them once (the FF
+  // chunk reuses q and k only).
+  for (int i = tid; i < (kRows - kProdRows) * kLdq; i += kThreads)
+    vs[kProdRows * kLdq + i] = from_f<bf16>(0.f);
+  __syncthreads();
+
+  // x <- x + round(round(v) + bias), in bf16, for two neighbouring columns
+  auto residual_pair = [](bf16* x, __nv_bfloat162 bias, float v0, float v1) {
+    __nv_bfloat162* xp = reinterpret_cast<__nv_bfloat162*>(x);
+    *xp = __floats2bfloat162_rn(__low2float(*xp) + add_bias(v0, __low2float(bias)),
+                                __high2float(*xp) + add_bias(v1, __high2float(bias)));
+  };
+  // the all-row residual: x[:, 64 half ..] += acc + bias, per 64 columns
+  auto residual_rows = [&](float (*acc)[4], const bf16* bias) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      __nv_bfloat162 b2[8];
+      load_bias64(b2, bias + half * 64);
+      for_each_out64(acc + 8 * half, [&](int r, int c, int j, float v0, float v1) {
+        residual_pair(xs + r * kLdx + half * 64 + c, b2[j], v0, v1);
+      });
+    }
+  };
+  auto store_pair = [](bf16* dst, float v0, float v1) {
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
+  };
+  // dst[row, col] = A * panel^T for 64 output columns (dst row-major, ld)
+  auto project64 = [&](const bf16* A, const bf16* panel, bf16* dst, int ld) {
+    float acc[8][4];
+    zero8(acc);
+    rows_gemm64<kD, 1>(acc, A, kLdx, panel);
+    for_each_out64(acc, [&](int r, int c, int, float v0, float v1) {
+      store_pair(dst + r * ld + c, v0, v1);
+    });
+  };
+  // One warp, one 16-query strip of one frame: the frame's keys are its N
+  // rows at row0; the rows up to the next multiple of 16 belong to the next
+  // frame or the zero tail and are masked in the core. The core is compiled
+  // for each count of 16-key tiles, so its loops carry no branches.
+  auto attend = [&](const bf16* q_rows, int row0, float (&o)[kDh / 8][4]) {
+    const bf16* k = ks + row0 * kLdq;
+    const bf16* v = vs + row0 * kLdq;
+    switch ((N + 15) / 16) {
+      case 1: attend_strip<1>(q_rows, k, v, N, p.scale, o); break;
+      case 2: attend_strip<2>(q_rows, k, v, N, p.scale, o); break;
+      case 3: attend_strip<3>(q_rows, k, v, N, p.scale, o); break;
+      case 4: attend_strip<4>(q_rows, k, v, N, p.scale, o); break;
+      default: attend_strip<5>(q_rows, k, v, N, p.scale, o); break;
+    }
+    __syncwarp();
+  };
+  // the 16-row cls tiles' products: warps 0..7 take 16 of 128 columns each
+  const int ccol = warp * 16;
+
+  const int spf = (N + 15) / 16;            // strips per frame
+  for (int l = 0; l < p.depth; ++l) {
+    const bf16* b_out = p.wmat + l * layer_elems + layer_panels;
+    const bf16* b_ff1 = b_out + kD;
+    const bf16* b_ff2 = b_ff1 + M;
+    const float* ln = p.wln + 4 * l * kD;
+    layer_norm_fast(xs, hs, kProdRows, [](int r) { return r; }, ln, ln + kD);
+    __syncthreads();
+    KSTAR_STAMP(kPhLayerNorm);
+
+    if (l < p.depth - 1) {
+      // ---- attention, all rows ----
+      float oacc[16][4];                    // out-projection, summed over heads
+      zero8(oacc);
+      zero8(oacc + 8);
+      for (int hh = 0; hh < H; ++hh) {
+        {  // q (panel rows 0..63) and k (64..127) of this head
+          const bf16* w = next_panel();
+          KSTAR_NEXT(kPhQk);
+          project64(hs, w, qs, kLdq);
+          project64(hs, w + blocked_off(kDh, 0, kD), ks, kLdq);
+        }
+        // v, row-major: the core reads it through ldmatrix.trans
+        project64(hs, next_panel(), vs, kLdq);
+        __syncthreads();
+        KSTAR_STAMP(kPhV);
+        // The output replaces the strip's own q rows (rows past the frame's
+        // end are left alone: they are the next frame's q).
+        for (int s = warp; s < F * spf; s += kWarps) {
+          const int row0 = (s / spf) * N, q0 = (s % spf) * 16;
+          float o[kDh / 8][4];
+          bf16* dst = qs + (row0 + q0) * kLdq;
+          attend(dst, row0, o);
+#pragma unroll
+          for (int t = 0; t < kDh / 8; ++t) {
+            if (q0 + g < N) store_pair(dst + g * kLdq + t * 8 + c2, o[t][0], o[t][1]);
+            if (q0 + g + 8 < N)
+              store_pair(dst + (g + 8) * kLdq + t * 8 + c2, o[t][2], o[t][3]);
+          }
+        }
+        KSTAR_STAMP(kPhAttention);
+        // out-projection of this head's output, summed in registers
+        rows_gemm64<kDh, 2>(oacc, qs, kLdq, next_panel());
+        KSTAR_NEXT(kPhOut);
+      }
+      KSTAR_STAMP(kPhOut);
+      residual_rows(oacc, b_out);
+      __syncthreads();
+      KSTAR_STAMP(kPhResidual);
+
+      // ---- feed-forward, all rows, over chunks of 128 MLP columns ----
+      layer_norm_fast(xs, hs, kProdRows, [](int r) { return r; }, ln + 2 * kD, ln + 3 * kD);
+      KSTAR_STAMP(kPhLayerNorm);
+      zero8(oacc);                          // FF2, summed over the chunks
+      zero8(oacc + 8);
+      for (int ch = 0; ch < n_chunks; ++ch) {
+        {
+          const bf16* w = next_panel();
+          KSTAR_NEXT(kPhFf1);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            __nv_bfloat162 b2[8];
+            load_bias64(b2, b_ff1 + ch * kMc + half * 64);
+            float acc[8][4];
+            zero8(acc);
+            rows_gemm64<kD, 1>(acc, hs, kLdx, w + blocked_off(half * 64, 0, kD));
+            for_each_out64(acc, [&](int r, int c, int j, float v0, float v1) {
+              store_pair(mid + r * kLdx + half * 64 + c,
+                         gelu_fast(add_bias(v0, __low2float(b2[j]))),
+                         gelu_fast(add_bias(v1, __high2float(b2[j]))));
+            });
+          }
+        }
+        rows_gemm64<kMc, 2>(oacc, mid, kLdx, next_panel());
+        KSTAR_NEXT(kPhFf2);
+      }
+      KSTAR_STAMP(kPhFf2);
+      residual_rows(oacc, b_ff2);
+      __syncthreads();
+      KSTAR_STAMP(kPhResidual);
+    } else {
+      // ---- last layer: the table keeps the cls row after the final
+      // LayerNorm, so K and V are needed for all rows and everything else
+      // for the F cls rows, gathered into 16-row tiles (row f = frame f).
+      // The same arithmetic for those rows as the all-row path.
+      for (int i = tid; i < 16 * (kD / 8); i += kThreads) {
+        const int f = i / (kD / 8), c = (i % (kD / 8)) * 8;
+        *reinterpret_cast<uint4*>(hc + f * kLdx + c) =
+            *reinterpret_cast<const uint4*>(hs + (f < F ? f * N : 0) * kLdx + c);
+      }
+      float cacc[2][4];                     // out-projection of the cls rows
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cacc[0][i] = cacc[1][i] = 0.f;
+      for (int hh = 0; hh < H; ++hh) {
+        {  // k for all rows (the panel's rows 64..127), q for the cls rows
+          const bf16* w = next_panel();
+          KSTAR_NEXT(kPhLastKq);
+          project64(hs, w + blocked_off(kDh, 0, kD), ks, kLdq);
+          if (warp < 4) {
+            float qa[2][4] = {};
+            mma_gemm_blocked<2, kD>(qa, hc, kLdx, w, ccol);
+            store_pair(qc + g * kLdq + ccol + c2, qa[0][0], qa[0][1]);
+            store_pair(qc + (g + 8) * kLdq + ccol + c2, qa[0][2], qa[0][3]);
+            store_pair(qc + g * kLdq + ccol + 8 + c2, qa[1][0], qa[1][1]);
+            store_pair(qc + (g + 8) * kLdq + ccol + 8 + c2, qa[1][2], qa[1][3]);
+          }
+        }
+        project64(hs, next_panel(), vs, kLdq);
+        __syncthreads();
+        KSTAR_STAMP(kPhV);
+        // strip f: queries qc rows f..f+15, of which row 0 is frame f's cls
+        for (int f = warp; f < F; f += kWarps) {
+          float o[kDh / 8][4];
+          attend(qc + f * kLdq, f * N, o);
+          if (g == 0) {
+#pragma unroll
+            for (int t = 0; t < kDh / 8; ++t)
+              store_pair(oc + f * kLdq + t * 8 + c2, o[t][0], o[t][1]);
+          }
+        }
+        KSTAR_STAMP(kPhAttention);
+        {
+          const bf16* w = next_panel();
+          KSTAR_NEXT(kPhLastOut);
+          if (warp < 8) mma_gemm_blocked<2, kDh>(cacc, oc, kLdq, w, ccol);
+        }
+      }
+      // cls tile row g is frame g (rows 8..15 hold no frame when F <= 8)
+      auto cls_residual = [&](const bf16* bias) {
+        if (warp < 8) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int c = ccol + j * 8 + c2;
+            const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(bias + c);
+            if (g < F) residual_pair(xs + g * N * kLdx + c, b2, cacc[j][0], cacc[j][1]);
+            if (g + 8 < F)
+              residual_pair(xs + (g + 8) * N * kLdx + c, b2, cacc[j][2], cacc[j][3]);
+          }
+        }
+      };
+      KSTAR_STAMP(kPhLastOut);
+      cls_residual(b_out);
+      __syncthreads();
+      KSTAR_STAMP(kPhResidual);
+
+      layer_norm_fast(xs, hc, F, [N](int r) { return r * N; }, ln + 2 * kD, ln + 3 * kD);
+      KSTAR_STAMP(kPhLayerNorm);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) cacc[0][i] = cacc[1][i] = 0.f;   // FF2 of the cls rows
+      for (int ch = 0; ch < n_chunks; ++ch) {
+        {
+          const bf16* w = next_panel();
+          KSTAR_NEXT(kPhLastFf1);
+          if (warp < 8) {
+            const bf16* bias = b_ff1 + ch * kMc + ccol + c2;
+            const __nv_bfloat162 b2[2] = {*reinterpret_cast<const __nv_bfloat162*>(bias),
+                                          *reinterpret_cast<const __nv_bfloat162*>(bias + 8)};
+            float acc[2][4] = {};
+            mma_gemm_blocked<2, kD>(acc, hc, kLdx, w, ccol);
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int hi = 0; hi < 2; ++hi)
+                store_pair(midc + (g + 8 * hi) * kLdx + ccol + j * 8 + c2,
+                           gelu_fast(add_bias(acc[j][2 * hi], __low2float(b2[j]))),
+                           gelu_fast(add_bias(acc[j][2 * hi + 1], __high2float(b2[j]))));
+          }
+        }
+        {
+          const bf16* w = next_panel();
+          KSTAR_NEXT(kPhLastFf2);
+          if (warp < 8) mma_gemm_blocked<2, kMc>(cacc, midc, kLdx, w, ccol);
+        }
+      }
+      KSTAR_STAMP(kPhLastFf2);
+      cls_residual(b_ff2);
+      __syncthreads();
+      KSTAR_STAMP(kPhResidual);
+    }
+  }
+
+  // final LayerNorm of each frame's cls row
+  const float* fs = p.wln + 4 * p.depth * kD;
+  for (int f = warp; f < F && frame0 + f < p.T; f += kWarps) {
+    const bf16* x = xs + f * N * kLdx;
+    bf16* dst = p.out + (static_cast<size_t>(off) * p.T + frame0 + f) * kD;
+    float v[kD / 32], s = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kD / 32; ++j) {
+      v[j] = to_f<bf16>(x[lane + 32 * j]);
+      s += v[j];
+      s2 += v[j] * v[j];
+    }
+    const float mean = warp_sum(s) / kD;
+    const float var = fmaxf(warp_sum(s2) / kD - mean * mean, 0.f);
+    const float inv = rsqrtf(var + 1e-6f);
+#pragma unroll
+    for (int j = 0; j < kD / 32; ++j) {
+      const int c = lane + 32 * j;
+      dst[c] = from_f<bf16>((v[j] - mean) * (inv * fs[c]) + fs[kD + c]);
+    }
+  }
+}
+
+bool applies(int N, int D, int dh, int M) {
+  return D == kD && dh == kDh && M > 0 && M % kMc == 0 && frames_per_block(N) > 0;
+}
+
+int launch(const void* tokens, const void* base, const void* wmat, const void* wln,
+           void* out, int T, int n_off, int N, int depth, int H, int M, float scale,
+           void* stream) {
+  for (const void* ptr : {tokens, base, wmat})
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return cudaErrorMisalignedAddress;
+  Params p;
+  p.tokens = static_cast<const bf16*>(tokens);
+  p.base = static_cast<const bf16*>(base);
+  p.wmat = static_cast<const bf16*>(wmat);
+  p.wln = static_cast<const float*>(wln);
+  p.out = static_cast<bf16*>(out);
+  p.T = T;
+  p.N = N;
+  p.F = frames_per_block(N);
+  p.depth = depth;
+  p.H = H;
+  p.M = M;
+  p.scale = scale;
+#ifdef KSTAR_PROFILE
+  p.prof = g_prof;
+#endif
+  cudaError_t err = cudaFuncSetAttribute(spatial_table_fast_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return err;
+  spatial_table_fast_kernel<<<dim3((T + p.F - 1) / p.F, n_off), kThreads, kSmemBytes,
+                              static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace fast
+
 }  // namespace
 
 extern "C" {
 
+#ifdef KSTAR_PROFILE
+// prof: fast::kPhases zeroed 64-bit counters on the device
+void spatial_table_set_profile(void* prof) {
+  fast::g_prof = static_cast<unsigned long long*>(prof);
+}
+#endif
+
+// Which instance a call takes: 0 the general one, otherwise the fast one,
+// the value being its frames per block.
+int spatial_table_plan(int N, int D, int H, int dh, int M, int elem_bytes) {
+  (void)H;
+  return elem_bytes == 2 && fast::applies(N, D, dh, M) ? fast::frames_per_block(N) : 0;
+}
+
 // Dynamic shared memory one block needs, in bytes (elem_bytes 2 or 4).
 long long spatial_table_smem_bytes(int N, int D, int H, int dh, int M, int elem_bytes) {
+  if (spatial_table_plan(N, D, H, dh, M, elem_bytes) > 0)
+    return static_cast<long long>(fast::kSmemBytes);
   const Dims d = make_dims(1, 1, N, D, 1, H, dh, M, 1.f);
   return elem_bytes == 2 ? static_cast<long long>(Layout<bf16>(d).total)
                          : static_cast<long long>(Layout<float>(d).total);
 }
 
+// wmat is packed for the instance spatial_table_plan names (the wrapper's
+// pack_fast or pack_general); the fast one needs 16-byte-aligned pointers.
 int spatial_table_bf16(const void* tokens, const void* base, const void* wmat,
                        const void* wln, void* out, int T, int n_off, int N, int D,
                        int depth, int H, int dh, int M, float scale, void* stream) {
+  if (spatial_table_plan(N, D, H, dh, M, 2) > 0)
+    return fast::launch(tokens, base, wmat, wln, out, T, n_off, N, depth, H, M, scale,
+                        stream);
   return launch<bf16>(tokens, base, wmat, wln, out, T, n_off, N, D, depth, H, dh, M,
                       scale, stream);
 }

@@ -86,6 +86,25 @@ def build(names=None) -> dict:
     return reports
 
 
+def build_variant(name: str, tag: str, extra_flags=(), source_text: str = None) -> Path:
+    """Compile a throw-away variant of ``csrc/<name>.cu`` into
+    ``build/kstar_torch/<name>-<tag>.so`` and return its path: the same
+    flags plus ``extra_flags`` (a ``-D`` switch, say), from ``source_text``
+    if given (an edited copy of the source) or else the source as it is.
+    For measurement scripts; the package never loads a variant."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    source = CSRC / f"{name}.cu"
+    if source_text is not None:
+        source = BUILD_DIR / f"{name}-{tag}.cu"
+        source.write_text(source_text)
+    target = BUILD_DIR / f"{name}-{tag}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-I", str(CSRC), "-o", str(target), str(source)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} ({tag}):\n{proc.stdout}")
+    return target
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     with _lock:

@@ -6,6 +6,13 @@ per clip). ``fused_attention`` runs QK^T -> f32 softmax -> AV for each
 (b, h) row in one kernel (``csrc/attention.cu``) on a CUDA tensor, and the
 plain ``fused_attention_reference`` on a CPU tensor. ``MHSA`` calls it when
 built with ``use_pallas=True`` (models/vivit.py).
+
+The source holds two hand-written instances, chosen by its C launcher: a
+tensor-core one (bf16, D in {16, 32, 64, 128}, 16-byte-aligned tensors) and
+a scalar f32 one for everything else; ``fused_attention.instance`` names
+the one the last launch took. ``strip_attention_emulation`` repeats the
+tensor-core instance's arithmetic in plain PyTorch, so that its tolerance
+can be checked without a GPU.
 """
 
 from __future__ import annotations
@@ -13,11 +20,13 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_D = 256
+KEY_BLOCKS = (32, 80, 128)      # the tensor-core instance's compiled key blocks
 # q, k, v, out, rows (B*H), N, D, scale, stream
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -66,7 +75,57 @@ def fused_attention(q, k, v, scale: float):
              float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("attention", err, "fused_attention")
     fused_attention.launches += 1
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
+    block = _build.function("attention", "fused_attention_plan", [ctypes.c_int] * 4)(
+        N, D, q.element_size(), int(aligned))
+    fused_attention.instance = f"mma_keys{block}" if block else "scalar"
     return out
 
 
 fused_attention.launches = 0
+fused_attention.instance = None
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def strip_attention_emulation(q, k, v, scale: float, p_mode: str = "hi_lo",
+                              key_block: int = None):
+    """The tensor-core instance's arithmetic in plain PyTorch, for bf16
+    (B, H, N, D) inputs: strips of 16 queries, keys in blocks of
+    ``key_block`` (the compiled block the launcher would pick by default)
+    padded to a multiple of 16 with keys >= N masked, running max and sum
+    across blocks, and the probabilities entering P V as bf16 fragments:
+    ``"hi_lo"`` (the kernel: p = hi + lo, two products), ``"bf16"`` (one
+    rounded fragment) or ``"f32"`` (no rounding). Products accumulate in
+    f32 as the MMA does, up to summation order."""
+    B, H, N, D = q.shape
+    if key_block is None:
+        key_block = next((kb for kb in KEY_BLOCKS if N <= kb), KEY_BLOCKS[-1])
+    qf, kf, vf = (_bf16(t) for t in (q, k, v))
+    out = torch.empty(B, H, N, D)
+    for q0 in range(0, N, 16):
+        qs = F.pad(qf[:, :, q0:q0 + 16], (0, 0, 0, max(0, q0 + 16 - N)))   # (B, H, 16, D)
+        m = torch.full((B, H, 16, 1), float("-inf"))
+        l = torch.zeros(B, H, 16, 1)
+        o = torch.zeros(B, H, 16, D)
+        for k0 in range(0, N, key_block):
+            nk = min(N - k0, key_block)
+            pad = -nk % 16
+            kb = F.pad(kf[:, :, k0:k0 + nk], (0, 0, 0, pad))
+            vb = F.pad(vf[:, :, k0:k0 + nk], (0, 0, 0, pad))
+            s = (qs @ kb.transpose(-1, -2)) * scale
+            s[..., nk:] = float("-inf")
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            if p_mode == "hi_lo":
+                hi = _bf16(p)
+                pv = hi @ vb + _bf16(p - hi) @ vb
+            else:
+                pv = (_bf16(p) if p_mode == "bf16" else p) @ vb
+            o, m = o * corr + pv, m_new
+        out[:, :, q0:q0 + 16] = (o / l)[:, :, :min(16, N - q0)]
+    return out.to(q.dtype)

@@ -88,7 +88,13 @@ def gather_normalize(frames_u8: torch.Tensor, starts: torch.Tensor, seq_len: int
              torch.cuda.current_stream(frames_u8.device).cuda_stream)
     _build.check("preprocess", err, "gather_normalize")
     gather_normalize.launches += 1
+    # the C launcher's choice: 16-byte stores where sizes and pointers allow
+    chunk = 16 // out.element_size()
+    vector = ((H * W * C) % chunk == 0 and frames_u8.data_ptr() % chunk == 0
+              and out.data_ptr() % 16 == 0)
+    gather_normalize.instance = "vector" if vector else "scalar"
     return out
 
 
 gather_normalize.launches = 0
+gather_normalize.instance = None

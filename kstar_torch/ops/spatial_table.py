@@ -13,6 +13,17 @@ compute dtype, biases and residuals added in the compute dtype. The JAX
 kernel's TPU-only switches (the ``paired``/``packedN``/``global-masked``
 layouts, the inexact ``none`` and ``debug_skip`` profiling modes,
 ``block_f``, ``pad_d_head`` and ``interpret``) have no counterpart here.
+
+The source holds two hand-written instances, chosen by shape in its C
+launcher (``spatial_table.instance`` names the one the last launch took):
+the fast one (bf16 at D 128, d_head 64, an MLP that is a multiple of 128
+and N <= 80: several frames per block, ``wgmma`` products, register-resident
+attention, the last layer for the cls rows only) and the general one (f32,
+and bf16 at any other accepted width). The wrapper packs the weights for
+the instance (``pack_fast``: the kernel's panel stream; ``pack_general``)
+once per weights bundle and dtype. ``packed_walk_reference`` walks the fast
+instance's stream in plain PyTorch, so that the packing and the kernel's
+order of work are tested without a GPU.
 """
 
 from __future__ import annotations
@@ -255,24 +266,23 @@ def _launch(tokens, w: SpatialWeights, n_offsets, depth, n_heads, d_head,
 
     dev = tokens.device
     elem = torch.finfo(cd).bits // 8
+    dims = (N, D, n_heads, d_head, M, elem)
+    frames = _build.function("spatial_table", "spatial_table_plan", [ctypes.c_int] * 6)(*dims)
     smem = _build.function("spatial_table", "spatial_table_smem_bytes",
-                           [ctypes.c_int] * 6, ctypes.c_longlong)(
-        N, D, n_heads, d_head, M, elem)
+                           [ctypes.c_int] * 6, ctypes.c_longlong)(*dims)
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     if smem > limit:
         raise ValueError(f"spatial_table: shape not supported by the CUDA kernel "
                          f"({shape}): needs {smem} bytes of shared memory per "
                          f"block, the device allows {limit}")
+    if frames != (fast_frames_per_block(N) if cd == torch.bfloat16
+                  and fast_applies(N, D, d_head, M) else 0):
+        raise RuntimeError(f"spatial_table: the kernel source and its wrapper "
+                           f"disagree on the instance for {shape}")
 
-    on = lambda t, dt: t.to(device=dev, dtype=dt).reshape(-1)
-    wmat = torch.cat([on(getattr(w, name)[d], cd) for d in range(depth)
-                      for name in ("w_qkv", "w_out", "b_out", "w_ff1", "b_ff1",
-                                   "w_ff2", "b_ff2")])
-    wln = torch.cat([on(getattr(w, name)[d], torch.float32) for d in range(depth)
-                     for name in ("ln_a_s", "ln_a_b", "ln_f_s", "ln_f_b")]
-                    + [on(w.ln_fin_s, torch.float32), on(w.ln_fin_b, torch.float32)])
-    tok = tokens.to(cd).contiguous()
-    base = w.base[:n_offsets, :N].to(device=dev, dtype=cd).contiguous()
+    wmat, wln = _packed_weights(w, depth, n_heads, cd, dev, fast=frames > 0)
+    tok = _aligned(tokens.to(cd).contiguous())
+    base = _aligned(w.base[:n_offsets, :N].to(device=dev, dtype=cd).contiguous())
     out = torch.empty((n_offsets, T, D), device=dev, dtype=cd)
 
     fn = _build.function("spatial_table", f"spatial_table_{_DTYPES[cd]}", _ARGTYPES)
@@ -281,7 +291,226 @@ def _launch(tokens, w: SpatialWeights, n_offsets, depth, n_heads, d_head,
              float(scale), torch.cuda.current_stream(dev).cuda_stream)
     _build.check("spatial_table", err, "spatial_table")
     spatial_table.launches += 1
+    spatial_table.instance = f"fast_F{frames}" if frames else "general"
+    spatial_table.frames_per_block = frames or 1
     return out
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy that starts on a 16-byte boundary (the fast instance
+    loads 16 bytes at a time; a view may start anywhere in its storage)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# ---- weights laid out for the kernel ---------------------------------------
+# The fast instance (csrc/spatial_table.cu, namespace fast) is compiled for
+# these widths and consumes the weights as a stream of panels, each in the
+# layout it has in shared memory, so that a panel is one flat copy: the
+# blocked layout wgmma reads (csrc/wgmma.cuh), 8 x 8 core matrices of 64
+# contiguous elements, those of one 8-row group side by side along k.
+FAST_D, FAST_D_HEAD, FAST_MLP_CHUNK = 128, 64, 128
+FAST_ROWS, FAST_PRODUCT_ROWS, FAST_MAX_N, FAST_MAX_FRAMES = 160, 144, 80, 16
+
+_GENERAL_ORDER = ("w_qkv", "w_out", "b_out", "w_ff1", "b_ff1", "w_ff2", "b_ff2")
+_LN_ORDER = ("ln_a_s", "ln_a_b", "ln_f_s", "ln_f_b")
+
+
+def fast_applies(N: int, D: int, d_head: int, M: int) -> bool:
+    """Whether a bf16 call at these widths takes the fast instance."""
+    return (D == FAST_D and d_head == FAST_D_HEAD and M > 0
+            and M % FAST_MLP_CHUNK == 0 and 1 <= N <= FAST_MAX_N)
+
+
+def fast_frames_per_block(N: int) -> int:
+    """Frames one block of the fast instance owns: the most whose packed
+    rows fit in the FAST_PRODUCT_ROWS rows its products compute and, the
+    last frame's keys padded to a multiple of 16, in its FAST_ROWS rows of
+    shared memory; at most FAST_MAX_FRAMES (the last layer's cls tile)."""
+    return min((FAST_ROWS - -(-N // 16) * 16) // N + 1, FAST_PRODUCT_ROWS // N,
+               FAST_MAX_FRAMES)
+
+
+def _panel(m: torch.Tensor) -> torch.Tensor:
+    """(rows, K) -> flat blocked panel: element (n, k) at
+    ((n // 8) * (K // 8) + k // 8) * 64 + (n % 8) * 8 + k % 8."""
+    rows, K = m.shape
+    return m.reshape(rows // 8, 8, K // 8, 8).permute(0, 2, 1, 3).reshape(-1)
+
+
+def _unpanel(flat: torch.Tensor, rows: int, K: int) -> torch.Tensor:
+    """The (rows, K) matrix of a flat blocked panel."""
+    return flat.reshape(rows // 8, K // 8, 8, 8).permute(0, 2, 1, 3).reshape(rows, K)
+
+
+def pack_fast(w: SpatialWeights, depth: int, n_heads: int,
+              dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The fast instance's weight stream. Per layer, in the order the kernel
+    multiplies: per head h the q rows then the k rows of w_qkv as one panel
+    (2*d_head, D), its v rows (d_head, D), and its columns of w_out
+    (D, d_head); per chunk c of FAST_MLP_CHUNK MLP columns the rows of w_ff1
+    (chunk, D) and the columns of w_ff2 (D, chunk); then b_out, b_ff1,
+    b_ff2."""
+    dh, mc = FAST_D_HEAD, FAST_MLP_CHUNK
+    inner = n_heads * dh
+    parts = []
+    for d in range(depth):
+        qkv, out = w.w_qkv[d].to(dtype), w.w_out[d].to(dtype)
+        ff1, ff2 = w.w_ff1[d].to(dtype), w.w_ff2[d].to(dtype)
+        for h in range(n_heads):
+            rows = slice(h * dh, (h + 1) * dh)
+            q, k, v = (qkv[part * inner:(part + 1) * inner][rows] for part in range(3))
+            parts += [_panel(torch.cat([q, k])), _panel(v), _panel(out[:, rows])]
+        for m0 in range(0, ff1.shape[0], mc):
+            parts += [_panel(ff1[m0:m0 + mc]), _panel(ff2[:, m0:m0 + mc])]
+        parts += [getattr(w, name)[d].to(dtype).reshape(-1)
+                  for name in ("b_out", "b_ff1", "b_ff2")]
+    return torch.cat(parts)
+
+
+def fast_panels(packed: torch.Tensor, depth: int, n_heads: int, M: int):
+    """Walk a ``pack_fast`` stream in the kernel's order: yields
+    ``(layer, kind, index, matrix)`` with the blocking undone, kind one of
+    "qk", "v", "out" (index = head), "ff1", "ff2" (index = chunk), and
+    "b_out", "b_ff1", "b_ff2" (vectors)."""
+    D, dh, mc = FAST_D, FAST_D_HEAD, FAST_MLP_CHUNK
+    pos = 0
+
+    def take(rows, K):
+        nonlocal pos
+        n = rows * K
+        if pos + n > packed.numel():
+            raise ValueError(f"fast_panels: stream of {packed.numel()} elements, "
+                             f"walked past its end at {pos + n}")
+        pos += n
+        flat = packed[pos - n:pos]
+        return flat if rows == 1 else _unpanel(flat, rows, K)
+
+    for d in range(depth):
+        for h in range(n_heads):
+            yield d, "qk", h, take(2 * dh, D)
+            yield d, "v", h, take(dh, D)
+            yield d, "out", h, take(D, dh)
+        for c in range(M // mc):
+            yield d, "ff1", c, take(mc, D)
+            yield d, "ff2", c, take(D, mc)
+        for name, n in (("b_out", D), ("b_ff1", M), ("b_ff2", D)):
+            yield d, name, 0, take(1, n)
+    if pos != packed.numel():
+        raise ValueError(f"fast_panels: stream of {packed.numel()} elements, "
+                         f"walked {pos}")
+
+
+def unpack_fast(packed: torch.Tensor, depth: int, n_heads: int, M: int) -> dict:
+    """The matrices and biases a ``pack_fast`` stream was made from, as
+    ``{field: tuple over layers}`` in ``SpatialWeights`` layout."""
+    dh = FAST_D_HEAD
+    got = {}
+    for d, kind, _, m in fast_panels(packed, depth, n_heads, M):
+        got.setdefault((d, kind), []).append(m)
+    out = {name: [] for name in _GENERAL_ORDER}
+    for d in range(depth):
+        qk = got[d, "qk"]
+        out["w_qkv"].append(torch.cat([p[:dh] for p in qk] + [p[dh:] for p in qk]
+                                      + got[d, "v"]))
+        out["w_out"].append(torch.cat(got[d, "out"], dim=1))
+        out["w_ff1"].append(torch.cat(got[d, "ff1"]))
+        out["w_ff2"].append(torch.cat(got[d, "ff2"], dim=1))
+        for name in ("b_out", "b_ff1", "b_ff2"):
+            out[name].append(got[d, name][0])
+    return {name: tuple(v) for name, v in out.items()}
+
+
+def pack_general(w: SpatialWeights, depth: int, dtype: torch.dtype) -> torch.Tensor:
+    """The general instance's weights: per layer w_qkv, w_out, b_out, w_ff1,
+    b_ff1, w_ff2, b_ff2, each flat in Linear layout."""
+    return torch.cat([getattr(w, name)[d].to(dtype).reshape(-1)
+                      for d in range(depth) for name in _GENERAL_ORDER])
+
+
+def pack_layer_norms(w: SpatialWeights, depth: int) -> torch.Tensor:
+    """LayerNorm vectors in f32: per layer attention scale, bias, FF scale,
+    bias; then the final scale and bias."""
+    return torch.cat([getattr(w, name)[d].float().reshape(-1)
+                      for d in range(depth) for name in _LN_ORDER]
+                     + [w.ln_fin_s.float().reshape(-1), w.ln_fin_b.float().reshape(-1)])
+
+
+def _mm_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b^T over the last axes, each output element summed on its own in
+    one fixed order, so a row's result does not depend on which other rows
+    are computed with it (a BLAS product may block a 1-row and an N-row
+    call differently)."""
+    return (a.unsqueeze(-2) * b.unsqueeze(-3)).sum(-1)
+
+
+def packed_walk_reference(tokens: torch.Tensor, packed: torch.Tensor, wln: torch.Tensor,
+                          base: torch.Tensor, depth: int, n_heads: int, M: int,
+                          compute_dtype: torch.dtype = torch.bfloat16,
+                          scale: float = None, cls_last: bool = True) -> torch.Tensor:
+    """The fast instance's walk in plain PyTorch: the same function as
+    ``spatial_table_reference``, computed from a ``pack_fast`` stream panel
+    by panel in the kernel's order (per head q|k, v, attention,
+    out-projection summed over heads in f32; per MLP chunk FF1, GELU, FF2
+    summed over chunks in f32), with the kernel's cast points. With
+    ``cls_last`` the last layer computes K and V for all rows and everything
+    else for the cls row only, which is all the table keeps. Products go
+    through ``_mm_rows``, so the cls row's arithmetic is the same either
+    way, bit for bit; it is meant for small inputs."""
+    cd = compute_dtype
+    D, dh = FAST_D, FAST_D_HEAD
+    scale = dh ** -0.5 if scale is None else scale
+    rnd = lambda t: t.to(cd).float()
+    ln = wln.float().reshape(-1, D)
+    panels = {(d, kind, i): rnd(m) for d, kind, i, m in fast_panels(packed, depth, n_heads, M)}
+    tokens, base = rnd(tokens), rnd(base[:, :tokens.shape[1]])
+    out = []
+    for off in range(base.shape[0]):
+        x = rnd(tokens + base[off][None])                             # (T, N, D)
+        for d in range(depth):
+            rows = slice(0, 1) if cls_last and d == depth - 1 else slice(None)
+            h = rnd(_layer_norm(x, ln[4 * d], ln[4 * d + 1]))
+            acc = 0.0
+            for hh in range(n_heads):
+                qk, wv = panels[d, "qk", hh], panels[d, "v", hh]
+                q, k = rnd(_mm_rows(h[:, rows], qk[:dh])), rnd(_mm_rows(h, qk[dh:]))
+                v = rnd(_mm_rows(h, wv))
+                sc = _mm_rows(q, k) * scale
+                e = torch.exp(sc - sc.amax(-1, keepdim=True))
+                o = rnd(_mm_rows(rnd(e / e.sum(-1, keepdim=True)), v.transpose(-1, -2)))
+                acc = acc + _mm_rows(o, panels[d, "out", hh])
+            x = rnd(x[:, rows] + rnd(rnd(acc) + panels[d, "b_out", 0]))
+            f = rnd(_layer_norm(x, ln[4 * d + 2], ln[4 * d + 3]))
+            acc = 0.0
+            for c in range(M // FAST_MLP_CHUNK):
+                bias = panels[d, "b_ff1", 0][c * FAST_MLP_CHUNK:(c + 1) * FAST_MLP_CHUNK]
+                mid = rnd(rnd(_mm_rows(f, panels[d, "ff1", c])) + bias)
+                acc = acc + _mm_rows(rnd(F.gelu(mid, approximate="tanh")),
+                                     panels[d, "ff2", c])
+            x = rnd(x + rnd(rnd(acc) + panels[d, "b_ff2", 0]))
+        out.append(_layer_norm(x[:, 0], ln[4 * depth], ln[4 * depth + 1]).to(cd))
+    return torch.stack(out)
+
+
+_pack_cache: dict = {}
+_PACK_CACHE_SIZE = 8
+
+
+def _packed_weights(w: SpatialWeights, depth, n_heads, cd, dev, fast: bool):
+    """(matrices, LayerNorm vectors) on ``dev`` for the instance, cached per
+    weights object (its tensors' identity and version), dtype and device."""
+    tensors = [t for field in w[1:] for t in (field if isinstance(field, tuple) else (field,))]
+    key = (tuple((id(t), t._version) for t in tensors), depth, n_heads, cd, str(dev), fast)
+    hit = _pack_cache.get(key)
+    if hit is None:
+        wmat = pack_fast(w, depth, n_heads, cd) if fast else pack_general(w, depth, cd)
+        # the entry keeps `tensors` alive, so their ids stay theirs
+        hit = (wmat.to(dev), pack_layer_norms(w, depth).to(dev), tensors)
+        while len(_pack_cache) >= _PACK_CACHE_SIZE:
+            _pack_cache.pop(next(iter(_pack_cache)))
+        _pack_cache[key] = hit
+    return hit[0], hit[1]
+
+
 spatial_table.launches = 0
+spatial_table.instance = None
+spatial_table.frames_per_block = None

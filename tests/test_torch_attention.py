@@ -62,3 +62,62 @@ def test_rejects_unsupported_device():
     q = torch.zeros(1, 1, 4, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tat.fused_attention(q, q, q, 0.5)
+
+
+# ---- the tensor-core instance's arithmetic, in plain PyTorch ---------------
+
+def _bf16_case(n, d, seed, logit_peak=None):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 3, n, d)).astype(np.float32))
+               for _ in range(3))
+    scale = d ** -0.5
+    if logit_peak is not None:
+        q = q * (logit_peak / ((q @ k.transpose(-1, -2)) * scale).abs().max())
+    return q.bfloat16(), k.bfloat16(), v.bfloat16(), scale
+
+
+@pytest.mark.parametrize("n,d", [(1, 64), (15, 16), (16, 32), (17, 64), (22, 64), (64, 128),
+                                 (65, 64), (130, 64), (300, 32)])
+def test_strip_emulation_hi_lo_within_kernel_tolerance(n, d):
+    """16-query strips, keys in blocks padded to 16 and masked past N, the
+    running max across blocks, P as a bf16 hi + lo pair: within the bf16
+    kernel's tolerance (1e-2) of the plain version."""
+    q, k, v, scale = _bf16_case(n, d, seed=n)
+    got = tat.strip_attention_emulation(q, k, v, scale)
+    want = tat.fused_attention_reference(q, k, v, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("n", [65, 130, 300])
+def test_strip_emulation_large_logits_running_max(n):
+    """|s| up to 80 (exp(80) overflows bf16 and, summed, strains f32): the
+    max is subtracted first, and across key blocks the partial output is
+    rescaled. Forcing 32-key blocks makes every case cross blocks."""
+    q, k, v, scale = _bf16_case(n, 64, seed=7, logit_peak=80.0)
+    want = tat.fused_attention_reference(q, k, v, scale).float()
+    for key_block in (None, 32):
+        got = tat.strip_attention_emulation(q, k, v, scale, key_block=key_block).float()
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, atol=1e-2, rtol=1e-2)
+
+
+def test_strip_emulation_p_precision():
+    """Why the kernel carries P as hi + lo: the pair is as good as an f32 P
+    (the error left is the output's own rounding, one bf16 ulp), one bf16 P
+    costs about another ulp."""
+    q, k, v, scale = _bf16_case(65, 64, seed=11)
+    want = tat.fused_attention_reference(q, k, v, scale).float()
+    err = {mode: (tat.strip_attention_emulation(q, k, v, scale, p_mode=mode).float()
+                  - want).abs() for mode in ("hi_lo", "bf16", "f32")}
+    assert err["hi_lo"].max() <= err["f32"].max() + 2 ** -9
+    assert err["hi_lo"].mean() <= 1.05 * err["f32"].mean() + 1e-6
+    assert err["bf16"].mean() > 1.3 * err["hi_lo"].mean()
+
+
+def test_strip_emulation_key_block_choice():
+    assert tat.KEY_BLOCKS == (32, 80, 128)
+    q, k, v, scale = _bf16_case(40, 64, seed=5)
+    a = tat.strip_attention_emulation(q, k, v, scale)                 # one block of 80
+    b = tat.strip_attention_emulation(q, k, v, scale, key_block=80)
+    assert torch.equal(a, b)

@@ -47,6 +47,84 @@ def test_spatial_table_kernel_matches_plain(dev, dtype, crop):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+@pytest.fixture(scope="module")
+def flagship():
+    """The flagship ViViT (dim 128, depth 2, 4 heads x 64, MLP 1024, 128 px)
+    with random weights, and 61 frames of zero-cls-padded random tokens."""
+    g = torch.Generator().manual_seed(5)
+    model = ViViT(generator=g)
+    tokens = F.pad(torch.randn(61, 64, 128, generator=g), (0, 0, 1, 0))
+    return model, tokens
+
+
+def _table_case(dev, model, tokens, dtype, n_off=3, **widths):
+    hp = dict(depth=2, n_heads=4, d_head=64)
+    hp.update(widths)
+    w = tst.extract_spatial_weights(model.to(dev), n_off, hp["depth"], dtype)
+    x = tokens.to(dev, dtype)
+    before = tst.spatial_table.launches
+    got = tst.spatial_table(x, w, n_off, compute_dtype=dtype, **hp)
+    torch.cuda.synchronize()
+    assert tst.spatial_table.launches == before + 1
+    want = tst.spatial_table_reference(x, w, n_off, compute_dtype=dtype, **hp)
+    atol, rtol = TABLE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    if dtype == torch.bfloat16:
+        assert (got.float() - want.float()).abs().mean() <= 2 ** -8
+    return got
+
+
+@pytest.mark.parametrize("n_tok", [65, 17, 5], ids=["N65", "N17", "N5"])
+@pytest.mark.parametrize("t_case", ["1", "F-1", "F", "F+1", "61"])
+def test_spatial_table_fast_instance_ragged_frames(dev, flagship, n_tok, t_case):
+    """Flagship widths in bf16: F frames share a block (2 at N 65, 8 at
+    N 17, the cap of 16 at N 5), and a frame count that is no multiple of F is masked at the
+    edge."""
+    model, tokens = flagship
+    F_blk = tst.fast_frames_per_block(n_tok)
+    T = {"1": 1, "F-1": max(F_blk - 1, 1), "F": F_blk, "F+1": F_blk + 1, "61": 61}[t_case]
+    _table_case(dev, model, tokens[:T, :n_tok], torch.bfloat16)
+    assert tst.spatial_table.instance == f"fast_F{F_blk}"
+
+
+def test_spatial_table_fast_instance_frames_do_not_mix(dev, flagship):
+    """Frames that share a block do not see each other: a frame's row of the
+    table is the same whichever neighbours it is packed with."""
+    model, tokens = flagship
+    full = _table_case(dev, model, tokens[:9], torch.bfloat16)
+    shifted = _table_case(dev, model, tokens[1:9], torch.bfloat16)
+    assert torch.equal(full[:, 1:], shifted)
+
+
+def test_spatial_table_fast_instance_misaligned_tokens(dev, flagship):
+    """Tokens that start 2 bytes into their storage are copied to an aligned
+    buffer by the wrapper (the fast instance loads 16 bytes at a time)."""
+    model, tokens = flagship
+    t = tokens[:5].to(dev, torch.bfloat16)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    buf[1:] = t.reshape(-1)
+    _table_case(dev, model, buf[1:].view(t.shape), torch.bfloat16)
+    assert tst.spatial_table.instance.startswith("fast")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_spatial_table_general_instance_at_flagship_like_widths(dev, dtype):
+    """A width the fast instance is not compiled for (dim 64, 2 heads x 32,
+    MLP 192) and f32 at any width take the general instance."""
+    g = torch.Generator().manual_seed(6)
+    model = ViViT(image_size=64, patch_size=16, n_frames=5, dim=64, depth=2, n_heads=2,
+                  d_head=32, scale_dim=3, generator=g)
+    tokens = F.pad(torch.randn(7, 16, 64, generator=g), (0, 0, 1, 0))
+    _table_case(dev, model, tokens, dtype, n_heads=2, d_head=32)
+    assert tst.spatial_table.instance == "general"
+
+
+def test_spatial_table_f32_flagship_takes_the_general_instance(dev, flagship):
+    model, tokens = flagship
+    _table_case(dev, model, tokens[:3], torch.float32, n_off=2)
+    assert tst.spatial_table.instance == "general"
+
+
 def test_spatial_table_rejects_unsupported_shapes(dev):
     g = torch.Generator().manual_seed(0)
     model = ViViT(image_size=32, patch_size=16, n_frames=5, dim=40, depth=1, n_heads=2,
@@ -68,6 +146,84 @@ def test_fused_attention_kernel_matches_plain(dev, dtype, n, d):
     want = tat.fused_attention_reference(q, k, v, d ** -0.5)
     tol = 2e-5 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def _attention_case(dev, dtype, n, d, logit_peak=None, seed=3):
+    """q, k, v (3, 4, n, d) on the card; with ``logit_peak`` q is scaled so
+    that the largest |logit| reaches it (the running-max path)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(3, 4, n, d, generator=g, device=dev) for _ in range(3))
+    scale = d ** -0.5
+    if logit_peak is not None:
+        q = q * (logit_peak / ((q @ k.transpose(-1, -2)) * scale).abs().max())
+    return q.to(dtype), k.to(dtype), v.to(dtype), scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 40])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 64, 65, 130])
+def test_fused_attention_kernel_shapes(dev, dtype, n, d):
+    """Every strip and key-block edge, the widths of both instances (40 and
+    256 take the scalar one in bf16 too), against the plain version."""
+    q, k, v, scale = _attention_case(dev, dtype, n, d)
+    got = tat.fused_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    mma = dtype == torch.bfloat16 and d in (16, 32, 64, 128)
+    assert tat.fused_attention.instance.startswith("mma" if mma else "scalar")
+    want = tat.fused_attention_reference(q, k, v, scale)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [65, 130, 300])
+def test_fused_attention_kernel_large_logits(dev, dtype, n):
+    """|s| up to 80: exp(s) alone would overflow bf16's and strain f32's
+    range, so the (running) max must be subtracted first; 130 and 300 keys
+    cross key blocks, where the running max rescales the partial output."""
+    q, k, v, scale = _attention_case(dev, dtype, n, 64, logit_peak=80.0)
+    got = tat.fused_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    want = tat.fused_attention_reference(q, k, v, scale)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_attention_kernel_noncontiguous_and_misaligned(dev, dtype):
+    """A permuted q (made contiguous by the wrapper) and inputs that start
+    one element into their storage (bf16: no 16-byte alignment, so the
+    scalar instance)."""
+    q, k, v, scale = _attention_case(dev, dtype, 65, 64)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)      # same values, other strides
+    assert not qt.is_contiguous()
+    got = tat.fused_attention(qt, k, v, scale)
+    want = tat.fused_attention_reference(q, k, v, scale)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+    got = tat.fused_attention(shifted(q), shifted(k), shifted(v), scale)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        assert tat.fused_attention.instance == "scalar"
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_fused_attention_emulation_tracks_the_kernel(dev):
+    """The plain-PyTorch walk of the tensor-core instance's arithmetic (the
+    CPU tests' stand-in) lands within one bf16 ulp of the kernel."""
+    q, k, v, scale = _attention_case(dev, torch.bfloat16, 65, 64)
+    got = tat.fused_attention(q, k, v, scale).float().cpu()
+    emu = tat.strip_attention_emulation(q.cpu(), k.cpu(), v.cpu(), scale).float()
+    torch.testing.assert_close(got, emu, atol=2 ** -8, rtol=2 ** -7)
 
 
 def test_fused_attention_rejects_wide_heads(dev):

@@ -139,3 +139,143 @@ def test_rejects_bad_inputs(setup):
         tst.spatial_table(torch.zeros(T, 9, DIM), w, SEQ_LEN, **HP)
     with pytest.raises(ValueError, match="unsupported device"):
         tst.spatial_table(torch.zeros(T, 5, DIM, device="meta"), w, SEQ_LEN, **HP)
+
+
+# ---- the fast instance's weight stream and its walk, on the CPU ------------
+
+def _flagship_like(n_heads, scale_dim, depth, n_frames=4, image_size=64, seed=3):
+    """A model at the fast instance's widths (dim 128, d_head 64) with random
+    weights, its bundle, and zero-cls-padded tokens (5 frames)."""
+    g = torch.Generator().manual_seed(seed)
+    model = TorchViViT(image_size=image_size, patch_size=16, n_frames=n_frames, dim=128,
+                       depth=depth, n_heads=n_heads, d_head=64, scale_dim=scale_dim,
+                       generator=g)
+    w = tst.extract_spatial_weights(model, n_frames, depth, torch.float32)
+    n_tok = (image_size // 16) ** 2
+    tokens = F.pad(torch.randn(5, n_tok, 128, generator=g), (0, 0, 1, 0))
+    return w, tokens
+
+
+WIDTHS = {"flagship": dict(n_heads=4, scale_dim=8, depth=2),      # MLP 1024
+          "odd": dict(n_heads=3, scale_dim=3, depth=3)}            # MLP 384, 3 chunks
+
+
+@pytest.mark.parametrize("widths", list(WIDTHS), ids=list(WIDTHS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_packed_weights_unpack_to_the_bundle(widths, dtype):
+    hp = WIDTHS[widths]
+    w, _ = _flagship_like(**hp)
+    M = 128 * hp["scale_dim"]
+    packed = tst.pack_fast(w, hp["depth"], hp["n_heads"], dtype)
+    assert packed.dtype == dtype and packed.numel() % 8 == 0    # 16-byte panels
+    per_layer = (hp["n_heads"] * (128 * 128 + 64 * 128 + 128 * 64)
+                 + (M // 128) * 2 * 128 * 128 + 2 * 128 + M)
+    assert packed.numel() == hp["depth"] * per_layer
+    got = tst.unpack_fast(packed, hp["depth"], hp["n_heads"], M)
+    for name, layers in got.items():
+        assert len(layers) == hp["depth"]
+        for d, m in enumerate(layers):
+            assert torch.equal(m, getattr(w, name)[d].to(dtype)), (name, d)
+
+
+def test_packed_stream_order_and_blocking():
+    """Panels come in the order the kernel multiplies, each in the blocked
+    layout the kernel reads: 8 x 8 core matrices of 64 contiguous elements,
+    the core matrices of an 8-row group side by side along k."""
+    w, _ = _flagship_like(**WIDTHS["odd"])
+    packed = tst.pack_fast(w, 3, 3, torch.float32)
+    kinds = [(d, kind, i) for d, kind, i, _ in tst.fast_panels(packed, 3, 3, 384)]
+    layer0 = [k[1:] for k in kinds if k[0] == 0]
+    assert layer0 == ([(kind, h) for h in range(3) for kind in ("qk", "v", "out")]
+                      + [(kind, c) for c in range(3) for kind in ("ff1", "ff2")]
+                      + [("b_out", 0), ("b_ff1", 0), ("b_ff2", 0)])
+    assert [k[0] for k in kinds] == sorted(k[0] for k in kinds)
+    first = packed[:128 * 128]                   # head 0: q rows, then k rows
+    qk = torch.cat([w.w_qkv[0][:64], w.w_qkv[0][192:256]])
+    for n, k in ((0, 0), (3, 5), (8, 0), (9, 17), (64, 0), (127, 127), (70, 64)):
+        at = ((n // 8) * (128 // 8) + k // 8) * 64 + (n % 8) * 8 + k % 8
+        assert first[at] == qk[n, k], (n, k)
+    assert torch.equal(first[:8], qk[0, :8]) and torch.equal(first[8:16], qk[1, :8])
+    assert torch.equal(first[64:72], qk[0, 8:16])                     # the next core matrix
+    out0 = packed[128 * 128 + 64 * 128:][:128 * 64]                   # head 0's out panel
+    assert out0[(2 * (64 // 8) + 1) * 64 + 3 * 8 + 4] == w.w_out[0][19, 12]
+    with pytest.raises(ValueError, match="walked"):
+        list(tst.fast_panels(packed[:-8], 3, 3, 384))
+
+
+@pytest.mark.parametrize("n,frames", [(65, 2), (17, 8), (72, 2), (73, 1), (80, 1), (37, 3),
+                                      (10, 14), (5, 16), (1, 16)])
+def test_fast_frames_per_block(n, frames):
+    """As many frames as fit in the 144 rows the products compute and, with
+    the last frame's keys padded to a multiple of 16, in 160 rows of shared
+    memory; no more than the 16 rows of the last layer's cls tile."""
+    assert tst.fast_frames_per_block(n) == frames
+    fits = lambda f: (f * n <= tst.FAST_PRODUCT_ROWS
+                      and (f - 1) * n + -(-n // 16) * 16 <= tst.FAST_ROWS)
+    assert fits(frames) and (frames == tst.FAST_MAX_FRAMES or not fits(frames + 1))
+    assert tst.fast_applies(n, 128, 64, 1024)
+    assert not tst.fast_applies(n, 128, 64, 1000) and not tst.fast_applies(n, 64, 64, 1024)
+    assert not tst.fast_applies(81, 128, 64, 1024)
+
+
+@pytest.mark.parametrize("widths", list(WIDTHS), ids=list(WIDTHS))
+@pytest.mark.parametrize("cls_last", [False, True], ids=["all_rows", "cls_last"])
+def test_packed_walk_reproduces_the_reference_f32(widths, cls_last):
+    """The kernel's order of work (panel by panel, out-projection summed
+    over heads and FF2 over chunks before the one rounding) is the same
+    function as the plain version: f32, summation order only."""
+    hp = WIDTHS[widths]
+    w, tokens = _flagship_like(**hp)
+    M = 128 * hp["scale_dim"]
+    packed = tst.pack_fast(w, hp["depth"], hp["n_heads"], torch.float32)
+    wln = tst.pack_layer_norms(w, hp["depth"])
+    got = tst.packed_walk_reference(tokens, packed, wln, w.base, hp["depth"], hp["n_heads"],
+                                    M, torch.float32, cls_last=cls_last)
+    want = tst.spatial_table_reference(tokens, w, 4, depth=hp["depth"],
+                                       n_heads=hp["n_heads"], d_head=64,
+                                       compute_dtype=torch.float32)
+    assert got.shape == want.shape == (4, 5, 128)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("widths", list(WIDTHS), ids=list(WIDTHS))
+def test_cls_only_last_layer_is_bit_identical_f32(widths):
+    """The table keeps the cls row, so the last layer needs K and V for all
+    rows and everything else for row 0 alone: the same arithmetic for that
+    row, bit for bit."""
+    hp = WIDTHS[widths]
+    w, tokens = _flagship_like(**hp)
+    M = 128 * hp["scale_dim"]
+    packed = tst.pack_fast(w, hp["depth"], hp["n_heads"], torch.float32)
+    wln = tst.pack_layer_norms(w, hp["depth"])
+    walk = lambda cls_last: tst.packed_walk_reference(
+        tokens, packed, wln, w.base, hp["depth"], hp["n_heads"], M, torch.float32,
+        cls_last=cls_last)
+    assert torch.equal(walk(True), walk(False))
+
+
+def test_packed_walk_bf16_within_the_kernel_tolerance():
+    """bf16 cast points: the walk rounds where the kernel does (the sums over
+    heads and chunks once, not per head and chunk), within the tolerance the
+    kernel is held to against the plain version."""
+    hp = WIDTHS["flagship"]
+    w, tokens = _flagship_like(**hp)
+    packed = tst.pack_fast(w, 2, 4, torch.bfloat16)
+    got = tst.packed_walk_reference(tokens, packed, tst.pack_layer_norms(w, 2), w.base,
+                                    2, 4, 1024, torch.bfloat16).float()
+    want = tst.spatial_table_reference(tokens, w, 4, compute_dtype=torch.bfloat16).float()
+    torch.testing.assert_close(got, want, atol=6.25e-2, rtol=6.25e-2)
+    assert (got - want).abs().mean() < 2 ** -8
+
+
+def test_packed_weights_are_cached_per_bundle_and_dtype():
+    w, _ = _flagship_like(**WIDTHS["flagship"])
+    cpu = torch.device("cpu")
+    a = tst._packed_weights(w, 2, 4, torch.bfloat16, cpu, fast=True)
+    b = tst._packed_weights(w, 2, 4, torch.bfloat16, cpu, fast=True)
+    assert a[0] is b[0] and a[1] is b[1]
+    c = tst._packed_weights(w, 2, 4, torch.float32, cpu, fast=False)
+    assert c[0] is not a[0] and torch.equal(c[0], tst.pack_general(w, 2, torch.float32))
+    w.w_ff1[0].mul_(2.0)                      # an in-place update invalidates the entry
+    d = tst._packed_weights(w, 2, 4, torch.bfloat16, cpu, fast=True)
+    assert d[0] is not a[0] and not torch.equal(d[0], a[0])
