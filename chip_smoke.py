@@ -20,6 +20,11 @@ width of the flagship ViViT (dim 128, depth 2, 4 heads x 64, MLP 1024,
                 kernel per chunk) against the token path
   library       sweep_shots over six ragged shots in two groups against
                 per-shot sweeps, then alarm scoring of the curves
+  train         fit's train step at batch 64 (augmentation inside the step,
+                AdamW, Focal): step times, clips/s, peak memory, launches;
+                the NaN guard; card against CPU in f32
+  train_cli     kstar_torch.cli.train_vision --synthetic for 2 epochs, then
+                --resume for one more (the alarm sweep runs the table kernel)
 
 Every phase prints one JSON line and any failure exits non-zero. Then come
 the per-kernel summary line, the card's name and power limit as nvidia-smi
@@ -30,7 +35,10 @@ CUDA it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -129,6 +137,206 @@ def table_work(T, n_off, N, D, depth, H, dh, M, elem):
         + depth * 4 * D * 4 + 2 * D * 4
     nbytes = (T * N * D + n_off * N * D + n_off * T * D) * elem + weights
     return ops, nbytes
+
+
+def step_launches(step) -> tuple:
+    """(kernel launches, device-busy ms, wall ms, the 8 kernels with the most
+    device time) of one call of step() under torch.profiler; Nones when the
+    profiler sees no device. The wall time includes the profiler's own host
+    overhead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+    if not kernels:
+        return None, None, None, None
+    by_name = {}
+    for e in kernels:
+        n, ms = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, ms + e.device_time / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return (len(kernels), sum(e.device_time for e in kernels) / 1e3, wall_ms,
+            [{"kernel": k[:96], "launches": n, "ms": ms} for k, (n, ms) in top])
+
+
+def train_phase(seed: int, frames, cfg, dev) -> tuple:
+    """fit's train step at the flagship's width: ViViT in bf16 over f32
+    parameters, batch 64 of uint8 21-frame clips from the 256 px shot,
+    cropped to 128, augmented and normalised inside the step; Focal loss
+    (gamma 2), AdamW lr 2e-4 with the staircase decay (one "epoch" per step,
+    so the rate steps every 4 updates), clip 1.0. 5 warm-up steps, then 30
+    steps each timed on the host clock up to a synchronise. Checks: (a)
+    finite losses and every parameter moved; (b) a step whose loss is made
+    non-finite (NaN class weights) leaves parameters, optimizer state and
+    step bit-identical; (c) card against CPU from the same weights, f32,
+    dropout 0, no augmentation, 3 steps."""
+    import numpy as np
+
+    from kstar_torch.config import LossConfig, OptimConfig
+    from kstar_torch.data import make_pre_fns, to_device
+    from kstar_torch.losses import ldam_margins
+    from kstar_torch.models import build_video_model
+    from kstar_torch.train import create_train_state, make_train_step
+
+    stage_s, t_stage = {}, [time.perf_counter()]
+
+    def stage(name: str) -> None:
+        """Seconds since the previous stage ended, up to a synchronise."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage_s[name], t_stage[0] = now - t_stage[0], now
+
+    B = 64
+    rng = np.random.default_rng(seed)
+    n_batches = 2
+    starts = rng.integers(0, len(frames) - SEQ_LEN, size=(n_batches, B))
+    clips = [to_device(frames[s[:, None] + np.arange(SEQ_LEN)], dev) for s in starts]
+    labels = [torch.as_tensor(rng.integers(0, 2, size=B)).to(dev) for _ in range(n_batches)]
+    loss_cfg = LossConfig()
+    weight = torch.ones(2, device=dev)
+    m_list = torch.as_tensor(ldam_margins(np.array([B // 2, B // 2]))).to(dev)
+
+    model = build_video_model("ViViT", cfg, dtype=torch.bfloat16,
+                              generator=torch.Generator().manual_seed(seed)).to(dev)
+    state = create_train_state(model, OptimConfig(), steps_per_epoch=1, seed=seed)
+    pre_train, pre_eval = make_pre_fns(CROP, out_dtype=torch.bfloat16)
+    step = make_train_step(loss_cfg, pre_fn=pre_train)
+    start_params = [p.detach().clone() for p in state.params]
+    stage("batches_and_model")
+    losses, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(35):
+        t0 = time.perf_counter()
+        _, loss, _ = step(state, clips[i % n_batches], labels[i % n_batches], weight, m_list)
+        torch.cuda.synchronize()
+        if i >= 5:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = torch.stack(losses).cpu().numpy()
+    moved = [not torch.equal(a, p.detach()) for a, p in zip(start_params, state.params)]
+    stage("steps")
+    launches, busy_ms, prof_wall_ms, top_kernels = step_launches(
+        lambda: step(state, clips[0], labels[0], weight, m_list))
+    stage("profile")
+
+    # (b) the NaN guard
+    before = (state.flat.clone(), {k: v.clone() for k, v in state.opt_state.items()},
+              state.step.clone())
+    _, nan_loss, _ = step(state, clips[0], labels[0],
+                          torch.full((2,), float("nan"), device=dev), m_list)
+    guard_ok = (not bool(torch.isfinite(nan_loss)) and torch.equal(state.flat, before[0])
+                and all(torch.equal(state.opt_state[k], v) for k, v in before[1].items())
+                and torch.equal(state.step, before[2]))
+    stage("nan_guard")
+
+    # (c) card against CPU, f32: both sides compute the same f32 arithmetic
+    # (TF32 is off) in another summation order. An AdamW step moves each
+    # parameter by ~lr = 2e-4 whatever its gradient's size, and a gradient
+    # element within rounding of zero may take the other sign on the other
+    # device, so the parameters after 3 steps are held at 1e-4 (half of one
+    # step's move), the losses at 1e-3 relative and the first step's
+    # gradients at 1e-3 of their largest element. Measured on an H100:
+    # 5.1e-6, 4.4e-6 and 5.5e-7.
+    Bc = 8
+    f32_cfg = dataclasses.replace(cfg, dropout=0.0, embedd_dropout=0.0)
+    base = build_video_model("ViViT", f32_cfg, dtype=torch.float32,
+                             generator=torch.Generator().manual_seed(seed + 1))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        st = create_train_state(copy.deepcopy(base).to(d), OptimConfig(),
+                                steps_per_epoch=1, seed=seed)
+        stp = make_train_step(loss_cfg, pre_fn=pre_eval)    # crop + normalise only
+        ls, grads = [], None
+        for i in range(3):
+            _, loss, _ = stp(st, clips[i % n_batches][:Bc].to(d), labels[i % n_batches][:Bc].to(d),
+                             weight.to(d), m_list.to(d))
+            ls.append(float(loss))
+            if grads is None:
+                grads = st.flat_grads().cpu()
+        runs.append((np.array(ls), st.flat.cpu(), grads))
+    (l_gpu, p_gpu, g_gpu), (l_cpu, p_cpu, g_cpu) = runs
+    loss_rel = float(np.max(np.abs(l_gpu - l_cpu) / np.abs(l_cpu)))
+    param_err = float((p_gpu - p_cpu).abs().max())
+    grad_rel = float((g_gpu - g_cpu).abs().max() / g_cpu.abs().max())
+    parity_ok = loss_rel <= 1e-3 and param_err <= 1e-4 and grad_rel <= 1e-3
+    stage("card_vs_cpu")
+
+    t = np.asarray(times)
+    fields = dict(
+        batch=B, crop=CROP, frames=SEQ_LEN, dtype="bfloat16 over f32 parameters",
+        optimizer="AdamW lr 2e-4 staircase 0.95 every 4 updates, clip 1.0",
+        loss="Focal gamma 2", steps_timed=len(t), step_p50_ms=float(np.median(t)),
+        step_p99_ms=float(np.percentile(t, 99)), step_runs_ms=t.tolist(),
+        clips_per_s=B * len(t) / (t.sum() / 1e3), peak_mem_gb=peak_gb,
+        launches_per_step=launches, profiled_step_device_busy_ms=busy_ms,
+        profiled_step_wall_ms=prof_wall_ms, top_kernels=top_kernels,
+        # the profiled step's device time against the unprofiled step's p50
+        device_idle_share=None if busy_ms is None else 1 - busy_ms / float(np.median(t)),
+        losses=losses.tolist(), params_moved=f"{sum(moved)}/{len(moved)}",
+        nan_guard_bit_identical=guard_ok,
+        card_vs_cpu={"batch": Bc, "losses_cuda": l_gpu.tolist(), "losses_cpu": l_cpu.tolist(),
+                     "loss_max_rel": loss_rel, "loss_rtol": 1e-3,
+                     "param_max_abs": param_err, "param_atol": 1e-4,
+                     "grad_max_rel": grad_rel, "grad_rtol": 1e-3},
+        stage_s=stage_s)
+    ok = bool(np.isfinite(losses).all() and all(moved) and guard_ok and parity_ok)
+    return ok, fields
+
+
+def train_cli_phase() -> tuple:
+    """python -m kstar_torch.cli.train_vision --synthetic --num_epoch 2 at the
+    flagship widths (the synthetic shots are 64 px, so the crop is 64), then
+    --resume for one more epoch; the alarm sweep after each must launch the
+    spatial-table kernel."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    from kstar_torch.cli import train_vision
+    from kstar_torch.ops.spatial_table import spatial_table
+
+    fields, ok = {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--model", "ViViT", "--synthetic", "--weight_dir", f"{tmp}/w",
+                "--save_dir", f"{tmp}/r", "--verbose", "1"]
+        for name, extra in (("first", ["--num_epoch", "2"]),
+                            ("resume", ["--num_epoch", "1", "--resume"])):
+            out = io.StringIO()
+            spatial_table.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                train_vision.main(argv + extra)
+            wall = time.perf_counter() - t0
+            text = out.getvalue()
+            print(text, file=sys.stderr, end="")
+            last = [f for f in os.listdir(f"{tmp}/w") if f.endswith("_last.ckpt")]
+            best = [f for f in os.listdir(f"{tmp}/w") if f.endswith("_best.ckpt")]
+            reports = [f for f in os.listdir(f"{tmp}/r") if f.endswith("_report.txt")]
+            f1 = re.search(r"test macro-F1 ([0-9.]+)", text)
+            saved_step = (int(torch.load(f"{tmp}/w/{last[0]}", map_location="cpu")["step"])
+                          if last else None)
+            run = dict(wall_s=wall, spatial_table_launches=spatial_table.launches,
+                       test_macro_f1=float(f1.group(1)) if f1 else None,
+                       checkpoints=sorted(last + best), reports=reports,
+                       saved_step=saved_step,
+                       datasets=re.search(r"datasets: .*", text).group(0))
+            ok = ok and bool(last and best and reports and f1
+                             and spatial_table.launches > 0)
+            if name == "resume":
+                m = re.search(r"resumed from \S+ at step (\d+)", text)
+                run["resumed_at_step"] = int(m.group(1)) if m else None
+                ok = ok and run["resumed_at_step"] == fields["first"]["saved_step"] \
+                    and saved_step > run["resumed_at_step"]
+            fields[name] = run
+    return ok, fields
 
 
 def main() -> int:
@@ -592,6 +800,17 @@ def main() -> int:
          alarm_threshold=lib_thr, alarm_summary=summary, ok=bool(lib_ok))
     if not lib_ok:
         failures.append("library")
+
+    t0 = time.perf_counter()
+    train_ok, train_fields = train_phase(args.seed, frames, cfg, dev)
+    emit("train", **train_fields, seconds=time.perf_counter() - t0, ok=train_ok)
+    if not train_ok:
+        failures.append("train")
+    t0 = time.perf_counter()
+    cli_ok, cli_fields = train_cli_phase()
+    emit("train_cli", **cli_fields, seconds=time.perf_counter() - t0, ok=cli_ok)
+    if not cli_ok:
+        failures.append("train_cli")
 
     kernel_rows = []
     for c in checks:

@@ -15,12 +15,11 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda`` (raising when CUDA is unavailable); anything else
-    is passed to ``torch.device`` as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "kstar_torch runs on the GPU by default and CUDA is not "
-                "available; pass device=\"cpu\" to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` -> ``cuda``; anything else is passed to ``torch.device`` as
+    given. A CUDA device raises at once when CUDA is unavailable."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "kstar_torch runs on the GPU by default and CUDA is not "
+            "available; pass device=\"cpu\" (--device cpu) to run on the CPU")
+    return device

@@ -1,0 +1,303 @@
+"""Shared CLI plumbing: data-root resolution, config construction from args,
+shot partitioning, and the synthetic-data fallback used for smoke runs
+without KSTAR data.
+
+Port of ``kstar_tpu/cli/common.py``. Not ported: ``make_dp_mesh``,
+``make_raw_puts`` with a mesh and ``setup_dp`` (data parallelism, ROADMAP.md
+Queue 1 item 14); ``--dp`` is parsed so the train CLIs can refuse it by
+name.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Tuple
+
+import numpy as np
+import pandas as pd
+
+from ..config import LossConfig, OptimConfig, TrainConfig, tag_for
+from ..data import VideoStore
+
+
+def add_common_args(p: argparse.ArgumentParser, batch_size: int = 64) -> None:
+    p.add_argument("--data_root", type=str, default="./dataset",
+                   help="root with video/<shot>.npy, shot_list.csv, ts_data.csv")
+    p.add_argument("--synthetic", action="store_true",
+                   help="run on generated synthetic shots (smoke test)")
+    p.add_argument("--synthetic_difficulty", type=float, default=0.0,
+                   help="0 = trivially separable fixture; >0 adds gradual "
+                        "seconds-scale precursors, distractor flashes and "
+                        "noise (data/synthetic.py)")
+    p.add_argument("--synthetic_shots", type=int, default=10)
+    p.add_argument("--synthetic_normal", type=int, default=0,
+                   help="additional NON-disruptive synthetic shots (ramp-"
+                        "down, no quench): excluded from train/valid/test "
+                        "windows, swept by the alarm metrics as the "
+                        "false-alarm population (eval/alarms.py)")
+    p.add_argument("--synthetic_frames", type=int, default=256)
+    p.add_argument("--synthetic_eval_disrupt", type=int, default=0,
+                   help="additional DISRUPTIVE synthetic shots marked "
+                        "eval_only: held out of every train/valid/test "
+                        "split, swept only by the alarm metrics")
+    p.add_argument("--synthetic_eval_normal", type=int, default=0,
+                   help="additional NON-disruptive eval_only shots: the "
+                        "false-alarm analogue of --synthetic_eval_disrupt")
+    p.add_argument("--synthetic_lead_s", type=float, nargs=2, default=None,
+                   metavar=("MIN", "MAX"),
+                   help="per-shot precursor lead window in seconds "
+                        "(default 0.5 2.5)")
+    p.add_argument("--train_with_normal", action="store_true",
+                   help="include NON-disruptive shots in training as "
+                        "negative-only windows (no reference counterpart): "
+                        "normals are split train/valid/test like disruptive "
+                        "shots, and ONLY the held-out test normals feed the "
+                        "false-alarm metrics")
+    p.add_argument("--alarm_dwell_s", type=float, default=0.0,
+                   help="alarm dwell (hysteresis) in seconds: the alarm "
+                        "trips only after the probability stays above "
+                        "--threshold for this much continuous armed time "
+                        "(0 = the reference first-crossing rule)")
+    p.add_argument("--random_seed", type=int, default=42)
+    p.add_argument("--save_dir", type=str, default="./results")
+    p.add_argument("--weight_dir", type=str, default="./weights")
+    p.add_argument("--test_shot_num", type=int, default=21310)
+    p.add_argument("--batch_size", type=int, default=batch_size)
+    p.add_argument("--num_epoch", type=int, default=128)
+    p.add_argument("--seq_len", type=int, default=21)
+    p.add_argument("--dist", type=int, default=3)
+    p.add_argument("--use_sampling", action="store_true")
+    p.add_argument("--use_weighting", action="store_true")
+    p.add_argument("--use_DRW", action="store_true")
+    p.add_argument("--beta", type=float, default=0.25)
+    p.add_argument("--loss_type", type=str, default="Focal",
+                   choices=["CE", "Focal", "LDAM"])
+    p.add_argument("--max_m", type=float, default=0.5)
+    p.add_argument("--s", type=float, default=1.0)
+    p.add_argument("--focal_gamma", type=float, default=2.0)
+    p.add_argument("--optimizer", type=str, default="AdamW",
+                   choices=["SGD", "RMSProp", "Adam", "AdamW"])
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--use_scheduler", action="store_true", default=True)
+    p.add_argument("--no_scheduler", dest="use_scheduler", action="store_false")
+    p.add_argument("--step_size", type=int, default=4)
+    p.add_argument("--gamma", type=float, default=0.95)
+    p.add_argument("--early_stopping_patience", type=int, default=32)
+    p.add_argument("--early_stopping_delta", type=float, default=1e-3)
+    p.add_argument("--max_norm_grad", type=float, default=1.0)
+    p.add_argument("--verbose", type=int, default=4)
+    p.add_argument("--scaler", type=str, default="Robust",
+                   choices=["Robust", "Standard", "MinMax"])
+    p.add_argument("--threshold", type=float, default=0.5)
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="run K train steps per call over a stacked upload of "
+                        "K batches (train/loop.py make_scan_steps; the same "
+                        "trajectory as K single steps)")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel over N devices: not ported yet "
+                        "(ROADMAP.md Queue 1 item 14)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume exactly from <tag>_last.ckpt (full state: "
+                        "params+optimizer+step+seed; the reference only "
+                        "reloads weights, src/train.py:249-264)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to run on (default: the GPU; the tests "
+                        "pass cpu)")
+
+
+def configs_from_args(args) -> Tuple[TrainConfig, LossConfig, OptimConfig]:
+    train_cfg = TrainConfig(
+        batch_size=args.batch_size, num_epoch=args.num_epoch, seed=args.random_seed,
+        use_sampling=args.use_sampling,
+        early_stopping_patience=args.early_stopping_patience,
+        early_stopping_delta=args.early_stopping_delta,
+        verbose=args.verbose, save_dir=args.save_dir, weight_dir=args.weight_dir,
+        compute_dtype=args.compute_dtype,
+        steps_per_dispatch=args.steps_per_dispatch,
+    )
+    loss_cfg = LossConfig(
+        loss_type=args.loss_type, focal_gamma=args.focal_gamma,
+        ldam_max_m=args.max_m, ldam_s=args.s,
+        use_weighting=args.use_weighting, use_drw=args.use_DRW, drw_beta=args.beta,
+    )
+    optim_cfg = OptimConfig(
+        optimizer=args.optimizer, lr=args.lr, use_scheduler=args.use_scheduler,
+        step_size=args.step_size, gamma=args.gamma,
+        max_norm_grad=args.max_norm_grad,
+    )
+    return train_cfg, loss_cfg, optim_cfg
+
+
+def load_data(args, need_video: bool = False, dt: float = 4.0 / 210.0):
+    """Load (disrupt_df, ts_df, store) from --data_root, or generate
+    synthetic shots under --synthetic."""
+    if args.synthetic:
+        from ..data import synthetic
+
+        lead = getattr(args, "synthetic_lead_s", None)
+        shots, disrupt_df, ts_df = synthetic.make_dataset(
+            n_shots=getattr(args, "synthetic_shots", 10),
+            n_frames=getattr(args, "synthetic_frames", 256),
+            height=64, width=64, dt=dt,
+            seed=args.random_seed,
+            difficulty=getattr(args, "synthetic_difficulty", 0.0),
+            n_normal=getattr(args, "synthetic_normal", 0),
+            n_eval_disrupt=getattr(args, "synthetic_eval_disrupt", 0),
+            n_eval_normal=getattr(args, "synthetic_eval_normal", 0),
+            precursor_lead_s=tuple(lead) if lead else (0.5, 2.5))
+        store = VideoStore.from_arrays({s.shot: s.frames for s in shots})
+        return disrupt_df, ts_df, store
+
+    root = args.data_root
+
+    def read_csv_compat(path):
+        """Read either this framework's csvs or the reference's artifacts
+        (KSTAR shot list is euc-kr encoded, reference utility.py:910)."""
+        try:
+            return pd.read_csv(path)
+        except UnicodeDecodeError:
+            return pd.read_csv(path, encoding="euc-kr")
+
+    # accept the reference's file names as drop-in fallbacks
+    shot_list_path = os.path.join(root, "shot_list.csv")
+    if not os.path.exists(shot_list_path):
+        alt = os.path.join(root, "KSTAR_Disruption_Shot_List_extend.csv")
+        shot_list_path = alt if os.path.exists(alt) else shot_list_path
+    disrupt_df = read_csv_compat(shot_list_path)
+
+    ts_path = os.path.join(root, "ts_data.csv")
+    if not os.path.exists(ts_path):
+        for alt in ("KSTAR_Disruption_ts_data_extend.csv",
+                    "KSTAR_Disruption_ts_data_5ms.csv"):
+            cand = os.path.join(root, alt)
+            if os.path.exists(cand):
+                ts_path = cand
+                break
+    ts_df = read_csv_compat(ts_path) if os.path.exists(ts_path) else None
+    store = None
+    if need_video:
+        vdir = os.path.join(root, "video")
+        shots = [int(os.path.splitext(f)[0]) for f in os.listdir(vdir)
+                 if f.endswith(".npy")] if os.path.isdir(vdir) else []
+        store = VideoStore(vdir, shots)
+    return disrupt_df, ts_df, store
+
+
+def split_normal_shots(disrupt_df, shots):
+    """Partition a shot list into (disruptive, normal) per the shot log's
+    is_disrupt flag (or NaN tipminf). Normal shots stay out of the
+    train/valid/test window splits — they would contribute zero windows —
+    and are swept by the alarm metrics as the false-alarm population."""
+    if "is_disrupt" in disrupt_df.columns:
+        normal = set(disrupt_df.shot[~disrupt_df.is_disrupt.astype(bool)].tolist())
+    else:
+        normal = set(disrupt_df.shot[~np.isfinite(disrupt_df.tipminf)].tolist())
+    return ([s for s in shots if s not in normal],
+            [s for s in shots if s in normal])
+
+
+def split_eval_only_shots(disrupt_df, shots):
+    """Partition a shot list into (splittable, eval_only) per the shot log's
+    eval_only flag (absent = all splittable). Eval-only shots never enter a
+    train/valid/test window split; they exist purely to grow the alarm
+    sweeps' detection/false-alarm populations."""
+    if "eval_only" not in disrupt_df.columns:
+        return list(shots), []
+    ev = set(disrupt_df.shot[disrupt_df.eval_only.astype(bool)].tolist())
+    return ([s for s in shots if s not in ev], [s for s in shots if s in ev])
+
+
+def partition_shots(disrupt_df, shots):
+    """One-stop split for the train/eval CLIs:
+    ``(disrupt_splittable, normal_splittable, eval_disrupt, eval_normal)``.
+    Eval-only shots (either class) are carved off FIRST so they can never
+    leak into a train/valid/test split — including the normal-shot split
+    under --train_with_normal."""
+    core, ev = split_eval_only_shots(disrupt_df, shots)
+    d, n = split_normal_shots(disrupt_df, core)
+    ev_d, ev_n = split_normal_shots(disrupt_df, ev)
+    return d, n, ev_d, ev_n
+
+
+def make_tag(model: str, args, loss_cfg, train_cfg) -> str:
+    return tag_for(model, args.seq_len, args.dist, loss_cfg, train_cfg,
+                   use_sampling=args.use_sampling)
+
+
+def write_alarm_artifacts(curves, threshold, save_dir, tag,
+                          min_dwell_s: float = 0.0):
+    """Score pre-swept shot curves and write ``{tag}_alarms.json``/``.csv``,
+    ``{tag}_threshold_tradeoff.csv``, ``{tag}_dwell_tradeoff.csv`` and
+    ``{tag}_operating_grid.csv`` (eval/alarms.py metric definitions)."""
+    from ..eval import (dwell_tradeoff_from_curves, operating_grid_from_curves,
+                        score_alarms, threshold_tradeoff_from_curves)
+
+    res = score_alarms(curves, threshold, min_dwell_s=min_dwell_s)
+    print(f"alarm summary: {res['summary']}")
+    with open(os.path.join(save_dir, f"{tag}_alarms.json"), "w") as f:
+        json.dump(res["summary"], f, indent=2)
+    res["per_shot"].to_csv(
+        os.path.join(save_dir, f"{tag}_alarms.csv"), index=False)
+
+    # operational trade-off curves: detection / warning / premature rate vs
+    # threshold (at the configured dwell) and vs dwell (at the configured
+    # threshold) — the library is swept ONCE by the caller; the trade-offs
+    # just rescore the held curves on the host
+    tradeoff = threshold_tradeoff_from_curves(curves, min_dwell_s=min_dwell_s)
+    tradeoff.to_csv(
+        os.path.join(save_dir, f"{tag}_threshold_tradeoff.csv"), index=False)
+    print(tradeoff.to_string(index=False))
+    dwell = dwell_tradeoff_from_curves(curves, threshold=threshold)
+    dwell.to_csv(
+        os.path.join(save_dir, f"{tag}_dwell_tradeoff.csv"), index=False)
+    print(dwell.to_string(index=False))
+
+    grid = operating_grid_from_curves(curves)
+    grid.to_csv(
+        os.path.join(save_dir, f"{tag}_operating_grid.csv"), index=False)
+    best = grid[(grid.detection_rate >= 1.0)
+                & (grid.false_alarm_rate.fillna(0) <= 0.0)]
+    if len(best):
+        b = best.sort_values("warning_p50_s", ascending=False).iloc[0]
+        print(f"operating points with detection 1.0 / FPR 0: {len(best)} "
+              f"(best warning_p50 {b.warning_p50_s:.2f}s at threshold "
+              f"{b.threshold}, dwell {b.min_dwell_s}s)")
+    else:
+        print("no operating point reaches detection 1.0 / FPR 0 "
+              f"({tag}_operating_grid.csv records the full surface)")
+    return res
+
+
+def emit_alarm_artifacts(model, store, disrupt_df, sweep_shot_list,
+                         seq_len, dist, crop, batch_size, dtype, threshold,
+                         save_dir, tag, min_dwell_s: float = 0.0, device=None):
+    """Vision path: sweep whole shots (test + normal populations) with the
+    batched engine (the spatial-table kernel on a GPU), then score + write
+    via write_alarm_artifacts. Returns the swept curves for reuse."""
+    from ..eval import sweep_prob_curves
+
+    curves = sweep_prob_curves(
+        model, store, disrupt_df, sweep_shot_list, seq_len=seq_len, dist=dist,
+        crop_size=crop, batch_size=batch_size, compute_dtype=dtype,
+        device=device)
+    write_alarm_artifacts(curves, threshold, save_dir, tag,
+                          min_dwell_s=min_dwell_s)
+    return curves
+
+
+def resolve_normal_splits(args, normal_s, splitter):
+    """--train_with_normal plumbing shared by the train CLIs: split the
+    normal shots with the SAME splitter as the disruptive shots, and keep
+    the false-alarm population disjoint from anything trained on.
+
+    Returns (train_n, valid_n, test_n, sweep_normals, include_normal):
+    without the flag every normal shot stays eval-only; with it, only the
+    held-out test normals are swept."""
+    if getattr(args, "train_with_normal", False) and normal_s:
+        train_n, valid_n, test_n = splitter(normal_s)
+        return train_n, valid_n, test_n, test_n, True
+    return [], [], [], list(normal_s), False

@@ -1,0 +1,209 @@
+"""Vision network training CLI (port of ``kstar_tpu/cli/train_vision.py``,
+a rebuild of reference train_vision_network.py): video dataset build ->
+ViViT -> train/train_DRW -> reload the best checkpoint -> test macro-F1 and
+ROC-AUC -> shot-level alarms from whole-shot sweeps of the test shots.
+
+Usage (the GPU by default; ``--device cpu`` runs on the CPU):
+    python -m kstar_torch.cli.train_vision --model ViViT --synthetic --num_epoch 2
+
+Not ported yet, each refused with the ROADMAP.md Queue 1 item that ports
+it: the conv video models SlowFast and R2Plus1D and ``--bn_splits`` (item
+11), several ``--seeds`` at once (item 13), ``--dp`` (item 14). The
+learning-curve and probability-curve plots wait for the viz port (item 15);
+the CLI says that it skipped them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+# unported options -> the ROADMAP.md Queue 1 item that ports them
+_ITEM_CONV = "ROADMAP.md Queue 1 item 11 (conv video models)"
+_ITEM_ENSEMBLE = "ROADMAP.md Queue 1 item 13 (search and ensembles)"
+_ITEM_DP = "ROADMAP.md Queue 1 item 14 (parallel)"
+_ITEM_VIZ = "ROADMAP.md Queue 1 item 15 (viz)"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from .common import add_common_args
+
+    p = argparse.ArgumentParser(description="train vision disruption predictor")
+    p.add_argument("--model", type=str, default="ViViT",
+                   choices=["ViViT", "SlowFast", "R2Plus1D"],
+                   help=f"ViViT; SlowFast and R2Plus1D wait for {_ITEM_CONV}")
+    p.add_argument("--tag", type=str, default=None)
+    p.add_argument("--seeds", type=int, nargs="+", default=None,
+                   help="one seed trains with that seed; several (an "
+                        f"ensemble) wait for {_ITEM_ENSEMBLE}")
+    add_common_args(p, batch_size=64)
+    p.add_argument("--image_size", type=int, default=128)
+    # augmentation (reference train_vision_network.py:52-63)
+    p.add_argument("--bright_val", type=int, default=10)
+    p.add_argument("--bright_p", type=float, default=0.25)
+    p.add_argument("--contrast_min", type=float, default=1.0)
+    p.add_argument("--contrast_max", type=float, default=1.25)
+    p.add_argument("--contrast_p", type=float, default=0.25)
+    p.add_argument("--blur_k", type=int, default=5)
+    p.add_argument("--blur_p", type=float, default=0.25)
+    p.add_argument("--flip_p", type=float, default=0.25)
+    p.add_argument("--vertical_ratio", type=float, default=0.1)
+    p.add_argument("--vertical_p", type=float, default=0.25)
+    p.add_argument("--horizontal_ratio", type=float, default=0.1)
+    p.add_argument("--horizontal_p", type=float, default=0.25)
+    # ViViT hyperparameters (reference :106-114)
+    p.add_argument("--patch_size", type=int, default=16)
+    p.add_argument("--alpha", type=float, default=1.0)
+    p.add_argument("--dropout", type=float, default=0.1)
+    p.add_argument("--embedd_dropout", type=float, default=0.1)
+    p.add_argument("--dim", type=int, default=128)
+    p.add_argument("--n_heads", type=int, default=4)
+    p.add_argument("--d_head", type=int, default=64)
+    p.add_argument("--scale_dim", type=int, default=8)
+    p.add_argument("--depth", type=int, default=2)
+    p.add_argument("--norm_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="ViViT LayerNorm/softmax accumulation dtype")
+    p.add_argument("--bn_splits", type=int, default=None,
+                   help=f"SubBatchNorm split count (SlowFast): {_ITEM_CONV}")
+    p.add_argument("--skip_extras", action="store_true",
+                   help="skip the alarm sweep after the test evaluation")
+    return p
+
+
+def refuse_unported(args) -> None:
+    """SystemExit naming the ROADMAP item for each option not ported yet."""
+    if args.model != "ViViT":
+        raise SystemExit(f"--model {args.model} is not ported to kstar_torch yet: "
+                         f"{_ITEM_CONV}")
+    if args.bn_splits:
+        raise SystemExit(f"--bn_splits is not ported to kstar_torch yet: {_ITEM_CONV}")
+    if args.seeds and len(args.seeds) > 1:
+        raise SystemExit("--seeds with more than one seed (the vmapped ensemble) "
+                         f"is not ported to kstar_torch yet: {_ITEM_ENSEMBLE}")
+    if args.dp:
+        raise SystemExit(f"--dp is not ported to kstar_torch yet: {_ITEM_DP}")
+
+
+def model_config(args):
+    from ..config import ViViTConfig
+
+    return ViViTConfig(
+        image_size=args.image_size, patch_size=args.patch_size,
+        n_frames=args.seq_len, dim=args.dim, depth=args.depth,
+        n_heads=args.n_heads, d_head=args.d_head, scale_dim=args.scale_dim,
+        dropout=args.dropout, embedd_dropout=args.embedd_dropout,
+        norm_dtype=args.norm_dtype)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.seeds and len(args.seeds) == 1:
+        # a single --seeds value trains the normal path with that seed
+        args.random_seed, args.seeds = args.seeds[0], None
+    refuse_unported(args)
+
+    from .. import resolve_device
+    from ..config import AugmentConfig
+    from ..data import ImbalancedSampler, VideoDataset, split_shots, to_device
+    from ..data.augment import make_pre_fns
+    from ..eval.evaluate import evaluate
+    from ..models import build_video_model
+    from ..train import (MetricWriter, create_train_state, fit,
+                         load_checkpoint)
+    from .common import (configs_from_args, emit_alarm_artifacts, load_data,
+                         make_tag, partition_shots, resolve_normal_splits)
+
+    device = resolve_device(args.device)
+    train_cfg, loss_cfg, optim_cfg = configs_from_args(args)
+    test_shot = None if args.synthetic else args.test_shot_num
+
+    disrupt_df, ts_df, store = load_data(args, need_video=True)
+    shots, normal_s, eval_disrupt_s, eval_normal_s = partition_shots(
+        disrupt_df, sorted(store.arrays.keys()))
+    train_s, valid_s, test_s = split_shots(shots, test_shot)
+    train_n, valid_n, test_n, sweep_normals, inc_normal = resolve_normal_splits(
+        args, normal_s, lambda ss: split_shots(ss, None))
+
+    cfg, seq_len = model_config(args), args.seq_len
+    mk = lambda ss: VideoDataset(store, disrupt_df, ss, seq_len=seq_len,
+                                 dist=args.dist, include_normal=inc_normal)
+    train_ds, valid_ds, test_ds = (mk(list(train_s) + train_n),
+                                   mk(list(valid_s) + valid_n),
+                                   mk(list(test_s) + test_n))
+    print(f"datasets: train {len(train_ds)} valid {len(valid_ds)} test {len(test_ds)} "
+          f"| class counts {train_ds.class_counts().tolist()}")
+
+    dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+    init = torch.Generator().manual_seed(args.random_seed)
+    model = build_video_model("ViViT", cfg, dtype=dtype, generator=init).to(device)
+
+    aug = AugmentConfig(
+        bright_val=args.bright_val, bright_p=args.bright_p,
+        contrast_min=args.contrast_min, contrast_max=args.contrast_max,
+        contrast_p=args.contrast_p, blur_k=args.blur_k, blur_p=args.blur_p,
+        flip_p=args.flip_p, vertical_ratio=args.vertical_ratio,
+        vertical_p=args.vertical_p, horizontal_ratio=args.horizontal_ratio,
+        horizontal_p=args.horizontal_p)
+
+    crop = min(args.image_size, store.arrays[shots[0]].shape[1])
+    # crop/augment/normalize run inside the train/eval steps on the device;
+    # the put hook only ships raw uint8 bytes (pinned, non_blocking)
+    pre_train, pre_eval = make_pre_fns(crop, aug, out_dtype=dtype)
+    put_raw = lambda bl: to_device(bl, device)
+
+    steps = max(len(train_ds) // args.batch_size, 1)
+    state = create_train_state(model, optim_cfg, steps_per_epoch=steps,
+                               seed=args.random_seed)
+
+    tag = args.tag or make_tag(args.model, args, loss_cfg, train_cfg)
+    if args.resume:
+        last = os.path.join(args.weight_dir, f"{tag}_last.ckpt")
+        if os.path.exists(last):
+            state = load_checkpoint(state, last)
+            print(f"resumed from {last} at step {int(state.step)}")
+    writer = MetricWriter(os.path.join(args.save_dir, "tensorboard", tag))
+    sampler = ImbalancedSampler(train_ds.labels) if args.use_sampling else None
+
+    state, hist = fit(state, train_ds, valid_ds, train_cfg, loss_cfg, tag=tag,
+                      sampler=sampler, writer=writer, put=put_raw,
+                      put_eval=put_raw, pre_fn=pre_train, pre_fn_eval=pre_eval)
+    print(f"learning-curve plot skipped: plot_learning_curve waits for {_ITEM_VIZ}")
+
+    # test evaluation + extras run on the BEST checkpoint, not the final
+    # epoch (reference train_vision_network.py:393 reloads best before eval)
+    best_path = os.path.join(args.weight_dir, f"{tag}_best.ckpt")
+    if os.path.exists(best_path):
+        state = load_checkpoint(state, best_path)
+
+    os.makedirs(args.save_dir, exist_ok=True)
+    results = evaluate(model, test_ds, loss_cfg, args.batch_size, args.threshold,
+                       save_txt=os.path.join(args.save_dir, f"{tag}_report.txt"),
+                       put=put_raw, pre_fn=pre_eval)
+    print(f"test macro-F1 {results['macro_f1']:.4f} | ROC-AUC {results['roc_auc']:.4f}")
+
+    if not args.skip_extras:
+        # shot-level alarm scoring over the test shots; normal shots join the
+        # sweep as the false-alarm population (under --train_with_normal
+        # only the held-out test normals)
+        try:
+            emit_alarm_artifacts(
+                model, store, disrupt_df,
+                list(test_s) + list(eval_disrupt_s) + list(sweep_normals)
+                + list(eval_normal_s),
+                seq_len=seq_len, dist=args.dist, crop=crop,
+                batch_size=args.batch_size, dtype=dtype,
+                threshold=args.threshold, save_dir=args.save_dir, tag=tag,
+                min_dwell_s=args.alarm_dwell_s, device=device)
+        except Exception as e:  # noqa: BLE001 — the JAX CLI's best-effort extras
+            print(f"alarm evaluation skipped: {type(e).__name__}: {e}")
+        print(f"probability-curve plot skipped: plot_shot_probability_zoom "
+              f"waits for {_ITEM_VIZ}")
+    writer.close()
+    return results
+
+
+if __name__ == "__main__":
+    main()

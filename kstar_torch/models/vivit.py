@@ -44,6 +44,21 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int,
                           generator=generator)
 
 
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: in training keep each element with probability
+    1 - rate and scale the kept ones by 1/(1 - rate). The mask comes from
+    ``generator`` (on ``x``'s device), never from torch's global RNG."""
+    if not train or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training draws its masks from an explicit "
+                         "torch.Generator; pass generator=")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: f32 parameters, product and bias in ``dtype``.
     ``weight`` is (out, in) as in ``torch.nn.Linear``."""
@@ -109,7 +124,8 @@ class MHSA(nn.Module):
         if self.project_out:
             self.to_out = Dense(inner, dim, dtype=dtype, generator=generator)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, N, _ = x.shape
         h, dh = self.n_heads, self.d_head
         # [q | k | v], each laid out head-major
@@ -117,6 +133,11 @@ class MHSA(nn.Module):
                    for t in self.to_qkv(x).chunk(3, dim=-1))
         scale = dh ** -0.5
         if self.use_pallas:
+            if train and torch.is_grad_enabled():
+                raise RuntimeError(
+                    "ViViT(use_pallas=True) cannot train: the fused-attention "
+                    "kernel has no backward (neither has the JAX kernel); train "
+                    "with use_pallas=False")
             out = fused_attention(q, k, v, scale)
         else:
             logits = (q @ k.transpose(-1, -2)).to(self.norm_dtype) * scale
@@ -124,7 +145,7 @@ class MHSA(nn.Module):
             out = attn @ v
         out = out.transpose(1, 2).reshape(B, N, h * dh)
         if self.project_out:
-            out = F.dropout(self.to_out(out), self.dropout, training=train)
+            out = dropout(self.to_out(out), self.dropout, train, generator)
         return out
 
 
@@ -151,15 +172,16 @@ class PreNormTransformer(nn.Module):
                                               generator=generator))
         self.final_norm = LayerNorm(dim, norm_dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         sub = self._modules
         for i in range(self.depth):
             a = sub[f"attn_norm_{i}"](x).to(self.dtype)
-            x = x + sub[f"attn_{i}"](a, train)
+            x = x + sub[f"attn_{i}"](a, train, generator)
             f = sub[f"ff_norm_{i}"](x).to(self.dtype)
             f = F.gelu(sub[f"ff1_{i}"](f), approximate="tanh")
-            f = F.dropout(f, self.dropout, training=train)
-            f = F.dropout(sub[f"ff2_{i}"](f), self.dropout, training=train)
+            f = dropout(f, self.dropout, train, generator)
+            f = dropout(sub[f"ff2_{i}"](f), self.dropout, train, generator)
             x = x + f
         return self.final_norm(x).to(self.dtype)
 
@@ -222,20 +244,24 @@ class ViViTEncoder(nn.Module):
         x = x.mean(dim=1) if self.pool == "mean" else x[:, 0]
         return x.float()
 
-    def encode_tokens(self, tokens: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """(B, T, N, dim) embedded patches -> (B, dim) pooled latent."""
+    def encode_tokens(self, tokens: torch.Tensor, train: bool = False,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, T, N, dim) embedded patches -> (B, dim) pooled latent. In
+        training (``train=True``) the dropout masks come from ``generator``."""
         B, T = tokens.shape[0], tokens.shape[1]
         x = tokens.to(self.dtype)
         cls_s = self.space_token.to(self.dtype).expand(B, T, 1, self.dim)
         x = torch.cat([cls_s, x], dim=2)                        # (B,T,N+1,D)
         x = x + self.pos_embedding[:, :T, : x.shape[2]].to(self.dtype)
-        x = F.dropout(x, self.embedd_dropout, training=train)
+        x = dropout(x, self.embedd_dropout, train, generator)
 
-        x = self.space_transformer(x.reshape(B * T, x.shape[2], self.dim), train)
+        x = self.space_transformer(x.reshape(B * T, x.shape[2], self.dim), train,
+                                   generator)
         x = x[:, 0].reshape(B, T, self.dim)                     # spatial cls
 
         cls_t = self.temporal_token.to(self.dtype).expand(B, 1, self.dim)
-        x = self.temporal_transformer(torch.cat([cls_t, x], dim=1), train)
+        x = self.temporal_transformer(torch.cat([cls_t, x], dim=1), train,
+                                      generator)
         return self._pool(x)
 
     def spatial_cls(self, tokens: torch.Tensor, offset: int) -> torch.Tensor:
@@ -257,8 +283,9 @@ class ViViTEncoder(nn.Module):
         cls_t = self.temporal_token.to(self.dtype).expand(B, 1, self.dim)
         return self._pool(self.temporal_transformer(torch.cat([cls_t, x], dim=1)))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return self.encode_tokens(self.embed_frames(x), train)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.encode_tokens(self.embed_frames(x), train, generator)
 
 
 class ViViT(nn.Module):
@@ -291,8 +318,11 @@ class ViViT(nn.Module):
     def classify(self, latent: torch.Tensor) -> torch.Tensor:
         return self.mlp_fc2(F.elu(self.mlp_ln(self.mlp_fc1(latent.float()))))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return self.classify(self.encoder(x, train))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Logits of (B, T, H, W, C) clips. ``train=True`` turns dropout on,
+        with its masks drawn from ``generator``."""
+        return self.classify(self.encoder(x, train, generator))
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Pooled latent (also the fusion latent of the GB models)."""
@@ -302,9 +332,10 @@ class ViViT(nn.Module):
         """Offset-free per-frame patch embeddings (see ViViTEncoder)."""
         return self.encoder.embed_frames(x)
 
-    def forward_tokens(self, tokens: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward_tokens(self, tokens: torch.Tensor, train: bool = False,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Logits from pre-embedded (B, T, N, dim) patch tokens."""
-        return self.classify(self.encoder.encode_tokens(tokens, train))
+        return self.classify(self.encoder.encode_tokens(tokens, train, generator))
 
     def spatial_cls(self, tokens: torch.Tensor, offset: int) -> torch.Tensor:
         """Per-frame spatial cls at one in-window offset (see ViViTEncoder)."""

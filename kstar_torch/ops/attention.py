@@ -68,6 +68,9 @@ def fused_attention(q, k, v, scale: float):
                          f"(D <= {MAX_D}, N >= 1)")
     if k.device != q.device or v.device != q.device:
         raise ValueError("fused_attention: q, k, v must be on one device")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("fused_attention: the kernel has no backward; call it "
+                           "under torch.no_grad() (train with use_pallas=False)")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     fn = _build.function("attention", f"fused_attention_{_DTYPES[q.dtype]}", _ARGTYPES)

@@ -1,0 +1,14 @@
+"""The port's training core (``kstar_tpu/train``): state and optax-exact
+optimizers, the guarded train step, epoch drivers, metrics, early stopping
+and metric logging. ``cca``, ``gb``, ``mixup``, ``ensemble`` and the HPO
+modules are not ported yet (ROADMAP.md Queue 1)."""
+
+from .early_stopping import EarlyStopping
+from .logging import MetricWriter
+from .loop import (History, fit, make_eval_step, make_scan_steps,
+                   make_train_step, run_eval_epoch, run_train_epoch)
+from .metrics import (accuracy, classification_report, confusion_matrix,
+                      macro_f1, precision_recall_curve, roc_auc, roc_curve,
+                      softmax_np, threshold_predict)
+from .state import (Optimizer, TrainState, create_train_state, load_checkpoint,
+                    load_params, make_optimizer, save_checkpoint)

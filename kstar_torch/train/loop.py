@@ -1,0 +1,309 @@
+"""Train/eval steps + epoch drivers.
+
+Port of ``kstar_tpu/train/loop.py`` (rebuild of reference src/train.py
+train_per_epoch/valid_per_epoch/train/train_DRW):
+
+  * class weights and LDAM margins are tensor inputs of the step, so DRW
+    changes them per epoch without rebuilding anything;
+  * the NaN-loss skip guard (reference src/train.py:56-58) is a
+    ``torch.where`` select on the device (``TrainState.apply_gradients``):
+    no host sync per step;
+  * preprocessing (``pre_fn``: crop / augment / normalize of the raw uint8
+    batch) runs inside the step, on the device;
+  * each step draws from two generators on the device seeded from (seed,
+    step count) (``TrainState.next_generators``): one for ``pre_fn``, one
+    for the dropout masks;
+  * per-step losses and predictions stay on the device; the host fetches
+    them once per epoch, so step N+1 is queued while step N runs;
+  * metrics (macro-F1) accumulate host-side like the reference's sklearn
+    f1_score over the epoch's predictions.
+
+The models ported so far are single-stream; the multimodal Gradient
+Blending step (``model_type='multi-GB'``) comes with the fusion models
+(ROADMAP.md Queue 1 item 12).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import LossConfig, TrainConfig
+from ..data.loader import (epoch_batches, eval_batches, grouped_batches,
+                           prefetch_to_device, threaded_batches, to_device)
+from ..losses import (classification_loss, drw_weights, inverse_freq_weights,
+                      ldam_margins)
+from .early_stopping import EarlyStopping
+from .logging import MetricWriter
+from .metrics import accuracy, macro_f1
+from .state import TrainState, save_checkpoint
+
+
+def make_train_step(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None) -> Callable:
+    """step(state, batch, labels, weight, m_list) -> (state, loss, preds).
+
+    One optimizer step of ``state.model`` on a device batch: ``pre_fn(gen,
+    batch)`` (optional), the forward in training mode with dropout drawn
+    from the step's generator, the loss, backward, and the guarded update.
+    ``loss`` and ``preds`` stay on the device."""
+
+    def step(state: TrainState, batch, labels, weight, m_list):
+        gen_pre, gen_drop = state.next_generators()
+        if pre_fn is not None:
+            batch = pre_fn(gen_pre, batch)
+        for p in state.params:
+            p.grad = None
+        logits = state.model(batch, train=True, generator=gen_drop)
+        loss = classification_loss(logits, labels, loss_cfg.loss_type, weight=weight,
+                                   gamma=loss_cfg.focal_gamma, m_list=m_list,
+                                   s=loss_cfg.ldam_s)
+        loss.backward()
+        loss = loss.detach()
+        state.apply_gradients(torch.isfinite(loss))
+        return state, loss, logits.detach().argmax(-1)
+
+    return step
+
+
+def make_scan_steps(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None) -> Callable:
+    """K steps per call over a (K, B, ...) stack of device batches:
+
+    multi_step(state, batches, labels, weight, m_list)
+        -> (state, losses (K,), preds (K, B))
+
+    The same step function and the same per-step generators as K calls of
+    ``make_train_step``'s step, so the trajectory is the same (JAX's
+    ``lax.scan`` version amortizes a per-dispatch link latency; here it
+    takes one stacked upload per K batches)."""
+    step = make_train_step(loss_cfg, pre_fn)
+
+    def multi_step(state: TrainState, batches, labels, weight, m_list):
+        losses, preds = [], []
+        for i in range(labels.shape[0]):
+            b = ({k: v[i] for k, v in batches.items()} if isinstance(batches, dict)
+                 else batches[i])
+            state, loss, pred = step(state, b, labels[i], weight, m_list)
+            losses.append(loss)
+            preds.append(pred)
+        return state, torch.stack(losses), torch.stack(preds)
+
+    return multi_step
+
+
+def make_eval_step(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None) -> Callable:
+    """eval_step(model, batch, labels, weight, m_list, mask)
+    -> (loss, probs, preds); probs = softmax(logits) in f32, the loss counts
+    only the samples where ``mask`` is 1."""
+
+    @torch.no_grad()
+    def step(model, batch, labels, weight, m_list, mask):
+        if pre_fn is not None:
+            batch = pre_fn(None, batch)
+        logits = model(batch, train=False)
+        loss = classification_loss(logits, labels, loss_cfg.loss_type, weight=weight,
+                                   mask=mask, gamma=loss_cfg.focal_gamma,
+                                   m_list=m_list, s=loss_cfg.ldam_s)
+        return loss, torch.softmax(logits.float(), dim=-1), logits.argmax(-1)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# epoch drivers
+# ---------------------------------------------------------------------------
+
+@dataclass
+class History:
+    train_loss: List[float] = field(default_factory=list)
+    valid_loss: List[float] = field(default_factory=list)
+    train_f1: List[float] = field(default_factory=list)
+    valid_f1: List[float] = field(default_factory=list)
+    train_acc: List[float] = field(default_factory=list)
+    valid_acc: List[float] = field(default_factory=list)
+    epoch_s: List[float] = field(default_factory=list)   # wall-clock per epoch
+    best_epoch: int = 0
+    best_f1: float = 0.0
+
+
+def _loss_aux(loss_cfg: LossConfig, cls_counts: np.ndarray, epoch: int,
+              num_epoch: int, device):
+    """Per-epoch (weight, m_list) tensors for the step functions."""
+    if loss_cfg.use_drw:
+        weight = drw_weights(epoch, num_epoch, cls_counts, loss_cfg.drw_beta)
+    elif loss_cfg.use_weighting:
+        weight = inverse_freq_weights(cls_counts)
+    else:
+        weight = np.ones(len(cls_counts), np.float32)
+    m_list = ldam_margins(cls_counts, loss_cfg.ldam_max_m)
+    return (torch.as_tensor(weight).to(device), torch.as_tensor(m_list).to(device))
+
+
+def run_train_epoch(train_step, state: TrainState, dataset, batch_size, rng,
+                    weight, m_list, sampler=None, put=None, prefetch=True,
+                    scan_step=None, steps_per_dispatch: int = 1):
+    """One training epoch, pipelined: batches are gathered (and put on the
+    device) by a producer thread ahead of consumption, and the per-step
+    losses/preds stay on the device until the epoch ends (one host sync).
+
+    scan_step + steps_per_dispatch > 1: full groups of K batches run through
+    the K-step call (make_scan_steps); the remainder through ``train_step``.
+    Returns (state, mean loss, accuracy, macro-F1)."""
+    if put is None:
+        put = lambda item: to_device(item, state.device)
+    n_samples = 0
+    dev_losses, dev_preds, dev_labels = [], [], []
+    idx_iter = epoch_batches(len(dataset), batch_size, rng, sampler=sampler)
+
+    if scan_step is not None and steps_per_dispatch > 1:
+        for kind, (batch, labels) in grouped_batches(dataset, idx_iter,
+                                                     steps_per_dispatch, put):
+            if kind == "stack":
+                state, losses_k, preds_k = scan_step(state, batch, labels, weight, m_list)
+                dev_losses.append(losses_k.sum())
+                dev_preds.append(preds_k.reshape(-1))
+            else:
+                state, loss, preds = train_step(state, batch, labels, weight, m_list)
+                dev_losses.append(loss)
+                dev_preds.append(preds)
+            n_samples += labels.numel()
+            dev_labels.append(labels.reshape(-1))
+    else:
+        if prefetch:
+            batch_iter = threaded_batches(dataset, idx_iter, put)
+        else:
+            batch_iter = prefetch_to_device((dataset.batch(idx) for idx in idx_iter), put)
+        for batch, labels in batch_iter:
+            state, loss, preds = train_step(state, batch, labels, weight, m_list)
+            dev_losses.append(loss)
+            dev_preds.append(preds)
+            dev_labels.append(labels)
+            n_samples += batch_size
+    if n_samples == 0:
+        return state, 0.0, 0.0, 0.0
+    losses = float(torch.stack(dev_losses).sum())          # the epoch's one sync
+    preds = torch.cat(dev_preds).cpu().numpy()
+    labels = torch.cat(dev_labels).cpu().numpy()
+    return state, losses / n_samples, accuracy(labels, preds), macro_f1(labels, preds)
+
+
+def run_eval_epoch(eval_step, model, dataset, batch_size, weight, m_list,
+                   put=None, collect_probs: bool = False):
+    """One pass over ``dataset`` in fixed-size batches (the tail padded and
+    masked out). Returns (mean loss, accuracy, macro-F1) and, with
+    ``collect_probs``, ((N, 2) probabilities, (N,) labels)."""
+    device = next(model.parameters()).device
+    if put is None:
+        put = lambda item: to_device(item, device)
+    n_samples = 0
+    dev_losses, dev_preds, dev_probs, dev_labels, all_masks = [], [], [], [], []
+    for idx, mask in eval_batches(len(dataset), batch_size):
+        batch, labels = put(dataset.batch(idx))
+        loss, probs, preds = eval_step(model, batch, labels, weight, m_list,
+                                       to_device(mask.astype(np.float32), device))
+        dev_losses.append(loss)
+        dev_preds.append(preds)
+        if collect_probs:
+            dev_probs.append(probs)
+        dev_labels.append(labels)
+        n_samples += int(mask.sum())
+        all_masks.append(mask)
+    if n_samples == 0:
+        out = (0.0, 0.0, 0.0)
+        return out + ((np.zeros((0, 2)), np.zeros((0,))),) if collect_probs else out
+    # device results fetched once after every batch is queued
+    losses = float(torch.stack(dev_losses).sum())
+    mask_all = np.concatenate(all_masks)
+    preds = torch.cat(dev_preds).cpu().numpy()[mask_all]
+    labels = torch.cat(dev_labels).cpu().numpy()[mask_all]
+    res = (losses / n_samples, accuracy(labels, preds), macro_f1(labels, preds))
+    if collect_probs:
+        probs_all = torch.cat(dev_probs).cpu().numpy()[mask_all]
+        return res + ((probs_all, labels),)
+    return res
+
+
+def fit(
+    state: TrainState,
+    train_ds,
+    valid_ds,
+    train_cfg: TrainConfig,
+    loss_cfg: LossConfig,
+    tag: str = "model",
+    sampler=None,
+    writer: Optional[MetricWriter] = None,
+    num_epoch: Optional[int] = None,
+    put=None,
+    put_eval=None,
+    pre_fn=None,
+    pre_fn_eval=None,
+) -> Tuple[TrainState, History]:
+    """Epoch driver covering the reference's ``train`` and ``train_DRW``
+    (src/train.py:147-274, :277-422): per-epoch train/valid, metric logging,
+    last/best checkpointing on valid macro-F1, early stopping, optional DRW.
+    ``put`` moves a host (batch, labels) pair to the device (default: to the
+    state's device); ``pre_fn``/``pre_fn_eval`` preprocess inside the
+    steps."""
+    num_epoch = num_epoch or train_cfg.num_epoch
+    train_step = make_train_step(loss_cfg, pre_fn=pre_fn)
+    eval_step = make_eval_step(loss_cfg, pre_fn=pre_fn_eval)
+    k = train_cfg.steps_per_dispatch
+    scan_step = make_scan_steps(loss_cfg, pre_fn=pre_fn) if k > 1 else None
+
+    cls_counts = train_ds.class_counts()
+    rng = np.random.default_rng(train_cfg.seed)
+    stopper = EarlyStopping(train_cfg.early_stopping_patience,
+                            train_cfg.early_stopping_delta) if train_cfg.early_stopping else None
+    hist = History()
+    figure_skip_said = False
+
+    os.makedirs(train_cfg.weight_dir, exist_ok=True)
+    last_path = os.path.join(train_cfg.weight_dir, f"{tag}_last.ckpt")
+    best_path = os.path.join(train_cfg.weight_dir, f"{tag}_best.ckpt")
+
+    for epoch in range(num_epoch):
+        weight, m_list = _loss_aux(loss_cfg, cls_counts, epoch, num_epoch, state.device)
+
+        t_ep = time.perf_counter()
+        state, tr_loss, tr_acc, tr_f1 = run_train_epoch(
+            train_step, state, train_ds, train_cfg.batch_size, rng,
+            weight, m_list, sampler=sampler, put=put,
+            scan_step=scan_step, steps_per_dispatch=k)
+        va_loss, va_acc, va_f1 = run_eval_epoch(
+            eval_step, state.model, valid_ds, train_cfg.batch_size, weight, m_list,
+            put=put_eval if put_eval is not None else put)
+        ep_s = time.perf_counter() - t_ep
+
+        hist.train_loss.append(tr_loss); hist.valid_loss.append(va_loss)
+        hist.train_acc.append(tr_acc); hist.valid_acc.append(va_acc)
+        hist.train_f1.append(tr_f1); hist.valid_f1.append(va_f1)
+        hist.epoch_s.append(ep_s)
+
+        if writer:
+            writer.scalars({"Loss/train": tr_loss, "Loss/valid": va_loss,
+                            "F1/train": tr_f1, "F1/valid": va_f1,
+                            "time/epoch_s": ep_s}, epoch)
+        if train_cfg.verbose and epoch % train_cfg.verbose == 0:
+            print(f"epoch {epoch+1:3d} | train loss {tr_loss:.4f} f1 {tr_f1:.4f} "
+                  f"| valid loss {va_loss:.4f} f1 {va_f1:.4f} | {ep_s:.1f}s")
+
+        save_checkpoint(state, last_path)
+        improved = stopper(va_f1) if stopper else va_f1 > hist.best_f1
+        if improved:
+            hist.best_f1 = va_f1
+            hist.best_epoch = epoch
+            save_checkpoint(state, best_path, extra={"epoch": epoch, "valid_f1": va_f1})
+            if writer and not figure_skip_said:
+                # the JAX fit emits an evaluation figure here, best-effort
+                print("[fit] eval figure emission skipped: evaluation_figure is "
+                      "not ported yet (ROADMAP.md Queue 1 item 15, viz)")
+                figure_skip_said = True
+        if stopper and stopper.should_stop:
+            print(f"early stopping at epoch {epoch+1}")
+            break
+
+    return state, hist

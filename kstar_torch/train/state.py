@@ -1,0 +1,228 @@
+"""Train state, the optax-exact optimizers, and checkpoints.
+
+Port of ``kstar_tpu/train/state.py``. ``TrainState`` holds the model, the
+optimizer and its state, the applied-update count ``step`` (a device
+tensor) and what the per-step random streams are made from (``seed`` and
+the count of steps taken, ``draws``). The model's parameters are rebound as
+views of one flat f32 buffer, so the optimizer and the NaN guard work on a
+few whole-buffer tensors instead of one small tensor per parameter.
+
+``make_optimizer`` reproduces ``optax`` (``kstar_tpu/train/state.py:42-67``),
+not ``torch.optim``'s defaults: ``optax.chain(clip_by_global_norm(max_norm),
+tx)`` with ``tx`` one of
+
+  * ``sgd(lr, momentum=0.9)``: trace = g + 0.9 trace, update = trace;
+  * ``adam(lr)``: b1 0.9, b2 0.999, eps 1e-8 outside the square root, bias
+    correction by the incremented count;
+  * ``adamw(lr)``: adam plus ``1e-4 * param`` added to the update before
+    the learning rate (torch's AdamW defaults to 0.01 and decays first);
+  * ``rmsprop(lr)``: nu = 0.1 g^2 + 0.9 nu, update = g * rsqrt(nu + 1e-8)
+    (eps inside the root; torch's RMSprop uses alpha 0.99, eps outside);
+
+clipping scales by ``max_norm / |g|`` only when ``|g| >= max_norm`` (no
+1e-6 as in ``clip_grad_norm_``), and the learning rate is
+``exponential_decay(lr, step_size * steps_per_epoch, gamma,
+staircase=True)`` of the count of APPLIED updates: a step the NaN guard
+skips does not advance it. Everything stays on the device.
+
+A checkpoint is the full state (parameters, optimizer state, step, seed,
+draws) written with ``torch.save``: ``--resume`` continues exactly.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import OptimConfig
+
+OPTIMIZERS = ("sgd", "adam", "adamw", "rmsprop")
+# the optax defaults that kstar_tpu/train/state.py:56-63 leaves in place
+MOMENTUM = 0.9                  # sgd(momentum=0.9)
+B1, B2, EPS = 0.9, 0.999, 1e-8  # adam, adamw; rmsprop's eps is EPS too
+WEIGHT_DECAY = 1e-4             # adamw
+RMS_DECAY = 0.9                 # rmsprop
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    """One ``optax.chain(clip_by_global_norm, tx)``, written out for flat
+    f32 tensors. ``init`` and ``update`` are pure, as optax's are."""
+    name: str                      # one of OPTIMIZERS
+    lr: float
+    transition_steps: Optional[int] = None   # staircase decay; None = constant
+    decay_rate: float = 1.0
+    max_norm: Optional[float] = None
+
+    def learning_rate(self, count: torch.Tensor) -> torch.Tensor:
+        """``exponential_decay(..., staircase=True)`` at ``count`` applied
+        updates, f32 (a constant rate when there is no schedule)."""
+        if self.transition_steps is None:
+            return torch.full((), self.lr, dtype=torch.float32, device=count.device)
+        p = torch.floor(count.float() / self.transition_steps)
+        return self.lr * torch.pow(self.decay_rate, p)
+
+    def init(self, params: torch.Tensor) -> Dict[str, torch.Tensor]:
+        state = {"count": torch.zeros((), dtype=torch.int32, device=params.device)}
+        if self.name == "sgd":
+            state["trace"] = torch.zeros_like(params)
+        elif self.name in ("adam", "adamw"):
+            state["mu"] = torch.zeros_like(params)
+            state["nu"] = torch.zeros_like(params)
+        else:
+            state["nu"] = torch.zeros_like(params)
+        return state
+
+    def update(self, grads: torch.Tensor, state: Dict[str, torch.Tensor],
+               params: torch.Tensor):
+        """(updates, new state) for flat f32 gradients and parameters; the
+        new parameters are ``params + updates`` (``optax.apply_updates``)."""
+        g = grads
+        if self.max_norm is not None:
+            norm = torch.linalg.vector_norm(g)
+            g = torch.where(norm < self.max_norm, g, g / norm * self.max_norm)
+        count = state["count"]
+        count_inc = count + 1
+        new = {"count": count_inc}
+        if self.name == "sgd":
+            new["trace"] = u = g + MOMENTUM * state["trace"]
+        elif self.name in ("adam", "adamw"):
+            new["mu"] = mu = (1 - B1) * g + B1 * state["mu"]
+            new["nu"] = nu = (1 - B2) * (g ** 2) + B2 * state["nu"]
+            n = count_inc.float()
+            mu_hat = mu / (1 - torch.pow(B1, n))
+            nu_hat = nu / (1 - torch.pow(B2, n))
+            u = mu_hat / (torch.sqrt(nu_hat) + EPS)
+            if self.name == "adamw":
+                u = u + WEIGHT_DECAY * params
+        else:
+            new["nu"] = nu = (1 - RMS_DECAY) * (g ** 2) + RMS_DECAY * state["nu"]
+            u = torch.rsqrt(nu + EPS) * g
+        return -self.learning_rate(count) * u, new
+
+
+def make_optimizer(cfg: OptimConfig, steps_per_epoch: int = 1) -> Optimizer:
+    """Optimizer dispatch + StepLR-style staircase decay + global-norm clip
+    (reference train_vision_network.py:271-290; clip src/train.py:63-64)."""
+    name = cfg.optimizer.lower()
+    name = {"rmsprops": "rmsprop"}.get(name, name)
+    if name not in OPTIMIZERS:
+        name = "adamw"               # the JAX dispatch's fallback
+    return Optimizer(
+        name=name, lr=cfg.lr,
+        transition_steps=cfg.step_size * steps_per_epoch if cfg.use_scheduler else None,
+        decay_rate=cfg.gamma, max_norm=cfg.max_norm_grad)
+
+
+def _flatten_parameters(params) -> torch.Tensor:
+    """Copy the parameters into one flat buffer and rebind each as a view
+    of it (so a whole-buffer update updates the model)."""
+    dev = {p.device for p in params}
+    if len(dev) != 1 or any(p.dtype != torch.float32 for p in params):
+        raise ValueError("TrainState: parameters must be f32 on one device, got "
+                         f"{sorted({str(p.dtype) for p in params})} on {dev}")
+    flat = torch.cat([p.detach().reshape(-1) for p in params])
+    offset = 0
+    for p in params:
+        p.data = flat[offset:offset + p.numel()].view_as(p)
+        offset += p.numel()
+    return flat
+
+
+class TrainState:
+    """Model + optimizer + step + the seed of the step streams.
+
+    ``step`` counts APPLIED updates on the device (the NaN guard can skip
+    one without the host knowing); ``draws`` counts steps TAKEN on the host
+    and seeds each step's generators, so the K-step path, the one-step path
+    and a resumed run draw the same. JAX folds the applied step into its key
+    instead, so a skipped step there repeats its draws; here it does not,
+    since knowing it was skipped would cost a host sync per step."""
+
+    def __init__(self, model: nn.Module, tx: Optimizer, seed: int = 0):
+        self.model = model
+        self.tx = tx
+        self.seed = int(seed)
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.flat = _flatten_parameters(self.params)
+        self.device = self.flat.device
+        self.opt_state = tx.init(self.flat)
+        self.step = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.draws = 0
+
+    def next_generators(self):
+        """(pre, dropout) generators on the device for the next step, seeded
+        from (seed, draws); advances ``draws``."""
+        gens = []
+        for stream in range(2):
+            s = np.random.SeedSequence([self.seed, self.draws, stream]).generate_state(
+                1, np.uint64)[0]
+            gens.append(torch.Generator(device=self.device).manual_seed(int(s)))
+        self.draws += 1
+        return tuple(gens)
+
+    def flat_grads(self) -> torch.Tensor:
+        return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                          for p in self.params])
+
+    @torch.no_grad()
+    def apply_gradients(self, finite: torch.Tensor) -> None:
+        """One optimizer update from the parameters' ``.grad``, kept only
+        where ``finite`` (a device bool): otherwise parameters, optimizer
+        state and step stay bit-identical. Decided on the device, with no
+        host sync (``guarded_update``, ``kstar_tpu/train/loop.py:91-104``).
+        The ported models keep no batch statistics; the guard's batch-stats
+        half comes with the conv models (ROADMAP.md Queue 1 item 11)."""
+        updates, new_opt = self.tx.update(self.flat_grads(), self.opt_state, self.flat)
+        self.flat.copy_(torch.where(finite, self.flat + updates, self.flat))
+        self.opt_state = {k: torch.where(finite, v, self.opt_state[k])
+                          for k, v in new_opt.items()}
+        self.step = torch.where(finite, self.step + 1, self.step)
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "model": self.model.state_dict(),
+                "opt_state": self.opt_state, "seed": self.seed, "draws": self.draws}
+
+    def load_state_dict(self, payload: dict) -> None:
+        self.model.load_state_dict(payload["model"])      # copies into the views
+        self.opt_state = {k: v.to(self.device) for k, v in payload["opt_state"].items()}
+        self.step = payload["step"].to(self.device)
+        self.seed, self.draws = int(payload["seed"]), int(payload["draws"])
+
+
+def create_train_state(model: nn.Module, optim_cfg: OptimConfig,
+                       steps_per_epoch: int = 1, seed: int = 0) -> TrainState:
+    """Wrap an initialised model (its ``generator=`` seeded the weights)
+    with the optimizer and a zero step."""
+    return TrainState(model, make_optimizer(optim_cfg, steps_per_epoch), seed)
+
+
+# ---------------------------------------------------------------------------
+# checkpointing
+# ---------------------------------------------------------------------------
+
+def save_checkpoint(state: TrainState, path: str, extra: Optional[Dict] = None) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(state.state_dict(), path)
+    if extra:
+        with open(path + ".json", "w") as f:
+            json.dump(extra, f, indent=2, default=str)
+
+
+def load_checkpoint(state: TrainState, path: str) -> TrainState:
+    """Restore into an existing (template) state, in place; returns it."""
+    state.load_state_dict(torch.load(path, map_location=state.device))
+    return state
+
+
+def load_params(model: nn.Module, path: str) -> nn.Module:
+    """Restore only the model's parameters (for inference); returns it."""
+    device = next(model.parameters()).device
+    model.load_state_dict(torch.load(path, map_location=device)["model"])
+    return model
