@@ -26,6 +26,24 @@ width of the flagship ViViT (dim 128, depth 2, 4 heads x 64, MLP 1024,
   train_cli     kstar_torch.cli.train_vision --synthetic for 2 epochs, then
                 --resume for one more (the alarm sweep runs the table kernel)
 
+and then the three 0D models at their default widths (Transformer dim 128
+x 4 layers x 8 heads, FF 1024; CnnLSTM conv 64, LSTM 128 x 4 layers,
+bidirectional; MLSTM-FCN FCN 128, LSTM 128 bidirectional; 18 features,
+21-sample windows, random weights from --seed), paths that run none of the
+three kernels (each phase reads their launch counts as 0):
+
+  ts_models       eval forward at batch 256: f32 card against CPU, bf16
+                  against f32, times, launches
+  ts_sweep        predict_0d_shot / TSSweeper over a 4096-row 0D table
+  ts_stream       StreamingPredictor(modality="0D"), MLSTM-FCN at 52.5 Hz
+  train_0d        fit's step at batch 256 per model: times, memory,
+                  launches, the NaN guard with the BatchNorm buffers, card
+                  against CPU in f32
+  hard_fixture_f1 bench.py's metric 3 (MLSTM-FCN hard-fixture macro-F1)
+                  from the port's own data layer and trainer
+  train_0d_cli    kstar_torch.cli.train_0d --model MLSTM_FCN --synthetic
+                  for 2 epochs, then --resume for one more
+
 Every phase prints one JSON line and any failure exits non-zero. Then come
 the per-kernel summary line, the card's name and power limit as nvidia-smi
 reports them, and the result line {"ok": true, "device": {...}}. Without
@@ -330,6 +348,490 @@ def train_cli_phase() -> tuple:
                        datasets=re.search(r"datasets: .*", text).group(0))
             ok = ok and bool(last and best and reports and f1
                              and spatial_table.launches > 0)
+            if name == "resume":
+                m = re.search(r"resumed from \S+ at step (\d+)", text)
+                run["resumed_at_step"] = int(m.group(1)) if m else None
+                ok = ok and run["resumed_at_step"] == fields["first"]["saved_step"] \
+                    and saved_step > run["resumed_at_step"]
+            fields[name] = run
+    return ok, fields
+
+
+# ---------------------------------------------------------------------------
+# The 0D models: Transformer, CnnLSTM, MLSTM-FCN at their default widths
+# ---------------------------------------------------------------------------
+
+ZERO_D = ("Transformer", "CnnLSTM", "MLSTM_FCN")
+TS_BATCH, TS_ROWS = 256, 4096     # the CLI's batch; 78 s of a 52.5 Hz 0D table
+# ts_models: bf16 against f32 probabilities at batch 256, per model. The
+# H100 readings were 2.9e-3-3.9e-3 (Transformer), ~1e-5 (CnnLSTM) and
+# 4.3e-4-8e-4 (MLSTM-FCN); the recurrence runs in f32, so what bf16 rounds
+# is the convs, BatchNorm inputs, attention and heads around it.
+TS_BF16_PROB_TOL = {"Transformer": 1e-2, "CnnLSTM": 2e-3, "MLSTM_FCN": 2e-3}
+
+
+def kernel_launches(reset: bool = False) -> dict:
+    """The launch counts of the three kernels' wrappers (set to 0 first
+    with ``reset``): the 0D paths must launch none of them."""
+    from kstar_torch.ops.attention import fused_attention
+    from kstar_torch.ops.preprocess import gather_normalize
+    from kstar_torch.ops.spatial_table import spatial_table
+
+    fns = {"spatial_table": spatial_table, "fused_attention": fused_attention,
+           "gather_normalize": gather_normalize}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def zero_d_configs() -> dict:
+    """The 0D models' full default widths (kstar_torch/config.py): 18
+    features, 21-sample windows."""
+    from kstar_torch.config import CnnLSTMConfig, MLSTMFCNConfig, TransformerConfig
+
+    return {"Transformer": TransformerConfig(), "CnnLSTM": CnnLSTMConfig(),
+            "MLSTM_FCN": MLSTMFCNConfig()}
+
+
+def zero_d_models(seed: int, cfgs: dict, dtype=torch.float32) -> dict:
+    """Models on the CPU with random weights from ``seed`` and their
+    BatchNorm running statistics drawn off the zeros/ones start, so that
+    evaluation exercises them."""
+    from kstar_torch.models import build_0d_model
+    from kstar_torch.models.common import BatchNorm
+
+    out = {}
+    for i, (name, cfg) in enumerate(cfgs.items()):
+        gen = torch.Generator().manual_seed(seed * 10 + i)
+        model = build_0d_model(name, cfg, dtype=dtype, generator=gen)
+        for bn in model.modules():
+            if isinstance(bn, BatchNorm):
+                bn.running_mean.normal_(0.0, 0.3, generator=gen)
+                bn.running_var.uniform_(0.5, 2.0, generator=gen)
+        out[name] = model
+    return out
+
+
+def ts_models_phase(seed: int, dev, cfgs: dict, batch: int = TS_BATCH) -> tuple:
+    """Each 0D model's eval forward at ``batch`` windows: f32 on the card
+    against the same weights on the CPU (TF32 off; atol 1e-4 + rtol 1e-4,
+    summation order only), bf16 against f32 on the card (probabilities
+    within the model's ``TS_BF16_PROB_TOL``), forward times with CUDA
+    events, launches and top kernels of one forward from torch.profiler.
+    (How cuDNN takes the recurrence in bf16 and the flat parameter buffer
+    of training: ``python -m kstar_torch.analysis.cudnn_lstm``.) Returns
+    (ok, fields, bf16 models on the card, f32 models on the card)."""
+    import warnings
+
+    import numpy as np
+
+    from kstar_torch.models import build_0d_model
+
+    cpu_models = zero_d_models(seed, cfgs)
+    ok, fields, bf16_models, f32_models = True, {}, {}, {}
+    rng = np.random.default_rng(seed)
+    for name, cpu in cpu_models.items():
+        cfg = cfgs[name]
+        x_cpu = torch.from_numpy(rng.normal(size=(batch, SEQ_LEN, cfg.n_features))
+                                 .astype(np.float32))
+        x = x_cpu.to(dev)
+        with torch.no_grad():
+            want = cpu(x_cpu)
+        f32 = copy.deepcopy(cpu).to(dev)
+        kernel_launches(reset=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with torch.no_grad():
+                got = f32(x)
+            torch.cuda.synchronize()
+        res = compare(got.cpu(), want, 1e-4, 1e-4, 1e-4)
+        bf = build_0d_model(name, cfg, dtype=torch.bfloat16)
+        bf.load_state_dict(cpu.state_dict())
+        bf = bf.to(dev)
+        with torch.no_grad():
+            got_bf = bf(x)
+        p_bf = torch.softmax(got_bf.float(), -1)
+        p_32 = torch.softmax(got, -1)
+        p_err = float((p_bf - p_32).abs().max())
+        launches_k = kernel_launches()
+
+        fwd_bf = torch.no_grad()(lambda: bf(x))
+        fwd_32 = torch.no_grad()(lambda: f32(x))
+        n_launch, busy_ms, _, top = step_launches(fwd_bf)
+        tol = TS_BF16_PROB_TOL[name]
+
+        entry = dict(
+            params=sum(p.numel() for p in cpu.parameters()), batch=batch,
+            f32_card_vs_cpu=res, bf16_vs_f32_probs_max_abs=p_err, bf16_probs_tol=tol,
+            bf16_vs_f32_logits_max_abs=float((got_bf.float() - got).abs().max()),
+            forward_ms_bf16=time_ms(fwd_bf, 20), forward_ms_f32=time_ms(fwd_32, 20),
+            launches_per_forward_bf16=n_launch, forward_device_busy_ms_bf16=busy_ms,
+            top_kernels_bf16=top, warnings_first_forward=[str(w.message)[:160] for w in caught],
+            kernel_launches=launches_k)
+        entry_ok = (res["ok"] and p_err <= tol
+                    and bool(torch.isfinite(got_bf).all()) and got_bf.shape == (batch, 2)
+                    and not any(launches_k.values()))
+        entry["ok"] = entry_ok
+        ok = ok and entry_ok
+        fields[name] = entry
+        bf16_models[name], f32_models[name] = bf.eval(), f32.eval()
+    return ok, fields, bf16_models, f32_models
+
+
+def ts_sweep_phase(seed: int, dev, bf16_models: dict, f32_models: dict,
+                   rows: int = TS_ROWS) -> tuple:
+    """predict_0d_shot and its TSSweeper for each model over a synthetic
+    ``rows``-row 0D table (a random walk per feature, t0 = 1.0 s): the
+    sweep's wall time (upload, chunks of 256, download; median of 3, host
+    clock) and windows/s, one sweep under torch.profiler (launches, device
+    busy time, idle share), the curve's length against the JAX package's
+    formula, and bf16 against f32 on the card within max |dp| <= 0.05 (raw
+    sweep and final curve)."""
+    import numpy as np
+
+    from kstar_torch.config import DT_0D, FPS
+    from kstar_torch.data import Scaler
+    from kstar_torch.infer import TSSweeper, predict_0d_shot
+
+    rng = np.random.default_rng(seed + 1)
+    values = (np.cumsum(rng.normal(size=(rows, 18)), axis=0) * 0.1).astype(np.float32)
+    times = 1.0 + np.arange(rows) * DT_0D
+    n_windows = rows - SEQ_LEN - 3
+    interval = int(round(DT_0D * FPS))
+    # kstar_tpu/infer/continuous.py:580-595: zero prefix of frame_srt + L,
+    # probs[1:], zero suffix of L, then interval samples per 0D sample
+    expect_len = (int(times[0] * FPS / interval) + 2 * SEQ_LEN + n_windows - 1) * interval
+    data = Scaler("Robust").fit(values).transform(values)
+    starts = np.arange(n_windows, dtype=np.int64)
+    ok, fields = True, {}
+    for name, model in bf16_models.items():
+        sweeper = TSSweeper(model, SEQ_LEN, TS_BATCH, device=dev)
+        sweeper.sweep(data, starts)                          # warm-up
+        kernel_launches(reset=True)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            probs = sweeper.sweep(data, starts)             # ends in a host copy
+            walls.append(time.perf_counter() - t0)
+        launches_k = kernel_launches()
+        n_launch, busy_ms, prof_wall, top = step_launches(lambda: sweeper.sweep(data, starts))
+        probs32 = TSSweeper(f32_models[name], SEQ_LEN, TS_BATCH, device=dev).sweep(data, starts)
+        t0 = time.perf_counter()
+        time_x, curve = predict_0d_shot(model, values, times, Scaler("Robust"), SEQ_LEN, 3,
+                                        DT_0D, TS_BATCH, device=dev)
+        predict_ms = (time.perf_counter() - t0) * 1e3
+        _, curve32 = predict_0d_shot(f32_models[name], values, times, Scaler("Robust"),
+                                     SEQ_LEN, 3, DT_0D, TS_BATCH, device=dev)
+        sweep_s = float(np.median(walls))
+        p_err = float(np.abs(probs - probs32).max())
+        c_err = float(np.abs(curve - curve32).max())
+        entry = dict(
+            rows=rows, windows=n_windows, chunks=-(-n_windows // TS_BATCH), batch=TS_BATCH,
+            sweep_ms=sweep_s * 1e3, sweep_runs_ms=[w * 1e3 for w in walls],
+            windows_per_s=n_windows / sweep_s, predict_0d_shot_ms=predict_ms,
+            profiled_sweep_launches=n_launch, profiled_sweep_device_busy_ms=busy_ms,
+            profiled_sweep_wall_ms=prof_wall,
+            device_idle_share=None if busy_ms is None else 1 - busy_ms / (sweep_s * 1e3),
+            top_kernels=top, curve_len=len(curve), expect_len=expect_len,
+            bf16_vs_f32_probs_max_abs=p_err, bf16_vs_f32_curve_max_abs=c_err, tol=0.05,
+            kernel_launches=launches_k)
+        entry_ok = (len(curve) == expect_len and probs.shape == (n_windows,)
+                    and np.array_equal(time_x, np.arange(expect_len) / FPS)
+                    and bool(np.isfinite(curve).all()) and p_err <= 0.05 and c_err <= 0.05
+                    and not any(launches_k.values()))
+        entry["ok"] = entry_ok
+        ok = ok and entry_ok
+        fields[name] = entry
+    return ok, fields
+
+
+def ts_stream_phase(seed: int, dev, model, n_blocks: int = 30) -> tuple:
+    """StreamingPredictor(modality="0D") with MLSTM-FCN, samples arriving at
+    the 0D table's rate 1/DT_0D = 52.5 Hz: the block size chosen by probing
+    (smallest k whose p99 block time holds k samples' arrival time),
+    ``n_blocks`` timed blocks at that k (host clock, each ends in the host
+    copy of its probabilities), p50 sample-to-alarm = (k-1-i)/rate of block
+    fill + the block's time; blocks of 16 against single pushes within 2e-2
+    (bf16, other cuDNN kernels at batch 1) with equal alarms where the
+    threshold gap allows the comparison."""
+    import numpy as np
+
+    from kstar_torch.config import DT_0D
+    from kstar_torch.data import Scaler
+    from kstar_torch.infer import StreamingPredictor, choose_block_size, probe_stream_blocks
+
+    rate = 1.0 / DT_0D
+    kw = dict(modality="0D", n_features=18, fps=rate)
+    kernel_launches(reset=True)
+    probe = probe_stream_blocks(model, SEQ_LEN, 0, torch.bfloat16, device=dev, **kw)
+    k, report = choose_block_size(probe, fps=rate)
+    rng = np.random.default_rng(seed + 2)
+    raw = np.cumsum(rng.normal(size=(SEQ_LEN + (n_blocks + 2) * max(k, 16), 18)), axis=0)
+    samples = Scaler("Robust").fit(raw).transform(raw).astype(np.float32)
+
+    def stream(**extra):
+        return StreamingPredictor(model, seq_len=SEQ_LEN, compute_dtype=torch.bfloat16,
+                                  device=dev, **kw, **extra)
+
+    sp = stream(block_size=k)
+    sp.push_block(samples[:k])                                   # allocate + warm
+    block_ms = []
+    for i in range(1, n_blocks + 1):
+        t0 = time.perf_counter()
+        sp.push_block(samples[i * k:(i + 1) * k])
+        block_ms.append((time.perf_counter() - t0) * 1e3)
+    block_ms = np.asarray(block_ms)
+    lat = block_ms[:, None] + ((k - 1 - np.arange(k)) / rate * 1e3)[None, :]
+
+    kk = 16
+    seq = samples[:2 * kk + SEQ_LEN]
+    first = stream(block_size=kk, suppress_s=0.0)
+    p0 = np.concatenate([first.push_block(seq[i:i + kk])[0] for i in range(0, len(seq) - kk + 1, kk)])
+    armed = np.sort(p0[SEQ_LEN:])
+    gap_at = int(np.argmax(np.diff(armed)))
+    thr, gap = float(armed[gap_at:gap_at + 2].mean()), float(armed[gap_at + 1] - armed[gap_at])
+    blk = stream(block_size=kk, suppress_s=0.0, threshold=thr)
+    blk_out = [blk.push_block(seq[i:i + kk]) for i in range(0, len(seq) - kk + 1, kk)]
+    blk_p, blk_a = (np.concatenate([o[j] for o in blk_out]) for j in (0, 1))
+    one = stream(block_size=1, suppress_s=0.0, threshold=thr)
+    one_out = [one.push(s) for s in seq[:len(blk_p)]]
+    one_p, one_a = np.array([o[0] for o in one_out]), np.array([o[1] for o in one_out])
+    push_err = float(np.abs(blk_p - one_p).max())
+    decidable = gap > 2 * push_err
+    launches_k = kernel_launches()
+    ok = (push_err <= 2e-2 and bool(np.isfinite(blk_p).all())
+          and (not decidable or (np.array_equal(blk_a, one_a)
+                                 and blk.alarm_time == one.alarm_time))
+          and not any(launches_k.values()))
+    p50_block = float(np.median(block_ms))
+    return ok, dict(
+        model="MLSTM_FCN", rate_hz=rate, budget_ms_per_sample=1e3 / rate, chosen_k=k,
+        probe_report={str(kp): r for kp, r in report.items()},
+        block_p50_ms=p50_block, block_p99_ms=float(np.percentile(block_ms, 99)),
+        block_runs_ms=block_ms.tolist(), per_sample_ms=p50_block / k,
+        p50_sample_to_alarm_ms=float(np.median(lat)), compared_block=kk,
+        blocks_vs_single_max_abs=push_err, blocks_vs_single_tol=2e-2, threshold=thr,
+        threshold_gap=gap, alarms_decidable=bool(decidable),
+        alarms_equal=bool(np.array_equal(blk_a, one_a)), n_alarms=int(blk_a.sum()),
+        alarm_time_blocks=blk.alarm_time, alarm_time_single=one.alarm_time,
+        kernel_launches=launches_k)
+
+
+def train_0d_phase(seed: int, dev, cfgs: dict, batch: int = TS_BATCH,
+                   parity_batch: int = 32) -> tuple:
+    """fit's train step for each 0D model at ``batch``: bf16 over f32
+    parameters, the CLI's defaults (AdamW 2e-4 with the staircase decay,
+    clip 1.0, Focal gamma 2, input noise 1e-3, dropout 0.1); 5 warm-up
+    steps, then 30 each timed on the host clock up to a synchronise; peak
+    memory; launches and device-busy time of one step from torch.profiler.
+    Checks: finite losses and every parameter moved; a step whose loss is
+    made non-finite leaves parameters, optimizer state, step and the
+    BatchNorm buffers bit-identical; card against CPU in f32 from the same
+    weights (noise 0, dropout 0), 3 steps, the `train` phase's tolerances (losses 1e-3
+    relative, parameters 1e-4, first gradients 1e-3 of their largest) with
+    SGD: under Adam the parameters whose gradient is zero in exact
+    arithmetic (a bias right before a BatchNorm, the attention's key bias)
+    move by +-lr at the whim of rounding."""
+    import numpy as np
+
+    from kstar_torch.config import LossConfig, OptimConfig
+    from kstar_torch.losses import ldam_margins
+    from kstar_torch.models import build_0d_model
+    from kstar_torch.train import create_train_state, make_train_step
+
+    loss_cfg = LossConfig()
+    ok, fields = True, {}
+    for i, (name, cfg) in enumerate(cfgs.items()):
+        rng = np.random.default_rng(seed + 10 + i)
+        xs = [torch.from_numpy(rng.normal(size=(batch, SEQ_LEN, cfg.n_features))
+                               .astype(np.float32)).to(dev) for _ in range(2)]
+        ys = [torch.as_tensor(rng.integers(0, 2, size=batch)).to(dev) for _ in range(2)]
+        weight = torch.ones(2, device=dev)
+        m_list = torch.as_tensor(ldam_margins(np.array([batch // 2, batch // 2]))).to(dev)
+        model = build_0d_model(name, cfg, dtype=torch.bfloat16,
+                               generator=torch.Generator().manual_seed(seed)).to(dev)
+        state = create_train_state(model, OptimConfig(), steps_per_epoch=1, seed=seed)
+        step = make_train_step(loss_cfg)
+        start = (state.flat.clone(), state.stats_flat.clone())
+        kernel_launches(reset=True)
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for s in range(35):
+            t0 = time.perf_counter()
+            _, loss, _ = step(state, xs[s % 2], ys[s % 2], weight, m_list)
+            torch.cuda.synchronize()
+            if s >= 5:
+                times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = torch.stack(losses).cpu().numpy()
+        moved = [not torch.equal(a, p.detach()) for a, p in
+                 zip(start[0].split([p.numel() for p in state.params]),
+                     [p.reshape(-1) for p in state.params])]
+        stats_moved = not torch.equal(start[1], state.stats_flat)
+        n_launch, busy_ms, prof_wall, top = step_launches(
+            lambda: step(state, xs[0], ys[0], weight, m_list))
+
+        before = (state.flat.clone(), {k: v.clone() for k, v in state.opt_state.items()},
+                  state.step.clone(), state.stats_flat.clone())
+        _, nan_loss, _ = step(state, xs[0], ys[0], torch.full((2,), float("nan"), device=dev),
+                              m_list)
+        guard_ok = (not bool(torch.isfinite(nan_loss)) and torch.equal(state.flat, before[0])
+                    and all(torch.equal(state.opt_state[k], v) for k, v in before[1].items())
+                    and torch.equal(state.step, before[2])
+                    and torch.equal(state.stats_flat, before[3]))
+        launches_k = kernel_launches()
+
+        quiet = {k: 0.0 for k in ("noise_std", "dropout") if hasattr(cfg, k)}
+        base = build_0d_model(name, dataclasses.replace(cfg, **quiet),
+                              generator=torch.Generator().manual_seed(seed + 1))
+        sgd = OptimConfig(optimizer="SGD", lr=1e-2)
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            st = create_train_state(copy.deepcopy(base).to(d), sgd, steps_per_epoch=1,
+                                    seed=seed)
+            ls, grads = [], None
+            for s in range(3):
+                _, loss, _ = step(st, xs[s % 2][:parity_batch].to(d),
+                                  ys[s % 2][:parity_batch].to(d), weight.to(d), m_list.to(d))
+                ls.append(float(loss))
+                if grads is None:
+                    grads = st.flat_grads().cpu()
+            runs.append((np.array(ls), st.flat.cpu(), st.stats_flat.cpu(), grads))
+        (l_gpu, p_gpu, s_gpu, g_gpu), (l_cpu, p_cpu, s_cpu, g_cpu) = runs
+        loss_rel = float(np.max(np.abs(l_gpu - l_cpu) / np.abs(l_cpu)))
+        param_err = float((p_gpu - p_cpu).abs().max())
+        stats_err = float((s_gpu - s_cpu).abs().max())
+        grad_rel = float((g_gpu - g_cpu).abs().max() / g_cpu.abs().max())
+        parity_ok = (loss_rel <= 1e-3 and param_err <= 1e-4 and stats_err <= 1e-4
+                     and grad_rel <= 1e-3)
+
+        t = np.asarray(times)
+        entry = dict(
+            batch=batch, dtype="bfloat16 over f32 parameters",
+            optimizer="AdamW lr 2e-4 staircase 0.95 every 4 updates, clip 1.0",
+            loss="Focal gamma 2", steps_timed=len(t), step_p50_ms=float(np.median(t)),
+            step_p99_ms=float(np.percentile(t, 99)), step_runs_ms=t.tolist(),
+            samples_per_s=batch * len(t) / (t.sum() / 1e3), peak_mem_gb=peak_gb,
+            launches_per_step=n_launch, profiled_step_device_busy_ms=busy_ms,
+            profiled_step_wall_ms=prof_wall, top_kernels=top,
+            device_idle_share=None if busy_ms is None else 1 - busy_ms / float(np.median(t)),
+            losses=losses.tolist(), params_moved=f"{sum(moved)}/{len(moved)}",
+            batch_stats_moved=stats_moved, nan_guard_bit_identical=guard_ok,
+            card_vs_cpu={"batch": parity_batch, "optimizer": "SGD lr 1e-2",
+                         "losses_cuda": l_gpu.tolist(), "losses_cpu": l_cpu.tolist(),
+                         "loss_max_rel": loss_rel, "loss_rtol": 1e-3,
+                         "param_max_abs": param_err, "param_atol": 1e-4,
+                         "batch_stats_max_abs": stats_err, "batch_stats_atol": 1e-4,
+                         "grad_max_rel": grad_rel, "grad_rtol": 1e-3},
+            kernel_launches=launches_k)
+        entry_ok = bool(np.isfinite(losses).all() and all(moved) and stats_moved and guard_ok
+                        and parity_ok and not any(launches_k.values()))
+        entry["ok"] = entry_ok
+        ok = ok and entry_ok
+        fields[name] = entry
+    return ok, fields
+
+
+def hard_fixture_phase(dev, epochs: int = 15) -> tuple:
+    """bench.py's metric 3 re-created from the port's own pieces: the
+    hard-fixture synthetic 0D dataset (16 shots x 768 frames, seed 11,
+    difficulty 1.0, 63-sample horizon), MLSTM-FCN with FCN 32 and LSTM 32 x
+    1 layer in f32, trained by fit as bench.py's measure_f1_tpu trains it
+    (OptimConfig(lr=1e-3): AdamW 1e-3 with the staircase decay and clip 1.0;
+    Focal with inverse-frequency weights; batch 64; ``epochs`` epochs, no
+    early stopping), then macro-F1 at argmax on the test split. The JAX
+    package's torch-CPU mirror's F1 is read from BENCH_baseline.json."""
+    import tempfile
+
+    import numpy as np
+
+    from kstar_torch.config import LossConfig, MLSTMFCNConfig, OptimConfig, Schema, TrainConfig
+    from kstar_torch.data import TSDataset, prepare_0d_dataset
+    from kstar_torch.data.synthetic import make_dataset
+    from kstar_torch.models import build_0d_model
+    from kstar_torch.train import create_train_state, fit, make_eval_step, run_eval_epoch
+
+    t0 = time.perf_counter()
+    cols = Schema.INPUT_FEATURES
+    _, disrupt_df, ts_df = make_dataset(n_shots=16, n_frames=768, height=16, width=16,
+                                        seed=11, difficulty=1.0)
+    df_tr, df_va, df_te, scaler = prepare_0d_dataset(ts_df, cols, test_shot=None)
+    mk = lambda df: TSDataset(df, disrupt_df, cols, seq_len=SEQ_LEN, dist=63, scaler=scaler)
+    train_ds, valid_ds, test_ds = mk(df_tr), mk(df_va), mk(df_te)
+    t_data = time.perf_counter() - t0
+    cfg = MLSTMFCNConfig(n_features=len(cols), fcn_dim=32, seq_len=SEQ_LEN, lstm_dim=32,
+                         lstm_n_layers=1)
+    model = build_0d_model("MLSTM_FCN", cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    state = create_train_state(model, OptimConfig(lr=1e-3), seed=0)
+    loss_cfg = LossConfig(loss_type="Focal", use_weighting=True)
+    kernel_launches(reset=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_cfg = TrainConfig(batch_size=64, num_epoch=epochs, weight_dir=tmp,
+                                early_stopping=False, verbose=0)
+        t1 = time.perf_counter()
+        state, hist = fit(state, train_ds, valid_ds, train_cfg, loss_cfg, tag="hard_fixture")
+        t_fit = time.perf_counter() - t1
+    counts = test_ds.class_counts()
+    weight = torch.ones(len(counts), device=dev)
+    m_list = torch.zeros(len(counts), device=dev)
+    _, _, f1 = run_eval_epoch(make_eval_step(loss_cfg), model, test_ds, 64, weight, m_list)
+    launches_k = kernel_launches()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "BENCH_baseline.json")) as f:
+        torch_cpu_f1 = json.load(f).get("torch_cpu_f1")
+    ok = bool(f1 >= 0.80 and not any(launches_k.values()))
+    return ok, dict(
+        macro_f1=float(f1), f1_floor=0.80, bench_baseline_torch_cpu_f1=torch_cpu_f1,
+        splits={"train": len(train_ds), "valid": len(valid_ds), "test": len(test_ds)},
+        train_class_counts=train_ds.class_counts().tolist(), epochs=epochs,
+        steps=int(state.step), valid_f1_last=hist.valid_f1[-1], data_s=t_data, fit_s=t_fit,
+        wall_s=time.perf_counter() - t0, kernel_launches=launches_k)
+
+
+def train_0d_cli_phase() -> tuple:
+    """python -m kstar_torch.cli.train_0d --model MLSTM_FCN --synthetic
+    --num_epoch 2 at the default widths, then --resume for one more epoch:
+    checkpoints, report, feature importance and the probability curve of the
+    last shot (TSSweeper); no kernel of K1-K3 runs."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    from kstar_torch.cli import train_0d
+
+    fields, ok = {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--model", "MLSTM_FCN", "--synthetic", "--weight_dir", f"{tmp}/w",
+                "--save_dir", f"{tmp}/r", "--verbose", "1"]
+        for name, extra in (("first", ["--num_epoch", "2"]),
+                            ("resume", ["--num_epoch", "1", "--resume"])):
+            out = io.StringIO()
+            kernel_launches(reset=True)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                train_0d.main(argv + extra)
+            wall = time.perf_counter() - t0
+            text = out.getvalue()
+            print(text, file=sys.stderr, end="")
+            last = [f for f in os.listdir(f"{tmp}/w") if f.endswith("_last.ckpt")]
+            best = [f for f in os.listdir(f"{tmp}/w") if f.endswith("_best.ckpt")]
+            reports = [f for f in os.listdir(f"{tmp}/r") if f.endswith("_report.txt")]
+            f1 = re.search(r"test macro-F1 ([0-9.]+)", text)
+            curve = re.search(r"probability curve of shot .*?;", text)
+            saved_step = (int(torch.load(f"{tmp}/w/{last[0]}", map_location="cpu")["step"])
+                          if last else None)
+            launches_k = kernel_launches()
+            run = dict(wall_s=wall, test_macro_f1=float(f1.group(1)) if f1 else None,
+                       checkpoints=sorted(last + best), reports=reports,
+                       saved_step=saved_step, datasets=re.search(r"datasets: .*", text).group(0),
+                       feature_importance=bool(re.search(r"feature importance \(top 5\)", text)),
+                       prob_curve=curve.group(0) if curve else None,
+                       kernel_launches=launches_k)
+            ok = ok and bool(last and best and reports and f1 and curve
+                             and run["feature_importance"] and not any(launches_k.values()))
             if name == "resume":
                 m = re.search(r"resumed from \S+ at step (\d+)", text)
                 run["resumed_at_step"] = int(m.group(1)) if m else None
@@ -811,6 +1313,31 @@ def main() -> int:
     emit("train_cli", **cli_fields, seconds=time.perf_counter() - t0, ok=cli_ok)
     if not cli_ok:
         failures.append("train_cli")
+
+    # ---- the 0D models: no kernel of K1-K3 runs on these paths ----
+    cfgs = zero_d_configs()
+    t0 = time.perf_counter()
+    ts_ok, ts_fields, bf16_0d, f32_0d = ts_models_phase(args.seed, dev, cfgs)
+    emit("ts_models", **ts_fields, seconds=time.perf_counter() - t0, ok=ts_ok)
+    t0 = time.perf_counter()
+    sw_ok, sw_fields = ts_sweep_phase(args.seed, dev, bf16_0d, f32_0d)
+    emit("ts_sweep", **sw_fields, seconds=time.perf_counter() - t0, ok=sw_ok)
+    t0 = time.perf_counter()
+    st_ok, st_fields = ts_stream_phase(args.seed, dev, bf16_0d["MLSTM_FCN"])
+    emit("ts_stream", **st_fields, seconds=time.perf_counter() - t0, ok=st_ok)
+    t0 = time.perf_counter()
+    tr0_ok, tr0_fields = train_0d_phase(args.seed, dev, cfgs)
+    emit("train_0d", **tr0_fields, seconds=time.perf_counter() - t0, ok=tr0_ok)
+    hf_ok, hf_fields = hard_fixture_phase(dev)
+    emit("hard_fixture_f1", **hf_fields, ok=hf_ok)
+    t0 = time.perf_counter()
+    cli0_ok, cli0_fields = train_0d_cli_phase()
+    emit("train_0d_cli", **cli0_fields, seconds=time.perf_counter() - t0, ok=cli0_ok)
+    for name, phase_ok in (("ts_models", ts_ok), ("ts_sweep", sw_ok), ("ts_stream", st_ok),
+                           ("train_0d", tr0_ok), ("hard_fixture_f1", hf_ok),
+                           ("train_0d_cli", cli0_ok)):
+        if not phase_ok:
+            failures.append(name)
 
     kernel_rows = []
     for c in checks:

@@ -22,6 +22,23 @@ from ..config import LossConfig, OptimConfig, TrainConfig, tag_for
 from ..data import VideoStore
 
 
+# options not ported yet -> the ROADMAP.md Queue 1 item that ports them
+ITEM_CONV = "ROADMAP.md Queue 1 item 11 (conv video models)"
+ITEM_ENSEMBLE = "ROADMAP.md Queue 1 item 13 (search and ensembles)"
+ITEM_DP = "ROADMAP.md Queue 1 item 14 (parallel)"
+ITEM_VIZ = "ROADMAP.md Queue 1 item 15 (viz)"
+
+
+def refuse_ensemble_and_dp(args) -> None:
+    """SystemExit naming the ROADMAP item for several ``--seeds`` (the
+    vmapped ensemble) or ``--dp``, which no train CLI of the port has yet."""
+    if args.seeds and len(args.seeds) > 1:
+        raise SystemExit("--seeds with more than one seed (the vmapped ensemble) "
+                         f"is not ported to kstar_torch yet: {ITEM_ENSEMBLE}")
+    if args.dp:
+        raise SystemExit(f"--dp is not ported to kstar_torch yet: {ITEM_DP}")
+
+
 def add_common_args(p: argparse.ArgumentParser, batch_size: int = 64) -> None:
     p.add_argument("--data_root", type=str, default="./dataset",
                    help="root with video/<shot>.npy, shot_list.csv, ts_data.csv")

@@ -20,11 +20,7 @@ import os
 
 import torch
 
-# unported options -> the ROADMAP.md Queue 1 item that ports them
-_ITEM_CONV = "ROADMAP.md Queue 1 item 11 (conv video models)"
-_ITEM_ENSEMBLE = "ROADMAP.md Queue 1 item 13 (search and ensembles)"
-_ITEM_DP = "ROADMAP.md Queue 1 item 14 (parallel)"
-_ITEM_VIZ = "ROADMAP.md Queue 1 item 15 (viz)"
+from .common import ITEM_CONV, ITEM_ENSEMBLE, ITEM_VIZ, refuse_ensemble_and_dp
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,11 +29,11 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="train vision disruption predictor")
     p.add_argument("--model", type=str, default="ViViT",
                    choices=["ViViT", "SlowFast", "R2Plus1D"],
-                   help=f"ViViT; SlowFast and R2Plus1D wait for {_ITEM_CONV}")
+                   help=f"ViViT; SlowFast and R2Plus1D wait for {ITEM_CONV}")
     p.add_argument("--tag", type=str, default=None)
     p.add_argument("--seeds", type=int, nargs="+", default=None,
                    help="one seed trains with that seed; several (an "
-                        f"ensemble) wait for {_ITEM_ENSEMBLE}")
+                        f"ensemble) wait for {ITEM_ENSEMBLE}")
     add_common_args(p, batch_size=64)
     p.add_argument("--image_size", type=int, default=128)
     # augmentation (reference train_vision_network.py:52-63)
@@ -67,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"],
                    help="ViViT LayerNorm/softmax accumulation dtype")
     p.add_argument("--bn_splits", type=int, default=None,
-                   help=f"SubBatchNorm split count (SlowFast): {_ITEM_CONV}")
+                   help=f"SubBatchNorm split count (SlowFast): {ITEM_CONV}")
     p.add_argument("--skip_extras", action="store_true",
                    help="skip the alarm sweep after the test evaluation")
     return p
@@ -77,14 +73,10 @@ def refuse_unported(args) -> None:
     """SystemExit naming the ROADMAP item for each option not ported yet."""
     if args.model != "ViViT":
         raise SystemExit(f"--model {args.model} is not ported to kstar_torch yet: "
-                         f"{_ITEM_CONV}")
+                         f"{ITEM_CONV}")
     if args.bn_splits:
-        raise SystemExit(f"--bn_splits is not ported to kstar_torch yet: {_ITEM_CONV}")
-    if args.seeds and len(args.seeds) > 1:
-        raise SystemExit("--seeds with more than one seed (the vmapped ensemble) "
-                         f"is not ported to kstar_torch yet: {_ITEM_ENSEMBLE}")
-    if args.dp:
-        raise SystemExit(f"--dp is not ported to kstar_torch yet: {_ITEM_DP}")
+        raise SystemExit(f"--bn_splits is not ported to kstar_torch yet: {ITEM_CONV}")
+    refuse_ensemble_and_dp(args)
 
 
 def model_config(args):
@@ -170,7 +162,7 @@ def main(argv=None):
     state, hist = fit(state, train_ds, valid_ds, train_cfg, loss_cfg, tag=tag,
                       sampler=sampler, writer=writer, put=put_raw,
                       put_eval=put_raw, pre_fn=pre_train, pre_fn_eval=pre_eval)
-    print(f"learning-curve plot skipped: plot_learning_curve waits for {_ITEM_VIZ}")
+    print(f"learning-curve plot skipped: plot_learning_curve waits for {ITEM_VIZ}")
 
     # test evaluation + extras run on the BEST checkpoint, not the final
     # epoch (reference train_vision_network.py:393 reloads best before eval)
@@ -200,7 +192,7 @@ def main(argv=None):
         except Exception as e:  # noqa: BLE001 — the JAX CLI's best-effort extras
             print(f"alarm evaluation skipped: {type(e).__name__}: {e}")
         print(f"probability-curve plot skipped: plot_shot_probability_zoom "
-              f"waits for {_ITEM_VIZ}")
+              f"waits for {ITEM_VIZ}")
     writer.close()
     return results
 

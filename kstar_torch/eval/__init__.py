@@ -3,3 +3,4 @@ from .alarms import (dwell_tradeoff_from_curves, evaluate_video_alarms,
                      sweep_prob_curves, threshold_sweep,
                      threshold_tradeoff_from_curves)
 from .evaluate import evaluate, evaluate_probs, format_report
+from .feature_importance import compute_permute_feature_importance

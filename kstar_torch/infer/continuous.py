@@ -1,11 +1,13 @@
-"""Continuous whole-shot disruption-probability sweeps (video).
+"""Continuous whole-shot disruption-probability sweeps (video and 0D).
 
-Port of the video half of ``kstar_tpu/infer/continuous.py``. The shot's
-frames are centre-cropped and uploaded to the device once; windows are
-gathered on the device (raw frames by the window-gather kernel,
-ops/preprocess.py; ViViT's cls table with a (B, L) index matrix); the sweep
-runs over fixed-size window chunks, bucketed so that ragged shot lengths
-give a handful of shapes (CUDA graphs will want them fixed).
+Port of the video and 0D parts of ``kstar_tpu/infer/continuous.py``
+(``MultiModalSweeper`` waits for the fusion models, ROADMAP.md Queue 1
+item 12). A shot's frames (centre-cropped) or its 0D table are uploaded to
+the device once; windows are gathered on the device (raw frames by the
+window-gather kernel, ops/preprocess.py; ViViT's cls table and 0D tables
+with a (B, L) index matrix); the sweep runs over fixed-size window chunks,
+bucketed so that ragged shot lengths give a handful of shapes (CUDA graphs
+will want them fixed).
 ``sweep_shots`` sweeps a shot library in groups that fit a device-memory
 budget.
 
@@ -15,10 +17,15 @@ depends only on (frame, in-window offset), is precomputed as the
 (offset x frame) cls table by the spatial-table kernel
 (ops/spatial_table.py), so each window runs only the temporal transformer.
 
-Output alignment and startup suppression follow the reference
-(generate_prob_curve, src/utils/utility.py:896-977):
-prob = [0]*(seq_len + frame_srt) + probs[1:-1]; zero any p >= 0.5 in the
-first second; time axis = arange(n)/fps.
+Output alignment and startup suppression follow the reference:
+  * video (generate_prob_curve, src/utils/utility.py:896-977):
+    prob = [0]*(seq_len + frame_srt) + probs[1:-1]; zero any p >= 0.5 in
+    the first second; time axis = arange(n)/fps;
+  * 0D (generate_prob_curve_from_0D :979-1066): the scaler refit on the
+    shot itself; prob = [0]*(frame_srt + seq_len) + probs[1:] + [0]*seq_len
+    with frame_srt = int(t_start*fps/interval); suppression within fps*1
+    samples; linear interpolation x interval to the frame rate; backward
+    moving average k=12, clipped to [0, 1].
 """
 
 from __future__ import annotations
@@ -354,6 +361,83 @@ def predict_video_shot(
     prob_list = startup_suppression(prob_list, int(fps * 1))
     time_x = np.arange(len(prob_list)) / fps
     return time_x, prob_list
+
+
+class TSSweeper:
+    """Stride-1 sweep of a 0D model over a device-resident shot table: the
+    table is uploaded once, each chunk of ``batch_size`` windows is gathered
+    on the device with clipped indices (window s covers rows
+    s+1 .. s+tau*(seq_len-1)+1), and the sweep returns softmax[:, 0] cut to
+    the window count. The model runs in its own compute dtype.
+    ``device=None`` means the GPU (raising without one)."""
+
+    def __init__(self, model, seq_len: int, batch_size: int = 256, tau: int = 1,
+                 device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.batch_size = batch_size
+        self._offsets = 1 + tau * torch.arange(seq_len, device=self.device)
+
+    @torch.no_grad()
+    def chunk_probs(self, data: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+        idx = torch.clamp(starts[:, None] + self._offsets[None, :], 0, data.shape[0] - 1)
+        logits = self.model(data[idx])
+        return torch.softmax(logits.float(), dim=-1)[:, 0]
+
+    def sweep(self, data: np.ndarray, starts: np.ndarray) -> np.ndarray:
+        """p_disrupt of every window start over a (T, F) table."""
+        n = len(starts)
+        if n == 0:
+            return np.zeros(0, np.float32)
+        data_dev = torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32)).to(self.device)
+        chunks = torch.from_numpy(chunkify_starts(starts, self.batch_size)).to(self.device)
+        probs = torch.cat([self.chunk_probs(data_dev, c) for c in chunks])
+        return probs.cpu().numpy()[:n]
+
+
+def predict_0d_shot(
+    model,
+    shot_values: np.ndarray,      # (T, F) raw (unscaled) shot table values
+    times: np.ndarray,            # (T,) time column
+    scaler,                       # Scaler; refit on this shot (reference quirk,
+                                  # utility.py:499 fit_transform even when given)
+    seq_len: int = 21,
+    dist: int = 3,
+    dt: float = 4.0 / 210.0,
+    batch_size: int = 256,
+    fps: float = FPS,
+    smooth_k: int = 12,
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Whole-shot 0D probability curve on the frame grid (reference
+    generate_prob_curve_from_0D, src/utils/utility.py:979-1066): stride-1
+    windows, pad, suppress, linearly re-interpolate to the frame rate,
+    backward moving average. Returns (time_x, prob); ``device=None`` means
+    the GPU."""
+    from ..data.splits import Scaler
+
+    sc = Scaler(scaler.kind if scaler is not None else "Robust").fit(shot_values)
+    data = sc.transform(shot_values)
+
+    n_windows = max(len(data) - seq_len - dist, 0)
+    starts = np.arange(n_windows, dtype=np.int64)
+    probs = TSSweeper(model, seq_len, batch_size, device=device).sweep(data, starts)
+
+    interval = int(round(dt * fps))
+    frame_srt = int(float(times[0]) * fps / interval)
+    prob_list = np.concatenate([
+        np.zeros(frame_srt + seq_len, np.float32),
+        probs[1:] if len(probs) > 1 else probs[:0],
+        np.zeros(seq_len, np.float32),
+    ])
+    prob_list = startup_suppression(prob_list, int(fps * 1))
+
+    # linear re-interpolation from the dt grid to the frame grid
+    n = len(prob_list)
+    prob_x = np.linspace(0, n, num=n, endpoint=True) * (interval / fps)
+    fine_x = np.linspace(0, n * interval, num=n * interval, endpoint=True) / fps
+    fine = moving_average(np.interp(fine_x, prob_x, prob_list), smooth_k, "backward")
+    return np.arange(len(fine)) / fps, fine
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,277 @@
+"""Shared building blocks of the 0D models.
+
+Port of ``kstar_tpu/models/common.py``. Layouts are channels-last, (B, T, F),
+as in the JAX package; ``dtype`` is the compute dtype, parameters and
+normalisation statistics stay f32, and logits come out f32.
+
+Two pieces follow flax's rules rather than torch's defaults:
+
+  * ``BatchNorm`` is flax's ``nn.BatchNorm(dtype=float32)``: statistics over
+    every axis but the last, the biased variance computed as
+    E[x^2] - E[x]^2 (clamped at 0), eps 1e-5, and the running update
+    ``0.99 * ra + 0.01 * batch`` (``torch.nn.BatchNorm1d`` weights the batch
+    by 0.1 and keeps the unbiased variance);
+  * ``BiLSTM`` trains exactly flax's ``OptimizedLSTMCell`` parameters: per
+    layer and direction ``w_ih`` (4H, in), ``w_hh`` (4H, H) and ONE bias
+    (4H), gates packed i, f, g, o. The recurrence runs in ``torch.lstm``
+    (cuDNN on the GPU) with the hidden-side bias slot fed a zero constant,
+    so the effective bias is not trained twice over. It runs in f32 whatever
+    the compute dtype: on the H100 build measured (torch 2.11, CUDA 12.8)
+    cuDNN runs a bf16 ``torch.lstm`` step by step, a GEMM and a cell kernel
+    per time step and direction, where an f32 one runs as one persistent
+    kernel per layer and direction (``chip_smoke.py`` phase ``ts_models``
+    times both).
+
+The guided-backprop activations of the JAX module wait for the viz port
+(ROADMAP.md Queue 1 item 15).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .vivit import Dense, LayerNorm, _lecun_normal_
+
+BN_MOMENTUM = 0.99      # flax nn.BatchNorm defaults
+BN_EPS = 1e-5
+
+
+class NoiseLayer(nn.Module):
+    """Train-only additive Gaussian input noise (reference
+    src/models/NoiseLayer.py:5-16). The draw comes from ``generator`` (on
+    ``x``'s device), never from torch's global RNG."""
+
+    def __init__(self, mean: float = 0.0, std: float = 1e-3):
+        super().__init__()
+        self.mean, self.std = mean, std
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not train or self.std == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("input noise in training draws from an explicit "
+                             "torch.Generator; pass noise_generator=")
+        return x + self.mean + self.std * torch.randn(
+            x.shape, generator=generator, device=x.device, dtype=x.dtype)
+
+
+def apply_act(x: torch.Tensor, act: str, alpha: float = 1.0) -> torch.Tensor:
+    if act == "elu":
+        return F.elu(x) if alpha == 1.0 else torch.where(x > 0, x, alpha * torch.expm1(x))
+    if act == "relu":
+        return F.relu(x)
+    if act == "leaky_relu":
+        return F.leaky_relu(x, negative_slope=alpha)
+    if act == "gelu":
+        return gelu_tanh(x)         # flax nn.gelu defaults to the tanh form
+    raise ValueError(act)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximated GELU (reference src/models/transformer.py:35-37)."""
+    return F.gelu(x, approximate="tanh")
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(dtype=float32)`` over channels-last input: in
+    training, batch statistics over every axis but the last (biased
+    variance, E[x^2] - E[x]^2 clamped at 0) normalise the batch and move the
+    running buffers by ``0.99 * ra + 0.01 * batch``; in evaluation the
+    running buffers normalise. Arithmetic and output in f32 whatever the
+    input dtype. ``running_mean``/``running_var`` are flax's
+    ``batch_stats`` ``mean``/``var``."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x.float()
+        if train:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(axes)
+            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                        + (1 - BN_MOMENTUM) * mean)
+                self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                       + (1 - BN_MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return (x - mean) * mul + self.bias
+
+
+class Conv1d(nn.Module):
+    """flax ``nn.Conv`` over (B, T, C): kernel cast to ``dtype``, the
+    product in ``dtype`` and the bias added in ``dtype``. ``weight`` is
+    (out, in, k) as in ``torch.nn.Conv1d``; ``padding`` is ``"SAME"``,
+    ``"VALID"`` or the symmetric pad of each end. flax initialisation:
+    lecun-normal over fan-in k * in, zero bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 stride: int = 1, padding="VALID", dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel, self.stride, self.dtype = kernel, stride, dtype
+        if padding == "SAME":
+            if stride != 1:
+                raise ValueError("SAME padding is ported for stride 1 only")
+            self.pad = ((kernel - 1) // 2, kernel // 2)
+        elif padding == "VALID":
+            self.pad = (0, 0)
+        else:
+            self.pad = (int(padding), int(padding))
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel))
+        _lecun_normal_(self.weight.data, in_channels * kernel, generator)
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def out_len(self, t: int) -> int:
+        return (t + sum(self.pad) - self.kernel) // self.stride + 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype).transpose(1, 2)
+        if any(self.pad):
+            x = F.pad(x, self.pad)
+        y = F.conv1d(x, self.weight.to(self.dtype), stride=self.stride)
+        return (y + self.bias.to(self.dtype)[:, None]).transpose(1, 2)
+
+
+class MLPHead(nn.Module):
+    """``Dense -> Norm -> act -> Dense`` classification head of the
+    reference classifiers; the last Dense and the output in f32."""
+
+    def __init__(self, in_features: int, hidden: int, n_classes: int = 2,
+                 norm: str = "batch", act: str = "elu", alpha: float = 1.0,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.act, self.alpha, self.norm_kind = act, alpha, norm
+        self.fc1 = Dense(in_features, hidden, dtype=dtype, generator=generator)
+        self.norm = BatchNorm(hidden) if norm == "batch" else LayerNorm(hidden)
+        self.fc2 = Dense(hidden, n_classes, generator=generator)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = self.fc1(x)
+        x = self.norm(x, train) if self.norm_kind == "batch" else self.norm(x)
+        return self.fc2(apply_act(x, self.act, self.alpha)).float()
+
+
+class SqueezeExcite1D(nn.Module):
+    """Squeeze-and-excitation over (B, T, C) (reference SqueezeExciteBlock,
+    src/models/MLSTM_FCN.py:17-32): two bias-free Dense layers, the sigmoid
+    in f32."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        mid = max(channels // reduction, 1)
+        self.Dense_0 = Dense(channels, mid, bias=False, dtype=dtype, generator=generator)
+        self.Dense_1 = Dense(mid, channels, bias=False, dtype=dtype, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.Dense_1(F.relu(self.Dense_0(x.mean(dim=1))))
+        s = torch.sigmoid(s.float()).to(x.dtype)
+        return x * s[:, None, :]
+
+
+class AttentionPool(nn.Module):
+    """Self-attention pooling over LSTM outputs (reference CnnLSTM.attention,
+    src/models/CnnLSTM.py:72-75): ``A = softmax(w_s2(tanh(w_s1(H))))`` over
+    the HIDDEN axis (a reference quirk kept for parity), then
+    ``mean_d(A^T H)``."""
+
+    def __init__(self, in_features: int, hidden_dim: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.w_s1 = Dense(in_features, hidden_dim, dtype=dtype, generator=generator)
+        self.w_s2 = Dense(hidden_dim, hidden_dim, dtype=dtype, generator=generator)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        a = self.w_s2(torch.tanh(self.w_s1(h)))
+        a = torch.softmax(a.float(), dim=-1).to(h.dtype)          # (B, T, d)
+        return torch.einsum("btd,bte->bde", a, h).mean(dim=1)     # (B, D_out)
+
+
+class LSTMCellParams(nn.Module):
+    """The trainable parameters of one flax ``OptimizedLSTMCell``: the input
+    kernels ``ii|if|ig|io`` stacked as ``w_ih`` (4H, in), the recurrent
+    kernels ``hi|hf|hg|ho`` as ``w_hh`` (4H, H), and their one bias (4H).
+    flax initialisation: lecun-normal input kernels, an orthogonal (H, H)
+    block per recurrent gate, zero bias."""
+
+    def __init__(self, in_features: int, hidden: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.w_ih = nn.Parameter(torch.empty(4 * hidden, in_features))
+        _lecun_normal_(self.w_ih.data, in_features, generator)
+        self.w_hh = nn.Parameter(torch.empty(4 * hidden, hidden))
+        for gate in self.w_hh.data.chunk(4):
+            nn.init.orthogonal_(gate, generator=generator)
+        self.bias = nn.Parameter(torch.zeros(4 * hidden))
+
+
+class BiLSTM(nn.Module):
+    """Bidirectional LSTM over (B, T, F) returning (B, T, 2 * hidden) (or
+    (B, T, hidden) unidirectional), from a zero carry (reference
+    src/models/CnnLSTM.py:96-98). Cell ``OptimizedLSTMCell_{l * ndir + d}``
+    holds layer l, direction d (1 = reversed in time, outputs kept in
+    order), flax's names. The recurrence and the output are f32 whatever
+    the model's compute dtype (see the module docstring); flax's output is
+    f32 too (its carry is)."""
+
+    def __init__(self, in_features: int, hidden: int, n_layers: int = 1,
+                 bidirectional: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden, self.n_layers, self.bidirectional = hidden, n_layers, bidirectional
+        ndir = 2 if bidirectional else 1
+        for layer in range(n_layers):
+            for d in range(ndir):
+                self.add_module(f"OptimizedLSTMCell_{layer * ndir + d}", LSTMCellParams(
+                    in_features if layer == 0 else hidden * ndir, hidden, generator))
+        # torch.lstm's hidden-side bias slot: a constant, never trained
+        self.register_buffer("_zero_bias", torch.zeros(4 * hidden), persistent=False)
+
+    def lstm_weights(self) -> list:
+        """The cells' weights in ``torch.lstm``'s order: per layer and
+        direction w_ih, w_hh, the bias, and the zero constant."""
+        weights = []
+        for cell in self.children():
+            weights += [cell.w_ih, cell.w_hh, cell.bias, self._zero_bias]
+        return weights
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ndir = 2 if self.bidirectional else 1
+        h0 = torch.zeros(self.n_layers * ndir, x.shape[0], self.hidden, device=x.device)
+        # train=True keeps cuDNN's training-mode workspace for a backward;
+        # it has no other effect here (no dropout between layers)
+        out, _, _ = torch.lstm(x.float(), (h0, h0), self.lstm_weights(), True, self.n_layers,
+                               0.0, torch.is_grad_enabled(), self.bidirectional, True)
+        return out
+
+
+def sinusoidal_positions(max_len: int, d_model: int) -> torch.Tensor:
+    """Sinusoidal positional table (max_len, d_model) with the reference's
+    odd-dimension handling (reference PositionalEncoding,
+    src/models/transformer.py:10-33): f32, computed in numpy as the JAX
+    package does."""
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div = np.exp(np.arange(0, d_model, 2, dtype=np.float32) * -(np.log(10000.0) / d_model))
+    pe[:, 0::2] = np.sin(position * div)
+    cos = np.cos(position * div)
+    pe[:, 1::2] = cos[:, :-1] if d_model % 2 != 0 else cos
+    return torch.from_numpy(pe)
+

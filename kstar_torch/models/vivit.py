@@ -17,8 +17,8 @@ Numerics follow the JAX module, not torch's defaults:
   * the residual stream stays in ``dtype``; the head runs in f32.
 
 Submodules carry the flax names (``patch_embed``, ``space_transformer.
-attn_0.to_qkv``, ``mlp_fc1`` ...), so ``weights.vivit_state_dict_from_flax``
-is a mechanical rename. Public inputs stay channels-last (B, T, H, W, C).
+attn_0.to_qkv``, ``mlp_fc1`` ...), so ``weights.state_dict_from_flax`` is
+a mechanical rename. Public inputs stay channels-last (B, T, H, W, C).
 """
 
 from __future__ import annotations
@@ -319,9 +319,11 @@ class ViViT(nn.Module):
         return self.mlp_fc2(F.elu(self.mlp_ln(self.mlp_fc1(latent.float()))))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                noise_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Logits of (B, T, H, W, C) clips. ``train=True`` turns dropout on,
-        with its masks drawn from ``generator``."""
+        with its masks drawn from ``generator``; ViViT has no input noise,
+        so ``noise_generator`` (the train step's third stream) is unused."""
         return self.classify(self.encoder(x, train, generator))
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:

@@ -10,9 +10,12 @@ train_per_epoch/valid_per_epoch/train/train_DRW):
     no host sync per step;
   * preprocessing (``pre_fn``: crop / augment / normalize of the raw uint8
     batch) runs inside the step, on the device;
-  * each step draws from two generators on the device seeded from (seed,
-    step count) (``TrainState.next_generators``): one for ``pre_fn``, one
-    for the dropout masks;
+  * each step draws from three generators on the device seeded from
+    (seed, step count) (``TrainState.next_generators``): one for
+    ``pre_fn``, one for the dropout masks, one for the 0D models' input
+    noise (JAX's ``pre``, ``dropout`` and ``noise`` keys);
+  * the model's BatchNorm statistics move in the train forward and the NaN
+    guard puts them back on a skipped step, as ``guarded_update`` does;
   * per-step losses and predictions stay on the device; the host fetches
     them once per epoch, so step N+1 is queued while step N runs;
   * metrics (macro-F1) accumulate host-side like the reference's sklearn
@@ -48,23 +51,26 @@ def make_train_step(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None) -> 
     """step(state, batch, labels, weight, m_list) -> (state, loss, preds).
 
     One optimizer step of ``state.model`` on a device batch: ``pre_fn(gen,
-    batch)`` (optional), the forward in training mode with dropout drawn
-    from the step's generator, the loss, backward, and the guarded update.
-    ``loss`` and ``preds`` stay on the device."""
+    batch)`` (optional), the forward in training mode with dropout (and,
+    for the 0D models, the input noise) drawn from the step's generators,
+    the loss, backward, and the guarded update. ``loss`` and ``preds`` stay
+    on the device."""
 
     def step(state: TrainState, batch, labels, weight, m_list):
-        gen_pre, gen_drop = state.next_generators()
+        gen_pre, gen_drop, gen_noise = state.next_generators()
         if pre_fn is not None:
             batch = pre_fn(gen_pre, batch)
         for p in state.params:
             p.grad = None
-        logits = state.model(batch, train=True, generator=gen_drop)
+        stats_before = state.snapshot_stats()
+        logits = state.model(batch, train=True, generator=gen_drop,
+                             noise_generator=gen_noise)
         loss = classification_loss(logits, labels, loss_cfg.loss_type, weight=weight,
                                    gamma=loss_cfg.focal_gamma, m_list=m_list,
                                    s=loss_cfg.ldam_s)
         loss.backward()
         loss = loss.detach()
-        state.apply_gradients(torch.isfinite(loss))
+        state.apply_gradients(torch.isfinite(loss), stats_before)
         return state, loss, logits.detach().argmax(-1)
 
     return step

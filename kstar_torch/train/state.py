@@ -25,8 +25,13 @@ clipping scales by ``max_norm / |g|`` only when ``|g| >= max_norm`` (no
 staircase=True)`` of the count of APPLIED updates: a step the NaN guard
 skips does not advance it. Everything stays on the device.
 
-A checkpoint is the full state (parameters, optimizer state, step, seed,
-draws) written with ``torch.save``: ``--resume`` continues exactly.
+The model's batch statistics (its persistent floating-point buffers: the
+BatchNorm running mean and variance) are rebound the same way into a
+second flat buffer, so the NaN guard keeps them too with one select.
+
+A checkpoint is the full state (parameters, batch statistics, optimizer
+state, step, seed, draws) written with ``torch.save``: ``--resume``
+continues exactly.
 """
 
 from __future__ import annotations
@@ -120,12 +125,12 @@ def make_optimizer(cfg: OptimConfig, steps_per_epoch: int = 1) -> Optimizer:
         decay_rate=cfg.gamma, max_norm=cfg.max_norm_grad)
 
 
-def _flatten_parameters(params) -> torch.Tensor:
-    """Copy the parameters into one flat buffer and rebind each as a view
-    of it (so a whole-buffer update updates the model)."""
+def _flatten_parameters(params, what: str = "parameters") -> torch.Tensor:
+    """Copy the tensors into one flat buffer and rebind each as a view of it
+    (so a whole-buffer update updates the model)."""
     dev = {p.device for p in params}
     if len(dev) != 1 or any(p.dtype != torch.float32 for p in params):
-        raise ValueError("TrainState: parameters must be f32 on one device, got "
+        raise ValueError(f"TrainState: {what} must be f32 on one device, got "
                          f"{sorted({str(p.dtype) for p in params})} on {dev}")
     flat = torch.cat([p.detach().reshape(-1) for p in params])
     offset = 0
@@ -152,15 +157,22 @@ class TrainState:
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.flat = _flatten_parameters(self.params)
         self.device = self.flat.device
+        # batch statistics: the persistent floating-point buffers
+        saved = set(model.state_dict())
+        self.stats = [b for name, b in model.named_buffers()
+                      if name in saved and b.is_floating_point()]
+        self.stats_flat = (_flatten_parameters(self.stats, "batch statistics")
+                           if self.stats else None)
         self.opt_state = tx.init(self.flat)
         self.step = torch.zeros((), dtype=torch.int64, device=self.device)
         self.draws = 0
 
     def next_generators(self):
-        """(pre, dropout) generators on the device for the next step, seeded
-        from (seed, draws); advances ``draws``."""
+        """(pre, dropout, noise) generators on the device for the next step,
+        each seeded from (seed, draws, its stream index) alone, so one
+        stream's draws do not depend on the others; advances ``draws``."""
         gens = []
-        for stream in range(2):
+        for stream in range(3):
             s = np.random.SeedSequence([self.seed, self.draws, stream]).generate_state(
                 1, np.uint64)[0]
             gens.append(torch.Generator(device=self.device).manual_seed(int(s)))
@@ -171,19 +183,27 @@ class TrainState:
         return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
                           for p in self.params])
 
+    def snapshot_stats(self) -> Optional[torch.Tensor]:
+        """A copy of the batch statistics before a train forward moves them
+        (None for a model without any), for ``apply_gradients``."""
+        return None if self.stats_flat is None else self.stats_flat.clone()
+
     @torch.no_grad()
-    def apply_gradients(self, finite: torch.Tensor) -> None:
+    def apply_gradients(self, finite: torch.Tensor,
+                        stats_before: Optional[torch.Tensor]) -> None:
         """One optimizer update from the parameters' ``.grad``, kept only
         where ``finite`` (a device bool): otherwise parameters, optimizer
-        state and step stay bit-identical. Decided on the device, with no
-        host sync (``guarded_update``, ``kstar_tpu/train/loop.py:91-104``).
-        The ported models keep no batch statistics; the guard's batch-stats
-        half comes with the conv models (ROADMAP.md Queue 1 item 11)."""
+        state, step and the batch statistics (back to ``stats_before``, the
+        step's ``snapshot_stats``) stay bit-identical. Decided on the device,
+        with no host sync (``guarded_update``,
+        ``kstar_tpu/train/loop.py:91-104``)."""
         updates, new_opt = self.tx.update(self.flat_grads(), self.opt_state, self.flat)
         self.flat.copy_(torch.where(finite, self.flat + updates, self.flat))
         self.opt_state = {k: torch.where(finite, v, self.opt_state[k])
                           for k, v in new_opt.items()}
         self.step = torch.where(finite, self.step + 1, self.step)
+        if stats_before is not None:
+            self.stats_flat.copy_(torch.where(finite, self.stats_flat, stats_before))
 
     def state_dict(self) -> dict:
         return {"step": self.step, "model": self.model.state_dict(),
@@ -191,6 +211,7 @@ class TrainState:
 
     def load_state_dict(self, payload: dict) -> None:
         self.model.load_state_dict(payload["model"])      # copies into the views
+                                                          # (parameters and statistics)
         self.opt_state = {k: v.to(self.device) for k, v in payload["opt_state"].items()}
         self.step = payload["step"].to(self.device)
         self.seed, self.draws = int(payload["seed"]), int(payload["draws"])

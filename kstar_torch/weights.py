@@ -1,11 +1,15 @@
 """Weight bridge from the JAX package's flax parameters to the port.
 
-``vivit_state_dict_from_flax`` is the inverse of the torch -> flax copy in
-``tests/parity_helpers.py`` (``load_vivit_encoder``): the port's ViViT keeps
+``state_dict_from_flax`` is the inverse of the torch -> flax copy in
+``tests/parity_helpers.py`` (``load_vivit_encoder``): the port's models keep
 the flax submodule names, so the mapping is per leaf only —
 
   * a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), transposed;
-  * a LayerNorm ``scale`` becomes ``weight``;
+  * a Conv ``kernel`` (k, in, out) becomes ``weight`` (out, in, k);
+  * a LayerNorm or BatchNorm ``scale`` becomes ``weight``;
+  * ``batch_stats`` ``mean``/``var`` become ``running_mean``/``running_var``;
+  * each LSTM cell ``OptimizedLSTMCell_k`` is packed into the port's
+    ``w_ih``, ``w_hh`` and single ``bias`` (gates i, f, g, o);
   * everything else (biases, ``space_token``, ``temporal_token``,
     ``pos_embedding``) is copied as it is.
 
@@ -15,7 +19,7 @@ bundle (kernels (in, out), vectors (1, D)) into the port's bundle.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 
@@ -26,19 +30,40 @@ def _tensor(x, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return as_f32_tensor(x).to(dtype)
 
 
-def vivit_state_dict_from_flax(params: Mapping, prefix: str = "") -> dict:
-    """flax params tree (``variables["params"]`` as nested dicts of numpy
-    arrays) -> ``state_dict`` of the port module with the same structure."""
+_LSTM_GATES = ("i", "f", "g", "o")       # torch.lstm's packing order
+_RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+
+
+def _lstm_cell_from_flax(cell: Mapping, prefix: str) -> dict:
+    """One flax ``OptimizedLSTMCell`` (``ii|if|ig|io`` input kernels (in, H),
+    ``hi|hf|hg|ho`` recurrent kernels (H, H) with their biases) -> the
+    port's ``w_ih`` (4H, in), ``w_hh`` (4H, H) and single ``bias`` (4H)."""
+    return {
+        f"{prefix}w_ih": torch.cat([_tensor(cell[f"i{g}"]["kernel"]).T
+                                    for g in _LSTM_GATES]).contiguous(),
+        f"{prefix}w_hh": torch.cat([_tensor(cell[f"h{g}"]["kernel"]).T
+                                    for g in _LSTM_GATES]).contiguous(),
+        f"{prefix}bias": torch.cat([_tensor(cell[f"h{g}"]["bias"]) for g in _LSTM_GATES]),
+    }
+
+
+def state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None,
+                         prefix: str = "") -> dict:
+    """flax ``params`` (and ``batch_stats``), nested dicts of numpy arrays,
+    -> ``state_dict`` of the port module with the same structure."""
     out = {}
-    for name, value in params.items():
-        if isinstance(value, Mapping):
-            out.update(vivit_state_dict_from_flax(value, f"{prefix}{name}."))
-        elif name == "kernel":
-            out[f"{prefix}weight"] = _tensor(value).T.contiguous()
-        elif name == "scale":
-            out[f"{prefix}weight"] = _tensor(value)
-        else:
-            out[f"{prefix}{name}"] = _tensor(value)
+    for tree in (params, batch_stats or {}):
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                if name.startswith("OptimizedLSTMCell_"):
+                    out.update(_lstm_cell_from_flax(value, f"{prefix}{name}."))
+                else:
+                    out.update(state_dict_from_flax(value, None, f"{prefix}{name}."))
+            elif name == "kernel":
+                w = _tensor(value)
+                out[f"{prefix}weight"] = (w.permute(2, 1, 0) if w.dim() == 3 else w.T).contiguous()
+            else:
+                out[f"{prefix}{_RENAME.get(name, name)}"] = _tensor(value)
     return out
 
 

@@ -18,7 +18,7 @@ from kstar_torch.eval import alarms as ta
 from kstar_torch.infer import continuous as tc
 from kstar_torch.infer import latency as tl
 from kstar_torch.models.vivit import ViViT as TorchViViT
-from kstar_torch.weights import vivit_state_dict_from_flax
+from kstar_torch.weights import state_dict_from_flax
 from kstar_tpu.eval import alarms as ja
 from kstar_tpu.infer import continuous as jc
 from kstar_tpu.models.vivit import ViViT as JaxViViT
@@ -67,7 +67,7 @@ def vivit_pair():
     variables = jm.init({"params": key, "dropout": key},
                         jnp.zeros((1, SEQ_LEN, CROP, CROP, 3)), train=False)
     tm = TorchViViT(**KW)
-    tm.load_state_dict(vivit_state_dict_from_flax(
+    tm.load_state_dict(state_dict_from_flax(
         jax.tree_util.tree_map(np.asarray, variables["params"])))
     return jm, variables["params"], tm
 

@@ -11,7 +11,7 @@ import torch
 from kstar_torch import resolve_device
 from kstar_torch.infer import continuous as tc
 from kstar_torch.models.vivit import ViViT as TorchViViT
-from kstar_torch.weights import vivit_state_dict_from_flax
+from kstar_torch.weights import state_dict_from_flax
 from kstar_tpu.infer import continuous as jc
 from kstar_tpu.models.vivit import ViViT as JaxViViT
 
@@ -36,7 +36,7 @@ def models():
     variables = jm.init({"params": key, "dropout": key},
                         jnp.zeros((1, SEQ_LEN, CROP, CROP, 3)), train=False)
     tm = TorchViViT(**KW)
-    tm.load_state_dict(vivit_state_dict_from_flax(
+    tm.load_state_dict(state_dict_from_flax(
         jax.tree_util.tree_map(np.asarray, variables["params"])))
     frames = np.random.default_rng(0).integers(0, 255, size=(40, IMG, IMG, 3),
                                                dtype=np.uint8)

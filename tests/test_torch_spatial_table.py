@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from kstar_torch.models.vivit import ViViT as TorchViViT
 from kstar_torch.ops import spatial_table as tst
-from kstar_torch.weights import spatial_weights_from_flax, vivit_state_dict_from_flax
+from kstar_torch.weights import spatial_weights_from_flax, state_dict_from_flax
 from kstar_tpu.models.vivit import ViViT as JaxViViT
 from kstar_tpu.ops import spatial_table as jst
 
@@ -93,7 +93,7 @@ def test_port_module_gives_the_same_bundle(setup):
     _, variables, params, _ = setup
     tm = TorchViViT(image_size=IMG, patch_size=PATCH, n_frames=SEQ_LEN, dim=DIM,
                     depth=DEPTH, n_heads=HEADS, d_head=DH)
-    tm.load_state_dict(vivit_state_dict_from_flax(params))
+    tm.load_state_dict(state_dict_from_flax(params))
     from_tree = tst.extract_spatial_weights(params, SEQ_LEN, DEPTH, torch.float32)
     from_module = tst.extract_spatial_weights(tm, SEQ_LEN, DEPTH, torch.float32)
     jax_bundle = jax.tree_util.tree_map(

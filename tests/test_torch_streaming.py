@@ -11,7 +11,7 @@ from flax import linen as nn
 
 from kstar_torch.infer import streaming as ts
 from kstar_torch.models.vivit import ViViT as TorchViViT
-from kstar_torch.weights import vivit_state_dict_from_flax
+from kstar_torch.weights import state_dict_from_flax
 from kstar_tpu.infer import streaming as js
 from kstar_tpu.models.vivit import ViViT as JaxViViT
 
@@ -78,7 +78,7 @@ def vivit_pair():
     variables = jm.init({"params": key, "dropout": key},
                         jnp.zeros((1, 4, 32, 32, 3)), train=False)
     tm = TorchViViT(**VIVIT_KW)
-    tm.load_state_dict(vivit_state_dict_from_flax(
+    tm.load_state_dict(state_dict_from_flax(
         jax.tree_util.tree_map(np.asarray, variables["params"])))
     return jm, variables["params"], tm
 

@@ -30,7 +30,7 @@ from kstar_torch.models.vivit import dropout
 from kstar_torch.train import (History, create_train_state, fit, load_checkpoint,
                                load_params, make_optimizer, make_scan_steps,
                                make_train_step, save_checkpoint)
-from kstar_torch.weights import vivit_state_dict_from_flax
+from kstar_torch.weights import state_dict_from_flax
 from kstar_tpu.config import LossConfig as JLossConfig
 from kstar_tpu.config import OptimConfig as JOptimConfig
 from kstar_tpu.models.vivit import ViViT as JaxViViT
@@ -117,7 +117,7 @@ def test_train_steps_match_jax(name):
     jstate = j_create_train_state(jm, jnp.asarray(x[0]), jax.random.key(0),
                                   JOptimConfig(**cfg), steps_per_epoch=1)
     tm = TorchViViT(**SMALL, dropout=0.0, embedd_dropout=0.0)
-    tm.load_state_dict(vivit_state_dict_from_flax(
+    tm.load_state_dict(state_dict_from_flax(
         jax.tree_util.tree_map(np.asarray, jstate.params)), strict=True)
     tstate = create_train_state(tm, OptimConfig(**cfg), steps_per_epoch=1)
 
@@ -134,7 +134,7 @@ def test_train_steps_match_jax(name):
         tloss.append(float(l))
     np.testing.assert_allclose(tloss, jloss, rtol=1e-4)
     assert int(tstate.step) == int(jstate.step) == STEPS
-    want = vivit_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jstate.params))
+    want = state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jstate.params))
     got = tm.state_dict()
     for k, v in want.items():
         np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=0, atol=1e-5, err_msg=k)

@@ -15,7 +15,7 @@ import torch
 from kstar_torch.config import ViViTConfig
 from kstar_torch.models import build_video_model
 from kstar_torch.models.vivit import ViViT as TorchViViT
-from kstar_torch.weights import vivit_state_dict_from_flax
+from kstar_torch.weights import state_dict_from_flax
 from kstar_tpu.models.vivit import ViViT as JaxViViT
 
 IMG, PATCH, FRAMES = 32, 16, 5
@@ -43,7 +43,7 @@ def make_pair(**overrides):
                                    kw["image_size"], 3)), train=False)
     tm = TorchViViT(**kw).eval()
     params = jax.tree_util.tree_map(np.asarray, variables["params"])
-    tm.load_state_dict(vivit_state_dict_from_flax(params), strict=True)
+    tm.load_state_dict(state_dict_from_flax(params), strict=True)
     return jm, variables, tm
 
 
