@@ -25,6 +25,10 @@ width of the flagship ViViT (dim 128, depth 2, 4 heads x 64, MLP 1024,
                 the NaN guard; card against CPU in f32
   train_cli     kstar_torch.cli.train_vision --synthetic for 2 epochs, then
                 --resume for one more (the alarm sweep runs the table kernel)
+  video_sweep_fallback
+                the sweep's table route at 257 tokens (patch 4, 64 px), past
+                what the table kernel takes: the plain table, no launch, and
+                an error when the kernel is forced; the flagship takes it
 
 and then the three 0D models at their default widths (Transformer dim 128
 x 4 layers x 8 heads, FF 1024; CnnLSTM conv 64, LSTM 128 x 4 layers,
@@ -43,6 +47,27 @@ three kernels (each phase reads their launch counts as 0):
                   from the port's own data layer and trainer
   train_0d_cli    kstar_torch.cli.train_0d --model MLSTM_FCN --synthetic
                   for 2 epochs, then --resume for one more
+
+and last the four fusion models (concat, concat_GB, TFN, TFN_GB) at the
+train_multimodal CLI's widths (the ViViT above with an MLP of 512, the 0D
+Transformer 128 x 4 layers x 8 heads, FF 512), paired with a 0D table of
+one row per frame (1/210 s, 18 features, a random walk from --seed); the
+spatial-table kernel is also held against its plain version at the fusion
+ViViT's MLP of 512 over the whole shot:
+
+  fusion_models         eval forward at batch 32: f32 card against CPU,
+                        bf16 against f32, forward_spatial_cls against the
+                        full forward, times, launches
+  multimodal_sweep      MultiModalSweeper (batch 32) over the shot for
+                        concat and TFN_GB: windows/s, the table (one
+                        spatial-table launch per sweep) and the window loop
+                        apart, idle share, the curve against the plain
+                        table's, predict_multimodal_shot
+  train_multimodal      fit's multi (concat) and multi-GB (TFN_GB) steps at
+                        batch 32, card against CPU in f32, one gb_estimate
+  train_multimodal_cli  kstar_torch.cli.train_multimodal --synthetic, concat
+                        and TFN with dynamic Gradient Blending, 2 epochs and
+                        a resume (the alarm sweep runs the table kernel)
 
 Every phase prints one JSON line and any failure exits non-zero. Then come
 the per-kernel summary line, the card's name and power limit as nvidia-smi
@@ -71,8 +96,13 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12,   # dense tensor cores
                   "float32": 67e12}     # f32 outside the tensor cores
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line per phase, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - T_START}), flush=True)
 
 
 def time_ms(fn, iters: int) -> float:
@@ -841,6 +871,538 @@ def train_0d_cli_phase() -> tuple:
     return ok, fields
 
 
+# ---------------------------------------------------------------------------
+# The fusion models: concat, TFN and their Gradient-Blending twins at the
+# train_multimodal CLI's widths
+# ---------------------------------------------------------------------------
+
+FUSION_BATCH = 32                 # the train_multimodal CLI's batch
+PROFILED_CHUNKS = 16              # multimodal_sweep: window chunks under the profiler
+DT_MULTI = 1.0 / 210.0            # the multimodal 0D table: one row per frame
+# fusion_models: bf16 against f32 probabilities at batch 32, per model. The
+# H100 readings were 4.4e-3 (concat), 3.1e-3 (concat_GB), 3.7e-3 (TFN) and
+# 4.3e-3 (TFN_GB): bf16 rounds the two encoders, the heads run in f32.
+FUSION_BF16_PROB_TOL = {"concat": 1e-2, "concat_GB": 1e-2, "TFN": 1e-2, "TFN_GB": 1e-2}
+
+
+def fusion_kwargs(crop: int = CROP) -> tuple:
+    """(vivit_kwargs, ts_kwargs) at kstar_torch.cli.train_multimodal's
+    defaults: ViViT dim 128, depth 2, 4 heads x 64, scale_dim 4 (MLP 512),
+    patch 16; the 0D Transformer 128 wide, 4 layers, 8 heads, FF 512, cls
+    128; 18 features, 21-frame windows."""
+    vivit = dict(image_size=crop, patch_size=16, n_frames=SEQ_LEN, dim=128, depth=2,
+                 n_heads=4, d_head=64, scale_dim=4, dropout=0.1, embedd_dropout=0.1)
+    ts = dict(n_features=18, feature_dims=128, max_len=SEQ_LEN, n_layers=4, n_heads=8,
+              dim_feedforward=512, dropout=0.1, cls_dims=128)
+    return vivit, ts
+
+
+def fusion_models(seed: int, vivit_kw: dict, ts_kw: dict, dtype=torch.float32,
+                  names=("concat", "concat_GB", "TFN", "TFN_GB")) -> dict:
+    """The fusion models on the CPU with random weights from ``seed``, their
+    BatchNorm running statistics drawn off the zeros/ones start."""
+    from kstar_torch.models import TFN, TFNGB, MultiModalConcat, MultiModalGB
+    from kstar_torch.models.common import BatchNorm
+
+    classes = {"concat": MultiModalConcat, "concat_GB": MultiModalGB, "TFN": TFN,
+               "TFN_GB": TFNGB}
+    out = {}
+    for name in names:
+        gen = torch.Generator().manual_seed(seed * 10 + 5 + list(classes).index(name))
+        model = classes[name](vivit_kw, ts_kw, dtype=dtype, generator=gen)
+        for bn in model.modules():
+            if isinstance(bn, BatchNorm):
+                bn.running_mean.normal_(0.0, 0.3, generator=gen)
+                bn.running_var.uniform_(0.5, 2.0, generator=gen)
+        out[name] = model
+    return out
+
+
+def twin(model, dtype, quiet: bool = False):
+    """The same weights in another compute dtype, on the CPU; ``quiet``
+    turns dropout and the input noise off."""
+    vk, tk = dict(model.vivit_kwargs), dict(model.ts_kwargs)
+    if quiet:
+        vk.update(dropout=0.0, embedd_dropout=0.0)
+        tk.update(dropout=0.0, noise_std=0.0)
+    with torch.device("meta"):            # no second random initialisation
+        other = type(model)(vk, tk, dtype=dtype)
+    other.load_state_dict({k: v.clone() for k, v in model.state_dict().items()},
+                          assign=True)
+    return other
+
+
+def random_walk_table(seed: int, rows: int):
+    """(rows, 18) raw 0D values: a seeded random walk per feature."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (np.cumsum(rng.normal(size=(rows, 18)), axis=0) * 0.1).astype(np.float32)
+
+
+def first(out):
+    """The fusion logits of a forward (the multi logits of a GB model)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def video_sweep_fallback_phase(frames, dev, cfg, model) -> tuple:
+    """The video sweep's tri-state table route: a flagship-config ViViT at
+    patch 4 over a 64 px crop (16 x 16 patches + cls = 257 tokens, past the
+    kernel's 128) sweeps 256 frames with use_fused_table=None: it must report
+    the plain table, launch the kernel 0 times and give use_fused_table=
+    False's curve exactly; True must raise; the flagship (patch 16, 128 px,
+    65 tokens) under None must report the kernel and launch it once."""
+    import numpy as np
+
+    from kstar_torch.infer import VideoSweeper
+    from kstar_torch.models import build_video_model
+    from kstar_torch.ops.spatial_table import spatial_table
+
+    shot = frames[:256]
+    starts = np.arange(len(shot) - SEQ_LEN - 1, dtype=np.int64)
+    cfg257 = dataclasses.replace(cfg, patch_size=4, image_size=64)
+    m257 = build_video_model("ViViT", cfg257, dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(3)).to(dev)
+    fields = {"tokens": (64 // 4) ** 2 + 1, "frames": len(shot), "windows": len(starts)}
+    spatial_table.launches = 0
+    t0 = time.perf_counter()
+    auto = VideoSweeper(m257, SEQ_LEN, 64, BATCH, torch.bfloat16, device=dev)
+    p_auto = auto.sweep(shot, starts)
+    fields.update(none_ms=(time.perf_counter() - t0) * 1e3,
+                  none_fused_table_active=auto.fused_table_active,
+                  none_launches=spatial_table.launches)
+    p_off = VideoSweeper(m257, SEQ_LEN, 64, BATCH, torch.bfloat16, use_fused_table=False,
+                         device=dev).sweep(shot, starts)
+    fields["none_equals_false_exactly"] = bool(np.array_equal(p_auto, p_off))
+    try:
+        VideoSweeper(m257, SEQ_LEN, 64, BATCH, torch.bfloat16, use_fused_table=True,
+                     device=dev)
+        fields["true_raised"] = None
+    except ValueError as e:
+        fields["true_raised"] = str(e)[:200]
+    spatial_table.launches = 0
+    flag = VideoSweeper(model, SEQ_LEN, CROP, BATCH, torch.bfloat16, device=dev)
+    p_flag = flag.sweep(shot, starts)
+    fields.update(flagship_fused_table_active=flag.fused_table_active,
+                  flagship_launches=spatial_table.launches)
+    ok = (fields["none_fused_table_active"] is False and fields["none_launches"] == 0
+          and fields["none_equals_false_exactly"] and fields["true_raised"] is not None
+          and fields["flagship_fused_table_active"] is True
+          and fields["flagship_launches"] == 1 and p_auto.shape == starts.shape
+          and bool(np.isfinite(p_auto).all()) and bool(np.isfinite(p_flag).all()))
+    return ok, fields
+
+
+def fusion_models_phase(seed: int, frames_dev, table, dev, cpu_models: dict,
+                        batch: int = FUSION_BATCH) -> tuple:
+    """Each fusion model's eval forward at ``batch`` paired windows of the
+    shot (video bf16 and f32 from the cropped uint8 frames, the 0D rows of
+    the same frames): bf16 against f32 probabilities on the card (within the
+    model's FUSION_BF16_PROB_TOL), f32 on the card against the CPU at batch
+    4 (atol 1e-4 + rtol 1e-4, every output of the forward), and
+    forward_spatial_cls on each window's spatial-cls rows (f32, the plain
+    spatial_cls per offset) against the full forward's fusion logits (1e-4);
+    device ms by CUDA events, launches and busy ms of one bf16 forward.
+    Returns (ok, fields, the bf16 models on the card)."""
+    import numpy as np
+
+    from kstar_torch.config import PIXEL_MEAN_BGR
+
+    T = frames_dev.shape[0]
+    starts = torch.as_tensor(np.linspace(0, T - SEQ_LEN - 1, batch).astype(np.int64),
+                             device=dev)
+    win = starts[:, None] + torch.arange(SEQ_LEN, device=dev)
+    clips = frames_dev[win]                                  # (B, 21, crop, crop, 3) uint8
+    x_bf = clips.to(torch.bfloat16) - torch.tensor(PIXEL_MEAN_BGR, dtype=torch.bfloat16,
+                                                   device=dev)
+    x_32 = clips.float() - torch.tensor(PIXEL_MEAN_BGR, device=dev)
+    x_ts = torch.from_numpy(table).to(dev)[win]              # (B, 21, 18)
+    ok, fields, bf16_models = True, {}, {}
+    for name, cpu in cpu_models.items():
+        f32 = copy.deepcopy(cpu).to(dev).eval()
+        bf = twin(cpu, torch.bfloat16).to(dev).eval()
+        kernel_launches(reset=True)
+        with torch.no_grad():
+            out_32, out_bf = f32(x_32, x_ts), bf(x_bf, x_ts)
+            want = cpu(x_32[:4].cpu(), x_ts[:4].cpu())
+            got = f32(x_32[:4], x_ts[:4])
+            rows = torch.stack([torch.stack([f32.spatial_cls(f32.embed_frames(x_32[b]), off)[off]
+                                             for off in range(SEQ_LEN)]) for b in range(4)])
+            fast = f32.forward_spatial_cls(rows, x_ts[:4])
+        torch.cuda.synchronize()
+        flat = lambda o: torch.cat([t.reshape(-1) for t in (o if isinstance(o, tuple) else (o,))])
+        res = compare(flat(got).cpu(), flat(want), 1e-4, 1e-4, 1e-4)
+        fsc_err = float((fast - first(got)).abs().max())
+        p_err = float((torch.softmax(first(out_bf).float(), -1)
+                       - torch.softmax(first(out_32), -1)).abs().max())
+        fwd_bf = torch.no_grad()(lambda: bf(x_bf, x_ts))
+        fwd_32 = torch.no_grad()(lambda: f32(x_32, x_ts))
+        n_launch, busy_ms, _, top = step_launches(fwd_bf)
+        launches_k = kernel_launches()
+        tol = FUSION_BF16_PROB_TOL[name]
+        entry = dict(
+            params=sum(p.numel() for p in cpu.parameters()), batch=batch,
+            outputs=len(out_bf) if isinstance(out_bf, tuple) else 1,
+            f32_card_vs_cpu=res, forward_spatial_cls_vs_full_max_abs=fsc_err,
+            forward_spatial_cls_tol=1e-4, bf16_vs_f32_probs_max_abs=p_err,
+            bf16_probs_tol=tol, forward_ms_bf16=time_ms(fwd_bf, 10),
+            forward_ms_f32=time_ms(fwd_32, 5), launches_per_forward_bf16=n_launch,
+            forward_device_busy_ms_bf16=busy_ms, top_kernels_bf16=top,
+            kernel_launches=launches_k)
+        entry_ok = (res["ok"] and fsc_err <= 1e-4 and p_err <= tol
+                    and bool(torch.isfinite(first(out_bf)).all())
+                    and first(out_bf).shape == (batch, 2) and not any(launches_k.values()))
+        entry["ok"] = entry_ok
+        ok = ok and entry_ok
+        fields[name] = entry
+        bf16_models[name] = bf
+        del f32
+    return ok, fields, bf16_models
+
+
+def multimodal_sweep_phase(frames, values, dev, models: dict) -> tuple:
+    """MultiModalSweeper at the CLI's batch over the whole shot paired with
+    its 0D table (one row per frame, ladders from multimodal_ladders over the
+    shot): windows/s (median of 3 host-clock sweeps, each from host frames
+    to host probabilities), the load (crop, upload, embedding, table), the
+    table alone and the window loop apart, the spatial-table kernel's
+    launches (1 per sweep) and the route the sweeper reports, one sweep
+    under torch.profiler (launches, busy ms, idle share), the curve against
+    the plain table's (max |dp| <= 0.05, mean <= 5e-3) and
+    predict_multimodal_shot's lengths."""
+    import numpy as np
+
+    from kstar_torch.data import Scaler
+    from kstar_torch.infer import (MultiModalSweeper, multimodal_ladders,
+                                   predict_multimodal_shot)
+    from kstar_torch.ops.spatial_table import spatial_table
+
+    T = len(frames)
+    times = np.arange(T) * DT_MULTI
+    scaler = Scaler("Robust").fit(values)
+    data = scaler.transform(values)
+    vk, tk = multimodal_ladders(times, 0, T - 1, 0.0, float(times[-1]), SEQ_LEN, DT_MULTI, 1)
+    ok, fields, k1 = True, {}, 0
+    for name, model in models.items():
+        sw = MultiModalSweeper(model, SEQ_LEN, 1, CROP, FUSION_BATCH, torch.bfloat16,
+                               device=dev)
+        # the whole-shot curve, which also warms the sweeper up
+        time_x, curve = predict_multimodal_shot(model, frames, values, times, scaler, 0,
+                                                T - 1, 0.0, float(times[-1]), SEQ_LEN,
+                                                dt=DT_MULTI, crop_size=CROP,
+                                                batch_size=FUSION_BATCH, sweeper=sw)
+        torch.cuda.synchronize()
+        spatial_table.launches = 0
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            probs = sw.sweep(frames, data, vk, tk)           # ends in a host copy
+            walls.append(time.perf_counter() - t0)
+        launches = spatial_table.launches
+        k1 += launches
+        frames_dev, _ = sw.upload_shot(frames, data)
+        tokens = sw.embed_tokens(frames_dev)
+        loaded = sw.load_shot(frames, data)
+        parts = {"load_ms": wall_ms(lambda: sw.load_shot(frames, data), warmup=False),
+                 "embed_ms": wall_ms(lambda: sw.embed_tokens(frames_dev), warmup=False),
+                 "table_ms": wall_ms(lambda: sw._cls_table(tokens), warmup=False),
+                 "windows_ms": wall_ms(lambda: sw.sweep_windows(loaded, vk, tk),
+                                       warmup=False)}
+        del frames_dev, tokens
+        # device busy time: the load and 16 of the window chunks under the
+        # profiler (a whole sweep's ~58k kernels take the profiler ~30 s to
+        # read back); every chunk has the same shapes, so the chunks' time
+        # scales by the chunk count
+        sub = PROFILED_CHUNKS * FUSION_BATCH
+        n_load, busy_load, _, _ = step_launches(lambda: sw.load_shot(frames, data))
+        n_sub, busy_sub, _, top = step_launches(
+            lambda: sw.sweep_windows(loaded, vk[:sub], tk[:sub]))
+        n_chunks = -(-len(vk) // FUSION_BATCH)
+        busy_ms = (None if busy_sub is None
+                   else busy_load + busy_sub * n_chunks / PROFILED_CHUNKS)
+        n_launch = None if n_sub is None else n_load + n_sub * n_chunks // PROFILED_CHUNKS
+        del loaded
+        plain = MultiModalSweeper(model, SEQ_LEN, 1, CROP, FUSION_BATCH, torch.bfloat16,
+                                  use_fused_table=False, device=dev)
+        p_plain = plain.sweep(frames, data, vk, tk)
+        err = np.abs(probs - p_plain)
+        sweep_s = float(np.median(walls))
+        entry = dict(
+            frames=T, windows=len(vk), batch=FUSION_BATCH, chunks=-(-len(vk) // FUSION_BATCH),
+            fused_table_active=sw.fused_table_active, spatial_table_launches=launches,
+            sweeps_timed=len(walls), windows_per_s=len(vk) / sweep_s,
+            sweep_ms=sweep_s * 1e3, sweep_runs_ms=[w * 1e3 for w in walls], **parts,
+            launches_per_sweep=n_launch, device_busy_ms=busy_ms,
+            profiled_chunks=PROFILED_CHUNKS,
+            device_idle_share=None if busy_ms is None else 1 - busy_ms / (sweep_s * 1e3),
+            top_kernels_16_chunks=top, curve_vs_plain_max_abs=float(err.max()),
+            curve_vs_plain_mean_abs=float(err.mean()), curve_len=len(curve),
+            time_len=len(time_x))
+        entry_ok = (sw.fused_table_active is True and launches == 3
+                    and probs.shape == (len(vk),) and bool(np.isfinite(probs).all())
+                    and err.max() <= 5e-2 and err.mean() <= 5e-3
+                    and len(time_x) == len(curve) > 0 and bool(np.isfinite(curve).all()))
+        entry["ok"] = entry_ok
+        ok = ok and entry_ok
+        fields[name] = entry
+    return ok, fields, k1
+
+
+class PairedClips:
+    """Paired windows of the shot for gb_estimate: uint8 21-frame clips at
+    seeded starts, the 0D rows of the same frames, seeded labels (the
+    dataset interface the epoch drivers read)."""
+
+    def __init__(self, frames, values, n: int, seed: int):
+        import numpy as np
+
+        rng = np.random.default_rng(seed)
+        self.frames, self.values = frames, values
+        self.starts = rng.integers(0, len(frames) - SEQ_LEN, size=n)
+        self.labels = rng.integers(0, 2, size=n).astype(np.int64)
+        self.labels[:2] = [0, 1]
+
+    def __len__(self):
+        return len(self.labels)
+
+    def class_counts(self):
+        import numpy as np
+
+        return np.bincount(self.labels, minlength=2)
+
+    def batch(self, idx):
+        import numpy as np
+
+        win = self.starts[np.asarray(idx)][:, None] + np.arange(SEQ_LEN)
+        return {"video": self.frames[win], "0D": self.values[win]}, self.labels[idx]
+
+
+def card_vs_cpu_steps(model, batches, labels, weight, m_list, gb_w, dev, step,
+                      batch: int = 4, steps: int = 3, lr: float = 1e-3) -> dict:
+    """``steps`` SGD steps of an f32 model (dropout and noise off) on the
+    card and on the CPU from the same weights, at ``batch``. The parameters
+    after the last step are held at atol 1e-4. Each step's loss is held at
+    rtol 1e-3 from the same parameters on both sides (the card's state is
+    set to the CPU's before each step; the update it then makes is held at
+    atol 1e-4 too): TFNGB's head BatchNorm over 4 samples turns the ~3e-7
+    rounding drift of two free-running trajectories into a 1.2e-3 relative
+    loss difference at the third step (H100, this phase), while the same
+    parameters give the same loss on both devices to 1e-7."""
+    import numpy as np
+
+    from kstar_torch.config import OptimConfig
+    from kstar_torch.train import create_train_state
+
+    sgd = OptimConfig(optimizer="SGD", lr=lr)
+    make = lambda d: create_train_state(copy.deepcopy(model).to(d), sgd, steps_per_epoch=1)
+    cpu, card, free = make(torch.device("cpu")), make(dev), make(dev)
+    out = {"batch": batch, "optimizer": f"SGD lr {lr}", "steps": steps,
+           "losses_cpu": [], "losses_cuda_same_params": [], "losses_cuda_free": []}
+    update_err = 0.0
+    for i in range(steps):
+        b = {k: v[:batch] for k, v in batches[i % len(batches)].items()}
+        y = labels[i % len(labels)][:batch]
+        card.flat.copy_(cpu.flat)
+        if cpu.stats_flat is not None:
+            card.stats_flat.copy_(cpu.stats_flat)
+        card.opt_state = {k: v.to(dev) for k, v in cpu.opt_state.items()}
+        card.step = cpu.step.to(dev)
+        args = (weight, m_list, gb_w)
+        out["losses_cuda_same_params"].append(float(step(
+            card, {k: v.to(dev) for k, v in b.items()}, y.to(dev), *args)[1]))
+        out["losses_cuda_free"].append(float(step(
+            free, {k: v.to(dev) for k, v in b.items()}, y.to(dev), *args)[1]))
+        out["losses_cpu"].append(float(step(cpu, {k: v.cpu() for k, v in b.items()}, y.cpu(),
+                                            *(a.cpu() for a in args))[1]))
+        update_err = max(update_err, float((card.flat.cpu() - cpu.flat).abs().max()))
+    l_cpu = np.array(out["losses_cpu"])
+    rel = lambda got: float(np.max(np.abs(np.array(got) - l_cpu) / np.abs(l_cpu)))
+    out.update(loss_max_rel=rel(out["losses_cuda_same_params"]), loss_rtol=1e-3,
+               free_running_loss_max_rel=rel(out["losses_cuda_free"]),
+               update_max_abs=update_err,
+               param_max_abs=float((free.flat.cpu() - cpu.flat).abs().max()),
+               param_atol=1e-4)
+    out["ok"] = bool(out["loss_max_rel"] <= 1e-3 and update_err <= 1e-4
+                     and out["param_max_abs"] <= 1e-4)
+    return out
+
+
+def train_multimodal_phase(seed: int, frames, values, dev, cpu_models: dict,
+                           batch: int = FUSION_BATCH) -> tuple:
+    """fit's multimodal train step at the CLI's batch and widths: a
+    ``multi`` step of MultiModalConcat and a ``multi-GB`` step of TFNGB
+    (GB weights 0.1/0.4/0.5), bf16 over f32 parameters, uint8 clips of the
+    256 px shot cropped to 128 and augmented inside the step, AdamW 2e-4
+    with the staircase decay, clip 1.0, Focal; 5 warm-up and 30 timed steps
+    (host clock up to a synchronise), peak memory, launches and busy ms of
+    one profiled step. Card against CPU in f32 (dropout and noise 0, no
+    augmentation) at batch 4 for 3 SGD steps (``card_vs_cpu_steps``):
+    losses rtol 1e-3, parameters atol 1e-4. Then one gb_estimate (n_epochs
+    1) over a small paired set:
+    three finite weights that sum to 1, the caller's state untouched."""
+    import numpy as np
+
+    from kstar_torch.config import LossConfig, OptimConfig
+    from kstar_torch.data import make_pre_fns, to_device
+    from kstar_torch.losses import ldam_margins
+    from kstar_torch.train import create_train_state, make_train_step
+    from kstar_torch.train.gb import gb_estimate
+
+    rng = np.random.default_rng(seed + 20)
+    n_batches = 2
+    starts = rng.integers(0, len(frames) - SEQ_LEN, size=(n_batches, batch))
+    batches = [to_device({"video": frames[s[:, None] + np.arange(SEQ_LEN)],
+                          "0D": values[s[:, None] + np.arange(SEQ_LEN)]}, dev)
+               for s in starts]
+    labels = [torch.as_tensor(rng.integers(0, 2, size=batch)).to(dev) for _ in range(n_batches)]
+    loss_cfg = LossConfig()
+    weight = torch.ones(2, device=dev)
+    m_list = torch.as_tensor(ldam_margins(np.array([batch // 2, batch // 2]))).to(dev)
+    gb_w = torch.tensor([0.1, 0.4, 0.5], device=dev)
+    pre_train, pre_eval = make_pre_fns(CROP, out_dtype=torch.bfloat16)
+    pre32 = make_pre_fns(CROP, out_dtype=torch.float32)[1]
+    ok, fields, states = True, {}, {}
+    for name, model_type in (("concat", "multi"), ("TFN_GB", "multi-GB")):
+        model = twin(cpu_models[name], torch.bfloat16).to(dev)
+        state = create_train_state(model, OptimConfig(), steps_per_epoch=1, seed=seed)
+        step = make_train_step(loss_cfg, pre_fn=pre_train, model_type=model_type)
+        start = state.flat.clone()
+        kernel_launches(reset=True)
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for i in range(35):
+            t0 = time.perf_counter()
+            _, loss, _ = step(state, batches[i % n_batches], labels[i % n_batches], weight,
+                              m_list, gb_w)
+            torch.cuda.synchronize()
+            if i >= 5:
+                times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = torch.stack(losses).cpu().numpy()
+        moved = float((state.flat != start).float().mean())
+        n_launch, busy_ms, prof_wall, top = step_launches(
+            lambda: step(state, batches[0], labels[0], weight, m_list, gb_w))
+        launches_k = kernel_launches()
+        del start
+
+        quiet = twin(cpu_models[name], torch.float32, quiet=True)
+        parity = card_vs_cpu_steps(quiet, batches, labels, weight, m_list, gb_w, dev,
+                                   make_train_step(loss_cfg, pre_fn=pre32,
+                                                   model_type=model_type))
+
+        t = np.asarray(times)
+        entry = dict(
+            model_type=model_type, params=int(state.flat.numel()), batch=batch,
+            dtype="bfloat16 over f32 parameters",
+            optimizer="AdamW lr 2e-4 staircase 0.95 every 4 updates, clip 1.0",
+            loss="Focal gamma 2" + (", GB weights 0.1/0.4/0.5" if model_type == "multi-GB"
+                                    else ""),
+            steps_timed=len(t), step_p50_ms=float(np.median(t)),
+            step_p99_ms=float(np.percentile(t, 99)), step_runs_ms=t.tolist(),
+            samples_per_s=batch * len(t) / (t.sum() / 1e3), peak_mem_gb=peak_gb,
+            launches_per_step=n_launch, profiled_step_device_busy_ms=busy_ms,
+            profiled_step_wall_ms=prof_wall, top_kernels=top,
+            device_idle_share=None if busy_ms is None else 1 - busy_ms / float(np.median(t)),
+            losses=losses.tolist(), params_moved_share=moved,
+            card_vs_cpu=parity, kernel_launches=launches_k)
+        entry_ok = bool(np.isfinite(losses).all() and moved > 0.5 and parity["ok"]
+                        and not any(launches_k.values()))
+        entry["ok"] = entry_ok
+        ok = ok and entry_ok
+        fields[name] = entry
+        states[name] = state
+
+    # one Gradient-Blending estimate from the TFNGB state
+    state = states.pop("TFN_GB")
+    del states
+    flat0, step0 = state.flat.clone(), int(state.step)
+    t0 = time.perf_counter()
+    w = gb_estimate(state, PairedClips(frames, values, 2 * batch, seed + 30),
+                    PairedClips(frames, values, batch, seed + 31), loss_cfg, batch,
+                    n_epochs=1, seed=seed, pre_fn=pre_train, pre_fn_eval=pre_eval)
+    est_s = time.perf_counter() - t0
+    vals = np.array(list(w.values()))
+    untouched = torch.equal(state.flat, flat0) and int(state.step) == step0
+    gb_ok = (list(w) == ["video", "0D", "multi"] and bool(np.isfinite(vals).all())
+             and abs(vals.sum() - 1.0) < 1e-6 and untouched)
+    fields["gb_estimate"] = dict(model="TFN_GB", n_epochs=1, train=2 * batch, valid=batch,
+                                 weights=w, seconds=est_s, state_untouched=untouched,
+                                 ok=gb_ok)
+    return ok and gb_ok, fields
+
+
+def train_multimodal_cli_phase() -> tuple:
+    """python -m kstar_torch.cli.train_multimodal --synthetic at the default
+    widths for 2 epochs and then --resume (with --skip_extras) for one more,
+    for concat fusion and for TFN with dynamic Gradient Blending
+    (re-estimated every epoch, one probe epoch): checkpoints, report, alarm
+    artifacts; the first run's alarm sweep must launch the spatial-table
+    kernel."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    from kstar_torch.cli import train_multimodal
+
+    fields, ok = {}, True
+    for label, model_args in (
+            ("concat", ["--model_type", "concat"]),
+            ("TFN_GB", ["--model_type", "TFN", "--use_GB", "--gb_dynamic",
+                        "--epoch_per_GB_estimate", "1", "--n_epochs_GB_estimate", "1"])):
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = model_args + ["--synthetic", "--weight_dir", f"{tmp}/w",
+                                 "--save_dir", f"{tmp}/r", "--verbose", "1"]
+            runs = {}
+            for name, extra in (("first", ["--num_epoch", "2"]),
+                                ("resume", ["--num_epoch", "1", "--resume",
+                                            "--skip_extras"])):
+                out = io.StringIO()
+                kernel_launches(reset=True)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    train_multimodal.main(argv + extra)
+                wall = time.perf_counter() - t0
+                text = out.getvalue()
+                print(text, file=sys.stderr, end="")
+                files = sorted(os.listdir(f"{tmp}/w")) + sorted(os.listdir(f"{tmp}/r"))
+                last = [f for f in files if f.endswith("_last.ckpt")]
+                best = [f for f in files if f.endswith("_best.ckpt")]
+                reports = [f for f in files if f.endswith("_report.txt")]
+                alarms = [f for f in files if f.endswith(("_alarms.json", "_alarms.csv",
+                                                          "_threshold_tradeoff.csv",
+                                                          "_dwell_tradeoff.csv",
+                                                          "_operating_grid.csv"))]
+                f1 = re.search(r"test macro-F1 ([0-9.]+)", text)
+                gb = re.search(r"final GB weights: (.*)", text)
+                saved_step = (int(torch.load(f"{tmp}/w/{last[0]}", map_location="cpu")["step"])
+                              if last else None)
+                launches_k = kernel_launches()
+                run = dict(wall_s=wall, test_macro_f1=float(f1.group(1)) if f1 else None,
+                           checkpoints=sorted(last + best), reports=reports,
+                           alarm_artifacts=len(alarms), saved_step=saved_step,
+                           datasets=re.search(r"datasets: .*", text).group(0),
+                           gb_weights=gb.group(1) if gb else None,
+                           skipped="alarm evaluation skipped" in text,
+                           kernel_launches=launches_k)
+                # the first run sweeps the test shots for its alarms (the
+                # table kernel); the resume reuses its artifacts
+                swept = name == "first"
+                ok = ok and bool(last and best and reports and f1 and len(alarms) == 5
+                                 and not run["skipped"]
+                                 and (launches_k["spatial_table"] > 0) == swept
+                                 and (gb is not None) == ("--use_GB" in model_args))
+                if name == "resume":
+                    m = re.search(r"resumed from \S+ at step (\d+)", text)
+                    run["resumed_at_step"] = int(m.group(1)) if m else None
+                    ok = ok and run["resumed_at_step"] == runs["first"]["saved_step"] \
+                        and saved_step > run["resumed_at_step"]
+                runs[name] = run
+            fields[label] = runs
+    return ok, fields
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -905,6 +1467,11 @@ def main() -> int:
                          (0, 0, 1, 0))                               # (64, 17, D)
     hp = dict(depth=cfg.depth, n_heads=cfg.n_heads, d_head=cfg.d_head)
     M = cfg.dim * cfg.scale_dim
+    # the fusion models at the train_multimodal CLI's widths (f32 on the CPU;
+    # the phases make their bf16 twins) and the 0D table of the shot
+    fusion_vivit, fusion_ts = fusion_kwargs()
+    fusion_cpu = fusion_models(args.seed, fusion_vivit, fusion_ts)
+    shot_values = random_walk_table(args.seed + 3, args.frames)
 
     # ---- kernels: each against its plain version ----
     checks = []
@@ -945,6 +1512,33 @@ def main() -> int:
             instance=spatial_table.instance,
             frames_per_block=spatial_table.frames_per_block))
         emit("kernel_check", **checks[-1])
+    # the multimodal sweep's table: the fusion CLI's ViViT (scale_dim 4, an
+    # MLP of 512) over the whole shot
+    fusion_bf = twin(fusion_cpu["concat"], torch.bfloat16).to(dev).eval()
+    with torch.no_grad():
+        fz_tokens = F.pad(fusion_bf.embed_frames(
+            frames_dev.to(torch.bfloat16)
+            - torch.tensor(PIXEL_MEAN_BGR, dtype=torch.bfloat16, device=dev)), (0, 0, 1, 0))
+    fz_w = extract_spatial_weights(fusion_bf, SEQ_LEN, fusion_vivit["depth"], torch.bfloat16)
+    fz_M = fusion_vivit["dim"] * fusion_vivit["scale_dim"]
+    run = lambda: spatial_table(fz_tokens, fz_w, SEQ_LEN, compute_dtype=torch.bfloat16, **hp)
+    plain = lambda: spatial_table_reference(fz_tokens, fz_w, SEQ_LEN,
+                                            compute_dtype=torch.bfloat16, **hp)
+    res = compare(run(), plain(), *TOL["bfloat16"])
+    T, N, D = fz_tokens.shape
+    ops, nbytes = table_work(T, SEQ_LEN, N, D, cfg.depth, cfg.n_heads, cfg.d_head, fz_M,
+                             fz_tokens.element_size())
+    bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
+    checks.append(dict(
+        name="spatial_table", case=f"fusion ViViT MLP {fz_M} T={T} bf16 (multimodal path)",
+        dtype="bfloat16", shape=list(fz_tokens.shape), route="cuda",
+        source="kstar_torch/csrc/spatial_table.cu",
+        replaces="kstar_tpu/ops/spatial_table.py:371", **res, ms=time_ms(run, 3),
+        plain_ms=time_ms(plain, 1), bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        instance=spatial_table.instance, frames_per_block=spatial_table.frames_per_block,
+        path="multimodal_sweep"))
+    emit("kernel_check", **checks[-1])
+    del fusion_bf, fz_tokens, fz_w
     # the ragged case must take the fast instance with several frames per block
     ragged = next(c for c in checks if "T=61" in c["case"])
     if ragged["frames_per_block"] < 2 or 61 % ragged["frames_per_block"] == 0:
@@ -1070,6 +1664,13 @@ def main() -> int:
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30, ok=sweep_ok)
     if not sweep_ok:
         failures.append("sweep")
+
+    # ---- video_sweep_fallback: the table route where the kernel refuses ----
+    t0 = time.perf_counter()
+    fb_ok, fb_fields = video_sweep_fallback_phase(frames, dev, cfg, model)
+    emit("video_sweep_fallback", **fb_fields, seconds=time.perf_counter() - t0, ok=fb_ok)
+    if not fb_ok:
+        failures.append("video_sweep_fallback")
 
     # ---- vivit_pallas: ViViT with the fused-attention kernel ----
     # ViViT's defaults are the flagship ViViTConfig
@@ -1339,10 +1940,32 @@ def main() -> int:
         if not phase_ok:
             failures.append(name)
 
+    # ---- the fusion models at the train_multimodal CLI's widths ----
+    t0 = time.perf_counter()
+    fm_ok, fm_fields, fusion_bf16 = fusion_models_phase(args.seed, frames_dev, shot_values,
+                                                         dev, fusion_cpu)
+    emit("fusion_models", **fm_fields, seconds=time.perf_counter() - t0, ok=fm_ok)
+    t0 = time.perf_counter()
+    ms_ok, ms_fields, k1_multimodal = multimodal_sweep_phase(
+        frames, shot_values, dev, {k: fusion_bf16[k] for k in ("concat", "TFN_GB")})
+    emit("multimodal_sweep", **ms_fields, seconds=time.perf_counter() - t0, ok=ms_ok)
+    del fusion_bf16
+    t0 = time.perf_counter()
+    tm_ok, tm_fields = train_multimodal_phase(args.seed, frames, shot_values, dev, fusion_cpu)
+    emit("train_multimodal", **tm_fields, seconds=time.perf_counter() - t0, ok=tm_ok)
+    t0 = time.perf_counter()
+    tmc_ok, tmc_fields = train_multimodal_cli_phase()
+    emit("train_multimodal_cli", **tmc_fields, seconds=time.perf_counter() - t0, ok=tmc_ok)
+    for name, phase_ok in (("fusion_models", fm_ok), ("multimodal_sweep", ms_ok),
+                           ("train_multimodal", tm_ok), ("train_multimodal_cli", tmc_ok)):
+        if not phase_ok:
+            failures.append(name)
+
     kernel_rows = []
     for c in checks:
         entry = {k: c[k] for k in ("name", "route", "source", "replaces")}
-        entry.update(launches=launches[c["name"]], max_abs_err=c["max_abs_err"],
+        n_launch = k1_multimodal if c.get("path") == "multimodal_sweep" else launches[c["name"]]
+        entry.update(launches=n_launch, max_abs_err=c["max_abs_err"],
                      ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
                      bound_by=c["bound_by"], library_ms=c["library_ms"],
                      case=c["case"], max_rel_err=c["max_rel_err"],

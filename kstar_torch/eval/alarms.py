@@ -1,6 +1,6 @@
 """Shot-level alarm evaluation: sweep whole shots and score the alarms.
 
-Port of the video half of ``kstar_tpu/eval/alarms.py``. Operationally what
+Port of ``kstar_tpu/eval/alarms.py`` (video and multimodal sweeps). Operationally what
 matters is: did an alarm fire before the disruption, how much warning time
 did it give, and does the model false-alarm during flat-top? This module
 sweeps every shot with the batched engine (infer/continuous.py) and
@@ -49,7 +49,8 @@ import numpy as np
 import torch
 
 from ..config import FPS
-from ..infer.continuous import (VideoSweeper, alarm_times, startup_suppression,
+from ..infer.continuous import (MultiModalSweeper, VideoSweeper, alarm_times,
+                                predict_multimodal_shot, startup_suppression,
                                 warning_time)
 
 
@@ -225,6 +226,72 @@ def evaluate_video_alarms(
     return score_alarms(curves, threshold, t_min, min_dwell_s)
 
 
+def sweep_multimodal_prob_curves(
+    model,
+    store,
+    ts_df,
+    disrupt_df,
+    shots: Sequence[int],
+    cols: Sequence[str],
+    scaler,
+    seq_len: int = 21,
+    dist: int = 3,
+    dt: float = 1.0 / 210.0,
+    tau: int = 1,
+    crop_size: int = 128,
+    batch_size: int = 32,
+    compute_dtype: torch.dtype = None,
+    device=None,
+) -> List[Tuple[int, object, np.ndarray, np.ndarray]]:
+    """Whole-shot multimodal sweeps -> [(shot, disrupt_row, time_x, probs)].
+
+    Each shot goes through ``predict_multimodal_shot`` (padded, startup-
+    suppressed and smoothed as in reference utility.py:1136-1168), so the
+    curves feed ``score_alarms`` directly. One ``MultiModalSweeper`` (its
+    spatial-cls table route chosen once) serves the whole library. A non-disruptive shot has no quench time, so it is swept
+    to the end of its 0D table. ``device=None`` means the GPU."""
+    compute_dtype = compute_dtype or torch.bfloat16
+    sweeper = MultiModalSweeper(model, seq_len, tau, crop_size, batch_size,
+                                compute_dtype, device=device)
+    have_meta = set(disrupt_df.shot)
+    curves = []
+    for shot in shots:
+        if shot not in store:
+            continue
+        if shot not in have_meta:
+            print(f"[sweep_multimodal_prob_curves] skipping shot {shot}: "
+                  f"no disruption metadata")
+            continue
+        r = disrupt_df[disrupt_df.shot == shot].iloc[0]
+        d = ts_df[ts_df.shot == shot]
+        t_end = (float(r.tipminf) if np.isfinite(float(r.tipminf))
+                 else float(d["time"].max()))
+        time_x, probs = predict_multimodal_shot(
+            model, np.asarray(store.arrays[int(shot)]),
+            d[cols].to_numpy(np.float32), d["time"].to_numpy(), scaler,
+            int(r.frame_startup), int(r.frame_cutoff), float(r.tftsrt), t_end,
+            seq_len=seq_len, dist=dist, dt=dt, tau=tau, crop_size=crop_size,
+            batch_size=batch_size, compute_dtype=compute_dtype, sweeper=sweeper)
+        if len(time_x):
+            curves.append((int(shot), r, time_x, probs))
+    return curves
+
+
+def evaluate_multimodal_alarms(
+    model, store, ts_df, disrupt_df, shots, cols, scaler,
+    threshold: float = 0.5,
+    t_min: float = 1.0,
+    min_dwell_s: float = 0.0,
+    **kw,
+) -> Dict:
+    """Multimodal analogue of ``evaluate_video_alarms``: sweep each shot
+    through the fusion model and score the alarms. Returns {'per_shot':
+    DataFrame, 'summary': dict}."""
+    curves = sweep_multimodal_prob_curves(model, store, ts_df, disrupt_df, shots,
+                                          cols, scaler, **kw)
+    return score_alarms(curves, threshold, t_min, min_dwell_s)
+
+
 _TRADEOFF_COLUMNS = (
     ("detection_rate", "detection_rate"),
     ("detection_rate_recoverable", "detection_rate_recoverable"),
@@ -312,3 +379,17 @@ def threshold_sweep(
         compute_dtype=kw.pop("compute_dtype", None), device=kw.pop("device", None))
     return threshold_tradeoff_from_curves(curves, thresholds, t_min,
                                           min_dwell_s)
+
+
+def multimodal_threshold_sweep(
+    model, store, ts_df, disrupt_df, shots, cols, scaler,
+    thresholds: Sequence[float] = (0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9),
+    t_min: float = 1.0,
+    min_dwell_s: float = 0.0,
+    **kw,
+):
+    """Operational trade-off curve of the fusion model: the shots are swept
+    once and rescored per threshold on the host."""
+    curves = sweep_multimodal_prob_curves(model, store, ts_df, disrupt_df, shots,
+                                          cols, scaler, **kw)
+    return threshold_tradeoff_from_curves(curves, thresholds, t_min, min_dwell_s)

@@ -1,21 +1,23 @@
-"""Continuous whole-shot disruption-probability sweeps (video and 0D).
+"""Continuous whole-shot disruption-probability sweeps (video, 0D and
+multimodal).
 
-Port of the video and 0D parts of ``kstar_tpu/infer/continuous.py``
-(``MultiModalSweeper`` waits for the fusion models, ROADMAP.md Queue 1
-item 12). A shot's frames (centre-cropped) or its 0D table are uploaded to
-the device once; windows are gathered on the device (raw frames by the
-window-gather kernel, ops/preprocess.py; ViViT's cls table and 0D tables
-with a (B, L) index matrix); the sweep runs over fixed-size window chunks,
+Port of ``kstar_tpu/infer/continuous.py``. A shot's frames (centre-cropped)
+or its 0D table are uploaded to the device once; windows are gathered on
+the device (raw frames by the window-gather kernel, ops/preprocess.py;
+ViViT's cls table and 0D tables with a (B, L) index matrix); the sweep runs
+over fixed-size window chunks,
 bucketed so that ragged shot lengths give a handful of shapes (CUDA graphs
 will want them fixed).
 ``sweep_shots`` sweeps a shot library in groups that fit a device-memory
 budget.
 
-ViViT gets the two exact fast paths of the JAX sweep: per-frame patch
-embeddings are computed once per shot, and the spatial transformer, which
-depends only on (frame, in-window offset), is precomputed as the
-(offset x frame) cls table by the spatial-table kernel
-(ops/spatial_table.py), so each window runs only the temporal transformer.
+ViViT and the fusion models get the two exact fast paths of the JAX
+sweep: per-frame patch embeddings are computed once per shot, and the
+spatial transformer, which depends only on (frame, in-window offset), is
+precomputed as the (offset x frame) cls table by the spatial-table kernel
+(ops/spatial_table.py) where it takes the shape, so each window runs only
+the temporal transformer (and, for a fusion model, the 0D encoder and the
+fusion head).
 
 Output alignment and startup suppression follow the reference:
   * video (generate_prob_curve, src/utils/utility.py:896-977):
@@ -25,7 +27,10 @@ Output alignment and startup suppression follow the reference:
     shot itself; prob = [0]*(frame_srt + seq_len) + probs[1:] + [0]*seq_len
     with frame_srt = int(t_start*fps/interval); suppression within fps*1
     samples; linear interpolation x interval to the frame rate; backward
-    moving average k=12, clipped to [0, 1].
+    moving average k=12, clipped to [0, 1];
+  * multi (generate_prob_curve_from_multi :1068-1178): stride-tau index
+    ladders matched backward from the quench; piecewise time-axis
+    reconstruction + linear interpolation; centred moving average k=16.
 """
 
 from __future__ import annotations
@@ -39,8 +44,8 @@ import torch
 from .. import resolve_device
 from ..config import FPS, PIXEL_MEAN_BGR
 from ..ops.preprocess import gather_normalize
-from ..ops.spatial_table import (extract_spatial_weights, spatial_table,
-                                 spatial_table_reference)
+from ..ops.spatial_table import (extract_spatial_weights, kernel_refusal,
+                                 spatial_table, spatial_table_reference)
 
 
 def moving_average(x: np.ndarray, k: int, method: str = "backward") -> np.ndarray:
@@ -102,24 +107,56 @@ def chunkify_starts(starts: np.ndarray, batch_size: int) -> np.ndarray:
     return padded.reshape(n_buck, batch_size)
 
 
-def _make_cls_table_fn(model, seq_len: int, compute_dtype, use_kernel: bool = True):
-    """``tokens (T, N-1, D) -> (L, T, D)`` spatial-cls-table closure.
+def video_encoder(model):
+    """The ViViT encoder a spatial-cls table is built from: the model's
+    first ``ViViTEncoder`` (a bare ViViT's ``encoder``, a fusion model's
+    ``encoder_video`` or ``vis_model.encoder``); None for a model without
+    one."""
+    from ..models.vivit import ViViTEncoder
 
-    ``spatial_table`` launches the CUDA kernel for tokens on the GPU (and
-    raises for a shape it does not take) and runs the plain version for
-    tokens on the CPU; ``use_kernel=False`` takes the plain version on any
-    device."""
-    weights = extract_spatial_weights(model, seq_len, depth=model.depth,
-                                      dtype=compute_dtype)
-    table_fn = spatial_table if use_kernel else spatial_table_reference
+    return next((m for m in model.modules() if isinstance(m, ViViTEncoder)), None)
+
+
+def _make_cls_table_fn(model, seq_len: int, crop_size: int, compute_dtype,
+                       device, use_fused: Optional[bool] = None):
+    """``tokens (T, N-1, D) -> (L, T, D)`` spatial-cls-table closure, and
+    whether it runs the kernel. Shared by ``VideoSweeper`` and
+    ``MultiModalSweeper``.
+
+    The widths come from the ViViT encoder the table is built from
+    (``video_encoder``). ``use_fused`` is tri-state, as in the JAX sweep:
+    ``None`` takes ``spatial_table`` when the kernel takes the shape
+    (``kernel_refusal``, checked without a launch at the crop's N tokens,
+    the cls row included) and ``spatial_table_reference`` on the same device
+    otherwise; ``True`` takes ``spatial_table`` and raises for a shape the
+    kernel refuses; ``False`` always takes the plain version.
+    ``spatial_table`` launches the CUDA kernel on a GPU and runs the plain
+    version on the CPU."""
+    enc = video_encoder(model)
+    st = enc.space_transformer
+    depth, n_heads, d_head = st.depth, st.attn_0.n_heads, st.attn_0.d_head
+    mlp = st.ff1_0.weight.shape[0]
+    n_tokens = (crop_size // enc.patch_size) ** 2 + 1
+    weights = extract_spatial_weights(enc, seq_len, depth=depth, dtype=compute_dtype)
+    fused = use_fused is not False
+    if fused:
+        refusal = kernel_refusal(1, n_tokens, enc.dim, depth, n_heads, d_head, mlp,
+                                 compute_dtype, device, weights)
+        if refusal is not None:
+            if use_fused:
+                raise ValueError(
+                    f"spatial_table: shape not supported by the CUDA kernel (N "
+                    f"{n_tokens}, D {enc.dim}, depth {depth}, {n_heads} heads x "
+                    f"{d_head}, mlp {mlp}, {compute_dtype}): {refusal}")
+            fused = False
+    table_fn = spatial_table if fused else spatial_table_reference
 
     def cls_table(tokens):
         tokens_cls = torch.nn.functional.pad(tokens, (0, 0, 1, 0))  # zero cls row
-        return table_fn(tokens_cls, weights, seq_len, depth=model.depth,
-                        n_heads=model.n_heads, d_head=model.d_head,
-                        compute_dtype=compute_dtype)
+        return table_fn(tokens_cls, weights, seq_len, depth=depth, n_heads=n_heads,
+                        d_head=d_head, compute_dtype=compute_dtype)
 
-    return cls_table
+    return cls_table, fused
 
 
 class VideoSweeper:
@@ -129,13 +166,16 @@ class VideoSweeper:
     gathers the windows on the device, runs the forward and takes the
     disruption probability softmax[:, 0]. ``device=None`` means the GPU
     (raising without one); the model is moved to ``device``.
-    ``use_fused_table=False`` computes the spatial-cls table with the plain
-    version instead of the kernel.
+    ``use_fused_table`` chooses the spatial-cls table's route
+    (``_make_cls_table_fn``): ``None`` the kernel where it takes the shape
+    and the plain version otherwise, ``True`` the kernel or an error,
+    ``False`` the plain version; ``fused_table_active`` says which one the
+    sweeper took.
     """
 
     def __init__(self, model, seq_len: int, crop_size: int, batch_size: int = 64,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 use_fused_table: bool = True, device=None):
+                 use_fused_table: Optional[bool] = None, device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.seq_len, self.crop_size = seq_len, crop_size
@@ -147,9 +187,11 @@ class VideoSweeper:
         self._mean = torch.tensor(PIXEL_MEAN_BGR, dtype=compute_dtype,
                                   device=self.device)
         self._use_tokens = hasattr(model, "spatial_cls")
+        self.fused_table_active = False
         if self._use_tokens:
-            self._cls_table = _make_cls_table_fn(self.model, seq_len, compute_dtype,
-                                                 use_fused_table)
+            self._cls_table, self.fused_table_active = _make_cls_table_fn(
+                self.model, seq_len, crop_size, compute_dtype,
+                self.device, use_fused_table)
         self._frames_dev = None
 
     def _normalize(self, frames_u8: torch.Tensor) -> torch.Tensor:
@@ -438,6 +480,205 @@ def predict_0d_shot(
     fine_x = np.linspace(0, n * interval, num=n * interval, endpoint=True) / fps
     fine = moving_average(np.interp(fine_x, prob_x, prob_list), smooth_k, "backward")
     return np.arange(len(fine)) / fps, fine
+
+
+class MultiModalSweeper:
+    """Paired video + 0D window sweep for the fusion models, the multimodal
+    counterpart of ``VideoSweeper``. Frame and 0D row counts are
+    edge-replicated up to their half-octave buckets and the chunk counts
+    bucketed (``chunkify_starts``), as in the JAX sweeper, so a library
+    sweep sees a handful of shapes.
+
+    A model with ``spatial_cls`` takes the fast path: the shot's (L, T, D)
+    spatial-cls table is built once (``_make_cls_table_fn``: the
+    spatial-table kernel where it takes the shape, ``use_fused_table`` as
+    in ``VideoSweeper``, ``fused_table_active`` reports the route), and each
+    window runs only the temporal transformer, the 0D encoder and the
+    fusion head (``forward_spatial_cls``). Another model takes raw frames,
+    gathered by indexing. ``device=None`` means the GPU."""
+
+    def __init__(self, model, seq_len: int, tau: int = 1, crop_size: int = 128,
+                 batch_size: int = 32, compute_dtype: torch.dtype = torch.bfloat16,
+                 use_fused_table: Optional[bool] = None, device=None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.seq_len, self.tau = seq_len, tau
+        self.crop_size, self.batch_size = crop_size, batch_size
+        self.compute_dtype = compute_dtype
+        # the video window ends at v+1 (frames v+1-tau*(L-1) .. v+1, reference
+        # paths[idx+1 : idx-tau*L+1 : -tau][::-1]); the 0D window ends at t
+        back = tau * torch.arange(seq_len - 1, -1, -1, device=self.device)
+        self._v_offsets, self._t_offsets = 1 - back, -back
+        self._mean = torch.tensor(PIXEL_MEAN_BGR, dtype=compute_dtype, device=self.device)
+        self._use_tokens = hasattr(model, "spatial_cls")
+        self.fused_table_active = False
+        if self._use_tokens:
+            self._cls_table, self.fused_table_active = _make_cls_table_fn(
+                self.model, seq_len, crop_size, compute_dtype,
+                self.device, use_fused_table)
+
+    @staticmethod
+    def _pad_bucket(arr: np.ndarray) -> np.ndarray:
+        """Edge-replicate to the half-octave shape bucket (bucket_len)."""
+        buck = bucket_len(len(arr))
+        if len(arr) < buck:
+            arr = np.concatenate([arr, np.repeat(arr[-1:], buck - len(arr), axis=0)])
+        return arr
+
+    def upload_shot(self, frames_u8: np.ndarray, data: np.ndarray):
+        """Crop the frames (T, H, W, C) uint8 on the host, edge-replicate
+        them and the scaled 0D rows (R, F) to their buckets, upload both."""
+        H, W = frames_u8.shape[1], frames_u8.shape[2]
+        y0, x0 = H // 2 - self.crop_size // 2, W // 2 - self.crop_size // 2
+        cropped = self._pad_bucket(np.ascontiguousarray(
+            frames_u8[:, y0:y0 + self.crop_size, x0:x0 + self.crop_size, :]))
+        rows = self._pad_bucket(np.ascontiguousarray(data, dtype=np.float32))
+        return (torch.from_numpy(cropped).to(self.device),
+                torch.from_numpy(rows).to(self.device))
+
+    @torch.no_grad()
+    def embed_tokens(self, frames_dev: torch.Tensor) -> torch.Tensor:
+        """(T, h, w, C) uint8 on the device -> (T, N-1, D) patch embeddings."""
+        return self.model.embed_frames(frames_dev.to(self.compute_dtype) - self._mean)
+
+    @torch.no_grad()
+    def load_shot(self, frames_u8: np.ndarray, data: np.ndarray):
+        """Upload a shot (``upload_shot``); the fast path also embeds the
+        frames and builds the (L, T, D) cls table. Returns the device pair
+        ``sweep_windows`` reads."""
+        frames_dev, rows_dev = self.upload_shot(frames_u8, data)
+        if not self._use_tokens:
+            return frames_dev, rows_dev
+        return self._cls_table(self.embed_tokens(frames_dev)), rows_dev
+
+    @torch.no_grad()
+    def chunk_probs(self, video: torch.Tensor, rows: torch.Tensor,
+                    v_starts: torch.Tensor, t_starts: torch.Tensor) -> torch.Tensor:
+        """p_disrupt of the paired windows ending at ``v_starts`` + 1 and
+        ``t_starts`` (B,), indices clipped to the table."""
+        ti = torch.clamp(t_starts[:, None] + self._t_offsets[None, :], 0, rows.shape[0] - 1)
+        if self._use_tokens:
+            vi = torch.clamp(v_starts[:, None] + self._v_offsets[None, :], 0,
+                             video.shape[1] - 1)
+            off = torch.arange(self.seq_len, device=self.device)[None, :]
+            logits = self.model.forward_spatial_cls(video[off, vi], rows[ti])
+        else:
+            vi = torch.clamp(v_starts[:, None] + self._v_offsets[None, :], 0,
+                             video.shape[0] - 1)
+            out = self.model(video[vi].to(self.compute_dtype) - self._mean, rows[ti])
+            logits = out[0] if isinstance(out, tuple) else out
+        return torch.softmax(logits.float(), dim=-1)[:, 0]
+
+    def sweep_windows(self, loaded, video_keep, ts_keep) -> np.ndarray:
+        """All paired windows of a ``load_shot`` result -> p_disrupt each."""
+        m = len(video_keep)
+        if m == 0:
+            return np.zeros(0, np.float32)
+        v_chunks = torch.from_numpy(chunkify_starts(
+            np.asarray(video_keep, np.int64), self.batch_size)).to(self.device)
+        t_chunks = torch.from_numpy(chunkify_starts(
+            np.asarray(ts_keep, np.int64), self.batch_size)).to(self.device)
+        probs = torch.cat([self.chunk_probs(*loaded, v, t)
+                           for v, t in zip(v_chunks, t_chunks)])
+        return probs.cpu().numpy()[:m]
+
+    def sweep(self, frames_u8: np.ndarray, data: np.ndarray, video_keep,
+              ts_keep) -> np.ndarray:
+        """Paired sweep: frames (T, H, W, C) uint8, data (R, F) scaled 0D
+        rows, matched window-end ladders -> p_disrupt per window."""
+        if len(video_keep) == 0:
+            return np.zeros(0, np.float32)
+        return self.sweep_windows(self.load_shot(frames_u8, data), video_keep, ts_keep)
+
+
+def multimodal_ladders(times: np.ndarray, frame_srt: int, frame_end: int,
+                       t_srt: float, t_end: float, seq_len: int, dt: float,
+                       tau: int):
+    """Backward-matched stride-tau index ladders (reference utility.py:583-611).
+
+    ts_idx_end is clamped to the last valid row: when no 0D sample lies
+    beyond t_end the reference's formula yields len(times) itself, which the
+    time-axis reconstruction would then index out of bounds."""
+    video_indices = list(reversed(range(frame_end, frame_srt, -tau)))
+    ts_idx_end = min(len(times) - int(np.sum(times > t_end)), len(times) - 1)
+    ts_idx_start = int(t_srt / dt)
+    ts_indices = list(reversed(range(ts_idx_end, ts_idx_start, -tau)))
+
+    if len(video_indices) > len(ts_indices):
+        video_indices = video_indices[-len(ts_indices):]
+    elif len(video_indices) < len(ts_indices):
+        ts_indices = ts_indices[-len(video_indices):]
+
+    video_keep = [i for i in video_indices if i > seq_len * tau]
+    ts_keep = [i for i in ts_indices if i > seq_len * tau]
+    m = min(len(video_keep), len(ts_keep))
+    return video_keep[-m:] if m else [], ts_keep[-m:] if m else []
+
+
+def predict_multimodal_shot(
+    model,
+    frames_u8: np.ndarray,
+    shot_values: np.ndarray,
+    times: np.ndarray,
+    scaler,
+    frame_srt: int,
+    frame_end: int,
+    t_srt: float,
+    t_end: float,
+    seq_len: int = 21,
+    dist: int = 3,
+    dt: float = 1.0 / 210.0,
+    tau: int = 1,
+    crop_size: int = 128,
+    batch_size: int = 32,
+    fps: float = FPS,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    sweeper: Optional[MultiModalSweeper] = None,
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Whole-shot multimodal curve (reference generate_prob_curve_from_multi,
+    src/utils/utility.py:1068-1178). Returns (time_x, prob).
+
+    ``dist`` is accepted for signature parity and does not shift the
+    ladders: the reference's inference dataset stores it and never uses it
+    when matching indices. ``scaler`` None refits a robust scaler on the
+    shot. Pass a built ``sweeper`` to share it across shots (as
+    ``eval.alarms.sweep_multimodal_prob_curves`` does); ``device=None``
+    means the GPU."""
+    from ..data.splits import Scaler
+
+    if scaler is None:
+        data = Scaler("Robust").fit(shot_values).transform(shot_values)
+    else:
+        data = scaler.transform(shot_values)
+
+    video_keep, ts_keep = multimodal_ladders(
+        times, frame_srt, frame_end, t_srt, t_end, seq_len, dt, tau)
+    if not video_keep:
+        return np.zeros(0), np.zeros(0)
+
+    if sweeper is None:
+        sweeper = MultiModalSweeper(model, seq_len, tau, crop_size, batch_size,
+                                    compute_dtype, device=device)
+    probs = sweeper.sweep(frames_u8, data, video_keep, ts_keep)
+
+    # piecewise time-axis reconstruction (reference utility.py:1136-1160)
+    t_first = float(times[ts_keep[0]])
+    interval = tau
+    dt_end = 1.0
+    head = np.zeros(int(t_first * fps / interval), np.float32)
+    tail = np.zeros(int(dt_end * fps / interval), np.float32)
+    total = np.concatenate([head, probs[1:], tail])
+    total = startup_suppression(total, int(fps / interval))
+
+    x_head = np.arange(len(head)) * interval / fps
+    x_rest = ((x_head[-1] if len(x_head) else 0.0)
+              + (np.arange(len(total) - len(head)) + 1) * interval / fps)
+    prob_x = np.concatenate([x_head, x_rest])
+    t_last = float(times[ts_keep[-1]])
+    fine_x = np.linspace(0, t_last + dt_end, num=len(total) * interval, endpoint=True)
+    fine = np.interp(fine_x, prob_x, total)
+    return fine_x, moving_average(fine, 16, "center")
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,7 @@ import dataclasses
 import torch
 
 from .cnn_lstm import CnnLSTM
+from .fusion import TFN, TFNGB, MultiModalConcat, MultiModalGB
 from .mlstm_fcn import MLSTMFCN
 from .ts_transformer import Transformer0D, TransformerEncoder0D
 from .vivit import ViViT, ViViTEncoder

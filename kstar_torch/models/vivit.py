@@ -330,6 +330,13 @@ class ViViT(nn.Module):
         """Pooled latent (also the fusion latent of the GB models)."""
         return self.encoder(x)
 
+    def forward_with_latent(self, x: torch.Tensor, train: bool = False,
+                            generator: Optional[torch.Generator] = None):
+        """(logits, pooled latent) of one forward: the Gradient-Blending
+        fusion models feed the latent to their fusion head."""
+        h = self.encoder(x, train, generator)
+        return self.classify(h), h
+
     def embed_frames(self, x: torch.Tensor) -> torch.Tensor:
         """Offset-free per-frame patch embeddings (see ViViTEncoder)."""
         return self.encoder.embed_frames(x)

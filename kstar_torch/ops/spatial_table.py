@@ -237,44 +237,64 @@ def spatial_table(tokens: torch.Tensor, weights: SpatialWeights,
                    compute_dtype, d_head ** -0.5 if scale is None else scale)
 
 
-def _launch(tokens, w: SpatialWeights, n_offsets, depth, n_heads, d_head,
-            cd, scale):
-    T, N, D = tokens.shape
-    inner = n_heads * d_head
-    M = w.w_ff1[0].shape[0]
-    shape = (f"tokens {tuple(tokens.shape)}, depth {depth}, {n_heads} heads x "
-             f"{d_head}, mlp {M}, {cd}")
-    if cd not in _DTYPES:
-        raise ValueError(f"spatial_table: compute dtype {cd} not supported "
-                         f"(float32 or bfloat16)")
+def kernel_refusal(T: int, N: int, D: int, depth: int, n_heads: int, d_head: int,
+                   M: int, compute_dtype: torch.dtype, device=None,
+                   weights: SpatialWeights = None):
+    """Why the CUDA kernel would not take a call at these widths, or None
+    when it would. Nothing is launched: the limits are checked here, and on
+    a CUDA ``device`` the kernel library is built to ask its plan for the
+    shared memory a block needs, against the device's opt-in limit.
+    ``_launch`` raises with this reason, so the two cannot disagree."""
+    if compute_dtype not in _DTYPES:
+        return f"compute dtype {compute_dtype} not supported (float32 or bfloat16)"
     if not (0 < N <= MAX_N and 0 < D <= MAX_D and 0 < d_head <= MAX_D_HEAD
-            and T > 0 and n_offsets > 0 and depth > 0 and M > 0
+            and T > 0 and depth > 0 and n_heads > 0 and M > 0
             and D % 16 == 0 and d_head % 16 == 0 and M % 16 == 0):
-        raise ValueError(
-            f"spatial_table: shape not supported by the CUDA kernel ({shape}); "
-            f"it takes N <= {MAX_N}, D <= {MAX_D}, d_head <= {MAX_D_HEAD}, "
-            f"with D, d_head and the MLP width multiples of 16")
-    expect = {"w_qkv": (3 * inner, D), "w_out": (D, inner), "w_ff1": (M, D),
-              "w_ff2": (D, M), "b_out": (D,), "b_ff1": (M,), "b_ff2": (D,),
-              "ln_a_s": (D,), "ln_a_b": (D,), "ln_f_s": (D,), "ln_f_b": (D,)}
-    for name, want in expect.items():
-        got = getattr(w, name)
-        if len(got) < depth or any(tuple(t.shape) != want for t in got[:depth]):
-            raise ValueError(f"spatial_table: {name} shapes "
-                             f"{[tuple(t.shape) for t in got]} do not match "
-                             f"{want} for {shape}")
+        return (f"it takes N <= {MAX_N}, D <= {MAX_D}, d_head <= {MAX_D_HEAD}, "
+                f"with D, d_head and the MLP width multiples of 16")
+    if weights is not None:
+        inner = n_heads * d_head
+        expect = {"w_qkv": (3 * inner, D), "w_out": (D, inner), "w_ff1": (M, D),
+                  "w_ff2": (D, M), "b_out": (D,), "b_ff1": (M,), "b_ff2": (D,),
+                  "ln_a_s": (D,), "ln_a_b": (D,), "ln_f_s": (D,), "ln_f_b": (D,)}
+        for name, want in expect.items():
+            got = getattr(weights, name)
+            if len(got) < depth or any(tuple(t.shape) != want for t in got[:depth]):
+                return (f"{name} shapes {[tuple(t.shape) for t in got]} do not "
+                        f"match {want}")
+    device = torch.device(device) if device is not None else None
+    if device is not None and device.type == "cuda":
+        _, smem = _kernel_plan(N, D, n_heads, d_head, M, compute_dtype)
+        limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+        if smem > limit:
+            return (f"needs {smem} bytes of shared memory per block, the device "
+                    f"allows {limit}")
+    return None
 
-    dev = tokens.device
-    elem = torch.finfo(cd).bits // 8
-    dims = (N, D, n_heads, d_head, M, elem)
+
+def _kernel_plan(N, D, n_heads, d_head, M, cd) -> tuple:
+    """(frames per block of the fast instance or 0 for the general one,
+    shared-memory bytes per block), from the kernel source's own plan."""
+    dims = (N, D, n_heads, d_head, M, torch.finfo(cd).bits // 8)
     frames = _build.function("spatial_table", "spatial_table_plan", [ctypes.c_int] * 6)(*dims)
     smem = _build.function("spatial_table", "spatial_table_smem_bytes",
                            [ctypes.c_int] * 6, ctypes.c_longlong)(*dims)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
+    return frames, smem
+
+
+def _launch(tokens, w: SpatialWeights, n_offsets, depth, n_heads, d_head,
+            cd, scale):
+    T, N, D = tokens.shape
+    M = w.w_ff1[0].shape[0]
+    shape = (f"tokens {tuple(tokens.shape)}, depth {depth}, {n_heads} heads x "
+             f"{d_head}, mlp {M}, {cd}")
+    dev = tokens.device
+    refusal = (kernel_refusal(T, N, D, depth, n_heads, d_head, M, cd, dev, w)
+               if n_offsets > 0 else "n_offsets must be positive")
+    if refusal is not None:
         raise ValueError(f"spatial_table: shape not supported by the CUDA kernel "
-                         f"({shape}): needs {smem} bytes of shared memory per "
-                         f"block, the device allows {limit}")
+                         f"({shape}): {refusal}")
+    frames, _ = _kernel_plan(N, D, n_heads, d_head, M, cd)
     if frames != (fast_frames_per_block(N) if cd == torch.bfloat16
                   and fast_applies(N, D, d_head, M) else 0):
         raise RuntimeError(f"spatial_table: the kernel source and its wrapper "

@@ -1,6 +1,7 @@
 """The port's training core (``kstar_tpu/train``): state and optax-exact
-optimizers, the guarded train step, epoch drivers, metrics, early stopping
-and metric logging. ``cca``, ``gb``, ``mixup``, ``ensemble`` and the HPO
+optimizers, the guarded train step (single-stream and multimodal), epoch
+drivers, Gradient Blending (``gb``), CCA pre-training (``cca``), metrics,
+early stopping and metric logging. ``mixup``, ``ensemble`` and the HPO
 modules are not ported yet (ROADMAP.md Queue 1)."""
 
 from .early_stopping import EarlyStopping

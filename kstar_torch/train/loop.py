@@ -21,9 +21,12 @@ train_per_epoch/valid_per_epoch/train/train_DRW):
   * metrics (macro-F1) accumulate host-side like the reference's sklearn
     f1_score over the epoch's predictions.
 
-The models ported so far are single-stream; the multimodal Gradient
-Blending step (``model_type='multi-GB'``) comes with the fusion models
-(ROADMAP.md Queue 1 item 12).
+``model_type`` picks the model's inputs and loss, as in the JAX loop:
+``"single"`` (one input, the classification loss), ``"multi"`` (a fusion
+model called on ``batch["video"], batch["0D"]``) and ``"multi-GB"`` (the
+same call returning the (multi, vis, ts) logits, scored by
+``gradient_blending_loss`` with the (3,) device weights ``gb_w``; the
+predictions come from the multi logits).
 """
 
 from __future__ import annotations
@@ -39,35 +42,67 @@ import torch
 from ..config import LossConfig, TrainConfig
 from ..data.loader import (epoch_batches, eval_batches, grouped_batches,
                            prefetch_to_device, threaded_batches, to_device)
-from ..losses import (classification_loss, drw_weights, inverse_freq_weights,
-                      ldam_margins)
+from ..losses import (classification_loss, drw_weights, gradient_blending_loss,
+                      inverse_freq_weights, ldam_margins)
 from .early_stopping import EarlyStopping
 from .logging import MetricWriter
 from .metrics import accuracy, macro_f1
 from .state import TrainState, save_checkpoint
 
 
-def make_train_step(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None) -> Callable:
-    """step(state, batch, labels, weight, m_list) -> (state, loss, preds).
+MODEL_TYPES = ("single", "multi", "multi-GB")
+
+
+def _check_model_type(model_type: str) -> None:
+    if model_type not in MODEL_TYPES:
+        raise ValueError(f"model_type must be one of {MODEL_TYPES}, got {model_type!r}")
+
+
+def _model_outputs(model, batch, model_type: str, **kw):
+    """The model's forward on one input (``"single"``) or on a multimodal
+    {'video', '0D'} batch; a (multi, vis, ts) triple for ``"multi-GB"``."""
+    if model_type == "single":
+        return model(batch, **kw)
+    return model(batch["video"], batch["0D"], **kw)
+
+
+def _loss_and_logits(out, labels, loss_cfg: LossConfig, model_type: str, weight,
+                     m_list, gb_w=None, mask=None):
+    """(loss, logits): the classification loss of the logits, or for
+    ``"multi-GB"`` the Gradient-Blending loss of the triple weighted by
+    ``gb_w`` with the multi logits."""
+    kw = dict(weight=weight, mask=mask, gamma=loss_cfg.focal_gamma, m_list=m_list,
+              s=loss_cfg.ldam_s)
+    if model_type == "multi-GB":
+        out_multi, out_vis, out_ts = out
+        return gradient_blending_loss(out_multi, out_vis, out_ts, labels, gb_w,
+                                      loss_type=loss_cfg.loss_type, **kw), out_multi
+    return classification_loss(out, labels, loss_cfg.loss_type, **kw), out
+
+
+def make_train_step(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None,
+                    model_type: str = "single") -> Callable:
+    """step(state, batch, labels, weight, m_list, gb_w=None)
+    -> (state, loss, preds).
 
     One optimizer step of ``state.model`` on a device batch: ``pre_fn(gen,
     batch)`` (optional), the forward in training mode with dropout (and,
-    for the 0D models, the input noise) drawn from the step's generators,
-    the loss, backward, and the guarded update. ``loss`` and ``preds`` stay
-    on the device."""
+    for the 0D models and encoders, the input noise) drawn from the step's
+    generators, the loss (``model_type``), backward, and the guarded
+    update. ``loss`` and ``preds`` stay on the device."""
+    _check_model_type(model_type)
 
-    def step(state: TrainState, batch, labels, weight, m_list):
+    def step(state: TrainState, batch, labels, weight, m_list, gb_w=None):
         gen_pre, gen_drop, gen_noise = state.next_generators()
         if pre_fn is not None:
             batch = pre_fn(gen_pre, batch)
         for p in state.params:
             p.grad = None
         stats_before = state.snapshot_stats()
-        logits = state.model(batch, train=True, generator=gen_drop,
-                             noise_generator=gen_noise)
-        loss = classification_loss(logits, labels, loss_cfg.loss_type, weight=weight,
-                                   gamma=loss_cfg.focal_gamma, m_list=m_list,
-                                   s=loss_cfg.ldam_s)
+        out = _model_outputs(state.model, batch, model_type, train=True,
+                             generator=gen_drop, noise_generator=gen_noise)
+        loss, logits = _loss_and_logits(out, labels, loss_cfg, model_type, weight,
+                                        m_list, gb_w)
         loss.backward()
         loss = loss.detach()
         state.apply_gradients(torch.isfinite(loss), stats_before)
@@ -76,24 +111,25 @@ def make_train_step(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None) -> 
     return step
 
 
-def make_scan_steps(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None) -> Callable:
+def make_scan_steps(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None,
+                    model_type: str = "single") -> Callable:
     """K steps per call over a (K, B, ...) stack of device batches:
 
-    multi_step(state, batches, labels, weight, m_list)
+    multi_step(state, batches, labels, weight, m_list, gb_w=None)
         -> (state, losses (K,), preds (K, B))
 
     The same step function and the same per-step generators as K calls of
     ``make_train_step``'s step, so the trajectory is the same (JAX's
     ``lax.scan`` version amortizes a per-dispatch link latency; here it
     takes one stacked upload per K batches)."""
-    step = make_train_step(loss_cfg, pre_fn)
+    step = make_train_step(loss_cfg, pre_fn, model_type)
 
-    def multi_step(state: TrainState, batches, labels, weight, m_list):
+    def multi_step(state: TrainState, batches, labels, weight, m_list, gb_w=None):
         losses, preds = [], []
         for i in range(labels.shape[0]):
             b = ({k: v[i] for k, v in batches.items()} if isinstance(batches, dict)
                  else batches[i])
-            state, loss, pred = step(state, b, labels[i], weight, m_list)
+            state, loss, pred = step(state, b, labels[i], weight, m_list, gb_w)
             losses.append(loss)
             preds.append(pred)
         return state, torch.stack(losses), torch.stack(preds)
@@ -101,19 +137,21 @@ def make_scan_steps(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None) -> 
     return multi_step
 
 
-def make_eval_step(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None) -> Callable:
-    """eval_step(model, batch, labels, weight, m_list, mask)
-    -> (loss, probs, preds); probs = softmax(logits) in f32, the loss counts
-    only the samples where ``mask`` is 1."""
+def make_eval_step(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None,
+                   model_type: str = "single") -> Callable:
+    """eval_step(model, batch, labels, weight, m_list, mask, gb_w=None)
+    -> (loss, probs, preds); probs = softmax(logits) in f32 (the multi
+    logits for ``"multi-GB"``), the loss counts only the samples where
+    ``mask`` is 1."""
+    _check_model_type(model_type)
 
     @torch.no_grad()
-    def step(model, batch, labels, weight, m_list, mask):
+    def step(model, batch, labels, weight, m_list, mask, gb_w=None):
         if pre_fn is not None:
             batch = pre_fn(None, batch)
-        logits = model(batch, train=False)
-        loss = classification_loss(logits, labels, loss_cfg.loss_type, weight=weight,
-                                   mask=mask, gamma=loss_cfg.focal_gamma,
-                                   m_list=m_list, s=loss_cfg.ldam_s)
+        out = _model_outputs(model, batch, model_type, train=False)
+        loss, logits = _loss_and_logits(out, labels, loss_cfg, model_type, weight,
+                                        m_list, gb_w, mask)
         return loss, torch.softmax(logits.float(), dim=-1), logits.argmax(-1)
 
     return step
@@ -151,13 +189,14 @@ def _loss_aux(loss_cfg: LossConfig, cls_counts: np.ndarray, epoch: int,
 
 def run_train_epoch(train_step, state: TrainState, dataset, batch_size, rng,
                     weight, m_list, sampler=None, put=None, prefetch=True,
-                    scan_step=None, steps_per_dispatch: int = 1):
+                    scan_step=None, steps_per_dispatch: int = 1, gb_w=None):
     """One training epoch, pipelined: batches are gathered (and put on the
     device) by a producer thread ahead of consumption, and the per-step
     losses/preds stay on the device until the epoch ends (one host sync).
 
     scan_step + steps_per_dispatch > 1: full groups of K batches run through
     the K-step call (make_scan_steps); the remainder through ``train_step``.
+    ``gb_w``: the (3,) Gradient-Blending weights of a ``"multi-GB"`` step.
     Returns (state, mean loss, accuracy, macro-F1)."""
     if put is None:
         put = lambda item: to_device(item, state.device)
@@ -169,11 +208,13 @@ def run_train_epoch(train_step, state: TrainState, dataset, batch_size, rng,
         for kind, (batch, labels) in grouped_batches(dataset, idx_iter,
                                                      steps_per_dispatch, put):
             if kind == "stack":
-                state, losses_k, preds_k = scan_step(state, batch, labels, weight, m_list)
+                state, losses_k, preds_k = scan_step(state, batch, labels, weight, m_list,
+                                                     gb_w)
                 dev_losses.append(losses_k.sum())
                 dev_preds.append(preds_k.reshape(-1))
             else:
-                state, loss, preds = train_step(state, batch, labels, weight, m_list)
+                state, loss, preds = train_step(state, batch, labels, weight, m_list,
+                                                gb_w)
                 dev_losses.append(loss)
                 dev_preds.append(preds)
             n_samples += labels.numel()
@@ -184,7 +225,7 @@ def run_train_epoch(train_step, state: TrainState, dataset, batch_size, rng,
         else:
             batch_iter = prefetch_to_device((dataset.batch(idx) for idx in idx_iter), put)
         for batch, labels in batch_iter:
-            state, loss, preds = train_step(state, batch, labels, weight, m_list)
+            state, loss, preds = train_step(state, batch, labels, weight, m_list, gb_w)
             dev_losses.append(loss)
             dev_preds.append(preds)
             dev_labels.append(labels)
@@ -198,10 +239,11 @@ def run_train_epoch(train_step, state: TrainState, dataset, batch_size, rng,
 
 
 def run_eval_epoch(eval_step, model, dataset, batch_size, weight, m_list,
-                   put=None, collect_probs: bool = False):
+                   put=None, collect_probs: bool = False, gb_w=None):
     """One pass over ``dataset`` in fixed-size batches (the tail padded and
     masked out). Returns (mean loss, accuracy, macro-F1) and, with
-    ``collect_probs``, ((N, 2) probabilities, (N,) labels)."""
+    ``collect_probs``, ((N, 2) probabilities, (N,) labels). ``gb_w``: the
+    Gradient-Blending weights of a ``"multi-GB"`` eval step."""
     device = next(model.parameters()).device
     if put is None:
         put = lambda item: to_device(item, device)
@@ -210,7 +252,7 @@ def run_eval_epoch(eval_step, model, dataset, batch_size, weight, m_list,
     for idx, mask in eval_batches(len(dataset), batch_size):
         batch, labels = put(dataset.batch(idx))
         loss, probs, preds = eval_step(model, batch, labels, weight, m_list,
-                                       to_device(mask.astype(np.float32), device))
+                                       to_device(mask.astype(np.float32), device), gb_w)
         dev_losses.append(loss)
         dev_preds.append(preds)
         if collect_probs:
@@ -239,9 +281,11 @@ def fit(
     valid_ds,
     train_cfg: TrainConfig,
     loss_cfg: LossConfig,
+    model_type: str = "single",
     tag: str = "model",
     sampler=None,
     writer: Optional[MetricWriter] = None,
+    gb_weights: Optional[np.ndarray] = None,
     num_epoch: Optional[int] = None,
     put=None,
     put_eval=None,
@@ -253,14 +297,18 @@ def fit(
     last/best checkpointing on valid macro-F1, early stopping, optional DRW.
     ``put`` moves a host (batch, labels) pair to the device (default: to the
     state's device); ``pre_fn``/``pre_fn_eval`` preprocess inside the
-    steps."""
+    steps; ``model_type`` and ``gb_weights`` ((3,), zeros by default) as in
+    ``make_train_step``."""
     num_epoch = num_epoch or train_cfg.num_epoch
-    train_step = make_train_step(loss_cfg, pre_fn=pre_fn)
-    eval_step = make_eval_step(loss_cfg, pre_fn=pre_fn_eval)
+    train_step = make_train_step(loss_cfg, pre_fn=pre_fn, model_type=model_type)
+    eval_step = make_eval_step(loss_cfg, pre_fn=pre_fn_eval, model_type=model_type)
     k = train_cfg.steps_per_dispatch
-    scan_step = make_scan_steps(loss_cfg, pre_fn=pre_fn) if k > 1 else None
+    scan_step = (make_scan_steps(loss_cfg, pre_fn=pre_fn, model_type=model_type)
+                 if k > 1 else None)
 
     cls_counts = train_ds.class_counts()
+    gb_w = torch.as_tensor(gb_weights if gb_weights is not None else np.zeros(3),
+                           dtype=torch.float32).to(state.device)
     rng = np.random.default_rng(train_cfg.seed)
     stopper = EarlyStopping(train_cfg.early_stopping_patience,
                             train_cfg.early_stopping_delta) if train_cfg.early_stopping else None
@@ -278,10 +326,10 @@ def fit(
         state, tr_loss, tr_acc, tr_f1 = run_train_epoch(
             train_step, state, train_ds, train_cfg.batch_size, rng,
             weight, m_list, sampler=sampler, put=put,
-            scan_step=scan_step, steps_per_dispatch=k)
+            scan_step=scan_step, steps_per_dispatch=k, gb_w=gb_w)
         va_loss, va_acc, va_f1 = run_eval_epoch(
             eval_step, state.model, valid_ds, train_cfg.batch_size, weight, m_list,
-            put=put_eval if put_eval is not None else put)
+            put=put_eval if put_eval is not None else put, gb_w=gb_w)
         ep_s = time.perf_counter() - t_ep
 
         hist.train_loss.append(tr_loss); hist.valid_loss.append(va_loss)

@@ -36,10 +36,11 @@ continues exactly.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -178,6 +179,36 @@ class TrainState:
             gens.append(torch.Generator(device=self.device).manual_seed(int(s)))
         self.draws += 1
         return tuple(gens)
+
+    def copy(self) -> "TrainState":
+        """An independent copy (model, flat buffers, batch statistics,
+        optimizer state, ``step``, ``seed`` and ``draws``): training the copy
+        leaves this state as it was, as a JAX state's functional copy does
+        (the Gradient-Blending probes, ``train/gb.py gb_estimate``)."""
+        twin = TrainState(copy.deepcopy(self.model), self.tx, self.seed)
+        twin.opt_state = {k: v.clone() for k, v in self.opt_state.items()}
+        twin.step = self.step.clone()
+        twin.draws = self.draws
+        return twin
+
+    def flat_ranges(self, submodule: str) -> List[Tuple[int, int]]:
+        """The (start, stop) ranges of ``flat`` that hold the parameters of
+        the top-level submodule ``submodule`` (e.g. a fusion model's
+        ``vis_model`` or ``ts_model``), adjacent ranges merged."""
+        ranges, offset = [], 0
+        trainable = {id(p) for p in self.params}
+        for name, p in self.model.named_parameters():
+            if id(p) not in trainable:
+                continue
+            if name.split(".", 1)[0] == submodule:
+                if ranges and ranges[-1][1] == offset:
+                    ranges[-1] = (ranges[-1][0], offset + p.numel())
+                else:
+                    ranges.append((offset, offset + p.numel()))
+            offset += p.numel()
+        if not ranges:
+            raise ValueError(f"TrainState: the model has no parameters under {submodule!r}")
+        return ranges
 
     def flat_grads(self) -> torch.Tensor:
         return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)

@@ -134,6 +134,43 @@ def test_spatial_table_rejects_unsupported_shapes(dev):
         tst.spatial_table(torch.zeros(4, 5, 40, device=dev), w, 5, 1, 2, 20)
 
 
+@pytest.mark.parametrize("n_tok", [65, 17], ids=["N65", "N17"])
+def test_spatial_table_fast_instance_at_the_fusion_mlp(dev, n_tok):
+    """The fusion CLI's ViViT (scale_dim 4: an MLP of 512, not 1024) takes
+    the fast instance and matches the plain version."""
+    g = torch.Generator().manual_seed(7)
+    model = ViViT(scale_dim=4, generator=g)
+    tokens = F.pad(torch.randn(37, n_tok - 1, 128, generator=g), (0, 0, 1, 0))
+    _table_case(dev, model, tokens, torch.bfloat16)
+    assert tst.spatial_table.instance == f"fast_F{tst.fast_frames_per_block(n_tok)}"
+
+
+def test_video_sweep_falls_back_where_the_kernel_refuses(dev):
+    """N = 257 tokens (patch 4 over 64 px): ``use_fused_table=None`` builds
+    the plain table on the GPU without a launch, ``True`` raises; at patch
+    16 the same sweeper launches the kernel once per shot."""
+    import numpy as np
+
+    from kstar_torch.infer.continuous import VideoSweeper
+
+    model = ViViT(image_size=64, patch_size=4, n_frames=5, dim=128, depth=1, n_heads=2,
+                  d_head=64, scale_dim=2, generator=torch.Generator().manual_seed(8))
+    frames = np.random.default_rng(0).integers(0, 255, (40, 64, 64, 3), dtype=np.uint8)
+    starts = np.arange(30)
+    before = tst.spatial_table.launches
+    plain = VideoSweeper(model, 5, 64, 16, torch.bfloat16, device=dev)
+    p_none = plain.sweep(frames, starts)
+    assert plain.fused_table_active is False and tst.spatial_table.launches == before
+    forced = VideoSweeper(model, 5, 64, 16, torch.bfloat16, use_fused_table=False, device=dev)
+    np.testing.assert_array_equal(p_none, forced.sweep(frames, starts))
+    with pytest.raises(ValueError, match="not supported"):
+        VideoSweeper(model, 5, 64, 16, torch.bfloat16, use_fused_table=True, device=dev)
+    small = VideoSweeper(model, 5, 16, 16, torch.bfloat16, device=dev)
+    assert small.fused_table_active is True
+    small.sweep(frames, starts)
+    assert tst.spatial_table.launches == before + 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("n,d", [(22, 64), (65, 64), (130, 32), (7, 256)])
 def test_fused_attention_kernel_matches_plain(dev, dtype, n, d):
