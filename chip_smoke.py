@@ -69,6 +69,31 @@ ViViT's MLP of 512 over the whole shot:
                         and TFN with dynamic Gradient Blending, 2 epochs and
                         a resume (the alarm sweep runs the table kernel)
 
+and then the conv video models at kstar_torch/config.py's full widths
+(R(2+1)D: 128 px, 21 frames, layer_sizes (1, 2, 2, 1); SlowFast: 128 px,
+20 frames, layers (3, 4, 6, 3), alpha 4, m 16; SlowFast with SubBatchNorm,
+base_bn_splits 2; random weights from --seed, BatchNorm statistics
+calibrated on windows of the shot), whose sweep and stream take the raw
+frames through the window-gather kernel (also held against its plain
+version at SlowFast's 20-frame windows):
+
+  conv_models     eval forward at batch 32: f32 card against CPU, bf16
+                  against f32, times, launches, operations per clip; the
+                  SubBatchNorm model after aggregation against plain
+                  BatchNorms holding the aggregate
+  conv_sweep      VideoSweeper (B = 128) over the shot: clips/s, one
+                  window-gather launch per chunk, the curve against the
+                  plain gather's, the operation bound and its share,
+                  predict_video_shot
+  conv_stream     StreamingPredictor: block size probed at 210 fps, 30
+                  timed blocks, frame-to-alarm, blocks against single pushes
+  train_conv      fit's step at batch 64 per model: times, memory,
+                  launches, idle share, the NaN guard with the split
+                  statistics, card against CPU in f32, the aggregation
+  train_conv_cli  kstar_torch.cli.train_vision --model R2Plus1D (2 epochs
+                  and a resume) and --model SlowFast --bn_splits 2: the
+                  alarm sweep runs the window-gather kernel, not the table
+
 Every phase prints one JSON line and any failure exits non-zero. Then come
 the per-kernel summary line, the card's name and power limit as nvidia-smi
 reports them, and the result line {"ok": true, "device": {...}}. Without
@@ -1178,7 +1203,8 @@ class PairedClips:
 
 
 def card_vs_cpu_steps(model, batches, labels, weight, m_list, gb_w, dev, step,
-                      batch: int = 4, steps: int = 3, lr: float = 1e-3) -> dict:
+                      batch: int = 4, steps: int = 3, lr: float = 1e-3,
+                      stats_tol=None) -> dict:
     """``steps`` SGD steps of an f32 model (dropout and noise off) on the
     card and on the CPU from the same weights, at ``batch``. The parameters
     after the last step are held at atol 1e-4. Each step's loss is held at
@@ -1187,7 +1213,9 @@ def card_vs_cpu_steps(model, batches, labels, weight, m_list, gb_w, dev, step,
     atol 1e-4 too): TFNGB's head BatchNorm over 4 samples turns the ~3e-7
     rounding drift of two free-running trajectories into a 1.2e-3 relative
     loss difference at the third step (H100, this phase), while the same
-    parameters give the same loss on both devices to 1e-7."""
+    parameters give the same loss on both devices to 1e-7. ``batches`` are
+    dicts of tensors or tensors; ``stats_tol`` = (atol, rtol) also holds the
+    free-running batch statistics against the CPU's."""
     import numpy as np
 
     from kstar_torch.config import OptimConfig
@@ -1200,7 +1228,10 @@ def card_vs_cpu_steps(model, batches, labels, weight, m_list, gb_w, dev, step,
            "losses_cpu": [], "losses_cuda_same_params": [], "losses_cuda_free": []}
     update_err = 0.0
     for i in range(steps):
-        b = {k: v[:batch] for k, v in batches[i % len(batches)].items()}
+        b = batches[i % len(batches)]
+        b = {k: v[:batch] for k, v in b.items()} if isinstance(b, dict) else b[:batch]
+        put = lambda d: ({k: v.to(d) for k, v in b.items()} if isinstance(b, dict)
+                         else b.to(d))
         y = labels[i % len(labels)][:batch]
         card.flat.copy_(cpu.flat)
         if cpu.stats_flat is not None:
@@ -1208,11 +1239,9 @@ def card_vs_cpu_steps(model, batches, labels, weight, m_list, gb_w, dev, step,
         card.opt_state = {k: v.to(dev) for k, v in cpu.opt_state.items()}
         card.step = cpu.step.to(dev)
         args = (weight, m_list, gb_w)
-        out["losses_cuda_same_params"].append(float(step(
-            card, {k: v.to(dev) for k, v in b.items()}, y.to(dev), *args)[1]))
-        out["losses_cuda_free"].append(float(step(
-            free, {k: v.to(dev) for k, v in b.items()}, y.to(dev), *args)[1]))
-        out["losses_cpu"].append(float(step(cpu, {k: v.cpu() for k, v in b.items()}, y.cpu(),
+        out["losses_cuda_same_params"].append(float(step(card, put(dev), y.to(dev), *args)[1]))
+        out["losses_cuda_free"].append(float(step(free, put(dev), y.to(dev), *args)[1]))
+        out["losses_cpu"].append(float(step(cpu, put("cpu"), y.cpu(),
                                             *(a.cpu() for a in args))[1]))
         update_err = max(update_err, float((card.flat.cpu() - cpu.flat).abs().max()))
     l_cpu = np.array(out["losses_cpu"])
@@ -1224,6 +1253,12 @@ def card_vs_cpu_steps(model, batches, labels, weight, m_list, gb_w, dev, step,
                param_atol=1e-4)
     out["ok"] = bool(out["loss_max_rel"] <= 1e-3 and update_err <= 1e-4
                      and out["param_max_abs"] <= 1e-4)
+    if stats_tol is not None:
+        got, want = free.stats_flat.cpu(), cpu.stats_flat
+        atol, rtol = stats_tol
+        out.update(stats_max_abs=float((got - want).abs().max()), stats_atol=atol,
+                   stats_rtol=rtol)
+        out["ok"] = out["ok"] and bool(((got - want).abs() <= atol + rtol * want.abs()).all())
     return out
 
 
@@ -1401,6 +1436,520 @@ def train_multimodal_cli_phase() -> tuple:
                 runs[name] = run
             fields[label] = runs
     return ok, fields
+
+
+# ---------------------------------------------------------------------------
+# The conv video models: R(2+1)D and SlowFast at their configs' full widths
+# ---------------------------------------------------------------------------
+
+CONV_SEQ = {"R2Plus1D": 21, "SlowFast": 20, "SlowFast_subbn2": 20}
+CONV_BATCH, CONV_TRAIN_BATCH = 32, 64
+PLAIN_CHUNKS = 8                  # conv_sweep: chunks compared with the plain gather
+# conv_models: bf16 against f32 probabilities at batch 32, per model. The
+# H100 readings were 4.5e-3 (R(2+1)D), 5.3e-2 (SlowFast) and 4.1e-2 (with
+# SubBatchNorm): over 16 bottlenecks of two pathways the bf16 convs part
+# SlowFast's pooled features 11-13% (of the largest) from the f32 ones, as
+# JAX's own bf16 model's do (tests/test_torch_models_conv.py holds the
+# port's bf16 gap within twice JAX's on the same weights).
+CONV_BF16_PROB_TOL = {"R2Plus1D": 1e-2, "SlowFast": 0.1, "SlowFast_subbn2": 0.1}
+
+
+def conv_model(key: str, dtype=torch.float32, seed=None):
+    """R(2+1)D, SlowFast or SlowFast with SubBatchNorm (base_bn_splits 2) at
+    kstar_torch/config.py's full widths; random weights from ``seed``
+    (None: no initialisation draws, for a model built on the meta device)."""
+    from kstar_torch.config import R2Plus1DConfig, SlowFastConfig
+    from kstar_torch.models import build_video_model
+
+    name, cfg = {"R2Plus1D": ("R2Plus1D", R2Plus1DConfig()),
+                 "SlowFast": ("SlowFast", SlowFastConfig()),
+                 "SlowFast_subbn2": ("SlowFast", SlowFastConfig(base_bn_splits=2))}[key]
+    gen = None if seed is None else torch.Generator().manual_seed(seed)
+    return build_video_model(name, cfg, dtype=dtype, generator=gen)
+
+
+def conv_twin(model, key: str, dtype):
+    """The same weights and statistics in another compute dtype, on the CPU."""
+    with torch.device("meta"):             # no second random initialisation
+        other = conv_model(key, dtype)
+    other.load_state_dict({k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+                          assign=True)
+    return other
+
+
+@torch.no_grad()
+def calibrate_bn(model, x) -> None:
+    """Set every backbone BatchNorm's running statistics (a SubBatchNorm's
+    split and aggregated ones too) to the statistics of its own input in one
+    eval forward of ``x``, layer after layer, so that random weights see
+    O(1) activations in evaluation as trained ones do. The head's BatchNorm
+    keeps its zeros/ones: its statistics run over clips, and the noise
+    frames' clips pool to nearly the same features, so calibrating it would
+    divide by a vanishing spread and blow rounding up into the logits."""
+    from kstar_torch.models import SubBatchNorm
+    from kstar_torch.models.common import BatchNorm, MLPHead
+
+    heads = {id(m.norm) for m in model.modules() if isinstance(m, MLPHead)}
+
+    def pre(mod, args):
+        inp = args[0].float()
+        axes = tuple(range(inp.dim() - 1))
+        mean, var = inp.mean(axes), inp.var(axes, unbiased=False)
+        mod.running_mean.copy_(mean)
+        mod.running_var.copy_(var)
+        if isinstance(mod, SubBatchNorm):
+            mod.split_mean.copy_(mean.expand_as(mod.split_mean))
+            mod.split_var.copy_(var.expand_as(mod.split_var))
+
+    hooks = [m.register_forward_pre_hook(pre) for m in model.modules()
+             if isinstance(m, (BatchNorm, SubBatchNorm)) and id(m) not in heads]
+    model.eval()(x)
+    for h in hooks:
+        h.remove()
+
+
+@torch.no_grad()
+def conv_flops(model, clip) -> float:
+    """Operations (2 x multiply-adds) of every conv and Dense in one forward
+    of ``clip`` (1, L, H, W, C), from the shapes the layers see."""
+    from kstar_torch.models.common import Conv3d
+    from kstar_torch.models.vivit import Dense
+
+    total = [0]
+
+    def hook(mod, args, out):
+        total[0] += 2 * out.numel() * mod.weight.shape[1:].numel()
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (Conv3d, Dense))]
+    model.eval()(clip)
+    for h in hooks:
+        h.remove()
+    return float(total[0]) / clip.shape[0]
+
+
+def conv_clips(frames_dev, L: int, batch: int):
+    """(batch, L, crop, crop, 3) uint8 windows spread over the cropped shot."""
+    import numpy as np
+
+    T = frames_dev.shape[0]
+    starts = torch.as_tensor(np.linspace(0, T - L - 1, batch).astype(np.int64),
+                             device=frames_dev.device)
+    return frames_dev[starts[:, None] + torch.arange(L, device=frames_dev.device)]
+
+
+def conv_models_phase(seed: int, frames_dev, dev, batch: int = CONV_BATCH) -> tuple:
+    """Each conv model's eval forward at ``batch`` windows of the cropped
+    shot, with its BatchNorm statistics calibrated on 8 of them
+    (``calibrate_bn``): bf16 against f32 probabilities on the card (within
+    CONV_BF16_PROB_TOL), f32 card against CPU at batch 2 (atol 1e-4 + rtol
+    1e-4; TF32 is off), device ms by CUDA events, launches and busy ms of
+    one bf16 forward, operations per clip; no K1-K3 launch. SlowFast with
+    SubBatchNorm: after two train-mode forwards and an aggregation, its
+    eval forward equals a plain SlowFast's holding the aggregated
+    statistics in its BatchNorms (f32, atol 1e-4 + rtol 1e-4). Returns
+    (ok, fields, the calibrated f32 models on the CPU, the bf16 models on
+    the card, operations per clip)."""
+    from kstar_torch.config import PIXEL_MEAN_BGR
+    from kstar_torch.models import aggregate_batch_stats
+
+    mean32 = torch.tensor(PIXEL_MEAN_BGR, device=dev)
+    ok, fields, cpu_models, bf16_models, flops = True, {}, {}, {}, {}
+    for i, key in enumerate(CONV_SEQ):
+        L = CONV_SEQ[key]
+        clips = conv_clips(frames_dev, L, batch)
+        x_32 = clips.float() - mean32
+        x_bf = clips.to(torch.bfloat16) - mean32.to(torch.bfloat16)
+        f32 = conv_model(key, seed=seed * 10 + 40 + i).to(dev)
+        calibrate_bn(f32, x_32[:8])
+        cpu = conv_twin(f32, key, torch.float32).eval()
+        bf = conv_twin(f32, key, torch.bfloat16).to(dev).eval()
+        kernel_launches(reset=True)
+        with torch.no_grad():
+            out_32, out_bf = f32(x_32), bf(x_bf)
+            want, got = cpu(x_32[:2].cpu()), f32(x_32[:2])
+            h_32, h_bf = f32.encode(x_32), bf.encode(x_bf)
+        torch.cuda.synchronize()
+        res = compare(got.cpu(), want, 1e-4, 1e-4, 1e-4)
+        p_32, p_bf = torch.softmax(out_32, -1), torch.softmax(out_bf, -1)
+        p_err = float((p_bf - p_32).abs().max())
+        h_rel = float((h_bf - h_32).abs().max() / h_32.abs().max())
+        fwd_bf = torch.no_grad()(lambda: bf(x_bf))
+        fwd_32 = torch.no_grad()(lambda: f32(x_32))
+        n_launch, busy_ms, _, top = step_launches(fwd_bf)
+        launches_k = kernel_launches()
+        flops[key] = conv_flops(bf, x_bf[:1])
+        tol = CONV_BF16_PROB_TOL[key]
+        ms_bf = time_ms(fwd_bf, 5)
+        entry = dict(
+            params=sum(p.numel() for p in cpu.parameters()), batch=batch, frames=L, crop=CROP,
+            gflop_per_clip=flops[key] / 1e9, f32_card_vs_cpu=res,
+            bf16_vs_f32_probs_max_abs=p_err, bf16_probs_tol=tol,
+            bf16_vs_f32_encode_max_rel=h_rel,
+            probs_spread=float(p_32[:, 0].max() - p_32[:, 0].min()),
+            forward_ms_bf16=ms_bf, forward_ms_f32=time_ms(fwd_32, 3),
+            launches_per_forward_bf16=n_launch, forward_device_busy_ms_bf16=busy_ms,
+            top_kernels_bf16=None if top is None else top[:5], kernel_launches=launches_k)
+        entry_ok = (res["ok"] and p_err <= tol and out_bf.shape == (batch, 2)
+                    and bool(torch.isfinite(out_bf).all()) and not any(launches_k.values()))
+        if key == "SlowFast_subbn2":
+            sub = conv_twin(f32, key, torch.float32).to(dev)
+            with torch.no_grad():
+                for half in x_32.chunk(2):
+                    sub(half, train=True)
+                aggregate_batch_stats(sub)
+                with torch.device("meta"):
+                    plain = conv_model("SlowFast")
+                plain.load_state_dict({k: v.clone() for k, v in sub.state_dict().items()
+                                       if "split_" not in k}, assign=True)
+                plain.eval()
+                agg = compare(sub.eval()(x_32), plain(x_32), 1e-4, 1e-4, 1e-5)
+            entry["aggregated_vs_plain_bn"] = agg
+            entry_ok = entry_ok and agg["ok"]
+            del sub, plain
+        entry["ok"] = entry_ok
+        ok = ok and entry_ok
+        fields[key] = entry
+        cpu_models[key], bf16_models[key] = cpu, bf
+        del f32, x_32
+    return ok, fields, cpu_models, bf16_models, flops
+
+
+def conv_sweep_phase(frames, frames_dev, dev, models: dict, flops: dict) -> tuple:
+    """VideoSweeper (B = 128) over the whole cropped shot for R(2+1)D (21
+    frames) and SlowFast (20): clips/s, median of 3 sweeps each ending in the
+    device-to-host copy (after a warm-up over two chunks, which have the
+    sweep's shapes); one window-gather launch per chunk and no
+    spatial-table launch; the first ``PLAIN_CHUNKS`` chunks of the curve
+    against the same windows through the plain gather (max |dp| <= 0.05,
+    mean <= 5e-3, raw_sweep's rule); the operation bound (operations
+    counted from the conv shapes over the bf16 peak) and the share of it the
+    sweep reaches; launches and busy ms of two chunks under the profiler,
+    scaled to the sweep; peak memory; predict_video_shot over the shot's
+    first 1024 frames. An R(2+1)D sweep takes ~5 s, so the warm-up, the
+    plain-gather curve and predict_video_shot run on parts of the shot.
+    Returns (ok, fields, window-gather launches)."""
+    import numpy as np
+
+    from kstar_torch.config import FPS
+    from kstar_torch.infer import VideoSweeper, chunkify_starts, predict_video_shot
+    from kstar_torch.ops.preprocess import gather_normalize_reference
+
+    T = frames_dev.shape[0]
+    ok, fields, k3 = True, {}, {}
+    for key in ("R2Plus1D", "SlowFast"):
+        L, model = CONV_SEQ[key], models[key]
+        starts = np.arange(T - L - 1, dtype=np.int64)
+        n_chunks = len(chunkify_starts(starts, BATCH))
+        sw = VideoSweeper(model, L, CROP, BATCH, torch.bfloat16, device=dev)
+        sw.sweep_device(frames_dev, starts[:2 * BATCH])             # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel_launches(reset=True)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            probs = sw.sweep_device(frames_dev, starts)           # ends in a host copy
+            walls.append(time.perf_counter() - t0)
+        launches = kernel_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        sub = starts[:PLAIN_CHUNKS * BATCH]
+        with torch.no_grad():                 # the sweep's chunks through the plain gather
+            p_plain = torch.cat([torch.softmax(model(gather_normalize_reference(
+                frames_dev, c, L, torch.bfloat16)).float(), -1)[:, 0]
+                for c in torch.from_numpy(chunkify_starts(sub, BATCH)).to(dev)])
+        err = np.abs(probs[:len(sub)] - p_plain.cpu().numpy()[:len(sub)])
+        n_sub, busy_sub, _, top = step_launches(
+            lambda: sw.sweep_table(frames_dev, starts[:2 * BATCH]))
+        kernel_launches(reset=True)
+        time_x, curve = predict_video_shot(model, frames[:1024], 0, 1024 - int(FPS), L,
+                                           crop_size=CROP, batch_size=BATCH, device=dev)
+        pred_launches = kernel_launches()["gather_normalize"]
+        pred_chunks = len(chunkify_starts(np.arange(1024 - L - 3), BATCH))
+        sweep_s = float(np.median(walls))
+        bound_ms = len(starts) * flops[key] / PEAK_OPS_PER_S["bfloat16"] * 1e3
+        busy_ms = None if busy_sub is None else busy_sub * n_chunks / 2
+        expect_len = L + (1024 - L - 3) - 2
+        entry = dict(
+            frames=T, seq_len=L, windows=len(starts), batch=BATCH, chunks=n_chunks,
+            clips_per_s=len(starts) / sweep_s, sweep_ms=sweep_s * 1e3,
+            sweep_runs_ms=[w * 1e3 for w in walls], launches_3_sweeps=launches,
+            operation_bound_ms=bound_ms, bound_share=bound_ms / (sweep_s * 1e3),
+            launches_per_sweep=None if n_sub is None else n_sub * n_chunks // 2,
+            device_busy_ms=busy_ms,
+            device_idle_share=None if busy_ms is None else 1 - busy_ms / (sweep_s * 1e3),
+            top_kernels_2_chunks=None if top is None else top[:5], peak_mem_gb=peak_gb,
+            plain_gather_windows=len(sub), curve_vs_plain_gather_max_abs=float(err.max()),
+            curve_vs_plain_gather_mean_abs=float(err.mean()),
+            predict_curve_len=len(curve), predict_expect_len=expect_len,
+            predict_gather_launches=pred_launches)
+        entry_ok = (launches["gather_normalize"] == 3 * n_chunks
+                    and launches["spatial_table"] == 0 and launches["fused_attention"] == 0
+                    and probs.shape == starts.shape and bool(np.isfinite(probs).all())
+                    and err.max() <= 5e-2 and err.mean() <= 5e-3
+                    and len(curve) == len(time_x) == expect_len
+                    and bool(np.isfinite(curve).all()) and pred_launches == pred_chunks)
+        entry["ok"] = entry_ok
+        ok = ok and entry_ok
+        fields[key] = entry
+        k3[key] = launches["gather_normalize"] + pred_launches
+    return ok, fields, k3
+
+
+def conv_stream_phase(frames, dev, models: dict, n_blocks: int = 30) -> tuple:
+    """StreamingPredictor with R(2+1)D (21 frames) and SlowFast (20):
+    choose_block_size over probe_stream_blocks at 210 fps, then
+    ``n_blocks`` timed blocks at that size (one window-gather launch each);
+    p50 frame-to-alarm by M2's definition; blocks against single pushes
+    (|dp| <= 2e-2, equal alarms where the threshold gap decides them).
+    Whether a block keeps up with the camera is reported, not required.
+    Returns (ok, fields, window-gather launches)."""
+    import numpy as np
+
+    from kstar_torch.config import FPS
+    from kstar_torch.infer import StreamingPredictor, choose_block_size, probe_stream_blocks
+
+    c0 = RESIZE // 2 - CROP // 2
+    cropped = np.ascontiguousarray(frames[:, c0:c0 + CROP, c0:c0 + CROP])
+    ok, fields, k3 = True, {}, {}
+    for key in ("R2Plus1D", "SlowFast"):
+        L, model = CONV_SEQ[key], models[key]
+        mk = lambda **kw: StreamingPredictor(model, seq_len=L, crop_size=CROP,
+                                             compute_dtype=torch.bfloat16, device=dev, **kw)
+        k, report = choose_block_size(probe_stream_blocks(model, L, CROP, torch.bfloat16,
+                                                          device=dev), fps=FPS)
+        sp = mk(block_size=k)
+        sp.push_block(cropped[:k])                               # allocate + warm
+        kernel_launches(reset=True)
+        times = []
+        for i in range(1, n_blocks + 1):
+            t0 = time.perf_counter()
+            sp.push_block(cropped[i * k:(i + 1) * k])
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = kernel_launches()
+        block_ms = np.asarray(times)
+        lat = block_ms[:, None] + ((k - 1 - np.arange(k)) / FPS * 1e3)[None, :]
+        # blocks against single pushes over a dark start, so p moves
+        kk = max(k, 16)
+        seq = frames[:2 * kk].copy()
+        seq[:L + 3] //= 4
+        probe = mk(block_size=kk, suppress_s=0.0)
+        p0 = np.concatenate([probe.push_block(seq[:kk])[0], probe.push_block(seq[kk:])[0]])
+        armed = np.sort(p0[L:])
+        gap_at = int(np.argmax(np.diff(armed)))
+        thr = float(armed[gap_at:gap_at + 2].mean())
+        gap = float(armed[gap_at + 1] - armed[gap_at])
+        blk = mk(block_size=kk, suppress_s=0.0, threshold=thr)
+        blk_out = [blk.push_block(seq[:kk]), blk.push_block(seq[kk:])]
+        blk_p, blk_a = (np.concatenate([o[j] for o in blk_out]) for j in (0, 1))
+        one = mk(block_size=1, suppress_s=0.0, threshold=thr)
+        one_out = [one.push(f) for f in seq]
+        one_p, one_a = np.array([o[0] for o in one_out]), np.array([o[1] for o in one_out])
+        push_err = float(np.abs(blk_p - one_p).max())
+        decidable = gap > 2 * push_err
+        p50_block = float(np.median(block_ms))
+        entry = dict(
+            seq_len=L, fps=FPS, chosen_k=k, probe_report={str(kp): r for kp, r in report.items()},
+            p50_frame_to_alarm_ms=float(np.median(lat)), block_p50_ms=p50_block,
+            block_p99_ms=float(np.percentile(block_ms, 99)), per_frame_ms=p50_block / k,
+            sustains=p50_block / k <= 1e3 / FPS, launches=launches, blocks=n_blocks,
+            compared_block=kk, blocks_vs_single_max_abs=push_err, blocks_vs_single_tol=2e-2,
+            threshold=thr, threshold_gap=gap, alarms_decidable=bool(decidable),
+            alarms_equal=bool(np.array_equal(blk_a, one_a)))
+        entry_ok = (launches["gather_normalize"] == n_blocks and launches["spatial_table"] == 0
+                    and launches["fused_attention"] == 0 and bool(np.isfinite(blk_p).all())
+                    and push_err <= 2e-2
+                    and (not decidable or (np.array_equal(blk_a, one_a)
+                                           and blk.alarm_time == one.alarm_time)))
+        entry["ok"] = entry_ok
+        ok = ok and entry_ok
+        fields[key] = entry
+        k3[key] = launches["gather_normalize"]
+    return ok, fields, k3
+
+
+def train_conv_phase(seed: int, frames, dev, cpu_models: dict,
+                     batch: int = CONV_TRAIN_BATCH) -> tuple:
+    """fit's train step at batch 64 for R(2+1)D, SlowFast and SlowFast with
+    SubBatchNorm (bn_splits 2): bf16 over f32 parameters, uint8 clips of the
+    256 px shot cropped to 128 and augmented inside the step, AdamW 2e-4
+    with the staircase decay, clip 1.0, Focal; 5 warm-up and 30 timed steps
+    (host clock up to a synchronise), clips/s, peak memory, launches, busy
+    ms and idle share of one profiled step. The NaN guard leaves the
+    parameters, optimizer state, step and every statistic (the split ones
+    too) bit-identical. Card against CPU in f32 at batch 4 for 3 SGD steps
+    (``card_vs_cpu_steps``): losses rtol 1e-3, parameters atol 1e-4, the
+    statistics atol 1e-4 + rtol 1e-5 (the stem's running variance of
+    pixel-scale conv outputs is in the thousands, where one f32 ulp is
+    ~2e-4). With SubBatchNorm, one aggregation after the steps equals its
+    numpy formula."""
+    import numpy as np
+
+    from kstar_torch.config import LossConfig, OptimConfig
+    from kstar_torch.data import make_pre_fns, to_device
+    from kstar_torch.losses import ldam_margins
+    from kstar_torch.models import SubBatchNorm, aggregate_batch_stats
+    from kstar_torch.train import create_train_state, make_train_step
+
+    rng = np.random.default_rng(seed + 50)
+    loss_cfg = LossConfig()
+    weight = torch.ones(2, device=dev)
+    m_list = torch.as_tensor(ldam_margins(np.array([batch // 2, batch // 2]))).to(dev)
+    gb_w = torch.zeros(3, device=dev)
+    pre_train = make_pre_fns(CROP, out_dtype=torch.bfloat16)[0]
+    pre32 = make_pre_fns(CROP, out_dtype=torch.float32)[1]
+    ok, fields = True, {}
+    for key, cpu in cpu_models.items():
+        L = CONV_SEQ[key]
+        starts = rng.integers(0, len(frames) - L, size=(2, batch))
+        batches = [to_device(frames[s[:, None] + np.arange(L)], dev) for s in starts]
+        labels = [torch.as_tensor(rng.integers(0, 2, size=batch)).to(dev) for _ in range(2)]
+        model = conv_twin(cpu, key, torch.bfloat16).to(dev)
+        state = create_train_state(model, OptimConfig(), steps_per_epoch=1, seed=seed)
+        step = make_train_step(loss_cfg, pre_fn=pre_train)
+        start = state.flat.clone()
+        kernel_launches(reset=True)
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for i in range(35):
+            t0 = time.perf_counter()
+            _, loss, _ = step(state, batches[i % 2], labels[i % 2], weight, m_list)
+            torch.cuda.synchronize()
+            if i >= 5:
+                times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = torch.stack(losses).cpu().numpy()
+        moved = float((state.flat != start).float().mean())
+        del start
+        n_launch, busy_ms, prof_wall, top = step_launches(
+            lambda: step(state, batches[0], labels[0], weight, m_list))
+        launches_k = kernel_launches()
+
+        # the NaN guard, every statistic included
+        before = (state.flat.clone(), {k: v.clone() for k, v in state.opt_state.items()},
+                  state.step.clone(), state.stats_flat.clone())
+        _, nan_loss, _ = step(state, batches[0], labels[0],
+                              torch.full((2,), float("nan"), device=dev), m_list)
+        guard_ok = (not bool(torch.isfinite(nan_loss)) and torch.equal(state.flat, before[0])
+                    and all(torch.equal(state.opt_state[k], v) for k, v in before[1].items())
+                    and torch.equal(state.step, before[2])
+                    and torch.equal(state.stats_flat, before[3]))
+        subbns = [m for m in state.model.modules() if isinstance(m, SubBatchNorm)]
+        agg_err = None
+        if subbns:
+            with torch.no_grad():
+                aggregate_batch_stats(state.model)
+            agg_err = 0.0
+            for m in subbns:
+                sm, sv = m.split_mean.cpu().double().numpy(), m.split_var.cpu().double().numpy()
+                mean = sm.mean(0)
+                var = sv.mean(0) + ((sm - mean) ** 2).mean(0)
+                agg_err = max(agg_err, float(np.abs(m.running_mean.cpu().numpy() - mean).max()),
+                              float(np.abs(m.running_var.cpu().numpy() - var).max()
+                                    / max(np.abs(var).max(), 1.0)))
+        del state, model
+
+        quiet = conv_twin(cpu, key, torch.float32).train()
+        parity = card_vs_cpu_steps(quiet, batches, labels, weight, m_list, gb_w, dev,
+                                   make_train_step(loss_cfg, pre_fn=pre32),
+                                   stats_tol=(1e-4, 1e-5))
+        t = np.asarray(times)
+        entry = dict(
+            params=int(sum(p.numel() for p in cpu.parameters())), batch=batch, frames=L,
+            dtype="bfloat16 over f32 parameters",
+            optimizer="AdamW lr 2e-4 staircase 0.95 every 4 updates, clip 1.0",
+            loss="Focal gamma 2", steps_timed=len(t), step_p50_ms=float(np.median(t)),
+            step_p99_ms=float(np.percentile(t, 99)), clips_per_s=batch * len(t) / (t.sum() / 1e3),
+            peak_mem_gb=peak_gb, launches_per_step=n_launch,
+            profiled_step_device_busy_ms=busy_ms, profiled_step_wall_ms=prof_wall,
+            top_kernels=None if top is None else top[:5],
+            device_idle_share=None if busy_ms is None else 1 - busy_ms / float(np.median(t)),
+            losses_first_last=[float(losses[0]), float(losses[-1])],
+            params_moved_share=moved, nan_guard_bit_identical=guard_ok,
+            subbn_modules=len(subbns), aggregate_vs_numpy_max_err=agg_err,
+            card_vs_cpu=parity, kernel_launches=launches_k)
+        entry_ok = bool(np.isfinite(losses).all() and moved > 0.5 and guard_ok and parity["ok"]
+                        and not any(launches_k.values())
+                        and (key != "SlowFast_subbn2" or (subbns and agg_err <= 1e-6)))
+        entry["ok"] = entry_ok
+        ok = ok and entry_ok
+        fields[key] = entry
+        del batches
+    return ok, fields
+
+
+def train_conv_cli_phase() -> tuple:
+    """python -m kstar_torch.cli.train_vision --synthetic with --model
+    R2Plus1D for 2 epochs and a --resume for one more, and with --model
+    SlowFast --bn_splits 2 for 2 epochs: checkpoints, report, the alarm
+    JSON/CSV files (the CLI's alarm sweep is best-effort, so their presence
+    is checked), window-gather launches from the alarm sweep and no
+    spatial-table launch, and the SlowFast checkpoint's aggregated
+    statistics equal to the aggregate of its split statistics. Returns (ok,
+    fields, window-gather launches)."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    from kstar_torch.cli import train_vision
+    from kstar_torch.models import aggregate_subbn_stats
+
+    fields, ok, k3 = {}, True, 0
+    for label, model_args, runs in (
+            ("R2Plus1D", ["--model", "R2Plus1D"],
+             (("first", ["--num_epoch", "2"]), ("resume", ["--num_epoch", "1", "--resume"]))),
+            ("SlowFast_bn_splits_2", ["--model", "SlowFast", "--bn_splits", "2"],
+             (("first", ["--num_epoch", "2"]),))):
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = model_args + ["--synthetic", "--weight_dir", f"{tmp}/w",
+                                 "--save_dir", f"{tmp}/r", "--verbose", "1"]
+            out_runs = {}
+            for name, extra in runs:
+                out = io.StringIO()
+                kernel_launches(reset=True)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    train_vision.main(argv + extra)
+                wall = time.perf_counter() - t0
+                text = out.getvalue()
+                print(text, file=sys.stderr, end="")
+                files = sorted(os.listdir(f"{tmp}/w")) + sorted(os.listdir(f"{tmp}/r"))
+                last = [f for f in files if f.endswith("_last.ckpt")]
+                best = [f for f in files if f.endswith("_best.ckpt")]
+                reports = [f for f in files if f.endswith("_report.txt")]
+                alarms = [f for f in files if f.endswith(("_alarms.json", "_alarms.csv"))]
+                f1 = re.search(r"test macro-F1 ([0-9.]+)", text)
+                sd = torch.load(f"{tmp}/w/{last[0]}", map_location="cpu") if last else None
+                launches_k = kernel_launches()
+                k3 += launches_k["gather_normalize"]
+                run = dict(wall_s=wall, test_macro_f1=float(f1.group(1)) if f1 else None,
+                           checkpoints=sorted(last + best), reports=reports,
+                           alarm_files=alarms, saved_step=None if sd is None else int(sd["step"]),
+                           datasets=re.search(r"datasets: .*", text).group(0),
+                           skipped="alarm evaluation skipped" in text,
+                           kernel_launches=launches_k)
+                run_ok = bool(last and best and reports and f1 and len(alarms) == 2
+                              and not run["skipped"] and launches_k["gather_normalize"] > 0
+                              and launches_k["spatial_table"] == 0)
+                if "--bn_splits" in model_args and sd is not None:
+                    agg = aggregate_subbn_stats(sd["model"])
+                    keys = [k for k in sd["model"] if k.endswith(("running_mean", "running_var"))
+                            and k.rsplit(".", 1)[0] + ".split_mean" in sd["model"]]
+                    run["aggregated_keys"] = len(keys)
+                    run_ok = run_ok and bool(keys) and all(
+                        torch.equal(sd["model"][k], agg[k]) for k in keys)
+                if name == "resume":
+                    m = re.search(r"resumed from \S+ at step (\d+)", text)
+                    run["resumed_at_step"] = int(m.group(1)) if m else None
+                    run_ok = (run_ok and run["resumed_at_step"] == out_runs["first"]["saved_step"]
+                              and run["saved_step"] > run["resumed_at_step"])
+                run["ok"] = run_ok
+                ok = ok and run_ok
+                out_runs[name] = run
+            fields[label] = out_runs
+    return ok, fields, k3
 
 
 def main() -> int:
@@ -1583,21 +2132,23 @@ def main() -> int:
     # and the starts read once; one subtraction per element.
     T = args.frames
     small_frames = small.upload_shot(frames[:64])                     # 64 frames
-    for label, src, st, cd, iters in (
+    for label, src, st, cd, iters, L in (
             ("stream block k=16, 37 frames bf16 (main path)", frames_dev[:SEQ_LEN + 16],
-             torch.arange(16, device=dev), torch.bfloat16, 50),
+             torch.arange(16, device=dev), torch.bfloat16, 50, SEQ_LEN),
             (f"sweep chunk B={BATCH}, T={T} bf16 (main path)", frames_dev,
-             torch.arange(BATCH, device=dev) + T // 2, torch.bfloat16, 20),
+             torch.arange(BATCH, device=dev) + T // 2, torch.bfloat16, 20, SEQ_LEN),
+            (f"SlowFast sweep chunk B={BATCH}, T={T}, L=20 bf16 (conv path)", frames_dev,
+             torch.arange(BATCH, device=dev) + T // 2, torch.bfloat16, 20, 20),
             (f"small crop {SMALL_CROP} px, 8 windows f32", small_frames,
-             torch.arange(8, device=dev) * 5, torch.float32, 50),
+             torch.arange(8, device=dev) * 5, torch.float32, 50, SEQ_LEN),
             (f"clipped at both ends, T={T} bf16", frames_dev,
              torch.tensor([-40, -SEQ_LEN, -1, 0, T - SEQ_LEN - 1, T - SEQ_LEN, T - 2,
-                           T + 9], device=dev), torch.bfloat16, 50)):
-        got = gather_normalize(src, st, SEQ_LEN, cd)
-        want = gather_normalize_reference(src, st, SEQ_LEN, cd)
+                           T + 9], device=dev), torch.bfloat16, 50, SEQ_LEN)):
+        got = gather_normalize(src, st, L, cd)
+        want = gather_normalize_reference(src, st, L, cd)
         torch.cuda.synchronize()
         res = compare(got, want, 0.0, 0.0, 0.0)
-        idx = torch.clamp(st[:, None] + torch.arange(1, SEQ_LEN + 1, device=dev), 0,
+        idx = torch.clamp(st[:, None] + torch.arange(1, L + 1, device=dev), 0,
                           len(src) - 1)
         frame_bytes = src[0].numel()
         nbytes = (got.numel() * got.element_size()
@@ -1608,11 +2159,13 @@ def main() -> int:
             shape=[list(src.shape), list(st.shape)], route="cuda",
             source="kstar_torch/csrc/preprocess.cu",
             replaces="kstar_tpu/ops/preprocess.py:76", **res,
-            ms=time_ms(rotating(lambda: gather_normalize(src, st, SEQ_LEN, cd)), iters),
+            ms=time_ms(rotating(lambda: gather_normalize(src, st, L, cd)), iters),
             plain_ms=time_ms(rotating(
-                lambda: gather_normalize_reference(src, st, SEQ_LEN, cd)), iters),
+                lambda: gather_normalize_reference(src, st, L, cd)), iters),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            instance=gather_normalize.instance))
+            instance=gather_normalize.instance, seq_len=L))
+        if L == 20:
+            checks[-1]["path"] = "conv SlowFast"
         emit("kernel_check", **checks[-1])
     failures += [f"{c['name']} {c['case']}" for c in checks if not c["ok"]]
 
@@ -1961,10 +2514,40 @@ def main() -> int:
         if not phase_ok:
             failures.append(name)
 
+    # ---- the conv video models: R(2+1)D and SlowFast (K3 on their raw path) ----
+    t0 = time.perf_counter()
+    cm_ok, cm_fields, conv_cpu, conv_bf16, conv_ops = conv_models_phase(args.seed, frames_dev,
+                                                                        dev)
+    emit("conv_models", **cm_fields, seconds=time.perf_counter() - t0, ok=cm_ok)
+    t0 = time.perf_counter()
+    cs_ok, cs_fields, k3_sweep = conv_sweep_phase(frames, frames_dev, dev, conv_bf16, conv_ops)
+    emit("conv_sweep", **cs_fields, seconds=time.perf_counter() - t0, ok=cs_ok)
+    t0 = time.perf_counter()
+    ct_ok, ct_fields, k3_stream = conv_stream_phase(frames, dev, conv_bf16)
+    emit("conv_stream", **ct_fields, seconds=time.perf_counter() - t0, ok=ct_ok)
+    del conv_bf16
+    t0 = time.perf_counter()
+    tc_ok, tc_fields = train_conv_phase(args.seed, frames, dev, conv_cpu)
+    emit("train_conv", **tc_fields, seconds=time.perf_counter() - t0, ok=tc_ok)
+    t0 = time.perf_counter()
+    tcc_ok, tcc_fields, k3_cli = train_conv_cli_phase()
+    emit("train_conv_cli", **tcc_fields, seconds=time.perf_counter() - t0, ok=tcc_ok)
+    for name, phase_ok in (("conv_models", cm_ok), ("conv_sweep", cs_ok),
+                           ("conv_stream", ct_ok), ("train_conv", tc_ok),
+                           ("train_conv_cli", tcc_ok)):
+        if not phase_ok:
+            failures.append(name)
+    # K3's launches on the main paths: the ViViT stream, and the conv models'
+    # sweeps, streams and CLI alarm sweeps; the L = 20 row the SlowFast part
+    k3_slowfast = k3_sweep["SlowFast"] + k3_stream["SlowFast"]
+    launches["gather_normalize"] += (sum(k3_sweep.values()) + sum(k3_stream.values())
+                                     + k3_cli)
+
     kernel_rows = []
     for c in checks:
         entry = {k: c[k] for k in ("name", "route", "source", "replaces")}
-        n_launch = k1_multimodal if c.get("path") == "multimodal_sweep" else launches[c["name"]]
+        n_launch = {"multimodal_sweep": k1_multimodal,
+                    "conv SlowFast": k3_slowfast}.get(c.get("path"), launches[c["name"]])
         entry.update(launches=n_launch, max_abs_err=c["max_abs_err"],
                      ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
                      bound_by=c["bound_by"], library_ms=c["library_ms"],

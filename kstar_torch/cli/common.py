@@ -23,7 +23,6 @@ from ..data import VideoStore
 
 
 # options not ported yet -> the ROADMAP.md Queue 1 item that ports them
-ITEM_CONV = "ROADMAP.md Queue 1 item 11 (conv video models)"
 ITEM_ENSEMBLE = "ROADMAP.md Queue 1 item 13 (search and ensembles)"
 ITEM_DP = "ROADMAP.md Queue 1 item 14 (parallel)"
 ITEM_VIZ = "ROADMAP.md Queue 1 item 15 (viz)"

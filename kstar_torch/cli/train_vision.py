@@ -1,14 +1,22 @@
 """Vision network training CLI (port of ``kstar_tpu/cli/train_vision.py``,
 a rebuild of reference train_vision_network.py): video dataset build ->
-ViViT -> train/train_DRW -> reload the best checkpoint -> test macro-F1 and
-ROC-AUC -> shot-level alarms from whole-shot sweeps of the test shots.
+ViViT / SlowFast / R2Plus1D -> train/train_DRW -> reload the best
+checkpoint -> test macro-F1 and ROC-AUC -> shot-level alarms from
+whole-shot sweeps of the test shots (ViViT through the spatial-table
+kernel, the conv models through the window-gather kernel).
 
 Usage (the GPU by default; ``--device cpu`` runs on the CPU):
     python -m kstar_torch.cli.train_vision --model ViViT --synthetic --num_epoch 2
+    python -m kstar_torch.cli.train_vision --model SlowFast --bn_splits 2 --synthetic
+
+SlowFast rounds ``--seq_len`` down to a multiple of alpha * tau_fast; the
+datasets and the alarm sweep take the rounded length, the checkpoint tag
+keeps ``--seq_len`` (as the JAX CLI's does).
+With ``--bn_splits`` the SubBatchNorm statistics are aggregated after
+every train epoch (``fit(eval_stats_fn=aggregate_batch_stats)``).
 
 Not ported yet, each refused with the ROADMAP.md Queue 1 item that ports
-it: the conv video models SlowFast and R2Plus1D and ``--bn_splits`` (item
-11), several ``--seeds`` at once (item 13), ``--dp`` (item 14). The
+it: several ``--seeds`` at once (item 13), ``--dp`` (item 14). The
 learning-curve and probability-curve plots wait for the viz port (item 15);
 the CLI says that it skipped them.
 """
@@ -20,7 +28,7 @@ import os
 
 import torch
 
-from .common import ITEM_CONV, ITEM_ENSEMBLE, ITEM_VIZ, refuse_ensemble_and_dp
+from .common import ITEM_ENSEMBLE, ITEM_VIZ, refuse_ensemble_and_dp
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -28,8 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(description="train vision disruption predictor")
     p.add_argument("--model", type=str, default="ViViT",
-                   choices=["ViViT", "SlowFast", "R2Plus1D"],
-                   help=f"ViViT; SlowFast and R2Plus1D wait for {ITEM_CONV}")
+                   choices=["ViViT", "SlowFast", "R2Plus1D"])
     p.add_argument("--tag", type=str, default=None)
     p.add_argument("--seeds", type=int, nargs="+", default=None,
                    help="one seed trains with that seed; several (an "
@@ -62,32 +69,55 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--norm_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="ViViT LayerNorm/softmax accumulation dtype")
+    # SlowFast (reference :117-118)
+    p.add_argument("--tau_alpha", type=int, default=4)
+    p.add_argument("--tau_fast", type=int, default=1)
     p.add_argument("--bn_splits", type=int, default=None,
-                   help=f"SubBatchNorm split count (SlowFast): {ITEM_CONV}")
+                   help="SubBatchNorm split count for SlowFast multigrid training "
+                        "(reference base_bn_splits; the statistics are aggregated "
+                        "after every train epoch)")
+    # R2Plus1D
+    p.add_argument("--layer_sizes", type=int, nargs=4, default=[1, 2, 2, 1])
     p.add_argument("--skip_extras", action="store_true",
                    help="skip the alarm sweep after the test evaluation")
     return p
 
 
 def refuse_unported(args) -> None:
-    """SystemExit naming the ROADMAP item for each option not ported yet."""
-    if args.model != "ViViT":
-        raise SystemExit(f"--model {args.model} is not ported to kstar_torch yet: "
-                         f"{ITEM_CONV}")
-    if args.bn_splits:
-        raise SystemExit(f"--bn_splits is not ported to kstar_torch yet: {ITEM_CONV}")
+    """SystemExit naming the ROADMAP item for each option not ported yet,
+    and for ``--bn_splits`` with an ensemble (as the JAX CLI refuses it)."""
+    if args.bn_splits and args.seeds and len(args.seeds) > 1:
+        raise SystemExit("--bn_splits is not supported with several --seeds (the "
+                         "statistics' aggregation runs in the single-model fit "
+                         f"loop; the ensemble is {ITEM_ENSEMBLE})")
     refuse_ensemble_and_dp(args)
 
 
 def model_config(args):
-    from ..config import ViViTConfig
+    """(model config, seq_len): SlowFast's seq_len is rounded down to a
+    multiple of alpha * tau_fast (at least one), since its slow pathway
+    takes every (alpha * tau_fast)-th frame and its lateral concat needs
+    matching time axes (reference even-seq fixup,
+    train_vision_network.py:153-155)."""
+    from ..config import R2Plus1DConfig, SlowFastConfig, ViViTConfig
 
+    seq_len = args.seq_len
+    if args.model == "SlowFast":
+        step = args.tau_alpha * args.tau_fast
+        if seq_len % step != 0:
+            seq_len = max(seq_len - seq_len % step, step)
+        return SlowFastConfig(image_size=args.image_size, n_frames=seq_len,
+                              alpha=args.tau_alpha, tau_fast=args.tau_fast,
+                              base_bn_splits=args.bn_splits), seq_len
+    if args.model == "R2Plus1D":
+        return R2Plus1DConfig(image_size=args.image_size, n_frames=seq_len,
+                              layer_sizes=tuple(args.layer_sizes), alpha=0.01), seq_len
     return ViViTConfig(
         image_size=args.image_size, patch_size=args.patch_size,
-        n_frames=args.seq_len, dim=args.dim, depth=args.depth,
+        n_frames=seq_len, dim=args.dim, depth=args.depth,
         n_heads=args.n_heads, d_head=args.d_head, scale_dim=args.scale_dim,
         dropout=args.dropout, embedd_dropout=args.embedd_dropout,
-        norm_dtype=args.norm_dtype)
+        norm_dtype=args.norm_dtype), seq_len
 
 
 def main(argv=None):
@@ -102,7 +132,7 @@ def main(argv=None):
     from ..data import ImbalancedSampler, VideoDataset, split_shots, to_device
     from ..data.augment import make_pre_fns
     from ..eval.evaluate import evaluate
-    from ..models import build_video_model
+    from ..models import aggregate_batch_stats, build_video_model
     from ..train import (MetricWriter, create_train_state, fit,
                          load_checkpoint)
     from .common import (configs_from_args, emit_alarm_artifacts, load_data,
@@ -119,7 +149,10 @@ def main(argv=None):
     train_n, valid_n, test_n, sweep_normals, inc_normal = resolve_normal_splits(
         args, normal_s, lambda ss: split_shots(ss, None))
 
-    cfg, seq_len = model_config(args), args.seq_len
+    cfg, seq_len = model_config(args)
+    if args.bn_splits and args.batch_size % args.bn_splits:
+        raise SystemExit(f"--batch_size {args.batch_size} must be "
+                         f"divisible by --bn_splits {args.bn_splits}")
     mk = lambda ss: VideoDataset(store, disrupt_df, ss, seq_len=seq_len,
                                  dist=args.dist, include_normal=inc_normal)
     train_ds, valid_ds, test_ds = (mk(list(train_s) + train_n),
@@ -130,7 +163,7 @@ def main(argv=None):
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     init = torch.Generator().manual_seed(args.random_seed)
-    model = build_video_model("ViViT", cfg, dtype=dtype, generator=init).to(device)
+    model = build_video_model(args.model, cfg, dtype=dtype, generator=init).to(device)
 
     aug = AugmentConfig(
         bright_val=args.bright_val, bright_p=args.bright_p,
@@ -161,7 +194,8 @@ def main(argv=None):
 
     state, hist = fit(state, train_ds, valid_ds, train_cfg, loss_cfg, tag=tag,
                       sampler=sampler, writer=writer, put=put_raw,
-                      put_eval=put_raw, pre_fn=pre_train, pre_fn_eval=pre_eval)
+                      put_eval=put_raw, pre_fn=pre_train, pre_fn_eval=pre_eval,
+                      eval_stats_fn=aggregate_batch_stats if args.bn_splits else None)
     print(f"learning-curve plot skipped: plot_learning_curve waits for {ITEM_VIZ}")
 
     # test evaluation + extras run on the BEST checkpoint, not the final

@@ -170,7 +170,8 @@ class VideoSweeper:
     (``_make_cls_table_fn``): ``None`` the kernel where it takes the shape
     and the plain version otherwise, ``True`` the kernel or an error,
     ``False`` the plain version; ``fused_table_active`` says which one the
-    sweeper took.
+    sweeper took. A model without the token path (the conv models) gathers
+    raw windows per chunk with the window-gather kernel.
     """
 
     def __init__(self, model, seq_len: int, crop_size: int, batch_size: int = 64,

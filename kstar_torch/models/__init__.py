@@ -5,15 +5,13 @@ import torch
 from .cnn_lstm import CnnLSTM
 from .fusion import TFN, TFNGB, MultiModalConcat, MultiModalGB
 from .mlstm_fcn import MLSTMFCN
+from .r2plus1d import R2Plus1DClassifier, R2Plus1DNet
+from .resnet3d import Bottleneck3D, ResStage
+from .slowfast import SlowFast, SlowFastEncoder
+from .subbn import (SubBatchNorm, aggregate_batch_stats, aggregate_subbn_stats,
+                    reset_bn_splits_long_cycle)
 from .ts_transformer import Transformer0D, TransformerEncoder0D
 from .vivit import ViViT, ViViTEncoder
-
-# models of kstar_tpu/models/ not ported yet, with the ROADMAP.md Queue 1
-# item that ports them
-_NOT_PORTED = {
-    "R2Plus1D": "Queue 1 item 11 (conv video models)",
-    "SlowFast": "Queue 1 item 11 (conv video models)",
-}
 
 
 def build_0d_model(name: str, cfg, dtype=None, generator=None):
@@ -40,8 +38,8 @@ def build_video_model(name: str, cfg, dtype=None, generator=None):
         kwargs["norm_dtype"] = (nd if isinstance(nd, torch.dtype)
                                 else getattr(torch, {"bf16": "bfloat16"}.get(nd, nd)))
         return ViViT(**kwargs, generator=generator)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"video model {name!r} is not ported to kstar_torch yet: "
-            f"ROADMAP.md {_NOT_PORTED[name]}")
+    if name == "R2Plus1D":
+        return R2Plus1DClassifier(**kwargs, generator=generator)
+    if name == "SlowFast":
+        return SlowFast(**kwargs, generator=generator)
     raise ValueError(f"unknown video model: {name}")

@@ -1,8 +1,8 @@
-"""Shared building blocks of the 0D models.
+"""Shared building blocks of the 0D and conv video models.
 
-Port of ``kstar_tpu/models/common.py``. Layouts are channels-last, (B, T, F),
-as in the JAX package; ``dtype`` is the compute dtype, parameters and
-normalisation statistics stay f32, and logits come out f32.
+Port of ``kstar_tpu/models/common.py``. Layouts are channels-last, (B, T, F)
+and (B, T, H, W, C), as in the JAX package; ``dtype`` is the compute dtype,
+parameters and normalisation statistics stay f32, and logits come out f32.
 
 Two pieces follow flax's rules rather than torch's defaults:
 
@@ -22,8 +22,10 @@ Two pieces follow flax's rules rather than torch's defaults:
     kernel per layer and direction (``chip_smoke.py`` phase ``ts_models``
     times both).
 
-The guided-backprop activations of the JAX module wait for the viz port
-(ROADMAP.md Queue 1 item 15).
+The conv stacks route their activations through ``act_leaky_relu`` and
+``act_relu``; the JAX module's guided-backprop rule for them (its
+``GUIDED_BACKPROP`` switch and custom VJP) waits for the viz port
+(ROADMAP.md Queue 1 item 15), which swaps it in there.
 """
 
 from __future__ import annotations
@@ -71,6 +73,16 @@ def apply_act(x: torch.Tensor, act: str, alpha: float = 1.0) -> torch.Tensor:
     if act == "gelu":
         return gelu_tanh(x)         # flax nn.gelu defaults to the tanh form
     raise ValueError(act)
+
+
+def act_leaky_relu(x: torch.Tensor, alpha: float) -> torch.Tensor:
+    """The conv stacks' LeakyReLU (R(2+1)D)."""
+    return F.leaky_relu(x, negative_slope=alpha)
+
+
+def act_relu(x: torch.Tensor) -> torch.Tensor:
+    """The conv stacks' ReLU (3D ResNet, SlowFast)."""
+    return F.relu(x)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -144,6 +156,57 @@ class Conv1d(nn.Module):
             x = F.pad(x, self.pad)
         y = F.conv1d(x, self.weight.to(self.dtype), stride=self.stride)
         return (y + self.bias.to(self.dtype)[:, None]).transpose(1, 2)
+
+
+class Conv3d(nn.Module):
+    """flax ``nn.Conv`` over channels-last (B, T, H, W, C) clips with
+    explicit symmetric ``padding`` (pt, ph, pw) (``kstar_tpu/models/
+    r2plus1d.py _sym``): kernel cast to ``dtype``, the product in
+    ``dtype``, the bias (if any) added in ``dtype``. ``weight`` is (out,
+    in, kt, kh, kw) as in ``torch.nn.Conv3d``. flax initialisation:
+    lecun-normal over fan-in kt * kh * kw * in, zero bias.
+
+    The input's NDHWC layout is the ``channels_last_3d`` memory format of
+    the (B, C, T, H, W) view that ``conv3d`` takes, so the permutes are
+    free and cuDNN runs channels-last; the output is NDHWC again. A
+    1 x 1 x 1 kernel (none is padded) runs as the strided input times the
+    kernel in one GEMM over the channel axis, as fast as ``conv3d`` on an
+    H100 (``python -m kstar_torch.analysis.cudnn_conv``); with it bf16
+    SlowFast's single-window stream steps match its 16-window blocks to
+    1e-3 in probability on that card, where through ``conv3d`` they parted
+    by 0.8 (its bf16 forward amplifies a rounding-level difference)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel, stride=(1, 1, 1),
+                 padding=(0, 0, 0), bias: bool = False, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel, self.stride = tuple(kernel), tuple(stride)
+        self.padding, self.dtype = tuple(padding), dtype
+        self.pointwise = self.kernel == (1, 1, 1) and not any(self.padding)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *self.kernel))
+        _lecun_normal_(self.weight.data, in_channels * int(np.prod(self.kernel)), generator)
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        if self.pointwise:
+            st, sh, sw = self.stride
+            y = F.linear(x[:, ::st, ::sh, ::sw], self.weight.flatten(1).to(self.dtype))
+        else:
+            w = self.weight.to(self.dtype, memory_format=torch.channels_last_3d)
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, stride=self.stride,
+                         padding=self.padding).permute(0, 2, 3, 4, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+def max_pool3d(x: torch.Tensor, window, stride, padding) -> torch.Tensor:
+    """flax ``nn.max_pool`` over channels-last (B, T, H, W, C) with explicit
+    symmetric padding: padded positions count as -inf, as in
+    ``F.max_pool3d``."""
+    return F.max_pool3d(x.permute(0, 4, 1, 2, 3), window, stride,
+                        padding).permute(0, 2, 3, 4, 1)
 
 
 class MLPHead(nn.Module):

@@ -291,6 +291,7 @@ def fit(
     put_eval=None,
     pre_fn=None,
     pre_fn_eval=None,
+    eval_stats_fn: Optional[Callable] = None,
 ) -> Tuple[TrainState, History]:
     """Epoch driver covering the reference's ``train`` and ``train_DRW``
     (src/train.py:147-274, :277-422): per-epoch train/valid, metric logging,
@@ -298,7 +299,13 @@ def fit(
     ``put`` moves a host (batch, labels) pair to the device (default: to the
     state's device); ``pre_fn``/``pre_fn_eval`` preprocess inside the
     steps; ``model_type`` and ``gb_weights`` ((3,), zeros by default) as in
-    ``make_train_step``."""
+    ``make_train_step``.
+
+    ``eval_stats_fn(model)`` runs after each train epoch, before validation,
+    and writes the model's statistics in place, so the state and both
+    checkpoints carry its result: the SubBatchNorm aggregate-before-eval
+    contract (``models.aggregate_batch_stats``; reference aggregate_stats,
+    src/models/resnet.py:52-61)."""
     num_epoch = num_epoch or train_cfg.num_epoch
     train_step = make_train_step(loss_cfg, pre_fn=pre_fn, model_type=model_type)
     eval_step = make_eval_step(loss_cfg, pre_fn=pre_fn_eval, model_type=model_type)
@@ -327,6 +334,9 @@ def fit(
             train_step, state, train_ds, train_cfg.batch_size, rng,
             weight, m_list, sampler=sampler, put=put,
             scan_step=scan_step, steps_per_dispatch=k, gb_w=gb_w)
+        if eval_stats_fn is not None:
+            with torch.no_grad():
+                eval_stats_fn(state.model)
         va_loss, va_acc, va_f1 = run_eval_epoch(
             eval_step, state.model, valid_ds, train_cfg.batch_size, weight, m_list,
             put=put_eval if put_eval is not None else put, gb_w=gb_w)

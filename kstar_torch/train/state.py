@@ -26,8 +26,9 @@ staircase=True)`` of the count of APPLIED updates: a step the NaN guard
 skips does not advance it. Everything stays on the device.
 
 The model's batch statistics (its persistent floating-point buffers: the
-BatchNorm running mean and variance) are rebound the same way into a
-second flat buffer, so the NaN guard keeps them too with one select.
+BatchNorm running mean and variance, a SubBatchNorm's split statistics too)
+are rebound the same way into a second flat buffer, so the NaN guard keeps
+them too with one select; whatever updates them writes in place.
 
 A checkpoint is the full state (parameters, batch statistics, optimizer
 state, step, seed, draws) written with ``torch.save``: ``--resume``
@@ -159,14 +160,28 @@ class TrainState:
         self.flat = _flatten_parameters(self.params)
         self.device = self.flat.device
         # batch statistics: the persistent floating-point buffers
-        saved = set(model.state_dict())
-        self.stats = [b for name, b in model.named_buffers()
-                      if name in saved and b.is_floating_point()]
-        self.stats_flat = (_flatten_parameters(self.stats, "batch statistics")
-                           if self.stats else None)
+        self._flatten_stats()
         self.opt_state = tx.init(self.flat)
         self.step = torch.zeros((), dtype=torch.int64, device=self.device)
         self.draws = 0
+
+    def _flatten_stats(self) -> None:
+        saved = set(self.model.state_dict())
+        self.stats = [b for name, b in self.model.named_buffers()
+                      if name in saved and b.is_floating_point()]
+        self.stats_flat = (_flatten_parameters(self.stats, "batch statistics")
+                           if self.stats else None)
+
+    def reset_bn_splits(self, new_splits: int) -> None:
+        """The multigrid long-cycle step on the state's model
+        (``models.reset_bn_splits_long_cycle``): fresh SubBatchNorm split
+        statistics at ``new_splits``. Their buffers change shape, so the
+        statistics are flattened anew; the parameters and the optimizer
+        state stay as they are."""
+        from ..models.subbn import reset_bn_splits_long_cycle
+
+        reset_bn_splits_long_cycle(self.model, new_splits)
+        self._flatten_stats()
 
     def next_generators(self):
         """(pre, dropout, noise) generators on the device for the next step,

@@ -5,9 +5,12 @@
 the flax submodule names, so the mapping is per leaf only —
 
   * a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), transposed;
-  * a Conv ``kernel`` (k, in, out) becomes ``weight`` (out, in, k);
+  * a Conv ``kernel`` (k, in, out) becomes ``weight`` (out, in, k), and a
+    3-D one (kt, kh, kw, in, out) becomes (out, in, kt, kh, kw) (the
+    squeeze-excite 1x1x1 convs with their biases too);
   * a LayerNorm or BatchNorm ``scale`` becomes ``weight``;
-  * ``batch_stats`` ``mean``/``var`` become ``running_mean``/``running_var``;
+  * ``batch_stats`` ``mean``/``var`` become ``running_mean``/``running_var``
+    (a SubBatchNorm's ``split_mean``/``split_var`` (s, C) keep their names);
   * each LSTM cell ``OptimizedLSTMCell_k`` is packed into the port's
     ``w_ih``, ``w_hh`` and single ``bias`` (gates i, f, g, o);
   * everything else (biases, ``space_token``, ``temporal_token``,
@@ -61,7 +64,9 @@ def state_dict_from_flax(params: Mapping, batch_stats: Optional[Mapping] = None,
                     out.update(state_dict_from_flax(value, None, f"{prefix}{name}."))
             elif name == "kernel":
                 w = _tensor(value)
-                out[f"{prefix}weight"] = (w.permute(2, 1, 0) if w.dim() == 3 else w.T).contiguous()
+                # (*kernel, in, out) -> (out, in, *kernel); a Dense's (in, out) -> (out, in)
+                d = w.dim()
+                out[f"{prefix}weight"] = w.permute(d - 1, d - 2, *range(d - 2)).contiguous()
             else:
                 out[f"{prefix}{_RENAME.get(name, name)}"] = _tensor(value)
     return out

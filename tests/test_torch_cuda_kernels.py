@@ -288,6 +288,21 @@ def test_gather_normalize_kernel_equals_plain(dev, dtype, hw, skip):
     assert torch.equal(got, tpp.gather_normalize_reference(frames, starts, 21, dtype))
 
 
+@pytest.mark.parametrize("seq_len", [20, 21], ids=["L20-SlowFast", "L21-R2Plus1D"])
+def test_gather_normalize_at_the_conv_sweep_chunk(dev, seq_len):
+    """The conv models' sweep chunk: 128 windows of 20 (SlowFast) or 21
+    (R(2+1)D) frames from a 4096-frame 128 px shot, bf16, exact."""
+    g = torch.Generator().manual_seed(3)
+    frames = torch.randint(0, 256, (4096, 128, 128, 3), dtype=torch.uint8,
+                           generator=g).to(dev)
+    starts = torch.arange(128, device=dev) + 4096 - 128 - seq_len
+    got = tpp.gather_normalize(frames, starts, seq_len, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.shape == (128, seq_len, 128, 128, 3)
+    assert torch.equal(got, tpp.gather_normalize_reference(frames, starts, seq_len,
+                                                           torch.bfloat16))
+
+
 def test_gather_normalize_offsets_beyond_2_31_bytes(dev):
     frames = torch.zeros(45_000, 128, 128, 3, dtype=torch.uint8, device=dev)  # 2.2 GB
     frames[-30:] = torch.randint(0, 256, (30, 128, 128, 3), dtype=torch.uint8, device=dev)

@@ -1,7 +1,8 @@
 """The port's train_vision CLI on the CPU at tiny widths: the same dataset
 sizes and class counts as kstar_tpu's CLI builds from the same seed, the
-report, checkpoints and alarm artifacts written, an exact resume, and the
-options not ported yet refused with the ROADMAP item that ports them."""
+report, checkpoints and alarm artifacts written, an exact resume, the conv
+models (R(2+1)D, SlowFast, SlowFast with --bn_splits) trained and swept, and
+the options not ported yet refused with the ROADMAP item that ports them."""
 
 import os
 import re
@@ -74,11 +75,52 @@ def test_cli_trains_reports_and_resumes(tmp_path, capsys, extra):
     assert int(torch.load(tmp_path / "w" / f"{tag}_last.ckpt")["step"]) > saved
 
 
+@pytest.mark.parametrize("extra,seq_len", [
+    (["--model", "R2Plus1D", "--layer_sizes", "1", "1", "1", "1"], 5),
+    (["--model", "SlowFast"], 4),
+    (["--model", "SlowFast", "--bn_splits", "2"], 4),
+], ids=["R2Plus1D", "SlowFast", "SlowFast_bn_splits_2"])
+def test_conv_models_train_and_sweep(tmp_path, capsys, extra, seq_len):
+    """The conv models through the whole CLI for one epoch: the datasets of
+    kstar_tpu's CLI (SlowFast's --seq_len 5 rounded down to 4, a multiple
+    of --tau_alpha 4), the JAX CLI's tag (which keeps --seq_len), the
+    checkpoints, the report and the alarm artifacts of the raw-frame sweep;
+    with --bn_splits the checkpoint's SubBatchNorm statistics are the
+    aggregate of its split statistics."""
+    from kstar_torch.models import aggregate_subbn_stats
+
+    argv = TINY + extra + ["--weight_dir", str(tmp_path / "w"), "--save_dir",
+                           str(tmp_path / "r")]
+    model = extra[1]
+    train_vision.main(argv + ["--device", "cpu", "--num_epoch", "1"])
+    out = capsys.readouterr().out
+    assert re.search(r"datasets: .*", out).group(0) == _jax_dataset_line(argv)
+    assert train_vision.model_config(train_vision.build_parser().parse_args(argv))[1] == seq_len
+    tag = f"{model}_clip_5_dist_3_Focal_Normal_seed_42"
+    for name in ("_last.ckpt", "_best.ckpt"):
+        assert (tmp_path / "w" / f"{tag}{name}").exists()
+    for name in ("_report.txt", "_alarms.json", "_alarms.csv", "_operating_grid.csv"):
+        assert (tmp_path / "r" / f"{tag}{name}").exists(), name
+    assert "alarm summary" in out and "alarm evaluation skipped" not in out
+    sd = torch.load(tmp_path / "w" / f"{tag}_last.ckpt")["model"]
+    split = [k for k in sd if k.endswith("split_mean")]
+    assert bool(split) == ("--bn_splits" in extra)
+    agg = aggregate_subbn_stats(sd)
+    for k in split:
+        for stat in ("running_mean", "running_var"):
+            key = k.replace("split_mean", stat)
+            assert torch.equal(sd[key], agg[key]), key
+
+
+def test_bn_splits_needs_a_divisible_batch():
+    with pytest.raises(SystemExit, match="--batch_size 8 must be divisible by --bn_splits 3"):
+        train_vision.main(TINY + ["--device", "cpu", "--model", "SlowFast",
+                                  "--bn_splits", "3"])
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["--model", "SlowFast"], "item 11"),
-    (["--model", "R2Plus1D"], "item 11"),
-    (["--bn_splits", "2"], "item 11"),
     (["--seeds", "1", "2"], "item 13"),
+    (["--seeds", "1", "2", "--bn_splits", "2"], "item 13"),
     (["--dp", "2"], "item 14"),
 ])
 def test_unported_options_exit_with_roadmap_item(extra, item):

@@ -153,7 +153,9 @@ def test_build_video_model_dispatch():
     m = build_video_model("ViViT", ViViTConfig(norm_dtype="bfloat16"), dtype=torch.bfloat16)
     assert m.dtype == torch.bfloat16
     assert m.encoder.space_transformer.attn_norm_0.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_video_model("SlowFast", ViViTConfig())
+    from kstar_torch.config import SlowFastConfig
+    from kstar_torch.models import SlowFast
+
+    assert type(build_video_model("SlowFast", SlowFastConfig(layers=(1, 1, 1, 1)))) is SlowFast
     with pytest.raises(ValueError):
         build_video_model("NoSuchModel", ViViTConfig())
