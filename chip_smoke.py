@@ -94,6 +94,27 @@ version at SlowFast's 20-frame windows):
                   and a resume) and --model SlowFast --bn_splits 2: the
                   alarm sweep runs the window-gather kernel, not the table
 
+and last the port's reload, predict, explain and report entry points, on
+the checkpoints the CLI phases above wrote (into one directory that lives
+until the end):
+
+  reload_eval            kstar_torch.cli.evaluate_model on the ViViT,
+                         SlowFast --bn_splits 2 (--alarms), MLSTM-FCN (0D)
+                         and concat (multimodal --alarms) checkpoints: the
+                         trainer's test line and alarm rows, the 0D detail
+                         CSV; the table kernel on the ViViT and multimodal
+                         sweeps, the window-gather kernel on SlowFast's
+  continuous_prediction  kstar_torch.cli.make_continuous_prediction
+                         --video_tag <train_cli's tag>: one table-kernel
+                         launch, the curve against predict_video_shot, the
+                         figures or their skip lines (no matplotlib)
+  xai                    Grad-CAM (R(2+1)D), guided-backprop saliency
+                         (R(2+1)D, SlowFast) and attention rollout (ViViT)
+                         at batch 2 in f32, card against CPU; no kernel
+  compute_time           kstar_torch.cli.compute_time at its defaults (seven
+                         models, batch 1 and 64) and model_summary's eight
+                         parameter totals
+
 Every phase prints one JSON line and any failure exits non-zero. Then come
 the per-kernel summary line, the card's name and power limit as nvidia-smi
 reports them, and the result line {"ok": true, "device": {...}}. Without
@@ -109,6 +130,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -174,6 +196,14 @@ def wall_ms(fn, warmup: bool = True) -> float:
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def test_line(text: str):
+    """The "test macro-F1 x | ROC-AUC y" line a train or evaluate CLI prints."""
+    import re
+
+    m = re.search(r"test macro-F1 [0-9.]+ \| ROC-AUC [0-9.]+", text)
+    return m.group(0) if m else None
 
 
 def compare(got, want, atol: float, rtol: float, mean_tol: float) -> dict:
@@ -363,52 +393,42 @@ def train_phase(seed: int, frames, cfg, dev) -> tuple:
     return ok, fields
 
 
-def train_cli_phase() -> tuple:
+def train_cli_phase(tmp: str) -> tuple:
     """python -m kstar_torch.cli.train_vision --synthetic --num_epoch 2 at the
     flagship widths (the synthetic shots are 64 px, so the crop is 64), then
-    --resume for one more epoch; the alarm sweep after each must launch the
-    spatial-table kernel."""
-    import contextlib
-    import io
+    --resume for one more epoch, into ``tmp`` (``reload_eval`` and
+    ``continuous_prediction`` reload its checkpoint); the alarm sweep after
+    each must launch the spatial-table kernel."""
     import re
-    import tempfile
 
     from kstar_torch.cli import train_vision
-    from kstar_torch.ops.spatial_table import spatial_table
 
     fields, ok = {}, True
-    with tempfile.TemporaryDirectory() as tmp:
-        argv = ["--model", "ViViT", "--synthetic", "--weight_dir", f"{tmp}/w",
-                "--save_dir", f"{tmp}/r", "--verbose", "1"]
-        for name, extra in (("first", ["--num_epoch", "2"]),
-                            ("resume", ["--num_epoch", "1", "--resume"])):
-            out = io.StringIO()
-            spatial_table.launches = 0
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                train_vision.main(argv + extra)
-            wall = time.perf_counter() - t0
-            text = out.getvalue()
-            print(text, file=sys.stderr, end="")
-            last = [f for f in os.listdir(f"{tmp}/w") if f.endswith("_last.ckpt")]
-            best = [f for f in os.listdir(f"{tmp}/w") if f.endswith("_best.ckpt")]
-            reports = [f for f in os.listdir(f"{tmp}/r") if f.endswith("_report.txt")]
-            f1 = re.search(r"test macro-F1 ([0-9.]+)", text)
-            saved_step = (int(torch.load(f"{tmp}/w/{last[0]}", map_location="cpu")["step"])
-                          if last else None)
-            run = dict(wall_s=wall, spatial_table_launches=spatial_table.launches,
-                       test_macro_f1=float(f1.group(1)) if f1 else None,
-                       checkpoints=sorted(last + best), reports=reports,
-                       saved_step=saved_step,
-                       datasets=re.search(r"datasets: .*", text).group(0))
-            ok = ok and bool(last and best and reports and f1
-                             and spatial_table.launches > 0)
-            if name == "resume":
-                m = re.search(r"resumed from \S+ at step (\d+)", text)
-                run["resumed_at_step"] = int(m.group(1)) if m else None
-                ok = ok and run["resumed_at_step"] == fields["first"]["saved_step"] \
-                    and saved_step > run["resumed_at_step"]
-            fields[name] = run
+    argv = ["--model", "ViViT", "--synthetic", "--weight_dir", f"{tmp}/w",
+            "--save_dir", f"{tmp}/r", "--verbose", "1"]
+    for name, extra in (("first", ["--num_epoch", "2"]),
+                        ("resume", ["--num_epoch", "1", "--resume"])):
+        _, text, wall, launches_k = run_cli(train_vision.main, argv + extra)
+        last = [f for f in os.listdir(f"{tmp}/w") if f.endswith("_last.ckpt")]
+        best = [f for f in os.listdir(f"{tmp}/w") if f.endswith("_best.ckpt")]
+        reports = [f for f in os.listdir(f"{tmp}/r") if f.endswith("_report.txt")]
+        f1 = re.search(r"test macro-F1 ([0-9.]+)", text)
+        saved_step = (int(torch.load(f"{tmp}/w/{last[0]}", map_location="cpu")["step"])
+                      if last else None)
+        run = dict(wall_s=wall, spatial_table_launches=launches_k["spatial_table"],
+                   test_macro_f1=float(f1.group(1)) if f1 else None,
+                   test_line=test_line(text),
+                   checkpoints=sorted(last + best), reports=reports,
+                   saved_step=saved_step,
+                   datasets=re.search(r"datasets: .*", text).group(0))
+        ok = ok and bool(last and best and reports and f1
+                         and launches_k["spatial_table"] > 0)
+        if name == "resume":
+            m = re.search(r"resumed from \S+ at step (\d+)", text)
+            run["resumed_at_step"] = int(m.group(1)) if m else None
+            ok = ok and run["resumed_at_step"] == fields["first"]["saved_step"] \
+                and saved_step > run["resumed_at_step"]
+        fields[name] = run
     return ok, fields
 
 
@@ -438,6 +458,24 @@ def kernel_launches(reset: bool = False) -> dict:
         for fn in fns.values():
             fn.launches = 0
     return {name: fn.launches for name, fn in fns.items()}
+
+
+def run_cli(main_fn, argv) -> tuple:
+    """One CLI ``main(argv)`` with its stdout echoed to stderr: (its result,
+    the text, wall seconds, K1-K3 launches counted from 0 over the run)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    kernel_launches(reset=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = main_fn(argv)
+    wall = time.perf_counter() - t0
+    launches_k = kernel_launches()
+    text = out.getvalue()
+    print(text, file=sys.stderr, end="")
+    return result, text, wall, launches_k
 
 
 def zero_d_configs() -> dict:
@@ -845,54 +883,44 @@ def hard_fixture_phase(dev, epochs: int = 15) -> tuple:
         wall_s=time.perf_counter() - t0, kernel_launches=launches_k)
 
 
-def train_0d_cli_phase() -> tuple:
+def train_0d_cli_phase(tmp: str) -> tuple:
     """python -m kstar_torch.cli.train_0d --model MLSTM_FCN --synthetic
-    --num_epoch 2 at the default widths, then --resume for one more epoch:
-    checkpoints, report, feature importance and the probability curve of the
-    last shot (TSSweeper); no kernel of K1-K3 runs."""
-    import contextlib
-    import io
+    --num_epoch 2 at the default widths, then --resume for one more epoch,
+    into ``tmp`` (``reload_eval`` reloads its checkpoint): checkpoints,
+    report, feature importance and the probability curve of the last shot
+    (TSSweeper); no kernel of K1-K3 runs."""
     import re
-    import tempfile
 
     from kstar_torch.cli import train_0d
 
     fields, ok = {}, True
-    with tempfile.TemporaryDirectory() as tmp:
-        argv = ["--model", "MLSTM_FCN", "--synthetic", "--weight_dir", f"{tmp}/w",
-                "--save_dir", f"{tmp}/r", "--verbose", "1"]
-        for name, extra in (("first", ["--num_epoch", "2"]),
-                            ("resume", ["--num_epoch", "1", "--resume"])):
-            out = io.StringIO()
-            kernel_launches(reset=True)
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                train_0d.main(argv + extra)
-            wall = time.perf_counter() - t0
-            text = out.getvalue()
-            print(text, file=sys.stderr, end="")
-            last = [f for f in os.listdir(f"{tmp}/w") if f.endswith("_last.ckpt")]
-            best = [f for f in os.listdir(f"{tmp}/w") if f.endswith("_best.ckpt")]
-            reports = [f for f in os.listdir(f"{tmp}/r") if f.endswith("_report.txt")]
-            f1 = re.search(r"test macro-F1 ([0-9.]+)", text)
-            curve = re.search(r"probability curve of shot .*?;", text)
-            saved_step = (int(torch.load(f"{tmp}/w/{last[0]}", map_location="cpu")["step"])
-                          if last else None)
-            launches_k = kernel_launches()
-            run = dict(wall_s=wall, test_macro_f1=float(f1.group(1)) if f1 else None,
-                       checkpoints=sorted(last + best), reports=reports,
-                       saved_step=saved_step, datasets=re.search(r"datasets: .*", text).group(0),
-                       feature_importance=bool(re.search(r"feature importance \(top 5\)", text)),
-                       prob_curve=curve.group(0) if curve else None,
-                       kernel_launches=launches_k)
-            ok = ok and bool(last and best and reports and f1 and curve
-                             and run["feature_importance"] and not any(launches_k.values()))
-            if name == "resume":
-                m = re.search(r"resumed from \S+ at step (\d+)", text)
-                run["resumed_at_step"] = int(m.group(1)) if m else None
-                ok = ok and run["resumed_at_step"] == fields["first"]["saved_step"] \
-                    and saved_step > run["resumed_at_step"]
-            fields[name] = run
+    argv = ["--model", "MLSTM_FCN", "--synthetic", "--weight_dir", f"{tmp}/w",
+            "--save_dir", f"{tmp}/r", "--verbose", "1"]
+    for name, extra in (("first", ["--num_epoch", "2"]),
+                        ("resume", ["--num_epoch", "1", "--resume"])):
+        _, text, wall, launches_k = run_cli(train_0d.main, argv + extra)
+        last = [f for f in os.listdir(f"{tmp}/w") if f.endswith("_last.ckpt")]
+        best = [f for f in os.listdir(f"{tmp}/w") if f.endswith("_best.ckpt")]
+        reports = [f for f in os.listdir(f"{tmp}/r") if f.endswith("_report.txt")]
+        f1 = re.search(r"test macro-F1 ([0-9.]+)", text)
+        curve = re.search(r"probability curve of shot .*", text)
+        saved_step = (int(torch.load(f"{tmp}/w/{last[0]}", map_location="cpu")["step"])
+                      if last else None)
+        run = dict(wall_s=wall, test_macro_f1=float(f1.group(1)) if f1 else None,
+                   test_line=test_line(text),
+                   checkpoints=sorted(last + best), reports=reports,
+                   saved_step=saved_step, datasets=re.search(r"datasets: .*", text).group(0),
+                   feature_importance=bool(re.search(r"feature importance \(top 5\)", text)),
+                   prob_curve=curve.group(0) if curve else None,
+                   kernel_launches=launches_k)
+        ok = ok and bool(last and best and reports and f1 and curve
+                         and run["feature_importance"] and not any(launches_k.values()))
+        if name == "resume":
+            m = re.search(r"resumed from \S+ at step (\d+)", text)
+            run["resumed_at_step"] = int(m.group(1)) if m else None
+            ok = ok and run["resumed_at_step"] == fields["first"]["saved_step"] \
+                and saved_step > run["resumed_at_step"]
+        fields[name] = run
     return ok, fields
 
 
@@ -1367,74 +1395,66 @@ def train_multimodal_phase(seed: int, frames, values, dev, cpu_models: dict,
     return ok and gb_ok, fields
 
 
-def train_multimodal_cli_phase() -> tuple:
+def train_multimodal_cli_phase(root: str) -> tuple:
     """python -m kstar_torch.cli.train_multimodal --synthetic at the default
-    widths for 2 epochs and then --resume (with --skip_extras) for one more,
-    for concat fusion and for TFN with dynamic Gradient Blending
-    (re-estimated every epoch, one probe epoch): checkpoints, report, alarm
-    artifacts; the first run's alarm sweep must launch the spatial-table
-    kernel."""
-    import contextlib
-    import io
+    widths for 2 epochs and then --resume for one more, for concat fusion
+    and for TFN with dynamic Gradient Blending (re-estimated every epoch,
+    one probe epoch; its resume with --skip_extras), into ``root/<label>``
+    (``reload_eval`` reloads concat's checkpoint and holds its alarm files):
+    checkpoints, report, alarm artifacts; each alarm sweep must launch the
+    spatial-table kernel."""
     import re
-    import tempfile
 
     from kstar_torch.cli import train_multimodal
 
     fields, ok = {}, True
-    for label, model_args in (
-            ("concat", ["--model_type", "concat"]),
+    for label, model_args, resume_extra in (
+            ("concat", ["--model_type", "concat"], []),
             ("TFN_GB", ["--model_type", "TFN", "--use_GB", "--gb_dynamic",
-                        "--epoch_per_GB_estimate", "1", "--n_epochs_GB_estimate", "1"])):
-        with tempfile.TemporaryDirectory() as tmp:
-            argv = model_args + ["--synthetic", "--weight_dir", f"{tmp}/w",
-                                 "--save_dir", f"{tmp}/r", "--verbose", "1"]
-            runs = {}
-            for name, extra in (("first", ["--num_epoch", "2"]),
-                                ("resume", ["--num_epoch", "1", "--resume",
-                                            "--skip_extras"])):
-                out = io.StringIO()
-                kernel_launches(reset=True)
-                t0 = time.perf_counter()
-                with contextlib.redirect_stdout(out):
-                    train_multimodal.main(argv + extra)
-                wall = time.perf_counter() - t0
-                text = out.getvalue()
-                print(text, file=sys.stderr, end="")
-                files = sorted(os.listdir(f"{tmp}/w")) + sorted(os.listdir(f"{tmp}/r"))
-                last = [f for f in files if f.endswith("_last.ckpt")]
-                best = [f for f in files if f.endswith("_best.ckpt")]
-                reports = [f for f in files if f.endswith("_report.txt")]
-                alarms = [f for f in files if f.endswith(("_alarms.json", "_alarms.csv",
-                                                          "_threshold_tradeoff.csv",
-                                                          "_dwell_tradeoff.csv",
-                                                          "_operating_grid.csv"))]
-                f1 = re.search(r"test macro-F1 ([0-9.]+)", text)
-                gb = re.search(r"final GB weights: (.*)", text)
-                saved_step = (int(torch.load(f"{tmp}/w/{last[0]}", map_location="cpu")["step"])
-                              if last else None)
-                launches_k = kernel_launches()
-                run = dict(wall_s=wall, test_macro_f1=float(f1.group(1)) if f1 else None,
-                           checkpoints=sorted(last + best), reports=reports,
-                           alarm_artifacts=len(alarms), saved_step=saved_step,
-                           datasets=re.search(r"datasets: .*", text).group(0),
-                           gb_weights=gb.group(1) if gb else None,
-                           skipped="alarm evaluation skipped" in text,
-                           kernel_launches=launches_k)
-                # the first run sweeps the test shots for its alarms (the
-                # table kernel); the resume reuses its artifacts
-                swept = name == "first"
-                ok = ok and bool(last and best and reports and f1 and len(alarms) == 5
-                                 and not run["skipped"]
-                                 and (launches_k["spatial_table"] > 0) == swept
-                                 and (gb is not None) == ("--use_GB" in model_args))
-                if name == "resume":
-                    m = re.search(r"resumed from \S+ at step (\d+)", text)
-                    run["resumed_at_step"] = int(m.group(1)) if m else None
-                    ok = ok and run["resumed_at_step"] == runs["first"]["saved_step"] \
-                        and saved_step > run["resumed_at_step"]
-                runs[name] = run
-            fields[label] = runs
+                        "--epoch_per_GB_estimate", "1", "--n_epochs_GB_estimate", "1"],
+             ["--skip_extras"])):
+        tmp = f"{root}/{label}"
+        argv = model_args + ["--synthetic", "--weight_dir", f"{tmp}/w",
+                             "--save_dir", f"{tmp}/r", "--verbose", "1"]
+        runs = {}
+        for name, extra in (("first", ["--num_epoch", "2"]),
+                            ("resume", ["--num_epoch", "1", "--resume"]
+                             + resume_extra)):
+            _, text, wall, launches_k = run_cli(train_multimodal.main, argv + extra)
+            files = sorted(os.listdir(f"{tmp}/w")) + sorted(os.listdir(f"{tmp}/r"))
+            last = [f for f in files if f.endswith("_last.ckpt")]
+            best = [f for f in files if f.endswith("_best.ckpt")]
+            reports = [f for f in files if f.endswith("_report.txt")]
+            alarms = [f for f in files if f.endswith(("_alarms.json", "_alarms.csv",
+                                                      "_threshold_tradeoff.csv",
+                                                      "_dwell_tradeoff.csv",
+                                                      "_operating_grid.csv"))]
+            f1 = re.search(r"test macro-F1 ([0-9.]+)", text)
+            gb = re.search(r"final GB weights: (.*)", text)
+            saved_step = (int(torch.load(f"{tmp}/w/{last[0]}", map_location="cpu")["step"])
+                          if last else None)
+            run = dict(wall_s=wall, test_macro_f1=float(f1.group(1)) if f1 else None,
+                       test_line=test_line(text),
+                       checkpoints=sorted(last + best), reports=reports,
+                       alarm_artifacts=len(alarms), saved_step=saved_step,
+                       datasets=re.search(r"datasets: .*", text).group(0),
+                       gb_weights=gb.group(1) if gb else None,
+                       skipped="alarm evaluation skipped" in text,
+                       kernel_launches=launches_k)
+            # a run without --skip_extras sweeps the test shots for its
+            # alarms (the table kernel)
+            swept = "--skip_extras" not in extra
+            ok = ok and bool(last and best and reports and f1 and len(alarms) == 5
+                             and not run["skipped"]
+                             and (launches_k["spatial_table"] > 0) == swept
+                             and (gb is not None) == ("--use_GB" in model_args))
+            if name == "resume":
+                m = re.search(r"resumed from \S+ at step (\d+)", text)
+                run["resumed_at_step"] = int(m.group(1)) if m else None
+                ok = ok and run["resumed_at_step"] == runs["first"]["saved_step"] \
+                    and saved_step > run["resumed_at_step"]
+            runs[name] = run
+        fields[label] = runs
     return ok, fields
 
 
@@ -1879,19 +1899,17 @@ def train_conv_phase(seed: int, frames, dev, cpu_models: dict,
     return ok, fields
 
 
-def train_conv_cli_phase() -> tuple:
+def train_conv_cli_phase(root: str) -> tuple:
     """python -m kstar_torch.cli.train_vision --synthetic with --model
     R2Plus1D for 2 epochs and a --resume for one more, and with --model
     SlowFast --bn_splits 2 for 2 epochs: checkpoints, report, the alarm
     JSON/CSV files (the CLI's alarm sweep is best-effort, so their presence
     is checked), window-gather launches from the alarm sweep and no
     spatial-table launch, and the SlowFast checkpoint's aggregated
-    statistics equal to the aggregate of its split statistics. Returns (ok,
-    fields, window-gather launches)."""
-    import contextlib
-    import io
+    statistics equal to the aggregate of its split statistics. Each writes
+    into ``root/<label>`` (``reload_eval`` reloads the SlowFast checkpoint).
+    Returns (ok, fields, window-gather launches)."""
     import re
-    import tempfile
 
     from kstar_torch.cli import train_vision
     from kstar_torch.models import aggregate_subbn_stats
@@ -1902,54 +1920,364 @@ def train_conv_cli_phase() -> tuple:
              (("first", ["--num_epoch", "2"]), ("resume", ["--num_epoch", "1", "--resume"]))),
             ("SlowFast_bn_splits_2", ["--model", "SlowFast", "--bn_splits", "2"],
              (("first", ["--num_epoch", "2"]),))):
-        with tempfile.TemporaryDirectory() as tmp:
-            argv = model_args + ["--synthetic", "--weight_dir", f"{tmp}/w",
-                                 "--save_dir", f"{tmp}/r", "--verbose", "1"]
-            out_runs = {}
-            for name, extra in runs:
-                out = io.StringIO()
-                kernel_launches(reset=True)
-                t0 = time.perf_counter()
-                with contextlib.redirect_stdout(out):
-                    train_vision.main(argv + extra)
-                wall = time.perf_counter() - t0
-                text = out.getvalue()
-                print(text, file=sys.stderr, end="")
-                files = sorted(os.listdir(f"{tmp}/w")) + sorted(os.listdir(f"{tmp}/r"))
-                last = [f for f in files if f.endswith("_last.ckpt")]
-                best = [f for f in files if f.endswith("_best.ckpt")]
-                reports = [f for f in files if f.endswith("_report.txt")]
-                alarms = [f for f in files if f.endswith(("_alarms.json", "_alarms.csv"))]
-                f1 = re.search(r"test macro-F1 ([0-9.]+)", text)
-                sd = torch.load(f"{tmp}/w/{last[0]}", map_location="cpu") if last else None
-                launches_k = kernel_launches()
-                k3 += launches_k["gather_normalize"]
-                run = dict(wall_s=wall, test_macro_f1=float(f1.group(1)) if f1 else None,
-                           checkpoints=sorted(last + best), reports=reports,
-                           alarm_files=alarms, saved_step=None if sd is None else int(sd["step"]),
-                           datasets=re.search(r"datasets: .*", text).group(0),
-                           skipped="alarm evaluation skipped" in text,
-                           kernel_launches=launches_k)
-                run_ok = bool(last and best and reports and f1 and len(alarms) == 2
-                              and not run["skipped"] and launches_k["gather_normalize"] > 0
-                              and launches_k["spatial_table"] == 0)
-                if "--bn_splits" in model_args and sd is not None:
-                    agg = aggregate_subbn_stats(sd["model"])
-                    keys = [k for k in sd["model"] if k.endswith(("running_mean", "running_var"))
-                            and k.rsplit(".", 1)[0] + ".split_mean" in sd["model"]]
-                    run["aggregated_keys"] = len(keys)
-                    run_ok = run_ok and bool(keys) and all(
-                        torch.equal(sd["model"][k], agg[k]) for k in keys)
-                if name == "resume":
-                    m = re.search(r"resumed from \S+ at step (\d+)", text)
-                    run["resumed_at_step"] = int(m.group(1)) if m else None
-                    run_ok = (run_ok and run["resumed_at_step"] == out_runs["first"]["saved_step"]
-                              and run["saved_step"] > run["resumed_at_step"])
-                run["ok"] = run_ok
-                ok = ok and run_ok
-                out_runs[name] = run
-            fields[label] = out_runs
+        tmp = f"{root}/{label}"
+        argv = model_args + ["--synthetic", "--weight_dir", f"{tmp}/w",
+                             "--save_dir", f"{tmp}/r", "--verbose", "1"]
+        out_runs = {}
+        for name, extra in runs:
+            _, text, wall, launches_k = run_cli(train_vision.main, argv + extra)
+            files = sorted(os.listdir(f"{tmp}/w")) + sorted(os.listdir(f"{tmp}/r"))
+            last = [f for f in files if f.endswith("_last.ckpt")]
+            best = [f for f in files if f.endswith("_best.ckpt")]
+            reports = [f for f in files if f.endswith("_report.txt")]
+            alarms = [f for f in files if f.endswith(("_alarms.json", "_alarms.csv"))]
+            f1 = re.search(r"test macro-F1 ([0-9.]+)", text)
+            sd = torch.load(f"{tmp}/w/{last[0]}", map_location="cpu") if last else None
+            k3 += launches_k["gather_normalize"]
+            run = dict(wall_s=wall, test_macro_f1=float(f1.group(1)) if f1 else None,
+                       test_line=test_line(text),
+                       checkpoints=sorted(last + best), reports=reports,
+                       alarm_files=alarms, saved_step=None if sd is None else int(sd["step"]),
+                       datasets=re.search(r"datasets: .*", text).group(0),
+                       skipped="alarm evaluation skipped" in text,
+                       kernel_launches=launches_k)
+            run_ok = bool(last and best and reports and f1 and len(alarms) == 2
+                          and not run["skipped"] and launches_k["gather_normalize"] > 0
+                          and launches_k["spatial_table"] == 0)
+            if "--bn_splits" in model_args and sd is not None:
+                agg = aggregate_subbn_stats(sd["model"])
+                keys = [k for k in sd["model"] if k.endswith(("running_mean", "running_var"))
+                        and k.rsplit(".", 1)[0] + ".split_mean" in sd["model"]]
+                run["aggregated_keys"] = len(keys)
+                run_ok = run_ok and bool(keys) and all(
+                    torch.equal(sd["model"][k], agg[k]) for k in keys)
+            if name == "resume":
+                m = re.search(r"resumed from \S+ at step (\d+)", text)
+                run["resumed_at_step"] = int(m.group(1)) if m else None
+                run_ok = (run_ok and run["resumed_at_step"] == out_runs["first"]["saved_step"]
+                          and run["saved_step"] > run["resumed_at_step"])
+            run["ok"] = run_ok
+            ok = ok and run_ok
+            out_runs[name] = run
+        fields[label] = out_runs
     return ok, fields, k3
+
+
+# ---------------------------------------------------------------------------
+# Reload, predict, explain and report: the checkpoints the CLI phases wrote
+# ---------------------------------------------------------------------------
+
+# xai: card against CPU on the maps in [0, 1], (max, mean) |d|. Grad-CAM
+# and rollout hold 1e-4. The input-gradient maps pass through a hard test
+# at every activation (x > 0 for the LeakyReLU's slope, and g > 0 for the
+# guided rule), so a value that is zero up to f32 rounding takes one branch
+# on the card and the other on the CPU: the guided saliency of R(2+1)D
+# parted by 1.6e-3 max, 1.3e-5 mean (2.4% of pixels over 1e-4; SlowFast
+# 7.4e-5 max) on one H100, 700 W, and its limits are 6x and 8x that. The
+# plain input gradient of R(2+1)D parted by 2.8e-2 max, 6.7e-4 mean, so it
+# is held instead against its own sensitivity on the card: its mean
+# card-CPU gap within XAI_SENSITIVITY_FACTOR x the mean change that a one-ulp
+# nudge of the input makes to the card's own map.
+XAI_TOL = {"gradcam": (1e-4, 1e-4), "guided": (1e-2, 1e-4), "rollout": (1e-4, 1e-4)}
+XAI_SENSITIVITY_FACTOR = 10.0
+MODEL_SUMMARY_CHOICES = ("ViViT", "R2Plus1D", "SlowFast", "Transformer", "CnnLSTM",
+                         "MLSTM_FCN", "concat", "TFN")
+COMPUTE_TIME_MODELS = ("ViViT", "R2Plus1D", "SlowFast", "Transformer", "CnnLSTM",
+                       "MLSTM_FCN", "multimodal")
+
+
+def have_matplotlib() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def figures_check(text: str, paths) -> dict:
+    """The figure rule of the CLIs: each file written where matplotlib
+    imports, else one skip line naming it and no file."""
+    skipped = [p for p in paths
+               if f"figure skipped: matplotlib is not installed ({p})" in text]
+    written = [p for p in paths if os.path.exists(p) and os.path.getsize(p) > 0]
+    mpl = have_matplotlib()
+    ok = (written == list(paths) and not skipped) if mpl else \
+        (skipped == list(paths) and not written)
+    return dict(matplotlib=mpl, written=len(written), skipped=len(skipped), ok=ok)
+
+
+def reload_eval_phase(root: str, trained: dict) -> tuple:
+    """python -m kstar_torch.cli.evaluate_model on the checkpoints the CLI
+    phases wrote, at their batch sizes: ViViT and SlowFast --bn_splits 2
+    (--kind vision --alarms), MLSTM-FCN (--kind 0D) and concat (--kind
+    multimodal --alarms). Each "test macro-F1 | ROC-AUC" line equals the
+    trainer's; the alarm JSON/CSV rows equal the trainer's files; the 0D
+    detail CSV has one row per train, valid and test sample; the
+    spatial-table kernel launches on the ViViT and multimodal sweeps, the
+    window-gather kernel on SlowFast's, neither on the 0D run. Returns (ok,
+    fields, spatial-table launches, window-gather launches)."""
+    import json as _json
+    import re
+
+    import pandas as pd
+
+    from kstar_torch.cli import evaluate_model
+
+    cases = (
+        # label, directory, evaluate_model flags, the trainer's run, kernel launched
+        ("ViViT", "vivit", ["--kind", "vision", "--model", "ViViT", "--alarms",
+                            "--batch_size", "64"],
+         trained["train_cli"]["resume"], "spatial_table"),
+        ("SlowFast_bn_splits_2", "SlowFast_bn_splits_2",
+         ["--kind", "vision", "--model", "SlowFast", "--bn_splits", "2", "--alarms",
+          "--batch_size", "64"],
+         trained["train_conv_cli"]["SlowFast_bn_splits_2"]["first"], "gather_normalize"),
+        ("MLSTM_FCN", "0d", ["--kind", "0D", "--model", "MLSTM_FCN", "--batch_size", "256"],
+         trained["train_0d_cli"]["resume"], None),
+        ("concat", "concat", ["--kind", "multimodal", "--model_type", "concat", "--alarms",
+                              "--batch_size", "32"],
+         trained["train_multimodal_cli"]["concat"]["resume"], "spatial_table"),
+    )
+    ok, fields, k1, k3 = True, {}, 0, 0
+    for label, sub, flags, run, kernel in cases:
+        d = f"{root}/{sub}"
+        _, text, wall, launches_k = run_cli(evaluate_model.main, flags + [
+            "--synthetic", "--weight_dir", f"{d}/w", "--save_dir", f"{d}/eval"])
+        k1 += launches_k["spatial_table"]
+        k3 += launches_k["gather_normalize"]
+        entry = dict(wall_s=wall, test_line=test_line(text), trainer_test_line=run["test_line"],
+                     kernel_launches=launches_k)
+        entry_ok = entry["test_line"] is not None and entry["test_line"] == run["test_line"]
+        if kernel is None:
+            entry_ok = entry_ok and not any(launches_k.values())
+        else:
+            other = {"spatial_table": "gather_normalize",
+                     "gather_normalize": "spatial_table"}[kernel]
+            entry_ok = (entry_ok and launches_k[kernel] > 0 and launches_k[other] == 0
+                        and launches_k["fused_attention"] == 0)
+        if "--alarms" in flags:
+            same = {}
+            for suffix in ("_alarms.csv", "_alarms.json"):
+                got = [f for f in os.listdir(f"{d}/eval") if f.endswith(suffix)]
+                want = [f for f in os.listdir(f"{d}/r") if f.endswith(suffix)]
+                if suffix.endswith(".csv"):
+                    same[suffix] = bool(got and want) and pd.read_csv(
+                        f"{d}/eval/{got[0]}").equals(pd.read_csv(f"{d}/r/{want[0]}"))
+                else:
+                    same[suffix] = bool(got and want) and _json.load(
+                        open(f"{d}/eval/{got[0]}")) == _json.load(open(f"{d}/r/{want[0]}"))
+            entry["alarm_files_equal_trainer"] = same
+            entry_ok = entry_ok and all(same.values())
+        else:
+            detail = [f for f in os.listdir(f"{d}/eval") if f.endswith("_detail.csv")]
+            sizes = re.search(r"datasets: train (\d+) valid (\d+) test (\d+)", run["datasets"])
+            want = {"train": int(sizes.group(1)), "valid": int(sizes.group(2)),
+                    "test": int(sizes.group(3))}
+            got = (pd.read_csv(f"{d}/eval/{detail[0]}").task.value_counts().to_dict()
+                   if detail else {})
+            entry["detail_rows"] = got
+            entry_ok = entry_ok and got == want
+        entry["ok"] = entry_ok
+        ok = ok and entry_ok
+        fields[label] = entry
+    return ok, fields, k1, k3
+
+
+def continuous_prediction_phase(root: str, dev) -> tuple:
+    """python -m kstar_torch.cli.make_continuous_prediction --synthetic at its
+    default widths (the flagship ViViT, a 0D Transformer with random weights)
+    with --video_tag of train_cli's checkpoint: one spatial-table launch for
+    the whole-shot video sweep, the printed alarm line, the curve equal to
+    predict_video_shot called directly with the same weights and frames
+    (|dp| <= 1e-6), and the figures and GIFs by the figure rule. Returns
+    (ok, fields, spatial-table launches)."""
+    import re
+
+    import numpy as np
+
+    from kstar_torch.cli import make_continuous_prediction
+    from kstar_torch.cli.common import load_data
+    from kstar_torch.config import DT_0D, ViViTConfig
+    from kstar_torch.infer import predict_video_shot
+    from kstar_torch.models import build_video_model
+    from kstar_torch.train import load_params
+
+    wdir = f"{root}/vivit/w"
+    tag = [f for f in os.listdir(wdir) if f.endswith("_best.ckpt")][0][:-len("_best.ckpt")]
+    argv = ["--synthetic", "--video_tag", tag, "--weight_dir", wdir,
+            "--save_dir", f"{root}/prediction"]
+    res, text, wall, launches_k = run_cli(make_continuous_prediction.main, argv)
+    shot = res["shot"]
+    alarm = re.search(rf"shot {shot} \| video alarm at .*", text)
+
+    args = make_continuous_prediction.build_parser().parse_args(argv)
+    disrupt_df, _, store = load_data(args, need_video=True, dt=DT_0D)
+    frames = np.asarray(store.arrays[shot])
+    row = disrupt_df[disrupt_df.shot == shot].iloc[0]
+    crop = min(args.image_size, frames.shape[1])
+    dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
+    model = build_video_model("ViViT", ViViTConfig(
+        image_size=args.image_size, patch_size=min(args.patch_size, crop // 4),
+        n_frames=args.seq_len, dim=args.dim, depth=args.depth, n_heads=args.n_heads,
+        d_head=args.d_head, scale_dim=args.scale_dim), dtype=dtype).to(dev)
+    load_params(model, f"{wdir}/{tag}_best.ckpt")
+    _, direct = predict_video_shot(model, frames, int(row.frame_startup),
+                                   int(row.frame_cutoff), seq_len=args.seq_len,
+                                   dist=args.dist, crop_size=crop,
+                                   batch_size=args.batch_size, compute_dtype=dtype,
+                                   device=dev)
+    p_vid = res["video"][1]
+    err = (float(np.abs(p_vid - direct).max()) if p_vid.shape == direct.shape
+           else float("inf"))
+    figs = figures_check(text, [f"{root}/prediction/{name}" for name in (
+        f"prob_0D_{shot}.png", f"real_time_disruption_prediction_0D_{shot}.gif",
+        f"prob_video_{shot}.png", f"real_time_disruption_prediction_{shot}.gif")])
+    fields = dict(wall_s=wall, shot=shot, alarm_line=alarm.group(0) if alarm else None,
+                  curve_len=int(len(p_vid)), curve_max=float(np.max(p_vid)),
+                  vs_direct_max_abs=err, zero_d_curve=res["0D"] is not None,
+                  kernel_launches=launches_k, figures=figs)
+    ok = (launches_k["spatial_table"] == 1 and launches_k["gather_normalize"] == 0
+          and launches_k["fused_attention"] == 0 and alarm is not None
+          and bool(np.isfinite(p_vid).all()) and err <= 1e-6
+          and res["0D"] is not None and figs["ok"])
+    return ok, fields, launches_k["spatial_table"]
+
+
+def xai_phase(seed: int, frames_dev, dev, conv_cpu: dict) -> tuple:
+    """kstar_torch.viz XAI at full width, batch 2, f32 (TF32 off): Grad-CAM
+    on R(2+1)D (21 x 128 x 128), guided-backprop saliency on R(2+1)D and on
+    SlowFast (20 frames), both on the calibrated conv models, and space and
+    temporal attention rollout on the flagship ViViT; each on the card
+    against the CPU on the same weights (XAI_TOL on the maps in [0, 1]; the
+    plain input gradient of R(2+1)D against its own one-ulp sensitivity),
+    ms of a second call, peak memory; the guided switch off after
+    its context; collect_attention refusing ViViT(use_pallas=True); no
+    K1-K3 launch."""
+    import numpy as np
+
+    from kstar_torch.config import PIXEL_MEAN_BGR, ViViTConfig
+    from kstar_torch.models import ViViT, build_video_model
+    from kstar_torch.models import common as mcommon
+    from kstar_torch.viz import (collect_attention, gradcam_r2plus1d,
+                                 guided_backprop_saliency, vivit_attention_rollout)
+
+    mean32 = torch.tensor(PIXEL_MEAN_BGR, device=dev)
+    vivit = build_video_model("ViViT", ViViTConfig(), dtype=torch.float32,
+                              generator=torch.Generator().manual_seed(seed + 70))
+    vivit_card = copy.deepcopy(vivit).to(dev)
+
+    def plain_saliency(model, x, device):
+        """The same map from the plain input gradient (no guided rule)."""
+        x = x.to(device).requires_grad_(True)
+        (g,) = torch.autograd.grad(model.to(device).eval()(x)[:, 0].sum(), x)
+        sal = g.abs().amax(-1).cpu().numpy()
+        return sal / np.maximum(sal.reshape(len(sal), -1).max(1)[:, None, None, None], 1e-8)
+
+    cases = (
+        ("gradcam_R2Plus1D", "gradcam", gradcam_r2plus1d, "R2Plus1D", 21),
+        ("guided_saliency_R2Plus1D", "guided", guided_backprop_saliency, "R2Plus1D", 21),
+        ("plain_gradient_R2Plus1D", "plain", plain_saliency, "R2Plus1D", 21),
+        ("guided_saliency_SlowFast", "guided", guided_backprop_saliency, "SlowFast", 20),
+        ("rollout_space_ViViT", "rollout", lambda m, x, device: vivit_attention_rollout(
+            m, x, "space", device=device), "ViViT", SEQ_LEN),
+        ("rollout_temporal_ViViT", "rollout", lambda m, x, device: vivit_attention_rollout(
+            m, x, "temporal", device=device), "ViViT", SEQ_LEN),
+    )
+    ok, fields = True, {}
+    kernel_launches(reset=True)
+    for label, kind, fn, key, L in cases:
+        x = conv_clips(frames_dev, L, 2).float() - mean32
+        if key == "ViViT":
+            cpu, card = vivit, vivit_card
+        else:
+            cpu = conv_cpu[key]
+            card = conv_twin(cpu, key, torch.float32).to(dev).eval()
+        fn(card, x, device=dev)                               # cuDNN/cuBLAS set-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = fn(card, x, device=dev)                         # ends in a host copy
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = fn(cpu, x.cpu(), device="cpu")
+        diff = np.abs(got - want)
+        entry = dict(shape=list(got.shape), ms=ms, peak_gib=peak,
+                     max_abs=float(diff.max()), mean_abs=float(diff.mean()),
+                     frac_above_1e4=float((diff > 1e-4).mean()), map_max=float(got.max()))
+        if kind in ("guided", "plain"):
+            # the card's own map after a one-ulp nudge of every input value
+            sign = torch.sign(torch.randn(x.shape, generator=torch.Generator(
+                device=dev).manual_seed(seed), device=dev))
+            nudged = np.abs(got - fn(card, x * (1 + 2.0 ** -23 * sign), device=dev))
+            entry.update(ulp_nudge_max_abs=float(nudged.max()),
+                         ulp_nudge_mean_abs=float(nudged.mean()))
+        if kind == "plain":
+            entry["mean_tol"] = XAI_SENSITIVITY_FACTOR * entry["ulp_nudge_mean_abs"]
+            entry["ok"] = bool(np.isfinite(got).all() and entry["mean_abs"] <= entry["mean_tol"])
+        else:
+            entry["max_tol"], entry["mean_tol"] = XAI_TOL[kind]
+            entry["ok"] = bool(np.isfinite(got).all() and entry["max_abs"] <= entry["max_tol"]
+                               and entry["mean_abs"] <= entry["mean_tol"])
+        ok = ok and entry["ok"]
+        fields[label] = entry
+        if key != "ViViT":
+            del card
+    fields["guided_switch_off"] = mcommon.GUIDED_BACKPROP[0] is False
+    fused = ViViT(dtype=torch.bfloat16, use_pallas=True,
+                  generator=torch.Generator().manual_seed(seed + 71)).to(dev)
+    try:
+        collect_attention(fused, conv_clips(frames_dev, SEQ_LEN, 1).float(), device=dev)
+        refused = False
+    except ValueError:
+        refused = True
+    fields["use_pallas_refused"] = refused
+    fields["kernel_launches"] = kernel_launches()
+    ok = (ok and fields["guided_switch_off"] and refused
+          and not any(fields["kernel_launches"].values()))
+    return ok, fields
+
+
+def compute_time_phase(root: str) -> tuple:
+    """python -m kstar_torch.cli.compute_time --out <file> at its defaults
+    (seven models, batch 1 and 64, 16 timed forwards each; bf16), one
+    compact line per model, then python -m kstar_torch.cli.model_summary for
+    each of its eight choices with the total parameters (R(2+1)D 1,587,523
+    and SlowFast 2,451,846 as PERF.md counts them); no K1-K3 launch."""
+    import json as _json
+    import re
+
+    import numpy as np
+
+    from kstar_torch.cli import compute_time, model_summary
+
+    out_path = f"{root}/compute_time.json"
+    _, _, wall, launches_k = run_cli(compute_time.main, ["--out", out_path])
+    with open(out_path) as f:
+        saved = _json.load(f)
+    want_keys = {f"{m}_b{b}" for m in COMPUTE_TIME_MODELS for b in (1, 64)}
+    ok = set(saved) == want_keys and not any(launches_k.values())
+    per_model = {}
+    for m in COMPUTE_TIME_MODELS:
+        row = {"model": m}
+        for b in (1, 64):
+            st = saved.get(f"{m}_b{b}", {})
+            row[f"b{b}_p50_ms"] = st.get("p50_s", float("nan")) * 1e3
+            row[f"b{b}_p99_ms"] = st.get("p99_s", float("nan")) * 1e3
+            row[f"b{b}_clips_per_s"] = st.get("clips_per_s", float("nan"))
+            ok = ok and bool(np.isfinite(row[f"b{b}_p50_ms"]) and row[f"b{b}_p50_ms"] > 0)
+        print(_json.dumps({"phase": "compute_time_model", **row}), flush=True)
+        per_model[m] = row
+    totals, summary_launches = {}, {}
+    for choice in MODEL_SUMMARY_CHOICES:
+        _, text, _, launches_s = run_cli(model_summary.main, ["--model", choice])
+        m = re.search(r"Total Parameters: ([0-9,]+)", text)
+        totals[choice] = int(m.group(1).replace(",", "")) if m else None
+        summary_launches[choice] = sum(launches_s.values())
+    ok = (ok and all(totals.values()) and totals["R2Plus1D"] == 1_587_523
+          and totals["SlowFast"] == 2_451_846 and not any(summary_launches.values()))
+    return ok, dict(compute_time_wall_s=wall, kernel_launches=launches_k,
+                    model_summary_params=totals,
+                    model_summary_launches=summary_launches)
 
 
 def main() -> int:
@@ -1985,6 +2313,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     failures = []
+    # the train CLIs' checkpoints and files, reloaded by the last phases
+    cli_dir = tempfile.TemporaryDirectory(prefix="chip_smoke-")
+    cli_root = cli_dir.name
 
     # ---- env ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2463,7 +2794,7 @@ def main() -> int:
     if not train_ok:
         failures.append("train")
     t0 = time.perf_counter()
-    cli_ok, cli_fields = train_cli_phase()
+    cli_ok, cli_fields = train_cli_phase(f"{cli_root}/vivit")
     emit("train_cli", **cli_fields, seconds=time.perf_counter() - t0, ok=cli_ok)
     if not cli_ok:
         failures.append("train_cli")
@@ -2485,7 +2816,7 @@ def main() -> int:
     hf_ok, hf_fields = hard_fixture_phase(dev)
     emit("hard_fixture_f1", **hf_fields, ok=hf_ok)
     t0 = time.perf_counter()
-    cli0_ok, cli0_fields = train_0d_cli_phase()
+    cli0_ok, cli0_fields = train_0d_cli_phase(f"{cli_root}/0d")
     emit("train_0d_cli", **cli0_fields, seconds=time.perf_counter() - t0, ok=cli0_ok)
     for name, phase_ok in (("ts_models", ts_ok), ("ts_sweep", sw_ok), ("ts_stream", st_ok),
                            ("train_0d", tr0_ok), ("hard_fixture_f1", hf_ok),
@@ -2507,7 +2838,7 @@ def main() -> int:
     tm_ok, tm_fields = train_multimodal_phase(args.seed, frames, shot_values, dev, fusion_cpu)
     emit("train_multimodal", **tm_fields, seconds=time.perf_counter() - t0, ok=tm_ok)
     t0 = time.perf_counter()
-    tmc_ok, tmc_fields = train_multimodal_cli_phase()
+    tmc_ok, tmc_fields = train_multimodal_cli_phase(cli_root)
     emit("train_multimodal_cli", **tmc_fields, seconds=time.perf_counter() - t0, ok=tmc_ok)
     for name, phase_ok in (("fusion_models", fm_ok), ("multimodal_sweep", ms_ok),
                            ("train_multimodal", tm_ok), ("train_multimodal_cli", tmc_ok)):
@@ -2530,18 +2861,43 @@ def main() -> int:
     tc_ok, tc_fields = train_conv_phase(args.seed, frames, dev, conv_cpu)
     emit("train_conv", **tc_fields, seconds=time.perf_counter() - t0, ok=tc_ok)
     t0 = time.perf_counter()
-    tcc_ok, tcc_fields, k3_cli = train_conv_cli_phase()
+    tcc_ok, tcc_fields, k3_cli = train_conv_cli_phase(cli_root)
     emit("train_conv_cli", **tcc_fields, seconds=time.perf_counter() - t0, ok=tcc_ok)
     for name, phase_ok in (("conv_models", cm_ok), ("conv_sweep", cs_ok),
                            ("conv_stream", ct_ok), ("train_conv", tc_ok),
                            ("train_conv_cli", tcc_ok)):
         if not phase_ok:
             failures.append(name)
+
+    # ---- reload, predict, explain and report (the CLI phases' checkpoints) ----
+    trained = {"train_cli": cli_fields, "train_0d_cli": cli0_fields,
+               "train_multimodal_cli": tmc_fields, "train_conv_cli": tcc_fields}
+    t0 = time.perf_counter()
+    re_ok, re_fields, k1_reload, k3_reload = reload_eval_phase(cli_root, trained)
+    emit("reload_eval", **re_fields, seconds=time.perf_counter() - t0, ok=re_ok)
+    t0 = time.perf_counter()
+    cp_ok, cp_fields, k1_prediction = continuous_prediction_phase(cli_root, dev)
+    emit("continuous_prediction", **cp_fields, seconds=time.perf_counter() - t0, ok=cp_ok)
+    t0 = time.perf_counter()
+    xai_ok, xai_fields = xai_phase(args.seed, frames_dev, dev, conv_cpu)
+    emit("xai", **xai_fields, seconds=time.perf_counter() - t0, ok=xai_ok)
+    t0 = time.perf_counter()
+    timing_ok, timing_fields = compute_time_phase(cli_root)
+    emit("compute_time", **timing_fields, seconds=time.perf_counter() - t0, ok=timing_ok)
+    for name, phase_ok in (("reload_eval", re_ok), ("continuous_prediction", cp_ok),
+                           ("xai", xai_ok), ("compute_time", timing_ok)):
+        if not phase_ok:
+            failures.append(name)
+    cli_dir.cleanup()
+
     # K3's launches on the main paths: the ViViT stream, and the conv models'
-    # sweeps, streams and CLI alarm sweeps; the L = 20 row the SlowFast part
-    k3_slowfast = k3_sweep["SlowFast"] + k3_stream["SlowFast"]
+    # sweeps, streams, CLI alarm sweeps and reload sweep; the L = 20 row the
+    # SlowFast part. K1's: the sweeps above plus the reload and prediction
+    # sweeps.
+    k3_slowfast = k3_sweep["SlowFast"] + k3_stream["SlowFast"] + k3_reload
     launches["gather_normalize"] += (sum(k3_sweep.values()) + sum(k3_stream.values())
-                                     + k3_cli)
+                                     + k3_cli + k3_reload)
+    launches["spatial_table"] += k1_reload + k1_prediction
 
     kernel_rows = []
     for c in checks:

@@ -25,7 +25,31 @@ from ..data import VideoStore
 # options not ported yet -> the ROADMAP.md Queue 1 item that ports them
 ITEM_ENSEMBLE = "ROADMAP.md Queue 1 item 13 (search and ensembles)"
 ITEM_DP = "ROADMAP.md Queue 1 item 14 (parallel)"
-ITEM_VIZ = "ROADMAP.md Queue 1 item 15 (viz)"
+
+
+def draw_figure(path: str, draw):
+    """Run ``draw()``, a call of a figure function that writes ``path``,
+    and close the figure it returns. Where matplotlib cannot be imported
+    (the GPU machine has none), print one line naming ``path`` and go on:
+    the model work and every report, CSV and JSON file do not depend on the
+    figures. Touches no device, kernel or number."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print(f"figure skipped: matplotlib is not installed ({path})")
+        return None
+    fig = draw()
+    if hasattr(fig, "savefig"):
+        import matplotlib.pyplot as plt
+        plt.close(fig)
+    return fig
+
+
+def save_figure(fig, path: str):
+    """Write a figure function's result to ``path`` (for ``draw_figure``)
+    and return it."""
+    fig.savefig(path)
+    return fig
 
 
 def refuse_ensemble_and_dp(args) -> None:

@@ -2,16 +2,17 @@
 of reference train_0D_network.py): 0D dataset -> Transformer / CnnLSTM /
 MLSTM-FCN -> train/train_DRW with last and best checkpoints -> reload the
 best checkpoint -> test macro-F1 and ROC-AUC -> permutation feature
-importance -> the continuous probability curve of the last shot.
+importance -> the latent-space view -> the continuous probability curve of
+the last shot; the learning curve, evaluation, importance, latent and
+probability figures.
 
 Usage (the GPU by default; ``--device cpu`` runs on the CPU):
     python -m kstar_torch.cli.train_0d --model MLSTM_FCN --synthetic --num_epoch 4
 
 Not ported yet, each refused with the ROADMAP.md Queue 1 item that ports
-it: several ``--seeds`` at once (item 13), ``--dp`` (item 14). The
-learning-curve, feature-importance and probability-curve plots and the
-latent-space view wait for the viz port (item 15); the CLI says that it
-skipped them.
+it: several ``--seeds`` at once (item 13), ``--dp`` (item 14). Figures go
+through ``common.draw_figure``: without matplotlib each is skipped with a
+line that names its file.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import os
 import numpy as np
 import torch
 
-from .common import ITEM_ENSEMBLE, ITEM_VIZ, refuse_ensemble_and_dp
+from .common import ITEM_ENSEMBLE, refuse_ensemble_and_dp
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -85,11 +86,13 @@ def main(argv=None):
     from .. import resolve_device
     from ..config import DT_0D, Schema
     from ..data import ImbalancedSampler, TSDataset, prepare_0d_dataset
-    from ..eval import compute_permute_feature_importance, evaluate
+    from ..eval import (compute_permute_feature_importance, evaluate,
+                        evaluation_figure, plot_feature_importance)
     from ..infer import predict_0d_shot
     from ..models import build_0d_model
     from ..train import MetricWriter, create_train_state, fit, load_checkpoint
-    from .common import configs_from_args, load_data, make_tag
+    from ..viz import plot_learning_curve, plot_shot_probability, visualize_latent_space
+    from .common import configs_from_args, draw_figure, load_data, make_tag, save_figure
 
     device = resolve_device(args.device)
     train_cfg, loss_cfg, optim_cfg = configs_from_args(args)
@@ -130,7 +133,8 @@ def main(argv=None):
 
     state, hist = fit(state, train_ds, valid_ds, train_cfg, loss_cfg, tag=tag,
                       sampler=sampler, writer=writer)
-    print(f"learning-curve plot skipped: plot_learning_curve waits for {ITEM_VIZ}")
+    lc_path = os.path.join(args.save_dir, f"{tag}_learning_curve.png")
+    draw_figure(lc_path, lambda: plot_learning_curve(hist, lc_path))
 
     # test evaluation + extras run on the BEST checkpoint, not the final
     # epoch (reference train_0D_network.py:393 reloads best before eval)
@@ -142,15 +146,23 @@ def main(argv=None):
     results = evaluate(model, test_ds, loss_cfg, args.batch_size, args.threshold,
                        save_txt=os.path.join(args.save_dir, f"{tag}_report.txt"))
     print(f"test macro-F1 {results['macro_f1']:.4f} | ROC-AUC {results['roc_auc']:.4f}")
+    eval_path = os.path.join(args.save_dir, f"{tag}_eval.png")
+    draw_figure(eval_path, lambda: save_figure(evaluation_figure(results), eval_path))
 
     if not args.skip_extras:
-        fi = compute_permute_feature_importance(
-            model, test_ds, loss_cfg, batch_size=args.batch_size,
-            save_fig=os.path.join(args.save_dir, f"{tag}_feature_importance.png"))
+        fi = compute_permute_feature_importance(model, test_ds, loss_cfg,
+                                                batch_size=args.batch_size)
+        fi_path = os.path.join(args.save_dir, f"{tag}_feature_importance.png")
+        draw_figure(fi_path, lambda: plot_feature_importance(fi, fi_path))
         top = sorted(fi.items(), key=lambda kv: -kv[1])[:5]
         print("feature importance (top 5): "
               + ", ".join(f"{Schema.FEATURE_MAP.get(k, k)} {v:.4f}" for k, v in top))
-        print(f"latent-space view skipped: visualize_latent_space waits for {ITEM_VIZ}")
+        latent_path = os.path.join(args.save_dir, f"{tag}_latent_2d.png")
+        try:
+            draw_figure(latent_path, lambda: visualize_latent_space(
+                model, test_ds, method="pca", save_path=latent_path))
+        except Exception as e:  # noqa: BLE001 — the JAX CLI's best-effort view
+            print(f"latent viz skipped: {e}")
 
         # continuous prob curve on one held-out shot
         shot = int(disrupt_df.shot.values[-1])
@@ -161,8 +173,12 @@ def main(argv=None):
                 seq_len=args.seq_len, dist=args.dist, dt=DT_0D,
                 batch_size=args.batch_size, device=device)
             print(f"probability curve of shot {shot}: {len(probs)} samples over "
-                  f"{time_x[-1]:.2f} s, max {probs.max():.4f}; the plot "
-                  f"(plot_shot_probability) waits for {ITEM_VIZ}")
+                  f"{time_x[-1]:.2f} s, max {probs.max():.4f}")
+            row = disrupt_df[disrupt_df.shot == shot].iloc[0]
+            pc_path = os.path.join(args.save_dir, f"{tag}_prob_curve.png")
+            draw_figure(pc_path, lambda: plot_shot_probability(
+                d, time_x, probs, shot, float(row.tftsrt), float(row.tTQend),
+                float(row.tipminf), save_path=pc_path))
     writer.close()
     return results
 

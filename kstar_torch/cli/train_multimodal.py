@@ -4,16 +4,17 @@ rebuild of reference train_multimodal.py): paired video + 0D dataset ->
 train_GB(_dynamic) with last and best checkpoints -> reload the best
 checkpoint -> test macro-F1 and ROC-AUC -> shot-level alarms from whole-shot
 multimodal sweeps of the test shots (the spatial-table kernel builds each
-shot's video table on the GPU).
+shot's video table on the GPU) -> the learning curve, the last test shot's
+probability curve and the fusion/video/0D latent views.
 
 Usage (the GPU by default; ``--device cpu`` runs on the CPU):
     python -m kstar_torch.cli.train_multimodal --model_type concat --synthetic
     python -m kstar_torch.cli.train_multimodal --model_type TFN --use_GB --gb_dynamic
 
 Not ported yet, each refused with the ROADMAP.md Queue 1 item that ports
-it: several ``--seeds`` at once (item 13), ``--dp`` (item 14). The
-learning-curve and probability-curve plots and the latent-space view wait
-for the viz port (item 15); the CLI says that it skipped them.
+it: several ``--seeds`` at once (item 13), ``--dp`` (item 14). Figures go
+through ``common.draw_figure``: without matplotlib each is skipped with a
+line that names its file.
 """
 
 from __future__ import annotations
@@ -21,9 +22,10 @@ from __future__ import annotations
 import argparse
 import os
 
+import numpy as np
 import torch
 
-from .common import ITEM_ENSEMBLE, ITEM_VIZ, refuse_ensemble_and_dp
+from .common import ITEM_ENSEMBLE, refuse_ensemble_and_dp
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -92,8 +94,9 @@ def main(argv=None):
     from ..train import (MetricWriter, create_train_state, fit, load_checkpoint)
     from ..train.gb import fit_gb
     from ..train.loop import make_eval_step, run_eval_epoch
-    from .common import (configs_from_args, load_data, make_tag, partition_shots,
-                         resolve_normal_splits, write_alarm_artifacts)
+    from ..viz import plot_learning_curve
+    from .common import (configs_from_args, draw_figure, load_data, make_tag,
+                         partition_shots, resolve_normal_splits, write_alarm_artifacts)
 
     device = resolve_device(args.device)
     train_cfg, loss_cfg, optim_cfg = configs_from_args(args)
@@ -185,7 +188,8 @@ def main(argv=None):
                           writer=writer, put=put_raw, put_eval=put_raw,
                           pre_fn=pre_train, pre_fn_eval=pre_eval)
         model_type = "multi"
-    print(f"learning-curve plot skipped: plot_learning_curve waits for {ITEM_VIZ}")
+    lc_path = os.path.join(args.save_dir, f"{tag}_learning_curve.png")
+    draw_figure(lc_path, lambda: plot_learning_curve(hist, lc_path))
 
     # test evaluation + extras run on the BEST checkpoint, not the final
     # epoch (reference train_multimodal.py:464 reloads best before eval)
@@ -213,6 +217,7 @@ def main(argv=None):
         # shot-level alarm scoring over the test shots; normal shots join the
         # sweep as the false-alarm population (under --train_with_normal
         # only the held-out test normals)
+        curves = []
         try:
             from ..eval import sweep_multimodal_prob_curves
 
@@ -227,9 +232,37 @@ def main(argv=None):
                                   min_dwell_s=args.alarm_dwell_s)
         except Exception as e:  # noqa: BLE001 — the JAX CLI's best-effort extras
             print(f"alarm evaluation skipped: {type(e).__name__}: {e}")
-        print(f"probability-curve plot and latent view skipped: "
-              f"plot_shot_probability and visualize_latent_space_multi wait for "
-              f"{ITEM_VIZ}")
+
+        from ..infer import predict_multimodal_shot
+        from ..viz import plot_shot_probability, visualize_latent_space_multi
+
+        shot = test_s[-1]
+        row = disrupt_df[disrupt_df.shot == shot].iloc[0]
+        d = ts_df[ts_df.shot == shot]
+        # the alarm block already swept this shot: reuse its curve instead
+        # of a second whole-shot sweep
+        held = [(tx, p) for s, _, tx, p in curves if s == int(shot)]
+        if held:
+            time_x, probs_c = held[0]
+        else:
+            time_x, probs_c = predict_multimodal_shot(
+                model, np.asarray(store.arrays[shot]), d[cols].to_numpy(np.float32),
+                d["time"].to_numpy(), scaler, int(row.frame_startup),
+                int(row.frame_cutoff), float(row.tftsrt), float(row.tipminf),
+                seq_len=args.seq_len, dist=args.dist, dt=dt, tau=args.tau,
+                crop_size=crop, batch_size=args.batch_size, compute_dtype=dtype,
+                device=device)
+        if len(time_x):
+            pc_path = os.path.join(args.save_dir, f"{tag}_prob_curve.png")
+            draw_figure(pc_path, lambda: plot_shot_probability(
+                d, time_x, probs_c, shot, float(row.tftsrt), float(row.tTQend),
+                float(row.tipminf), save_path=pc_path))
+        latent_path = os.path.join(args.save_dir, f"{tag}_latent_multi.png")
+        try:
+            draw_figure(latent_path, lambda: visualize_latent_space_multi(
+                model, test_ds, method="pca", put=put_eval, save_path=latent_path))
+        except Exception as e:  # noqa: BLE001 — the JAX CLI's best-effort view
+            print(f"latent viz skipped: {e}")
     writer.close()
     return results
 

@@ -3,7 +3,8 @@ a rebuild of reference train_vision_network.py): video dataset build ->
 ViViT / SlowFast / R2Plus1D -> train/train_DRW -> reload the best
 checkpoint -> test macro-F1 and ROC-AUC -> shot-level alarms from
 whole-shot sweeps of the test shots (ViViT through the spatial-table
-kernel, the conv models through the window-gather kernel).
+kernel, the conv models through the window-gather kernel) -> the learning
+curve and the last test shot's zoomed probability curve.
 
 Usage (the GPU by default; ``--device cpu`` runs on the CPU):
     python -m kstar_torch.cli.train_vision --model ViViT --synthetic --num_epoch 2
@@ -16,9 +17,9 @@ With ``--bn_splits`` the SubBatchNorm statistics are aggregated after
 every train epoch (``fit(eval_stats_fn=aggregate_batch_stats)``).
 
 Not ported yet, each refused with the ROADMAP.md Queue 1 item that ports
-it: several ``--seeds`` at once (item 13), ``--dp`` (item 14). The
-learning-curve and probability-curve plots wait for the viz port (item 15);
-the CLI says that it skipped them.
+it: several ``--seeds`` at once (item 13), ``--dp`` (item 14). Figures go
+through ``common.draw_figure``: without matplotlib each is skipped with a
+line that names its file.
 """
 
 from __future__ import annotations
@@ -26,9 +27,10 @@ from __future__ import annotations
 import argparse
 import os
 
+import numpy as np
 import torch
 
-from .common import ITEM_ENSEMBLE, ITEM_VIZ, refuse_ensemble_and_dp
+from .common import ITEM_ENSEMBLE, refuse_ensemble_and_dp
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -135,8 +137,9 @@ def main(argv=None):
     from ..models import aggregate_batch_stats, build_video_model
     from ..train import (MetricWriter, create_train_state, fit,
                          load_checkpoint)
-    from .common import (configs_from_args, emit_alarm_artifacts, load_data,
-                         make_tag, partition_shots, resolve_normal_splits)
+    from ..viz import plot_learning_curve
+    from .common import (configs_from_args, draw_figure, emit_alarm_artifacts,
+                         load_data, make_tag, partition_shots, resolve_normal_splits)
 
     device = resolve_device(args.device)
     train_cfg, loss_cfg, optim_cfg = configs_from_args(args)
@@ -196,7 +199,8 @@ def main(argv=None):
                       sampler=sampler, writer=writer, put=put_raw,
                       put_eval=put_raw, pre_fn=pre_train, pre_fn_eval=pre_eval,
                       eval_stats_fn=aggregate_batch_stats if args.bn_splits else None)
-    print(f"learning-curve plot skipped: plot_learning_curve waits for {ITEM_VIZ}")
+    lc_path = os.path.join(args.save_dir, f"{tag}_learning_curve.png")
+    draw_figure(lc_path, lambda: plot_learning_curve(hist, lc_path))
 
     # test evaluation + extras run on the BEST checkpoint, not the final
     # epoch (reference train_vision_network.py:393 reloads best before eval)
@@ -214,8 +218,9 @@ def main(argv=None):
         # shot-level alarm scoring over the test shots; normal shots join the
         # sweep as the false-alarm population (under --train_with_normal
         # only the held-out test normals)
+        curves = []
         try:
-            emit_alarm_artifacts(
+            curves = emit_alarm_artifacts(
                 model, store, disrupt_df,
                 list(test_s) + list(eval_disrupt_s) + list(sweep_normals)
                 + list(eval_normal_s),
@@ -225,8 +230,28 @@ def main(argv=None):
                 min_dwell_s=args.alarm_dwell_s, device=device)
         except Exception as e:  # noqa: BLE001 — the JAX CLI's best-effort extras
             print(f"alarm evaluation skipped: {type(e).__name__}: {e}")
-        print(f"probability-curve plot skipped: plot_shot_probability_zoom "
-              f"waits for {ITEM_VIZ}")
+
+        from ..infer import predict_video_shot
+        from ..viz import plot_shot_probability_zoom
+
+        shot = test_s[-1] if test_s else shots[-1]
+        row = disrupt_df[disrupt_df.shot == shot].iloc[0]
+        # the alarm block already swept this shot (sweep_prob_curves pads and
+        # suppresses as predict_video_shot does): reuse its curve instead of
+        # a second whole-shot sweep
+        held = [(tx, p) for s, _, tx, p in curves if s == int(shot)]
+        if held:
+            time_x, probs_c = held[0]
+        else:
+            time_x, probs_c = predict_video_shot(
+                model, np.asarray(store.arrays[shot]), int(row.frame_startup),
+                int(row.frame_cutoff), seq_len=seq_len, dist=args.dist,
+                crop_size=crop, batch_size=args.batch_size, compute_dtype=dtype,
+                device=device)
+        pc_path = os.path.join(args.save_dir, f"{tag}_prob_curve.png")
+        draw_figure(pc_path, lambda: plot_shot_probability_zoom(
+            time_x, probs_c, shot, float(row.tftsrt), float(row.tTQend),
+            float(row.tipminf), args.dist / 210.0, save_path=pc_path))
     writer.close()
     return results
 

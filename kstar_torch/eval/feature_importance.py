@@ -5,17 +5,19 @@ src/feature_importance.py): for each input feature, shuffle that column of
 the dataset's table, re-evaluate, and report
 ``FI = |loss_permuted - loss_orig| / loss_orig`` (reference :96-113). The
 permutations are drawn with numpy from ``seed``, column after column, as
-the JAX function draws them, so both packages shuffle the same rows. The bar
-plot waits for the viz port (ROADMAP.md Queue 1 item 15).
+the JAX function draws them, so both packages shuffle the same rows;
+``plot_feature_importance`` draws the bar plot.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..config import Schema
 from ..losses import ldam_margins
 
 
@@ -53,6 +55,24 @@ def compute_permute_feature_importance(
         results[col] = abs(loss_perm - loss_orig) / max(abs(loss_orig), 1e-12)
 
     if save_fig:
-        print("feature-importance plot skipped: plot_feature_importance waits for "
-              "ROADMAP.md Queue 1 item 15 (viz)")
+        plot_feature_importance(results, save_fig)
     return results
+
+
+def plot_feature_importance(importance: Dict[str, float], save_path: str) -> None:
+    """Horizontal bar plot with display names (reference :115-134)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    names = [Schema.FEATURE_MAP.get(k, k.lstrip("\\")) for k in importance]
+    vals = list(importance.values())
+    order = np.argsort(vals)
+    fig, ax = plt.subplots(figsize=(8, 0.4 * len(names) + 2))
+    ax.barh([names[i] for i in order], [vals[i] for i in order])
+    ax.set_xlabel("feature importance |dLoss|/Loss")
+    ax.set_title("permutation feature importance")
+    fig.tight_layout()
+    os.makedirs(os.path.dirname(os.path.abspath(save_path)), exist_ok=True)
+    fig.savefig(save_path)
+    plt.close(fig)

@@ -23,9 +23,13 @@ Two pieces follow flax's rules rather than torch's defaults:
     times both).
 
 The conv stacks route their activations through ``act_leaky_relu`` and
-``act_relu``; the JAX module's guided-backprop rule for them (its
-``GUIDED_BACKPROP`` switch and custom VJP) waits for the viz port
-(ROADMAP.md Queue 1 item 15), which swaps it in there.
+``act_relu``. While ``GUIDED_BACKPROP[0]`` is set (``viz.xai.guided_backprop``
+sets it and restores it), both run ``GuidedLeakyReLU``: the same forward,
+and a backward that passes the upstream gradient only where the input and
+the gradient are both positive (the reference's GuidedBackpropReLU). The
+switch is read at each call; this is eager PyTorch, so no traced or cached
+program can keep the guided rule after the switch is cleared (the JAX
+module reads its switch at trace time and must keep it away from jit).
 """
 
 from __future__ import annotations
@@ -75,13 +79,45 @@ def apply_act(x: torch.Tensor, act: str, alpha: float = 1.0) -> torch.Tensor:
     raise ValueError(act)
 
 
+# Set by viz.xai.guided_backprop(): the conv stacks' activations then take
+# the guided-backprop backward (reference GuidedBackpropReLU,
+# src/visualization/visualize_cam.py:21-54). Read at every call.
+GUIDED_BACKPROP = [False]
+
+
+class GuidedLeakyReLU(torch.autograd.Function):
+    """Leaky ReLU whose backward is the guided-backprop rule
+    ``g * (x > 0) * (g > 0)``; with ``alpha = 0`` it is exactly the
+    reference's guided ReLU."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, alpha: float) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        return torch.where(x > 0, x, alpha * x)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        return g * (x > 0).to(g.dtype) * (g > 0).to(g.dtype), None
+
+
+def guided_leaky_relu(x: torch.Tensor, alpha: float = 0.01) -> torch.Tensor:
+    return GuidedLeakyReLU.apply(x, alpha)
+
+
 def act_leaky_relu(x: torch.Tensor, alpha: float) -> torch.Tensor:
-    """The conv stacks' LeakyReLU (R(2+1)D)."""
+    """The conv stacks' LeakyReLU (R(2+1)D), guided-backprop-aware."""
+    if GUIDED_BACKPROP[0]:
+        return guided_leaky_relu(x, alpha)
     return F.leaky_relu(x, negative_slope=alpha)
 
 
 def act_relu(x: torch.Tensor) -> torch.Tensor:
-    """The conv stacks' ReLU (3D ResNet, SlowFast)."""
+    """The conv stacks' ReLU (3D ResNet, SlowFast), guided-backprop-aware
+    (the reference's GuidedBackpropReLUModel swaps every ReLU,
+    visualize_cam.py:57-66)."""
+    if GUIDED_BACKPROP[0]:
+        return guided_leaky_relu(x, 0.0)
     return F.relu(x)
 
 

@@ -107,7 +107,13 @@ class MHSA(nn.Module):
     src/models/ViViT.py:50-91): inner_dim = n_heads*d_head; the output
     projection is skipped iff single head with d_head == dim. With
     ``use_pallas`` the attention core runs the fused CUDA kernel
-    (ops/attention.py) — the name is kept from the JAX module."""
+    (ops/attention.py) — the name is kept from the JAX module.
+
+    ``capture``: None, or a list that each forward of the einsum path
+    appends its softmax map to ((B, heads, N, N), in the compute dtype:
+    the tensor the JAX module sows for attention rollout). Only
+    ``viz.xai.collect_attention`` sets it, for one forward; the result of
+    the forward is the same either way."""
 
     def __init__(self, dim: int, n_heads: int = 3, d_head: int = 64,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
@@ -117,6 +123,7 @@ class MHSA(nn.Module):
         self.n_heads, self.d_head = n_heads, d_head
         self.dropout, self.dtype = dropout, dtype
         self.use_pallas, self.norm_dtype = use_pallas, norm_dtype
+        self.capture: Optional[list] = None
         inner = n_heads * d_head
         self.project_out = not (n_heads == 1 and d_head == dim)
         self.to_qkv = Dense(dim, inner * 3, bias=False, dtype=dtype,
@@ -142,6 +149,8 @@ class MHSA(nn.Module):
         else:
             logits = (q @ k.transpose(-1, -2)).to(self.norm_dtype) * scale
             attn = torch.softmax(logits, dim=-1).to(self.dtype)
+            if self.capture is not None:
+                self.capture.append(attn.detach())
             out = attn @ v
         out = out.transpose(1, 2).reshape(B, N, h * dh)
         if self.project_out:

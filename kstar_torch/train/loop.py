@@ -320,7 +320,6 @@ def fit(
     stopper = EarlyStopping(train_cfg.early_stopping_patience,
                             train_cfg.early_stopping_delta) if train_cfg.early_stopping else None
     hist = History()
-    figure_skip_said = False
 
     os.makedirs(train_cfg.weight_dir, exist_ok=True)
     last_path = os.path.join(train_cfg.weight_dir, f"{tag}_last.ckpt")
@@ -337,9 +336,11 @@ def fit(
         if eval_stats_fn is not None:
             with torch.no_grad():
                 eval_stats_fn(state.model)
-        va_loss, va_acc, va_f1 = run_eval_epoch(
+        # the valid probabilities feed the evaluation figure of a new best
+        va_loss, va_acc, va_f1, *va_probs = run_eval_epoch(
             eval_step, state.model, valid_ds, train_cfg.batch_size, weight, m_list,
-            put=put_eval if put_eval is not None else put, gb_w=gb_w)
+            put=put_eval if put_eval is not None else put, gb_w=gb_w,
+            collect_probs=writer is not None)
         ep_s = time.perf_counter() - t_ep
 
         hist.train_loss.append(tr_loss); hist.valid_loss.append(va_loss)
@@ -361,11 +362,19 @@ def fit(
             hist.best_f1 = va_f1
             hist.best_epoch = epoch
             save_checkpoint(state, best_path, extra={"epoch": epoch, "valid_f1": va_f1})
-            if writer and not figure_skip_said:
-                # the JAX fit emits an evaluation figure here, best-effort
-                print("[fit] eval figure emission skipped: evaluation_figure is "
-                      "not ported yet (ROADMAP.md Queue 1 item 15, viz)")
-                figure_skip_said = True
+            if writer:
+                # evaluation figure on improvement (the reference emits one
+                # per epoch via evaluate_tensorboard, src/train.py:242-245)
+                try:
+                    from ..eval.evaluate import evaluate_probs, evaluation_figure
+                    probs, labels = va_probs[0]
+                    fig = evaluation_figure(evaluate_probs(probs, labels))
+                    writer.figure("eval/valid", fig, epoch)
+                    import matplotlib.pyplot as plt
+                    plt.close(fig)
+                except Exception as e:  # figure emission is best-effort,
+                    # but a broken pipeline must surface in the logs
+                    print(f"[fit] eval figure emission failed: {type(e).__name__}: {e}")
         if stopper and stopper.should_stop:
             print(f"early stopping at epoch {epoch+1}")
             break

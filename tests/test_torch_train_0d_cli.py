@@ -55,8 +55,11 @@ def test_cli_trains_reports_and_resumes(tmp_path, capsys, model):
     assert 0.0 <= results["macro_f1"] <= 1.0
     assert re.search(r"feature importance \(top 5\): ", out)
     assert re.search(r"probability curve of shot \d+: \d+ samples", out)
-    assert "plot skipped" in out
+    assert "figure skipped" not in out and "latent viz skipped" not in out
     tag = f"{model}_clip_21_dist_3_Focal_Normal_seed_42"
+    for name in ("_learning_curve.png", "_eval.png", "_feature_importance.png",
+                 "_latent_2d.png", "_prob_curve.png"):
+        assert (tmp_path / "r" / f"{tag}{name}").stat().st_size > 0, name
     for name in ("_last.ckpt", "_best.ckpt"):
         assert (tmp_path / "w" / f"{tag}{name}").exists()
     assert "macro F1" in (tmp_path / "r" / f"{tag}_report.txt").read_text()

@@ -69,8 +69,11 @@ def test_cli_trains_reports_sweeps_and_resumes(tmp_path, capsys, extra, tag):
     assert re.search(r"datasets: .*", out).group(0) == _jax_dataset_line(argv)
     assert re.search(r"test macro-F1 [0-9.]+ \| ROC-AUC", out)
     assert 0.0 <= results["macro_f1"] <= 1.0
-    assert "plot skipped" in out and "alarm evaluation skipped" not in out
+    assert "alarm evaluation skipped" not in out
+    assert "figure skipped" not in out and "latent viz skipped" not in out
     full = f"{tag}_clip_5_dist_3_Focal_Normal_seed_42"
+    for name in ("_learning_curve.png", "_prob_curve.png", "_latent_multi.png"):
+        assert (tmp_path / "r" / f"{full}{name}").stat().st_size > 0, name
     for name in ("_last.ckpt", "_best.ckpt"):
         assert (tmp_path / "w" / f"{full}{name}").exists()
     if "--use_GB" in extra:

@@ -65,7 +65,10 @@ def test_cli_trains_reports_and_resumes(tmp_path, capsys, extra):
                  "_dwell_tradeoff.csv", "_operating_grid.csv"):
         assert (tmp_path / "r" / f"{tag}{name}").exists(), name
     assert "macro F1" in (tmp_path / "r" / f"{tag}_report.txt").read_text()
-    assert "alarm summary" in out and "plot skipped" in out
+    assert "alarm summary" in out and "figure skipped" not in out
+    for name in ("_learning_curve.png", "_prob_curve-zoom.png"):
+        assert (tmp_path / "r" / f"{tag}{name}").stat().st_size > 0, name
+    assert any((tmp_path / "r" / "tensorboard" / tag).glob("eval_valid_*.png"))
     saved = int(torch.load(tmp_path / "w" / f"{tag}_last.ckpt")["step"])
     assert saved > 0
 
