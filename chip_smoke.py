@@ -115,6 +115,26 @@ until the end):
                          models, batch 1 and 64) and model_summary's eight
                          parameter totals
 
+and then the dataset ETL, seed ensembles, hyper-parameter search and mixup:
+
+  etl       a raw 0D dump and five shots of 256 px frames made from --seed,
+            through extend_shot_log, clean_signals, valid_shots,
+            build_0d_table, sync_video_0d and the jpg repack into a
+            --data_root, read back by load_data; predict_video_shot with the
+            flagship ViViT (one table-kernel launch) and predict_0d_shot on
+            a built shot; wall seconds per stage
+  ensemble  train_0d --model MLSTM_FCN --seeds 40 41 42 43 and train_vision
+            --model ViViT --seeds 1 2 (the alarm sweep runs the table
+            kernel); a 4-member MLSTM-FCN ensemble against solo runs of its
+            seeds on the card (f32, 3 SGD steps); the 4-member step against
+            a solo step (MLSTM-FCN batch 256, ViViT batch 64)
+  hpo       hpo_run --model MLSTM_FCN on the hard synthetic fixture with
+            --search random (twice), --search tpe, --hpo_vmap and
+            --hpo_workers 2; the repeated, --hpo_vmap and threaded runs
+            against the serial one (configs, promotions, scores to 1e-6)
+  mixup     mixup and the three video CutMix modes: the same draws on the
+            card and on the CPU give the same batch exactly
+
 Every phase prints one JSON line and any failure exits non-zero. Then come
 the per-kernel summary line, the card's name and power limit as nvidia-smi
 reports them, and the result line {"ok": true, "device": {...}}. Without
@@ -2280,6 +2300,450 @@ def compute_time_phase(root: str) -> tuple:
                     model_summary_launches=summary_launches)
 
 
+# ---------------------------------------------------------------------------
+# The dataset ETL, seed ensembles, hyper-parameter search and mixup
+# ---------------------------------------------------------------------------
+
+ETL_SHOTS, ETL_FRAMES, ETL_RAW_ROWS = 5, 640, 1600
+ETL_TS_CHANNELS = 4                # Thomson channels per core/edge x Te/Ne group
+ENSEMBLE_SEEDS_0D, ENSEMBLE_SEEDS_VISION = (40, 41, 42, 43), (1, 2)
+MEMBERS_TIMED = 4                  # members of the timed ensemble steps
+ENSEMBLE_STEP_BATCH = {"MLSTM_FCN": TS_BATCH, "ViViT": 64}   # the CLIs' batches
+WARMUP_STEPS, TIMED_STEPS = 5, 30
+MEMBER_TOL = 1e-6                  # member against solo, f32 parameters
+
+
+def etl_frames(seed: int, n: int, size: int) -> tuple:
+    """One shot's camera frames, (n, size, size, 3) uint8: dark before the
+    plasma starts (frame 10% of n), a radial glow through the flat-top, a
+    quench flash and dark again from the cutoff (frame 92% of n), over a
+    faint fixed noise pattern. Returns (frames, startup, cutoff)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    startup, cutoff = int(0.1 * n), int(0.92 * n)
+    b = np.zeros(n, np.float32)
+    b[startup:cutoff] = 150 + 20 * np.sin(np.arange(cutoff - startup) / 30.0)
+    b[cutoff - 8:cutoff] = 230
+    yy, xx = np.mgrid[0:size, 0:size]
+    r = np.sqrt((yy - size / 2) ** 2 + (xx - size / 2) ** 2)
+    glow = np.clip(1.2 - r / (0.6 * size), 0.05, 1.0).astype(np.float32)
+    noise = rng.integers(0, 12, size=(size, size, 3), dtype=np.uint8)
+    frames = np.empty((n, size, size, 3), np.uint8)
+    for i in range(n):
+        frames[i] = (np.clip(b[i] * glow, 0, 240).astype(np.uint8)[..., None]
+                     + np.roll(noise, i, axis=1))
+    return frames, startup, cutoff
+
+
+def etl_raw_dump(seed: int, shots: dict) -> "pd.DataFrame":
+    """A raw multi-rate MDSplus-style 0D dump, shaped like the fixture of
+    tests/test_etl.py and tests/test_torch_etl.py: ETL_RAW_ROWS samples at
+    random times over each shot's video span, the signals build_0d_table
+    turns into the 18 input features in raw units (A, m^-3, eV, negative
+    Rogowski currents), with NaNs, infs and zeros to clean."""
+    import numpy as np
+    import pandas as pd
+
+    from kstar_torch.config import FPS, Schema
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    n = ETL_RAW_ROWS
+    for shot, n_frames in shots.items():
+        t = np.sort(rng.uniform(0, n_frames / FPS, n))
+        d = {"shot": shot, "time": t}
+        for j, c in enumerate(Schema.DEFAULT_COLS):
+            d[c] = 1.0 + 0.2 * j + 0.1 * np.sin(t * (j + 1)) + rng.normal(0, 0.02, n)
+        d["\\ipmhd"] = -(0.4 + 0.05 * t) * 1e6
+        d["\\aminor"] = 0.5 + 0.01 * np.cos(t)
+        d["\\RC03"] = 0.6 + 0.1 * t
+        d["\\VCM03"] = 0.7 + 0.1 * t
+        d["\\ne_inter01"] = 2 + 0.2 * t
+        d["\\BETAP_DLM03"] = 0.5 + 3 * np.sin(t)
+        d["\\WTOT_DLM03"] = 1e5 * (1 + 0.1 * t)
+        d["\\bcentr"] = -1.8 + rng.normal(0, 0.01, n)
+        d["\\TOR_HA01"] = 1e18 * (1 + rng.random(n))
+        for g, scale in ((Schema.TS_TE_CORE_COLS, 1e3), (Schema.TS_TE_EDGE_COLS, 3e2),
+                         (Schema.TS_NE_CORE_COLS, 3e19), (Schema.TS_NE_EDGE_COLS, 1e19)):
+            for k, c in enumerate(g[:ETL_TS_CHANNELS]):
+                d[c] = scale * (1 + 0.1 * k + 0.05 * np.sin(t)) * rng.uniform(0.9, 1.1, n)
+        df = pd.DataFrame(d)
+        df.loc[rng.choice(n, 10, replace=False), "\\q95"] = np.nan
+        df.loc[rng.choice(n, 3, replace=False), "\\li"] = np.inf
+        df.loc[rng.choice(n, 5, replace=False), Schema.TS_TE_CORE_COLS[0]] = np.nan
+        df.loc[rng.choice(n, 4, replace=False), "\\kappa"] = 0.0
+        rows.append(df)
+    return pd.concat(rows, ignore_index=True)
+
+
+def etl_phase(seed: int, root: str, dev) -> tuple:
+    """The dataset ETL from a raw dump to a --data_root, then the port's
+    loaders and whole-shot predictions on what it built: ETL_SHOTS shots of
+    ETL_FRAMES 256 px frames (etl_frames) and a raw 0D dump (etl_raw_dump);
+    extend_shot_log over the frames' brightness, clean_signals ->
+    valid_shots -> build_0d_table -> sync_video_0d; the frames written as
+    jpg folders (cv2) and repacked by repack_jpg_folder into
+    video/<shot>.npy, the log and table into shot_list.csv and ts_data.csv;
+    load_data/VideoStore read it back; predict_video_shot with the flagship
+    ViViT (bf16, random weights from ``seed``; one spatial-table launch) and
+    predict_0d_shot with MLSTM-FCN at its default widths on one built shot.
+    Wall seconds per stage. Checks: the detected startup and cutoff equal
+    the generator's, every shot kept, the repacked arrays equal what was
+    loaded, finite curves of the expected length, K1 exactly 1."""
+    import argparse
+
+    import cv2
+    import numpy as np
+
+    from kstar_torch.cli.common import load_data
+    from kstar_torch.config import DT_0D, FPS, MLSTMFCNConfig, Schema, ViViTConfig
+    from kstar_torch.data import Scaler, build_0d_table, extend_shot_log, sync_video_0d
+    from kstar_torch.data.ts_pipeline import clean_signals, valid_shots
+    from kstar_torch.data.video_pipeline import repack_jpg_folder
+    from kstar_torch.infer import predict_0d_shot, predict_video_shot
+    from kstar_torch.models import build_0d_model, build_video_model
+
+    stage_s, t_stage = {}, [time.perf_counter()]
+
+    def stage(name: str) -> None:
+        now = time.perf_counter()
+        stage_s[name], t_stage[0] = now - t_stage[0], now
+
+    shot_ids = [40000 + i for i in range(ETL_SHOTS)]
+    made = {s: etl_frames(seed + i, ETL_FRAMES + 32 * i, RESIZE)
+            for i, s in enumerate(shot_ids)}
+    raw = etl_raw_dump(seed, {s: len(f) for s, (f, _, _) in made.items()})
+    stage("generate")
+    log = extend_shot_log({s: f for s, (f, _, _) in made.items()})
+    stage("extend_shot_log")
+    cleaned = clean_signals(raw)
+    kept = valid_shots(cleaned)
+    stage("clean_and_valid_shots")
+    table = build_0d_table(raw, log, dt=DT_0D)
+    stage("build_0d_table")
+    sync = sync_video_0d(table, log)
+    stage("sync_video_0d")
+
+    os.makedirs(f"{root}/video", exist_ok=True)
+    for s, (frames, _, _) in made.items():
+        os.makedirs(f"{root}/jpg/{s}", exist_ok=True)
+        for i, f in enumerate(frames):
+            cv2.imwrite(f"{root}/jpg/{s}/{i:06d}.jpg", f)
+    stage("write_jpg")
+    repacked = {}
+    for s in shot_ids:
+        repacked[s] = repack_jpg_folder(f"{root}/jpg/{s}")
+        np.save(f"{root}/video/{s}.npy", repacked[s])
+    log.to_csv(f"{root}/shot_list.csv", index=False)
+    table.to_csv(f"{root}/ts_data.csv", index=False)
+    stage("repack_and_save")
+
+    ns = argparse.Namespace(synthetic=False, data_root=root)
+    disrupt_df, ts_df, store = load_data(ns, need_video=True, dt=DT_0D)
+    stage("load_data")
+
+    shot = shot_ids[0]
+    row = disrupt_df[disrupt_df.shot == shot].iloc[0]
+    vivit = build_video_model("ViViT", ViViTConfig(), dtype=torch.bfloat16,
+                              generator=torch.Generator().manual_seed(seed + 50)).to(dev)
+    kernel_launches(reset=True)
+    time_v, prob_v = predict_video_shot(
+        vivit, np.asarray(store.arrays[shot]), int(row.frame_startup), int(row.frame_cutoff),
+        seq_len=SEQ_LEN, dist=3, crop_size=CROP, batch_size=BATCH,
+        compute_dtype=torch.bfloat16, device=dev)
+    k1 = kernel_launches()["spatial_table"]
+    stage("predict_video_shot")
+    kernel_launches(reset=True)
+    cols = Schema.INPUT_FEATURES
+    mlstm = build_0d_model("MLSTM_FCN", MLSTMFCNConfig(), dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(seed + 51)).to(dev)
+    d = ts_df[ts_df.shot == shot]
+    time_0, prob_0 = predict_0d_shot(mlstm, d[cols].to_numpy(np.float32), d["time"].to_numpy(),
+                                     Scaler("Robust"), seq_len=SEQ_LEN, dist=3, dt=DT_0D,
+                                     batch_size=TS_BATCH, device=dev)
+    k_0d = kernel_launches()
+    stage("predict_0d_shot")
+
+    truth = {s: (st, cut) for s, (_, st, cut) in made.items()}
+    detected = {int(r.shot): (int(r.frame_startup), int(r.frame_cutoff))
+                for r in log.itertuples()}
+    loaded_equal = all(np.array_equal(np.asarray(store.arrays[s]), repacked[s])
+                       for s in shot_ids)
+    n_v = int(row.frame_startup) + SEQ_LEN + max(
+        min(len(store.arrays[shot]), int(row.frame_cutoff) + int(FPS))
+        - int(row.frame_startup) - SEQ_LEN - 3, 0) - 2
+    fields = dict(
+        shots=len(shot_ids), frames=[len(f) for f, _, _ in made.values()],
+        frame_px=RESIZE, raw_rows=len(raw), raw_columns=raw.shape[1],
+        shots_kept_valid=[int(s) for s in kept], table_rows=len(table),
+        table_shots=sorted(int(s) for s in table.shot.unique()),
+        table_columns=table.shape[1], sync_rows=len(sync),
+        jpg_bytes=sum(os.path.getsize(os.path.join(dp, f))
+                      for dp, _, fs in os.walk(f"{root}/jpg") for f in fs),
+        detected_startup_cutoff=detected, generated_startup_cutoff=truth,
+        repacked_equal_loaded=loaded_equal,
+        repack_vs_frames_mean_abs=float(np.mean([np.abs(repacked[s].astype(np.int16)
+                                                         - made[s][0]).mean()
+                                                 for s in shot_ids])),
+        video_curve_len=len(prob_v), video_curve_max=float(np.max(prob_v)),
+        zero_d_curve_len=len(prob_0), zero_d_curve_max=float(np.max(prob_0)),
+        spatial_table_launches=k1, kernel_launches_0d=k_0d, stage_s=stage_s)
+    ok = bool(detected == truth and sorted(kept) == shot_ids
+              and fields["table_shots"] == shot_ids and len(sync) == len(table)
+              and set(cols) <= set(table.columns) and loaded_equal
+              and sorted(store.arrays) == shot_ids
+              and len(prob_v) == n_v and np.isfinite(prob_v).all()
+              and len(prob_0) > 0 and np.isfinite(prob_0).all()
+              and k1 == 1 and not any(k_0d.values()))
+    return ok, fields, k1
+
+
+def _seeded_checkpoints(w: str, seeds) -> dict:
+    """{seed: [the member's best/last checkpoint names]} under ``w``."""
+    names = os.listdir(w)
+    return {s: sorted(f for f in names if f.endswith(".ckpt")
+                      and (f"_seed_{s}_best" in f or f"_seed_{s}_last" in f))
+            for s in seeds}
+
+
+def ensemble_phase(seed: int, root: str, frames, dev) -> tuple:
+    """Seed ensembles through the train CLIs and on the card.
+
+    (a) python -m kstar_torch.cli.train_0d --model MLSTM_FCN --seeds 40 41 42
+    43 --synthetic --num_epoch 2 and train_vision --model ViViT --seeds 1 2
+    --synthetic --num_epoch 2 at their default widths: per-seed checkpoints,
+    each seed's best valid F1, the "continuing with best seed" line (the
+    argmax), the test line, and the ViViT alarm sweep's spatial-table
+    launches (> 0; none for the 0D run).
+    (b) member against solo on the card: a 4-member MLSTM-FCN ensemble in
+    f32 (input noise and dropout on) and a solo state of each seed, 3 SGD
+    steps on shared batches of 256; max |parameter difference| <= 1e-6.
+    (c) step times: the 4-member ensemble step against one solo step, 5
+    warm-ups then 30 each timed on the host clock up to a synchronise,
+    MLSTM-FCN bf16 at batch 256 and the flagship ViViT bf16 at batch 64
+    (uint8 clips of the shot, augmented inside each member's step); the
+    launches and device-busy time of one profiled step of each."""
+    import re
+
+    import numpy as np
+
+    from kstar_torch.cli import train_0d, train_vision
+    from kstar_torch.config import LossConfig, MLSTMFCNConfig, OptimConfig, ViViTConfig
+    from kstar_torch.data import make_pre_fns, to_device
+    from kstar_torch.losses import ldam_margins
+    from kstar_torch.models import build_0d_model, build_video_model
+    from kstar_torch.train import (create_ensemble_state, create_train_state,
+                                   make_ensemble_step, make_train_step)
+
+    fields, ok = {}, True
+    k1_total = 0
+    for name, main_fn, model, seeds in (
+            ("train_0d", train_0d.main, "MLSTM_FCN", ENSEMBLE_SEEDS_0D),
+            ("train_vision", train_vision.main, "ViViT", ENSEMBLE_SEEDS_VISION)):
+        w, r = f"{root}/{name}/w", f"{root}/{name}/r"
+        argv = ["--model", model, "--seeds", *map(str, seeds), "--synthetic",
+                "--num_epoch", "2", "--weight_dir", w, "--save_dir", r, "--verbose", "1"]
+        _, text, wall, launches_k = run_cli(main_fn, argv)
+        f1s = {int(s): float(f) for s, f in
+               re.findall(r"seed (\d+): best valid f1 ([0-9.]+)", text)}
+        cont = re.search(r"continuing with best seed (\d+)", text)
+        ckpts = _seeded_checkpoints(w, seeds)
+        best_seed = seeds[int(np.argmax([f1s.get(s, -1.0) for s in seeds]))]
+        run = dict(wall_s=wall, seeds=list(seeds), best_valid_f1=f1s,
+                   continuing_with=int(cont.group(1)) if cont else None,
+                   argmax_seed=best_seed, checkpoints=ckpts, test_line=test_line(text),
+                   kernel_launches=launches_k)
+        run_ok = bool(list(f1s) == list(seeds) and cont and int(cont.group(1)) == best_seed
+                      and all(len(v) == 2 for v in ckpts.values()) and run["test_line"])
+        if model == "ViViT":
+            run_ok = run_ok and launches_k["spatial_table"] > 0 and "alarm summary" in text
+            k1_total += launches_k["spatial_table"]
+        else:
+            run_ok = run_ok and not any(launches_k.values())
+        run["ok"] = run_ok
+        ok = ok and run_ok
+        fields[name] = run
+
+    # (b) members against solo runs, f32
+    rng = np.random.default_rng(seed + 60)
+    B = TS_BATCH
+    cfg0 = MLSTMFCNConfig()
+    xs = [torch.from_numpy(rng.normal(size=(B, SEQ_LEN, cfg0.n_features)).astype(np.float32))
+          .to(dev) for _ in range(3)]
+    ys = [torch.as_tensor(rng.integers(0, 2, size=B)).to(dev) for _ in range(3)]
+    weight = torch.ones(2, device=dev)
+    m_list = torch.as_tensor(ldam_margins(np.array([B // 2, B // 2]))).to(dev)
+    make0 = lambda dtype: (lambda gen: build_0d_model("MLSTM_FCN", cfg0, dtype=dtype,
+                                                      generator=gen))
+    sgd = OptimConfig(optimizer="SGD", lr=1e-2)
+    seeds = ENSEMBLE_SEEDS_0D
+    members = create_ensemble_state(make0(torch.float32), seeds, sgd, device=dev)
+    estep = make_ensemble_step(LossConfig())
+    for x, y in zip(xs, ys):
+        estep(members, x, y, weight, m_list)
+    step = make_train_step(LossConfig())
+    diffs = {}
+    for s, member in zip(seeds, members):
+        solo = create_train_state(make0(torch.float32)(torch.Generator().manual_seed(s)).to(dev),
+                                  sgd, seed=s)
+        for x, y in zip(xs, ys):
+            step(solo, x, y, weight, m_list)
+        diffs[s] = max(float((member.flat - solo.flat).abs().max()),
+                       float((member.stats_flat - solo.stats_flat).abs().max()))
+    moved = all(int(m.step) == 3 for m in members)
+    fields["member_vs_solo"] = dict(model="MLSTM_FCN", dtype="float32", batch=B,
+                                    optimizer="SGD lr 1e-2", steps=3, max_abs=diffs,
+                                    tol=MEMBER_TOL)
+    ok = ok and moved and max(diffs.values()) <= MEMBER_TOL
+
+    # (c) the ensemble step against a solo step
+    def timed(fn) -> list:
+        times = []
+        for i in range(WARMUP_STEPS + TIMED_STEPS):
+            t0 = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize()
+            if i >= WARMUP_STEPS:
+                times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    timing = {}
+    xb = [x[:ENSEMBLE_STEP_BATCH["MLSTM_FCN"]] for x in xs[:2]]
+    vis_cfg = ViViTConfig()
+    Bv = ENSEMBLE_STEP_BATCH["ViViT"]
+    starts = rng.integers(0, len(frames) - SEQ_LEN, size=(2, Bv))
+    clips = [to_device(frames[s[:, None] + np.arange(SEQ_LEN)], dev) for s in starts]
+    yv = [torch.as_tensor(rng.integers(0, 2, size=Bv)).to(dev) for _ in range(2)]
+    pre_train, _ = make_pre_fns(CROP, out_dtype=torch.bfloat16)
+    for key, make, batches, labels, pre, batch in (
+            ("MLSTM_FCN", make0(torch.bfloat16), xb,
+             [y[:ENSEMBLE_STEP_BATCH["MLSTM_FCN"]] for y in ys[:2]], None,
+             ENSEMBLE_STEP_BATCH["MLSTM_FCN"]),
+            ("ViViT", lambda gen: build_video_model("ViViT", vis_cfg, dtype=torch.bfloat16,
+                                                    generator=gen), clips, yv, pre_train, Bv)):
+        seeds4 = tuple(range(seed, seed + MEMBERS_TIMED))
+        states = create_ensemble_state(make, seeds4, OptimConfig(), device=dev)
+        estep = make_ensemble_step(LossConfig(), pre_fn=pre)
+        solo = states[0]
+        sstep = make_train_step(LossConfig(), pre_fn=pre)
+        torch.cuda.reset_peak_memory_stats()
+        t_ens = timed(lambda i: estep(states, batches[i % 2], labels[i % 2], weight, m_list))
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        t_solo = timed(lambda i: sstep(solo, batches[i % 2], labels[i % 2], weight, m_list))
+        p50_e, p50_s = float(np.median(t_ens)), float(np.median(t_solo))
+        prof = {}
+        for part, fn in (("ensemble", lambda: estep(states, batches[0], labels[0], weight,
+                                                    m_list)),
+                         ("solo", lambda: sstep(solo, batches[0], labels[0], weight, m_list))):
+            n_launch, busy_ms, _, _ = step_launches(fn)
+            prof[f"{part}_launches"] = n_launch
+            prof[f"{part}_device_busy_ms"] = busy_ms
+        timing[key] = dict(batch=batch, members=MEMBERS_TIMED, dtype="bfloat16",
+                           ensemble_step_p50_ms=p50_e, solo_step_p50_ms=p50_s,
+                           ensemble_over_solo=p50_e / p50_s,
+                           ensemble_step_p99_ms=float(np.percentile(t_ens, 99)),
+                           solo_step_p99_ms=float(np.percentile(t_solo, 99)),
+                           ensemble_samples_per_s=MEMBERS_TIMED * batch / (p50_e / 1e3),
+                           ensemble_peak_mem_gb=peak_gb, **prof,
+                           ensemble_device_idle_share=(
+                               None if prof["ensemble_device_busy_ms"] is None
+                               else 1 - prof["ensemble_device_busy_ms"] / p50_e),
+                           solo_device_idle_share=(
+                               None if prof["solo_device_busy_ms"] is None
+                               else 1 - prof["solo_device_busy_ms"] / p50_s))
+        ok = ok and bool(np.isfinite(t_ens).all() and np.isfinite(t_solo).all())
+        del states, solo
+    fields["step_times"] = timing
+    return ok, fields, k1_total
+
+
+HPO_SCORE_TOL = 1e-6    # valid macro-F1 per trial and epoch, against the serial run
+
+
+def hpo_phase(root: str) -> tuple:
+    """python -m kstar_torch.cli.hpo_run --model MLSTM_FCN --synthetic
+    --synthetic_difficulty 1 --synthetic_shots 20 --n_trials 4 --max_epochs
+    4, five times: --search random twice (the card's own run-to-run
+    spread), --search tpe (2 random startup trials, then TPE proposals 2 at
+    a time), --hpo_vmap (JAX's grouped rungs; the serial trainable in the
+    port) and --hpo_workers 2 (two trials at a time on threads, round robin
+    over the cards there are). On the hard fixture the trials score apart,
+    so the rungs promote some and stop others. Each: the best trial, the
+    test line, hpo_MLSTM_FCN.json written, wall seconds. The repeated,
+    --hpo_vmap and threaded runs must give the serial random run's trial
+    configs and rung promotions (epochs per trial), and its scores to
+    HPO_SCORE_TOL; no K1-K3 launch."""
+    import json as _json
+
+    base = ["--model", "MLSTM_FCN", "--synthetic", "--synthetic_difficulty", "1",
+            "--synthetic_shots", "20", "--n_trials", "4", "--max_epochs", "4"]
+    from kstar_torch.cli import hpo_run
+
+    fields, ok, logs = {"score_tol": HPO_SCORE_TOL}, True, {}
+    for name, extra in (("random", ["--search", "random"]),
+                        ("random_again", ["--search", "random"]),
+                        ("tpe", ["--search", "tpe", "--tpe_startup", "2", "--tpe_batch", "2"]),
+                        ("hpo_vmap", ["--hpo_vmap"]),
+                        ("workers2", ["--hpo_workers", "2"])):
+        out = f"{root}/hpo/{name}"
+        (best, results), text, wall, launches_k = run_cli(hpo_run.main,
+                                                          base + extra + ["--save_dir", out])
+        path = f"{out}/hpo_MLSTM_FCN.json"
+        logs[name] = _json.load(open(path)) if os.path.exists(path) else []
+        fields[name] = dict(
+            wall_s=wall, best_trial=best.trial_id, best_valid_f1=best.best,
+            best_config=best.config, test_line=test_line(text), json_written=bool(logs[name]),
+            trials=[{"trial": t["trial"], "epochs": t["epochs"], "scores": t["scores"]}
+                    for t in logs[name]], kernel_launches=launches_k)
+        ok = ok and bool(logs[name] and len(logs[name]) == 4 and test_line(text)
+                         and not any(launches_k.values()))
+    serial = logs["random"]
+    # the hard fixture must separate the trials, or the comparisons below hold
+    # for any trainable
+    ok = ok and len({t["epochs"] for t in serial}) > 1 and \
+        len({round(max(t["scores"]), 6) for t in serial}) > 1
+    for other in ("random_again", "hpo_vmap", "workers2"):
+        same = ([(t["config"], t["epochs"]) for t in serial]
+                == [(t["config"], t["epochs"]) for t in logs[other]])
+        score_diff = max((abs(a - b) for s, g in zip(serial, logs[other])
+                          for a, b in zip(s["scores"], g["scores"])), default=float("nan"))
+        fields[f"{other}_vs_serial"] = dict(same_configs_and_promotions=same,
+                                            max_abs_score_diff=score_diff)
+        ok = ok and same and score_diff <= HPO_SCORE_TOL
+    return ok, fields
+
+
+def mixup_phase(seed: int, dev) -> tuple:
+    """Mixup and the three video CutMix modes on a (16, 21, 128, 128, 3) f32
+    batch: the same draws (from one CPU generator) applied on the card and
+    on the CPU must give exactly the same mixed batch, labels and weight;
+    one draw from a generator on the card runs too."""
+    from kstar_torch.train import mixup as mx
+
+    g = torch.Generator().manual_seed(seed + 70)
+    x = torch.randn(16, SEQ_LEN, CROP, CROP, 3, generator=g)
+    y = torch.randint(0, 2, (16,), generator=g)
+    x_dev, y_dev = x.to(dev), y.to(dev)
+    results, ok = {}, True
+    cases = [("mixup", None, mx.mixup_draw(g, 16))]
+    cases += [(f"cutmix_{m}", m, mx.video_cutmix_draw(g, x.shape, m)) for m in mx.CUTMIX_MODES]
+    for name, mode, draws in cases:
+        if mode is None:
+            cpu, card = mx.mixup_apply(x, y, *draws), mx.mixup_apply(x_dev, y_dev, *draws)
+        else:
+            cpu = mx.video_cutmix_apply(x, y, mode, *draws)
+            card = mx.video_cutmix_apply(x_dev, y_dev, mode, *draws)
+        equal = all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card))
+        results[name] = dict(equal=equal, lam=float(draws[0]), lam_adj=float(cpu[3]),
+                             replaced_share=float((cpu[0] != x).float().mean()))
+        ok = ok and equal
+    gen_dev = torch.Generator(device=dev).manual_seed(seed)
+    on_card = mx.video_cutmix(gen_dev, x_dev, y_dev, mode="both")
+    ok = ok and bool(torch.isfinite(on_card[0]).all()) and on_card[0].device.type == "cuda"
+    return ok, dict(batch=list(x.shape), dtype="float32", cases=results)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2888,16 +3352,35 @@ def main() -> int:
                            ("xai", xai_ok), ("compute_time", timing_ok)):
         if not phase_ok:
             failures.append(name)
+
+    # ---- the dataset ETL, seed ensembles, hyper-parameter search, mixup ----
+    t0 = time.perf_counter()
+    etl_ok, etl_fields, k1_etl = etl_phase(args.seed, f"{cli_root}/etl", dev)
+    emit("etl", **etl_fields, seconds=time.perf_counter() - t0, ok=etl_ok)
+    t0 = time.perf_counter()
+    ens_ok, ens_fields, k1_ensemble = ensemble_phase(args.seed, f"{cli_root}/ensemble",
+                                                     frames, dev)
+    emit("ensemble", **ens_fields, seconds=time.perf_counter() - t0, ok=ens_ok)
+    t0 = time.perf_counter()
+    hpo_ok, hpo_fields = hpo_phase(cli_root)
+    emit("hpo", **hpo_fields, seconds=time.perf_counter() - t0, ok=hpo_ok)
+    t0 = time.perf_counter()
+    mix_ok, mix_fields = mixup_phase(args.seed, dev)
+    emit("mixup", **mix_fields, seconds=time.perf_counter() - t0, ok=mix_ok)
+    for name, phase_ok in (("etl", etl_ok), ("ensemble", ens_ok), ("hpo", hpo_ok),
+                           ("mixup", mix_ok)):
+        if not phase_ok:
+            failures.append(name)
     cli_dir.cleanup()
 
     # K3's launches on the main paths: the ViViT stream, and the conv models'
     # sweeps, streams, CLI alarm sweeps and reload sweep; the L = 20 row the
     # SlowFast part. K1's: the sweeps above plus the reload and prediction
-    # sweeps.
+    # sweeps, the ETL-built shot's sweep and the ViViT ensemble's alarm sweep.
     k3_slowfast = k3_sweep["SlowFast"] + k3_stream["SlowFast"] + k3_reload
     launches["gather_normalize"] += (sum(k3_sweep.values()) + sum(k3_stream.values())
                                      + k3_cli + k3_reload)
-    launches["spatial_table"] += k1_reload + k1_prediction
+    launches["spatial_table"] += k1_reload + k1_prediction + k1_etl + k1_ensemble
 
     kernel_rows = []
     for c in checks:

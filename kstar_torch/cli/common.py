@@ -22,8 +22,7 @@ from ..config import LossConfig, OptimConfig, TrainConfig, tag_for
 from ..data import VideoStore
 
 
-# options not ported yet -> the ROADMAP.md Queue 1 item that ports them
-ITEM_ENSEMBLE = "ROADMAP.md Queue 1 item 13 (search and ensembles)"
+# the option not ported yet -> the ROADMAP.md Queue 1 item that ports it
 ITEM_DP = "ROADMAP.md Queue 1 item 14 (parallel)"
 
 
@@ -52,14 +51,28 @@ def save_figure(fig, path: str):
     return fig
 
 
-def refuse_ensemble_and_dp(args) -> None:
-    """SystemExit naming the ROADMAP item for several ``--seeds`` (the
-    vmapped ensemble) or ``--dp``, which no train CLI of the port has yet."""
-    if args.seeds and len(args.seeds) > 1:
-        raise SystemExit("--seeds with more than one seed (the vmapped ensemble) "
-                         f"is not ported to kstar_torch yet: {ITEM_ENSEMBLE}")
+def refuse_dp(args) -> None:
+    """SystemExit naming the ROADMAP item for ``--dp``, which no train CLI
+    of the port has yet."""
     if args.dp:
         raise SystemExit(f"--dp is not ported to kstar_torch yet: {ITEM_DP}")
+
+
+def ensemble_tag(tag: str, args) -> str:
+    """The tag the members' ``{tag}_seed_{s}`` names extend: the CLI's tag
+    without its own ``_seed_N`` suffix (an explicit ``--tag`` as given), as
+    the JAX CLIs name the reference's per-seed sweep checkpoints."""
+    return tag.rsplit("_seed_", 1)[0] if args.tag is None else tag
+
+
+def report_ensemble(seeds, hists) -> int:
+    """Print each seed's best valid F1 and the seed the CLI continues with
+    (the argmax); returns its index."""
+    for s, h in zip(seeds, hists):
+        print(f"seed {s}: best valid f1 {h.best_f1:.4f} @ epoch {h.best_epoch + 1}")
+    best_i = int(np.argmax([h.best_f1 for h in hists]))
+    print(f"continuing with best seed {seeds[best_i]}")
+    return best_i
 
 
 def add_common_args(p: argparse.ArgumentParser, batch_size: int = 64) -> None:

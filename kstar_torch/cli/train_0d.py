@@ -9,10 +9,12 @@ probability figures.
 Usage (the GPU by default; ``--device cpu`` runs on the CPU):
     python -m kstar_torch.cli.train_0d --model MLSTM_FCN --synthetic --num_epoch 4
 
-Not ported yet, each refused with the ROADMAP.md Queue 1 item that ports
-it: several ``--seeds`` at once (item 13), ``--dp`` (item 14). Figures go
-through ``common.draw_figure``: without matplotlib each is skipped with a
-line that names its file.
+Several ``--seeds`` train a seed ensemble (``train/ensemble.py``): one
+``{tag}_seed_{s}_{best,last}.ckpt`` pair per seed, then the evaluation and
+the extras go on with the seed of the best valid F1. ``--dp`` is not ported
+yet (refused, ROADMAP.md Queue 1 item 14). Figures go through
+``common.draw_figure``: without matplotlib each is skipped with a line that
+names its file.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import os
 import numpy as np
 import torch
 
-from .common import ITEM_ENSEMBLE, refuse_ensemble_and_dp
+from .common import refuse_dp
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -51,8 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--skip_extras", action="store_true",
                    help="skip feature importance and the probability curve")
     p.add_argument("--seeds", type=int, nargs="+", default=None,
-                   help="one seed trains with that seed; several (an "
-                        f"ensemble) wait for {ITEM_ENSEMBLE}")
+                   help="one seed trains with that seed; several train a "
+                        "seed ensemble and go on with the best member")
     return p
 
 
@@ -81,7 +83,7 @@ def main(argv=None):
     if args.seeds and len(args.seeds) == 1:
         # a single --seeds value trains the normal path with that seed
         args.random_seed, args.seeds = args.seeds[0], None
-    refuse_ensemble_and_dp(args)
+    refuse_dp(args)
 
     from .. import resolve_device
     from ..config import DT_0D, Schema
@@ -90,9 +92,11 @@ def main(argv=None):
                         evaluation_figure, plot_feature_importance)
     from ..infer import predict_0d_shot
     from ..models import build_0d_model
-    from ..train import MetricWriter, create_train_state, fit, load_checkpoint
+    from ..train import (MetricWriter, create_ensemble_state, create_train_state, fit,
+                         fit_ensemble, load_checkpoint)
     from ..viz import plot_learning_curve, plot_shot_probability, visualize_latent_space
-    from .common import configs_from_args, draw_figure, load_data, make_tag, save_figure
+    from .common import (configs_from_args, draw_figure, ensemble_tag, load_data, make_tag,
+                         report_ensemble, save_figure)
 
     device = resolve_device(args.device)
     train_cfg, loss_cfg, optim_cfg = configs_from_args(args)
@@ -114,31 +118,43 @@ def main(argv=None):
           f"| class counts {train_ds.class_counts().tolist()}")
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
-    init = torch.Generator().manual_seed(args.random_seed)
-    model = build_0d_model(args.model, model_config(args, len(cols)), dtype=dtype,
-                           generator=init).to(device)
-
+    make_model = lambda gen: build_0d_model(args.model, model_config(args, len(cols)),
+                                            dtype=dtype, generator=gen)
     steps = max(len(train_ds) // args.batch_size, 1)
-    state = create_train_state(model, optim_cfg, steps_per_epoch=steps,
-                               seed=args.random_seed)
-
     tag = args.tag or make_tag(args.model, args, loss_cfg, train_cfg)
-    if args.resume:
-        last = os.path.join(args.weight_dir, f"{tag}_last.ckpt")
-        if os.path.exists(last):
-            state = load_checkpoint(state, last)
-            print(f"resumed from {last} at step {int(state.step)}")
     writer = MetricWriter(os.path.join(args.save_dir, "tensorboard", tag))
     sampler = ImbalancedSampler(train_ds.labels) if args.use_sampling else None
 
-    state, hist = fit(state, train_ds, valid_ds, train_cfg, loss_cfg, tag=tag,
-                      sampler=sampler, writer=writer)
+    if args.seeds:
+        # the seed ensemble: members train on shared batches, then the run
+        # goes on with the member of the best valid F1
+        ens_tag = ensemble_tag(tag, args)
+        states = create_ensemble_state(make_model, args.seeds, optim_cfg,
+                                       steps_per_epoch=steps, device=device)
+        states, hists = fit_ensemble(states, args.seeds, train_ds, valid_ds,
+                                     train_cfg, loss_cfg, tag=ens_tag, sampler=sampler)
+        best_i = report_ensemble(args.seeds, hists)
+        state, hist = states[best_i], hists[best_i]
+        best_path = os.path.join(args.weight_dir,
+                                 f"{ens_tag}_seed_{args.seeds[best_i]}_best.ckpt")
+    else:
+        model = make_model(torch.Generator().manual_seed(args.random_seed)).to(device)
+        state = create_train_state(model, optim_cfg, steps_per_epoch=steps,
+                                   seed=args.random_seed)
+        if args.resume:
+            last = os.path.join(args.weight_dir, f"{tag}_last.ckpt")
+            if os.path.exists(last):
+                state = load_checkpoint(state, last)
+                print(f"resumed from {last} at step {int(state.step)}")
+        state, hist = fit(state, train_ds, valid_ds, train_cfg, loss_cfg, tag=tag,
+                          sampler=sampler, writer=writer)
+        best_path = os.path.join(args.weight_dir, f"{tag}_best.ckpt")
+    model = state.model
     lc_path = os.path.join(args.save_dir, f"{tag}_learning_curve.png")
     draw_figure(lc_path, lambda: plot_learning_curve(hist, lc_path))
 
     # test evaluation + extras run on the BEST checkpoint, not the final
     # epoch (reference train_0D_network.py:393 reloads best before eval)
-    best_path = os.path.join(args.weight_dir, f"{tag}_best.ckpt")
     if os.path.exists(best_path):
         state = load_checkpoint(state, best_path)
 

@@ -11,10 +11,10 @@ Usage (the GPU by default; ``--device cpu`` runs on the CPU):
     python -m kstar_torch.cli.train_multimodal --model_type concat --synthetic
     python -m kstar_torch.cli.train_multimodal --model_type TFN --use_GB --gb_dynamic
 
-Not ported yet, each refused with the ROADMAP.md Queue 1 item that ports
-it: several ``--seeds`` at once (item 13), ``--dp`` (item 14). Figures go
-through ``common.draw_figure``: without matplotlib each is skipped with a
-line that names its file.
+Refused: several ``--seeds`` at once (the JAX package has no multimodal
+ensemble; this option is the port's own) and ``--dp`` (not ported yet,
+ROADMAP.md Queue 1 item 14). Figures go through ``common.draw_figure``:
+without matplotlib each is skipped with a line that names its file.
 """
 
 from __future__ import annotations
@@ -25,7 +25,10 @@ import os
 import numpy as np
 import torch
 
-from .common import ITEM_ENSEMBLE, refuse_ensemble_and_dp
+from .common import refuse_dp
+
+NO_ENSEMBLE = ("--seeds with more than one seed is refused: the JAX package has no "
+               "multimodal ensemble (its train_multimodal has no --seeds)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,8 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--w_multi", type=float, default=0.5)
     p.add_argument("--tag", type=str, default=None)
     p.add_argument("--seeds", type=int, nargs="+", default=None,
-                   help="one seed trains with that seed; several (an "
-                        f"ensemble) wait for {ITEM_ENSEMBLE}")
+                   help="one seed trains with that seed; several are refused "
+                        "(the JAX package has no multimodal ensemble)")
     add_common_args(p, batch_size=32)
     p.add_argument("--tau", type=int, default=1)
     p.add_argument("--synthetic_dt", type=float, default=4.0 / 210.0,
@@ -81,7 +84,9 @@ def main(argv=None):
     if args.seeds and len(args.seeds) == 1:
         # a single --seeds value trains the normal path with that seed
         args.random_seed, args.seeds = args.seeds[0], None
-    refuse_ensemble_and_dp(args)
+    if args.seeds:
+        raise SystemExit(NO_ENSEMBLE)
+    refuse_dp(args)
 
     from .. import resolve_device
     from ..config import DT_MULTI, AugmentConfig, Schema

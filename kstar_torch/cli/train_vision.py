@@ -16,10 +16,13 @@ keeps ``--seq_len`` (as the JAX CLI's does).
 With ``--bn_splits`` the SubBatchNorm statistics are aggregated after
 every train epoch (``fit(eval_stats_fn=aggregate_batch_stats)``).
 
-Not ported yet, each refused with the ROADMAP.md Queue 1 item that ports
-it: several ``--seeds`` at once (item 13), ``--dp`` (item 14). Figures go
-through ``common.draw_figure``: without matplotlib each is skipped with a
-line that names its file.
+Several ``--seeds`` train a seed ensemble (``train/ensemble.py``): one
+``{tag}_seed_{s}_{best,last}.ckpt`` pair per seed, then the evaluation and
+the alarm sweep go on with the seed of the best valid F1; with
+``--bn_splits`` they are refused, as in JAX. ``--dp`` is not ported yet
+(refused, ROADMAP.md Queue 1 item 14). Figures go through
+``common.draw_figure``: without matplotlib each is skipped with a line that
+names its file.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import os
 import numpy as np
 import torch
 
-from .common import ITEM_ENSEMBLE, refuse_ensemble_and_dp
+from .common import refuse_dp
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,8 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["ViViT", "SlowFast", "R2Plus1D"])
     p.add_argument("--tag", type=str, default=None)
     p.add_argument("--seeds", type=int, nargs="+", default=None,
-                   help="one seed trains with that seed; several (an "
-                        f"ensemble) wait for {ITEM_ENSEMBLE}")
+                   help="one seed trains with that seed; several train a "
+                        "seed ensemble and go on with the best member")
     add_common_args(p, batch_size=64)
     p.add_argument("--image_size", type=int, default=128)
     # augmentation (reference train_vision_network.py:52-63)
@@ -85,14 +88,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args) -> None:
-    """SystemExit naming the ROADMAP item for each option not ported yet,
-    and for ``--bn_splits`` with an ensemble (as the JAX CLI refuses it)."""
+def refuse_unsupported(args) -> None:
+    """SystemExit for ``--bn_splits`` with an ensemble (as the JAX CLI
+    refuses it) and for ``--dp``, not ported yet."""
     if args.bn_splits and args.seeds and len(args.seeds) > 1:
-        raise SystemExit("--bn_splits is not supported with several --seeds (the "
-                         "statistics' aggregation runs in the single-model fit "
-                         f"loop; the ensemble is {ITEM_ENSEMBLE})")
-    refuse_ensemble_and_dp(args)
+        raise SystemExit("--bn_splits is not supported with the --seeds ensemble "
+                         "(stat aggregation is wired into the single-model fit loop)")
+    refuse_dp(args)
 
 
 def model_config(args):
@@ -127,7 +129,7 @@ def main(argv=None):
     if args.seeds and len(args.seeds) == 1:
         # a single --seeds value trains the normal path with that seed
         args.random_seed, args.seeds = args.seeds[0], None
-    refuse_unported(args)
+    refuse_unsupported(args)
 
     from .. import resolve_device
     from ..config import AugmentConfig
@@ -135,11 +137,12 @@ def main(argv=None):
     from ..data.augment import make_pre_fns
     from ..eval.evaluate import evaluate
     from ..models import aggregate_batch_stats, build_video_model
-    from ..train import (MetricWriter, create_train_state, fit,
-                         load_checkpoint)
+    from ..train import (MetricWriter, create_ensemble_state, create_train_state, fit,
+                         fit_ensemble, load_checkpoint)
     from ..viz import plot_learning_curve
     from .common import (configs_from_args, draw_figure, emit_alarm_artifacts,
-                         load_data, make_tag, partition_shots, resolve_normal_splits)
+                         ensemble_tag, load_data, make_tag, partition_shots,
+                         report_ensemble, resolve_normal_splits)
 
     device = resolve_device(args.device)
     train_cfg, loss_cfg, optim_cfg = configs_from_args(args)
@@ -165,8 +168,7 @@ def main(argv=None):
           f"| class counts {train_ds.class_counts().tolist()}")
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
-    init = torch.Generator().manual_seed(args.random_seed)
-    model = build_video_model(args.model, cfg, dtype=dtype, generator=init).to(device)
+    make_model = lambda gen: build_video_model(args.model, cfg, dtype=dtype, generator=gen)
 
     aug = AugmentConfig(
         bright_val=args.bright_val, bright_p=args.bright_p,
@@ -183,28 +185,44 @@ def main(argv=None):
     put_raw = lambda bl: to_device(bl, device)
 
     steps = max(len(train_ds) // args.batch_size, 1)
-    state = create_train_state(model, optim_cfg, steps_per_epoch=steps,
-                               seed=args.random_seed)
-
     tag = args.tag or make_tag(args.model, args, loss_cfg, train_cfg)
-    if args.resume:
-        last = os.path.join(args.weight_dir, f"{tag}_last.ckpt")
-        if os.path.exists(last):
-            state = load_checkpoint(state, last)
-            print(f"resumed from {last} at step {int(state.step)}")
     writer = MetricWriter(os.path.join(args.save_dir, "tensorboard", tag))
     sampler = ImbalancedSampler(train_ds.labels) if args.use_sampling else None
 
-    state, hist = fit(state, train_ds, valid_ds, train_cfg, loss_cfg, tag=tag,
-                      sampler=sampler, writer=writer, put=put_raw,
-                      put_eval=put_raw, pre_fn=pre_train, pre_fn_eval=pre_eval,
-                      eval_stats_fn=aggregate_batch_stats if args.bn_splits else None)
+    if args.seeds:
+        # the seed ensemble: members train on shared batches (each member
+        # augments with its own draws), then the run goes on with the member
+        # of the best valid F1
+        ens_tag = ensemble_tag(tag, args)
+        states = create_ensemble_state(make_model, args.seeds, optim_cfg,
+                                       steps_per_epoch=steps, device=device)
+        states, hists = fit_ensemble(states, args.seeds, train_ds, valid_ds,
+                                     train_cfg, loss_cfg, tag=ens_tag, sampler=sampler,
+                                     put=put_raw, pre_fn=pre_train, pre_fn_eval=pre_eval)
+        best_i = report_ensemble(args.seeds, hists)
+        state, hist = states[best_i], hists[best_i]
+        best_path = os.path.join(args.weight_dir,
+                                 f"{ens_tag}_seed_{args.seeds[best_i]}_best.ckpt")
+    else:
+        model = make_model(torch.Generator().manual_seed(args.random_seed)).to(device)
+        state = create_train_state(model, optim_cfg, steps_per_epoch=steps,
+                                   seed=args.random_seed)
+        if args.resume:
+            last = os.path.join(args.weight_dir, f"{tag}_last.ckpt")
+            if os.path.exists(last):
+                state = load_checkpoint(state, last)
+                print(f"resumed from {last} at step {int(state.step)}")
+        state, hist = fit(state, train_ds, valid_ds, train_cfg, loss_cfg, tag=tag,
+                          sampler=sampler, writer=writer, put=put_raw,
+                          put_eval=put_raw, pre_fn=pre_train, pre_fn_eval=pre_eval,
+                          eval_stats_fn=aggregate_batch_stats if args.bn_splits else None)
+        best_path = os.path.join(args.weight_dir, f"{tag}_best.ckpt")
+    model = state.model
     lc_path = os.path.join(args.save_dir, f"{tag}_learning_curve.png")
     draw_figure(lc_path, lambda: plot_learning_curve(hist, lc_path))
 
     # test evaluation + extras run on the BEST checkpoint, not the final
     # epoch (reference train_vision_network.py:393 reloads best before eval)
-    best_path = os.path.join(args.weight_dir, f"{tag}_best.ckpt")
     if os.path.exists(best_path):
         state = load_checkpoint(state, best_path)
 

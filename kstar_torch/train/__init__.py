@@ -1,8 +1,9 @@
 """The port's training core (``kstar_tpu/train``): state and optax-exact
-optimizers, the guarded train step (single-stream and multimodal), epoch
-drivers, Gradient Blending (``gb``), CCA pre-training (``cca``), metrics,
-early stopping and metric logging. ``mixup``, ``ensemble`` and the HPO
-modules are not ported yet (ROADMAP.md Queue 1)."""
+optimizers, the guarded train step (single-stream and multimodal), the
+epoch loops (``fit``), seed ensembles (``ensemble``), Gradient Blending
+(``gb``), CCA pre-training (``cca``), mixup and video CutMix (``mixup``),
+ASHA/TPE search (``hpo``, ``tpe``; ``hpo_vmap`` keeps JAX's grouping names),
+metrics, early stopping and metric logging."""
 
 from .early_stopping import EarlyStopping
 from .logging import MetricWriter
@@ -13,3 +14,8 @@ from .metrics import (accuracy, classification_report, confusion_matrix,
                       softmax_np, threshold_predict)
 from .state import (Optimizer, TrainState, create_train_state, load_checkpoint,
                     load_params, make_optimizer, save_checkpoint)
+from . import cca, gb, hpo, mixup
+from .gb import fit_gb, gb_estimate
+from .ensemble import (create_ensemble_state, fit_ensemble,
+                       make_ensemble_eval, make_ensemble_step,
+                       unstack_ensemble)

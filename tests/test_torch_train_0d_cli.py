@@ -1,11 +1,13 @@
 """The port's train_0d CLI on the CPU at tiny widths: the same dataset sizes
 and class counts as kstar_tpu's CLI builds from the same seed, the report,
-checkpoints, feature importance and probability curve, an exact resume, and
-the options not ported yet refused with the ROADMAP item that ports them."""
+checkpoints, feature importance and probability curve, an exact resume,
+several --seeds training a seed ensemble that goes on with its best seed, and
+--dp refused with the ROADMAP item that ports it."""
 
 import os
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -76,8 +78,39 @@ def test_cli_trains_reports_and_resumes(tmp_path, capsys, model):
     assert int(torch.load(tmp_path / "w" / f"{tag}_last.ckpt")["step"]) > int(saved["step"])
 
 
+def test_seeds_train_an_ensemble_and_go_on_with_the_best(tmp_path, capsys, monkeypatch):
+    """Several --seeds: one checkpoint pair per seed under JAX's
+    ``{tag}_seed_{s}`` names, each seed's best valid F1 printed, and the
+    evaluation and extras go on with the argmax seed's best checkpoint."""
+    from kstar_torch import eval as eval_package
+
+    scored = []
+    real_evaluate = eval_package.evaluate
+
+    def recording_evaluate(model, *a, **k):
+        scored.append({n: v.clone() for n, v in model.state_dict().items()})
+        return real_evaluate(model, *a, **k)
+
+    monkeypatch.setattr(eval_package, "evaluate", recording_evaluate)
+    train_0d.main(TINY + ["--model", "MLSTM_FCN", "--seeds", "40", "41", "--device", "cpu",
+                          "--num_epoch", "2", "--weight_dir", str(tmp_path / "w"),
+                          "--save_dir", str(tmp_path / "r")])
+    out = capsys.readouterr().out
+    f1s = [float(f) for f in re.findall(r"seed \d+: best valid f1 ([0-9.]+)", out)]
+    assert re.findall(r"seed (\d+): best valid f1", out) == ["40", "41"]
+    best = int(re.search(r"continuing with best seed (\d+)", out).group(1))
+    assert best == (40, 41)[int(np.argmax(f1s))]
+    stem = "MLSTM_FCN_clip_21_dist_3_Focal_Normal"
+    for s in (40, 41):
+        for end in ("last", "best"):
+            assert (tmp_path / "w" / f"{stem}_seed_{s}_{end}.ckpt").exists()
+    assert (tmp_path / "r" / f"{stem}_seed_42_report.txt").exists()
+    assert re.search(r"probability curve of shot \d+: \d+ samples", out)
+    want = torch.load(tmp_path / "w" / f"{stem}_seed_{best}_best.ckpt")["model"]
+    assert len(scored) == 1 and all(torch.equal(scored[0][k], want[k]) for k in want)
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["--seeds", "1", "2"], "item 13"),
     (["--dp", "2"], "item 14"),
 ])
 def test_unported_options_exit_with_roadmap_item(extra, item):

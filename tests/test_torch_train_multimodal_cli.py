@@ -1,8 +1,9 @@
 """The port's train_multimodal CLI on the CPU at tiny widths: the same
 dataset sizes and class counts as kstar_tpu's CLI builds from the same
 seed, the report, checkpoints and alarm artifacts for concat fusion and for
-TFN with dynamic Gradient Blending, an exact resume, and the options not
-ported yet refused with the ROADMAP item that ports them."""
+TFN with dynamic Gradient Blending, an exact resume, several --seeds refused
+(the JAX package has no multimodal ensemble), and --dp refused with the
+ROADMAP item that ports it."""
 
 import json
 import re
@@ -97,7 +98,7 @@ def test_cli_trains_reports_sweeps_and_resumes(tmp_path, capsys, extra, tag):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--seeds", "1", "2"], "item 13"),
+    (["--seeds", "1", "2"], "the JAX package has no multimodal ensemble"),
     (["--dp", "2"], "item 14"),
 ])
 def test_unported_options_exit_with_roadmap_item(extra, item):

@@ -1,12 +1,15 @@
 """The port's train_vision CLI on the CPU at tiny widths: the same dataset
 sizes and class counts as kstar_tpu's CLI builds from the same seed, the
 report, checkpoints and alarm artifacts written, an exact resume, the conv
-models (R(2+1)D, SlowFast, SlowFast with --bn_splits) trained and swept, and
-the options not ported yet refused with the ROADMAP item that ports them."""
+models (R(2+1)D, SlowFast, SlowFast with --bn_splits) trained and swept,
+several --seeds training a seed ensemble that goes on with its best seed
+(refused with --bn_splits, as in JAX), and --dp refused with the ROADMAP item
+that ports it."""
 
 import os
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -121,9 +124,52 @@ def test_bn_splits_needs_a_divisible_batch():
                                   "--bn_splits", "3"])
 
 
+def test_seeds_train_an_ensemble_and_go_on_with_the_best(tmp_path, capsys, monkeypatch):
+    """Several --seeds: one checkpoint pair per seed under JAX's
+    ``{tag}_seed_{s}`` names, each seed's best valid F1 printed, and the
+    evaluation and alarm sweep go on with the argmax seed's best checkpoint."""
+    import importlib
+
+    evaluate_module = importlib.import_module("kstar_torch.eval.evaluate")
+    scored = []
+    real_evaluate = evaluate_module.evaluate
+
+    def recording_evaluate(model, *a, **k):
+        scored.append({n: v.clone() for n, v in model.state_dict().items()})
+        return real_evaluate(model, *a, **k)
+
+    monkeypatch.setattr(evaluate_module, "evaluate", recording_evaluate)
+    train_vision.main(TINY + ["--seeds", "1", "2", "--weight_dir", str(tmp_path / "w"),
+                              "--save_dir", str(tmp_path / "r"), "--device", "cpu",
+                              "--num_epoch", "2"])
+    out = capsys.readouterr().out
+    f1s = [float(f) for f in re.findall(r"seed \d+: best valid f1 ([0-9.]+)", out)]
+    assert re.findall(r"seed (\d+): best valid f1", out) == ["1", "2"]
+    best = int(re.search(r"continuing with best seed (\d+)", out).group(1))
+    assert best == (1, 2)[int(np.argmax(f1s))]
+    stem = "ViViT_clip_5_dist_3_Focal_Normal"
+    for s in (1, 2):
+        for end in ("last", "best"):
+            assert (tmp_path / "w" / f"{stem}_seed_{s}_{end}.ckpt").exists()
+    assert not (tmp_path / "w" / f"{stem}_seed_42_last.ckpt").exists()
+    for name in ("_report.txt", "_alarms.json", "_operating_grid.csv"):
+        assert (tmp_path / "r" / f"{stem}_seed_42{name}").exists(), name
+    assert "alarm summary" in out and "alarm evaluation skipped" not in out
+    # the test evaluation scored the best seed's best checkpoint
+    want = torch.load(tmp_path / "w" / f"{stem}_seed_{best}_best.ckpt")["model"]
+    assert len(scored) == 1 and scored[0].keys() == want.keys()
+    assert all(torch.equal(scored[0][k], want[k]) for k in want)
+
+
+def test_seeds_with_bn_splits_refused_as_jax():
+    """JAX's refusal (kstar_tpu/cli/train_vision.py:182-185), in its words."""
+    with pytest.raises(SystemExit, match=r"^--bn_splits is not supported with the --seeds "
+                       r"ensemble \(stat aggregation is wired into the single-model fit"):
+        train_vision.main(TINY + ["--device", "cpu", "--model", "SlowFast", "--seeds", "1",
+                                  "2", "--bn_splits", "2"])
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["--seeds", "1", "2"], "item 13"),
-    (["--seeds", "1", "2", "--bn_splits", "2"], "item 13"),
     (["--dp", "2"], "item 14"),
 ])
 def test_unported_options_exit_with_roadmap_item(extra, item):
