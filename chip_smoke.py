@@ -135,6 +135,19 @@ and then the dataset ETL, seed ensembles, hyper-parameter search and mixup:
   mixup     mixup and the three video CutMix modes: the same draws on the
             card and on the CPU give the same batch exactly
 
+and last data parallelism over torch.distributed (kstar_torch/parallel),
+in a NCCL group of this one process and a gloo group of two spawned ranks
+that share the card (NCCL refuses two ranks on one device):
+
+  parallel  train_vision --dp 1 at the flagship widths (the alarm sweep
+            runs the table kernel); 3 data-parallel steps against 3 plain
+            steps at batch 64; one NCCL all-reduce of the ViViT's flat
+            gradient and the two steps' p50; VideoSweeper(mesh=) over the
+            library's six shots against the unsharded sweep; a sharded
+            checkpoint round trip; on the two gloo ranks, MLSTM-FCN's
+            data-parallel steps and the ViViT library sweep (the table
+            kernel on both ranks) against one rank
+
 Every phase prints one JSON line and any failure exits non-zero. Then come
 the per-kernel summary line, the card's name and power limit as nvidia-smi
 reports them, and the result line {"ok": true, "device": {...}}. Without
@@ -2744,6 +2757,227 @@ def mixup_phase(seed: int, dev) -> tuple:
     return ok, dict(batch=list(x.shape), dtype="float32", cases=results)
 
 
+# ---------------------------------------------------------------------------
+# Parallel: --dp over torch.distributed (NCCL at world 1; two gloo ranks
+# sharing the card)
+# ---------------------------------------------------------------------------
+
+PAR_WARMUP, PAR_TIMED = 5, 30      # steps, as the train phase times them
+PAR_PARITY_TOL = 1e-6              # DP against plain at world 1: losses, parameters
+PAIR_SGD = dict(optimizer="SGD", lr=0.05, use_scheduler=False, max_norm_grad=1.0)
+PAIR_TOL = 1e-4                    # pair against world 1, f32: losses (relative), parameters
+
+
+def pair_batches(seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 20)
+    x = rng.normal(size=(3, TS_BATCH, SEQ_LEN, 18)).astype(np.float32)
+    y = rng.integers(0, 2, size=(3, TS_BATCH)).astype(np.int64)
+    return x, y
+
+
+def pair_mlstm(seed: int, dev, mesh=None):
+    """The MLSTM-FCN at its default widths (f32) and 3 SGD steps on the
+    pair's batches, data-parallel on ``mesh``: (losses, final flat)."""
+    from kstar_torch.config import LossConfig, MLSTMFCNConfig, OptimConfig
+    from kstar_torch.models import build_0d_model
+    from kstar_torch.parallel import put_batch
+    from kstar_torch.train import create_train_state, make_train_step
+
+    model = build_0d_model("MLSTM_FCN", MLSTMFCNConfig(),
+                           generator=torch.Generator().manual_seed(seed)).to(dev)
+    st = create_train_state(model, OptimConfig(**PAIR_SGD), seed=seed)
+    step = make_train_step(LossConfig(), mesh=mesh)
+    put = (lambda a: torch.as_tensor(a).to(dev)) if mesh is None else \
+        (lambda a: put_batch(mesh, a))
+    w, m = torch.ones(2, device=dev), torch.tensor([0.3, 0.5], device=dev)
+    x, y = pair_batches(seed)
+    losses = [float(step(st, put(x[i]), put(y[i]), w, m)[1]) for i in range(len(x))]
+    return losses, st.flat.detach().cpu()
+
+
+def pair_rank(rank: int, root: str, seed: int) -> None:
+    """One of two ranks of a gloo group on cuda:0 (NCCL refuses two ranks on
+    one device): the MLSTM-FCN data-parallel steps and the ViViT library
+    sweep (each rank sweeps its half through the spatial-table kernel)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from kstar_torch.config import MeshConfig, ViViTConfig
+    from kstar_torch.infer import VideoSweeper
+    from kstar_torch.models import build_video_model
+    from kstar_torch.ops import _build
+    from kstar_torch.parallel import init_multihost, make_mesh
+
+    _build.build()                         # the parent's build, loaded
+    torch.backends.cuda.matmul.allow_tf32 = False   # the parent's arithmetic (main)
+    torch.backends.cudnn.allow_tf32 = False
+    init_multihost(f"file://{root}/pair_store", 2, rank, device="cuda", backend="gloo")
+    mesh = make_mesh(MeshConfig(data=2, model=1), devices=["cuda:0", "cuda:0"])
+    losses, flat = pair_mlstm(seed, mesh.device, mesh)
+    lib = np.load(f"{root}/lib.npz")
+    shots = [lib[f"arr_{i}"] for i in range(len(lib.files))]
+    starts = [np.arange(len(s) - SEQ_LEN - 1, dtype=np.int64) for s in shots]
+    model = build_video_model("ViViT", ViViTConfig(), dtype=torch.bfloat16,
+                              generator=torch.Generator().manual_seed(seed)).to(mesh.device)
+    kernel_launches(reset=True)
+    curves = VideoSweeper(model, SEQ_LEN, CROP, BATCH, torch.bfloat16,
+                          mesh=mesh).sweep_shots(shots, starts)
+    torch.save({"losses": losses, "flat": flat, "curves": curves,
+                "k1": kernel_launches()["spatial_table"], "backend": dist.get_backend()},
+               f"{root}/pair_{rank}.pt")
+    dist.destroy_process_group()
+
+
+def parallel_phase(seed: int, root: str, frames, cfg, model, lib, lib_starts, lib_probs,
+                   budget: int, dev) -> tuple:
+    """The port's data parallelism on the card, in a NCCL group of one rank
+    (this process) and a gloo group of two ranks sharing the card:
+
+      (a) train_vision --dp 1 at the flagship widths with train_cli's
+          synthetic arguments (its alarm sweep launches the table kernel);
+          3 data-parallel steps against 3 plain steps from the same weights
+          on the same batches (batch 64, augmentation and dropout on: the
+          all-reduces are identities at world 1);
+      (b) one NCCL all-reduce of the ViViT's flat gradient, and the
+          data-parallel step's p50 against the plain step's at batch 64
+          (5 warm-up and 30 timed steps each, host clock to a synchronise);
+      (c) VideoSweeper(mesh=) over the library's six shots against the
+          unsharded sweep (the same groups: equal);
+      (d) a sharded checkpoint of the data-parallel state and its round
+          trip into a state of another seed (bit-exact);
+      (e) two gloo ranks on cuda:0: MLSTM-FCN (default widths, f32, SGD)
+          3 data-parallel steps at global batch 256 against one rank, and
+          the ViViT library sweep split over the two (the table kernel on
+          both) against (c)'s curves.
+
+    Returns (ok, fields, K1 launches of (a) and (c))."""
+    import numpy as np
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from kstar_torch.cli import train_vision
+    from kstar_torch.config import LossConfig, MeshConfig, OptimConfig
+    from kstar_torch.data import make_pre_fns, to_device
+    from kstar_torch.infer import VideoSweeper
+    from kstar_torch.models import build_video_model
+    from kstar_torch.parallel import init_multihost, make_mesh, put_batch, replicate_state
+    from kstar_torch.train import create_train_state, make_train_step
+    from kstar_torch.train.state import load_checkpoint_sharded, save_checkpoint_sharded
+
+    os.makedirs(root, exist_ok=True)
+    init_multihost(f"file://{root}/store", 1, 0, device="cuda")
+    mesh = make_mesh(MeshConfig(data=1, model=1))
+    fields = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    ok = fields["backend"] == "nccl"
+
+    # (a) the CLI
+    argv = ["--model", "ViViT", "--synthetic", "--weight_dir", f"{root}/w",
+            "--save_dir", f"{root}/r", "--verbose", "1", "--num_epoch", "2", "--dp", "1"]
+    _, text, wall, launches_k = run_cli(train_vision.main, argv)
+    ckpts = sorted(f for f in os.listdir(f"{root}/w") if f.endswith(".ckpt"))
+    k1 = launches_k["spatial_table"]
+    fields["train_vision_dp1"] = dict(wall_s=wall, spatial_table_launches=k1,
+                                      test_line=test_line(text), checkpoints=ckpts)
+    ok = ok and k1 > 0 and len(ckpts) == 2 and test_line(text) is not None
+
+    # (a, b) data-parallel steps against plain steps
+    B = 64
+    rng = np.random.default_rng(seed + 10)
+    starts = rng.integers(0, len(frames) - SEQ_LEN, size=(2, B))
+    clips = [frames[s[:, None] + np.arange(SEQ_LEN)] for s in starts]
+    labels = [rng.integers(0, 2, size=B) for _ in range(2)]
+    pre_train, _ = make_pre_fns(CROP, out_dtype=torch.bfloat16)
+    weight, m_list = torch.ones(2, device=dev), torch.tensor([0.3, 0.5], device=dev)
+    runs = {}
+    for name, m in (("plain", None), ("dp", mesh)):
+        st = create_train_state(
+            build_video_model("ViViT", cfg, dtype=torch.bfloat16,
+                              generator=torch.Generator().manual_seed(seed)).to(dev),
+            OptimConfig(), steps_per_epoch=1, seed=seed)
+        if m is not None:
+            st = replicate_state(st, m)
+        step = make_train_step(LossConfig(), pre_fn=pre_train, mesh=m)
+        put = (lambda a: to_device(a, dev)) if m is None else (lambda a: put_batch(m, a))
+        xs, ys = [put(c) for c in clips], [put(lb) for lb in labels]
+        losses, times, flat3 = [], [], None
+        for i in range(3 + PAR_WARMUP + PAR_TIMED):
+            t0 = time.perf_counter()
+            _, loss, _ = step(st, xs[i % 2], ys[i % 2], weight, m_list)
+            torch.cuda.synchronize()
+            if i < 3:
+                losses.append(float(loss))
+            if i == 2:
+                flat3 = st.flat.clone()
+            if i >= 3 + PAR_WARMUP:
+                times.append((time.perf_counter() - t0) * 1e3)
+        runs[name] = (np.array(losses), flat3, np.array(times), st)
+    loss_err = float(np.max(np.abs(runs["dp"][0] - runs["plain"][0])))
+    param_err = float((runs["dp"][1] - runs["plain"][1]).abs().max())
+    n_params = runs["dp"][3].flat.numel()
+    buf = torch.ones(n_params, device=dev)
+    ar_ms = time_ms(lambda: dist.all_reduce(buf, group=mesh.data_group), 20)
+    fields["steps"] = dict(
+        batch=B, losses_dp=runs["dp"][0].tolist(), losses_plain=runs["plain"][0].tolist(),
+        loss_max_abs=loss_err, param_max_abs=param_err, tol=PAR_PARITY_TOL,
+        dp_step_p50_ms=float(np.median(runs["dp"][2])),
+        plain_step_p50_ms=float(np.median(runs["plain"][2])),
+        steps_timed=PAR_TIMED)
+    fields["all_reduce"] = dict(elements=n_params, bytes=4 * n_params, ms=ar_ms, world=1)
+    ok = ok and loss_err <= PAR_PARITY_TOL and param_err <= PAR_PARITY_TOL
+
+    # (c) the sharded library sweep at world 1
+    kernel_launches(reset=True)
+    got = VideoSweeper(model, SEQ_LEN, CROP, BATCH, torch.bfloat16, mesh=mesh).sweep_shots(
+        lib, lib_starts, hbm_budget_bytes=budget)
+    k1_sweep = kernel_launches()["spatial_table"]
+    sweep_err = max(float(np.abs(a - b).max()) for a, b in zip(got, lib_probs))
+    fields["sharded_sweep"] = dict(shots=len(lib), spatial_table_launches=k1_sweep,
+                                   max_abs_vs_unsharded=sweep_err)
+    k1 += k1_sweep
+    ok = ok and k1_sweep == len(lib) and sweep_err == 0.0
+
+    # (d) the sharded checkpoint round trip
+    st = runs["dp"][3]
+    save_checkpoint_sharded(st, f"{root}/ckpt", mesh)
+    tmpl = create_train_state(
+        build_video_model("ViViT", cfg, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(seed + 1)).to(dev),
+        OptimConfig(), steps_per_epoch=1, seed=seed + 1)
+    load_checkpoint_sharded(tmpl, f"{root}/ckpt", mesh)
+    ckpt_ok = (torch.equal(tmpl.flat, st.flat) and torch.equal(tmpl.step, st.step)
+               and all(torch.equal(tmpl.opt_state[k], v) for k, v in st.opt_state.items())
+               and (tmpl.seed, tmpl.draws) == (st.seed, st.draws))
+    fields["checkpoint_bit_exact"] = ckpt_ok
+    ok = ok and ckpt_ok
+
+    # (e) two gloo ranks on the card, against one rank
+    np.savez(f"{root}/lib.npz", *[f[:, (f.shape[1] - CROP) // 2:(f.shape[1] + CROP) // 2,
+                                      (f.shape[2] - CROP) // 2:(f.shape[2] + CROP) // 2]
+                                   for f in lib])
+    t0 = time.perf_counter()
+    mp.spawn(pair_rank, args=(root, seed), nprocs=2, join=True)
+    pair_s = time.perf_counter() - t0
+    pair = [torch.load(f"{root}/pair_{r}.pt", weights_only=False) for r in range(2)]
+    one_losses, one_flat = pair_mlstm(seed, dev)
+    p_loss = max(float(np.max(np.abs(np.array(p["losses"]) - one_losses) / np.abs(one_losses)))
+                 for p in pair)
+    p_param = max(float((p["flat"] - one_flat).abs().max()) for p in pair)
+    errs = [np.abs(a - b) for p in pair for a, b in zip(p["curves"], lib_probs)]
+    c_max, c_mean = max(float(e.max()) for e in errs), max(float(e.mean()) for e in errs)
+    fields["gloo_pair"] = dict(
+        backend=pair[0]["backend"], device="cuda:0 shared by 2 ranks", wall_s=pair_s,
+        mlstm_fcn=dict(batch=TS_BATCH, loss_max_rel=p_loss, param_max_abs=p_param,
+                       tol=PAIR_TOL),
+        vivit_sweep=dict(spatial_table_launches=[p["k1"] for p in pair],
+                         max_abs_vs_world1=c_max, mean_abs_vs_world1=c_mean))
+    ok = ok and (p_loss <= PAIR_TOL and p_param <= PAIR_TOL and all(p["k1"] > 0 for p in pair)
+                 and c_max <= 5e-2 and c_mean <= 5e-3)
+    dist.destroy_process_group()
+    return bool(ok), fields, k1
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3371,16 +3605,27 @@ def main() -> int:
                            ("mixup", mix_ok)):
         if not phase_ok:
             failures.append(name)
+
+    # ---- data parallelism over torch.distributed ----
+    t0 = time.perf_counter()
+    par_ok, par_fields, k1_parallel = parallel_phase(
+        args.seed, f"{cli_root}/parallel", frames, cfg, model, lib, lib_starts, lib_probs,
+        3 * shot_bytes + 1, dev)
+    emit("parallel", **par_fields, seconds=time.perf_counter() - t0, ok=par_ok)
+    if not par_ok:
+        failures.append("parallel")
     cli_dir.cleanup()
 
     # K3's launches on the main paths: the ViViT stream, and the conv models'
     # sweeps, streams, CLI alarm sweeps and reload sweep; the L = 20 row the
     # SlowFast part. K1's: the sweeps above plus the reload and prediction
-    # sweeps, the ETL-built shot's sweep and the ViViT ensemble's alarm sweep.
+    # sweeps, the ETL-built shot's sweep, the ViViT ensemble's alarm sweep and
+    # the parallel phase's CLI alarm sweep and sharded library sweep.
     k3_slowfast = k3_sweep["SlowFast"] + k3_stream["SlowFast"] + k3_reload
     launches["gather_normalize"] += (sum(k3_sweep.values()) + sum(k3_stream.values())
                                      + k3_cli + k3_reload)
-    launches["spatial_table"] += k1_reload + k1_prediction + k1_etl + k1_ensemble
+    launches["spatial_table"] += (k1_reload + k1_prediction + k1_etl + k1_ensemble
+                                  + k1_parallel)
 
     kernel_rows = []
     for c in checks:

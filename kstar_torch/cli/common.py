@@ -2,10 +2,20 @@
 shot partitioning, and the synthetic-data fallback used for smoke runs
 without KSTAR data.
 
-Port of ``kstar_tpu/cli/common.py``. Not ported: ``make_dp_mesh``,
-``make_raw_puts`` with a mesh and ``setup_dp`` (data parallelism, ROADMAP.md
-Queue 1 item 14); ``--dp`` is parsed so the train CLIs can refuse it by
-name.
+Port of ``kstar_tpu/cli/common.py``.
+
+``--dp N`` (the train CLIs) trains data-parallel over N ranks of
+``torch.distributed``, the reference's ``mp.spawn`` + DDP
+(src/distributed.py): ``start_dp`` spawns N processes with
+``torch.multiprocessing`` (a ``file://`` rendezvous in a temporary
+directory), each rank runs the CLI on ``cuda:<rank>`` (NCCL) or, with
+``--device cpu``, on the CPU (gloo), and the parent returns rank 0's
+result. Under a launcher (``torchrun``: ``RANK``/``WORLD_SIZE`` set), or in
+a process that has already joined a group, the process is one rank itself.
+``--dp N`` with fewer than N visible GPUs raises before any work: there is
+no fallback to fewer ranks or to the CPU. ``make_dp_mesh`` and
+``setup_dp`` keep JAX's names; JAX's ``make_raw_puts`` is
+``train.loop.default_puts`` here, which ``fit`` applies itself.
 """
 
 from __future__ import annotations
@@ -17,13 +27,10 @@ from typing import Tuple
 
 import numpy as np
 import pandas as pd
+import torch
 
-from ..config import LossConfig, OptimConfig, TrainConfig, tag_for
+from ..config import LossConfig, MeshConfig, OptimConfig, TrainConfig, tag_for
 from ..data import VideoStore
-
-
-# the option not ported yet -> the ROADMAP.md Queue 1 item that ports it
-ITEM_DP = "ROADMAP.md Queue 1 item 14 (parallel)"
 
 
 def draw_figure(path: str, draw):
@@ -51,11 +58,119 @@ def save_figure(fig, path: str):
     return fig
 
 
-def refuse_dp(args) -> None:
-    """SystemExit naming the ROADMAP item for ``--dp``, which no train CLI
-    of the port has yet."""
-    if args.dp:
-        raise SystemExit(f"--dp is not ported to kstar_torch yet: {ITEM_DP}")
+def check_dp(args) -> None:
+    """SystemExit, before any work, where ``--dp N`` cannot run: N below 0,
+    a batch the N ranks do not split, or fewer than N visible GPUs for a
+    CUDA run (JAX's ``make_mesh`` assertion; no fallback)."""
+    n = args.dp
+    if not n:
+        return
+    if n < 0:
+        raise SystemExit(f"--dp {n}: the rank count must be positive")
+    if args.batch_size % n:
+        raise SystemExit(f"--batch_size {args.batch_size} is not divisible by --dp {n}")
+    if torch.device(args.device).type == "cuda":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < n:
+            raise SystemExit(f"--dp {n} needs {n} CUDA devices, {have} visible; "
+                             "pass --device cpu to run the ranks on the CPU (gloo)")
+
+
+def join_dp(args) -> bool:
+    """True where this process is already one rank of ``--dp``'s group (it
+    joined one, or a launcher's environment makes it one now); False where
+    the ranks are still to be started (``start_dp``)."""
+    import torch.distributed as dist
+
+    from ..parallel import init_multihost
+
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            return False
+        init_multihost(device=args.device)
+    if dist.get_world_size() != args.dp:
+        raise SystemExit(f"--dp {args.dp} in a group of {dist.get_world_size()} ranks")
+    return True
+
+
+def _dp_rank(rank: int, module: str, argv: list, world: int, store: str,
+             device: str, out: str, threads: int) -> None:
+    import importlib
+    import pickle
+
+    import torch.distributed as dist
+
+    from ..parallel import init_multihost
+
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(threads)      # the CPU ranks share the caller's threads
+    init_multihost(f"file://{store}", world, rank, device=device)
+    try:
+        result = importlib.import_module(module).main(argv)
+        if rank == 0:
+            with open(out, "wb") as f:
+                pickle.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_dp(module: str, argv, args):
+    """Run ``module.main(argv)`` on ``--dp`` ranks, one spawned process each,
+    and return rank 0's result. A rank that fails fails the run (and its
+    collectives time out the others within ``parallel.multihost.TIMEOUT``)."""
+    import pickle
+    import sys
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    with tempfile.TemporaryDirectory(prefix="kstar-dp-") as tmp:
+        out = os.path.join(tmp, "result.pkl")
+        threads = max(1, torch.get_num_threads() // args.dp)
+        mp.spawn(_dp_rank, args=(module, argv, args.dp, os.path.join(tmp, "store"),
+                                 args.device, out, threads), nprocs=args.dp, join=True)
+        with open(out, "rb") as f:
+            return pickle.load(f)
+
+
+def make_dp_mesh(args):
+    """--dp N -> this rank's (data=N, model=1) mesh, or None."""
+    if not getattr(args, "dp", 0):
+        return None
+    from ..parallel import make_mesh
+
+    return make_mesh(MeshConfig(data=args.dp, model=1), device=args.device)
+
+
+def setup_dp(args, state, mesh=None):
+    """(state, mesh, put): with --dp N, the state replicated from rank 0
+    over the mesh (the run's ``mesh``, else a new ``make_dp_mesh``) and
+    ``put`` uploading this rank's rows; else (state, None, None)."""
+    mesh = mesh or make_dp_mesh(args)
+    if mesh is None:
+        return state, None, None
+    from ..parallel import replicate_state
+    from ..train.loop import default_puts
+
+    return replicate_state(state, mesh), mesh, default_puts(mesh.device, mesh)[0]
+
+
+def best_member(seeds, hists, mesh=None):
+    """(index into ``seeds``, its History) of the best valid F1 over the
+    whole ensemble: on a mesh each data rank holds its block of members
+    (``train.ensemble.local_seeds``) and the histories are all-gathered
+    first. Rank 0 prints the table."""
+    from ..parallel.comm import all_gather_objects
+
+    if mesh is not None:
+        parts = all_gather_objects(list(hists), mesh.data_group, mesh.shape["data"])
+        hists = [h for part in parts for h in part]
+    if mesh is None or mesh.is_main:
+        best_i = report_ensemble(seeds, hists)
+    else:
+        best_i = int(np.argmax([h.best_f1 for h in hists]))
+    return best_i, hists[best_i]
 
 
 def ensemble_tag(tag: str, args) -> str:
@@ -151,8 +266,11 @@ def add_common_args(p: argparse.ArgumentParser, batch_size: int = 64) -> None:
                         "K batches (train/loop.py make_scan_steps; the same "
                         "trajectory as K single steps)")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel over N devices: not ported yet "
-                        "(ROADMAP.md Queue 1 item 14)")
+                   help="data-parallel over N ranks (0 = one process): N spawned "
+                        "processes, one per GPU (NCCL), or on the CPU with "
+                        "--device cpu (gloo); under torchrun, this process is "
+                        "one rank; replaces the reference's DDP "
+                        "(src/distributed.py)")
     p.add_argument("--resume", action="store_true",
                    help="resume exactly from <tag>_last.ckpt (full state: "
                         "params+optimizer+step+seed; the reference only "
@@ -327,18 +445,22 @@ def write_alarm_artifacts(curves, threshold, save_dir, tag,
 
 def emit_alarm_artifacts(model, store, disrupt_df, sweep_shot_list,
                          seq_len, dist, crop, batch_size, dtype, threshold,
-                         save_dir, tag, min_dwell_s: float = 0.0, device=None):
+                         save_dir, tag, min_dwell_s: float = 0.0, device=None,
+                         mesh=None):
     """Vision path: sweep whole shots (test + normal populations) with the
     batched engine (the spatial-table kernel on a GPU), then score + write
-    via write_alarm_artifacts. Returns the swept curves for reuse."""
+    via write_alarm_artifacts. Returns the swept curves for reuse. ``mesh``:
+    the shots are split over its data ranks, every rank gets every curve,
+    and rank 0 alone scores and writes."""
     from ..eval import sweep_prob_curves
 
     curves = sweep_prob_curves(
         model, store, disrupt_df, sweep_shot_list, seq_len=seq_len, dist=dist,
         crop_size=crop, batch_size=batch_size, compute_dtype=dtype,
-        device=device)
-    write_alarm_artifacts(curves, threshold, save_dir, tag,
-                          min_dwell_s=min_dwell_s)
+        device=device, mesh=mesh)
+    if mesh is None or mesh.is_main:
+        write_alarm_artifacts(curves, threshold, save_dir, tag,
+                              min_dwell_s=min_dwell_s)
     return curves
 
 

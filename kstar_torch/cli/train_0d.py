@@ -11,10 +11,19 @@ Usage (the GPU by default; ``--device cpu`` runs on the CPU):
 
 Several ``--seeds`` train a seed ensemble (``train/ensemble.py``): one
 ``{tag}_seed_{s}_{best,last}.ckpt`` pair per seed, then the evaluation and
-the extras go on with the seed of the best valid F1. ``--dp`` is not ported
-yet (refused, ROADMAP.md Queue 1 item 14). Figures go through
+the extras go on with the seed of the best valid F1. Figures go through
 ``common.draw_figure``: without matplotlib each is skipped with a line that
 names its file.
+
+``--dp N`` trains data-parallel over N ranks as ``train_vision`` does
+(``cli/common.py``, ``parallel/dp.py``): each rank uploads its rows, the
+steps sum the loss, the gradients and the BatchNorm statistics over the
+ranks, the test evaluation gathers the probabilities, and rank 0 alone
+writes and runs the extras (feature importance, the latent view and the
+probability curve, one-device computations). ``--seeds`` whose count N
+divides split over the ranks (each rank's members on the full batches, no
+collectives), as JAX shards its ensemble axis; another count trains every
+member on every rank, replicated, rank 0 writing.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ import os
 import numpy as np
 import torch
 
-from .common import refuse_dp
+from .common import check_dp, join_dp, start_dp
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,7 +92,9 @@ def main(argv=None):
     if args.seeds and len(args.seeds) == 1:
         # a single --seeds value trains the normal path with that seed
         args.random_seed, args.seeds = args.seeds[0], None
-    refuse_dp(args)
+    check_dp(args)
+    if args.dp and not join_dp(args):
+        return start_dp("kstar_torch.cli.train_0d", argv, args)
 
     from .. import resolve_device
     from ..config import DT_0D, Schema
@@ -92,13 +103,17 @@ def main(argv=None):
                         evaluation_figure, plot_feature_importance)
     from ..infer import predict_0d_shot
     from ..models import build_0d_model
+    from ..parallel.comm import barrier
     from ..train import (MetricWriter, create_ensemble_state, create_train_state, fit,
                          fit_ensemble, load_checkpoint)
+    from ..train.ensemble import local_seeds
     from ..viz import plot_learning_curve, plot_shot_probability, visualize_latent_space
-    from .common import (configs_from_args, draw_figure, ensemble_tag, load_data, make_tag,
-                         report_ensemble, save_figure)
+    from .common import (best_member, configs_from_args, draw_figure, ensemble_tag,
+                         load_data, make_dp_mesh, make_tag, save_figure, setup_dp)
 
-    device = resolve_device(args.device)
+    mesh = make_dp_mesh(args)
+    main_rank = mesh is None or mesh.is_main
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     train_cfg, loss_cfg, optim_cfg = configs_from_args(args)
     cols = Schema.INPUT_FEATURES
     test_shot = None if args.synthetic else args.test_shot_num
@@ -114,27 +129,34 @@ def main(argv=None):
                               dist=args.dist, dt=DT_0D, scaler=scaler,
                               include_normal=args.train_with_normal)
     train_ds, valid_ds, test_ds = mk(df_train), mk(df_valid), mk(df_test)
-    print(f"datasets: train {len(train_ds)} valid {len(valid_ds)} test {len(test_ds)} "
-          f"| class counts {train_ds.class_counts().tolist()}")
+    if main_rank:
+        print(f"datasets: train {len(train_ds)} valid {len(valid_ds)} test {len(test_ds)} "
+              f"| class counts {train_ds.class_counts().tolist()}")
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     make_model = lambda gen: build_0d_model(args.model, model_config(args, len(cols)),
                                             dtype=dtype, generator=gen)
     steps = max(len(train_ds) // args.batch_size, 1)
     tag = args.tag or make_tag(args.model, args, loss_cfg, train_cfg)
-    writer = MetricWriter(os.path.join(args.save_dir, "tensorboard", tag))
+    writer = (MetricWriter(os.path.join(args.save_dir, "tensorboard", tag))
+              if main_rank else None)
     sampler = ImbalancedSampler(train_ds.labels) if args.use_sampling else None
 
     if args.seeds:
         # the seed ensemble: members train on shared batches, then the run
-        # goes on with the member of the best valid F1
+        # goes on with the member of the best valid F1 (under --dp split over
+        # the ranks where the count allows)
         ens_tag = ensemble_tag(tag, args)
+        ens_mesh = mesh if mesh is not None and len(args.seeds) % args.dp == 0 else None
         states = create_ensemble_state(make_model, args.seeds, optim_cfg,
-                                       steps_per_epoch=steps, device=device)
-        states, hists = fit_ensemble(states, args.seeds, train_ds, valid_ds,
-                                     train_cfg, loss_cfg, tag=ens_tag, sampler=sampler)
-        best_i = report_ensemble(args.seeds, hists)
-        state, hist = states[best_i], hists[best_i]
+                                       steps_per_epoch=steps, device=device, mesh=ens_mesh)
+        states, hists = fit_ensemble(states, local_seeds(args.seeds, ens_mesh), train_ds,
+                                     valid_ds, train_cfg, loss_cfg, tag=ens_tag,
+                                     sampler=sampler,
+                                     writes=ens_mesh is not None or main_rank)
+        best_i, hist = best_member(args.seeds, hists, ens_mesh)
+        barrier()
+        state = states[0]
         best_path = os.path.join(args.weight_dir,
                                  f"{ens_tag}_seed_{args.seeds[best_i]}_best.ckpt")
     else:
@@ -145,13 +167,13 @@ def main(argv=None):
             last = os.path.join(args.weight_dir, f"{tag}_last.ckpt")
             if os.path.exists(last):
                 state = load_checkpoint(state, last)
-                print(f"resumed from {last} at step {int(state.step)}")
+                if main_rank:
+                    print(f"resumed from {last} at step {int(state.step)}")
+        state, _, _ = setup_dp(args, state, mesh)
         state, hist = fit(state, train_ds, valid_ds, train_cfg, loss_cfg, tag=tag,
-                          sampler=sampler, writer=writer)
+                          sampler=sampler, writer=writer, mesh=mesh)
         best_path = os.path.join(args.weight_dir, f"{tag}_best.ckpt")
     model = state.model
-    lc_path = os.path.join(args.save_dir, f"{tag}_learning_curve.png")
-    draw_figure(lc_path, lambda: plot_learning_curve(hist, lc_path))
 
     # test evaluation + extras run on the BEST checkpoint, not the final
     # epoch (reference train_0D_network.py:393 reloads best before eval)
@@ -160,7 +182,11 @@ def main(argv=None):
 
     os.makedirs(args.save_dir, exist_ok=True)
     results = evaluate(model, test_ds, loss_cfg, args.batch_size, args.threshold,
-                       save_txt=os.path.join(args.save_dir, f"{tag}_report.txt"))
+                       save_txt=os.path.join(args.save_dir, f"{tag}_report.txt"), mesh=mesh)
+    if not main_rank:
+        return results
+    lc_path = os.path.join(args.save_dir, f"{tag}_learning_curve.png")
+    draw_figure(lc_path, lambda: plot_learning_curve(hist, lc_path))
     print(f"test macro-F1 {results['macro_f1']:.4f} | ROC-AUC {results['roc_auc']:.4f}")
     eval_path = os.path.join(args.save_dir, f"{tag}_eval.png")
     draw_figure(eval_path, lambda: save_figure(evaluation_figure(results), eval_path))
@@ -195,7 +221,8 @@ def main(argv=None):
             draw_figure(pc_path, lambda: plot_shot_probability(
                 d, time_x, probs, shot, float(row.tftsrt), float(row.tTQend),
                 float(row.tipminf), save_path=pc_path))
-    writer.close()
+    if writer is not None:
+        writer.close()
     return results
 
 

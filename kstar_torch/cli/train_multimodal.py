@@ -12,9 +12,18 @@ Usage (the GPU by default; ``--device cpu`` runs on the CPU):
     python -m kstar_torch.cli.train_multimodal --model_type TFN --use_GB --gb_dynamic
 
 Refused: several ``--seeds`` at once (the JAX package has no multimodal
-ensemble; this option is the port's own) and ``--dp`` (not ported yet,
-ROADMAP.md Queue 1 item 14). Figures go through ``common.draw_figure``:
-without matplotlib each is skipped with a line that names its file.
+ensemble; this option is the port's own). Figures go through
+``common.draw_figure``: without matplotlib each is skipped with a line that
+names its file.
+
+``--dp N`` trains data-parallel over N ranks as ``train_vision`` does
+(``cli/common.py``, ``parallel/dp.py``), ``--use_GB`` too (``fit_gb`` and
+the probe copies of ``gb_estimate`` run the data-parallel steps), and
+``--use_cca_pretrain`` all-gathers both encodings before the CCA loss,
+whose covariances run over the batch. The test evaluation gathers the
+probabilities; rank 0 alone writes and runs the extras (the multimodal
+alarm sweep, the probability curve and the latent views), one-device
+computations as in JAX, whose multimodal sweeper takes no mesh.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ import os
 import numpy as np
 import torch
 
-from .common import refuse_dp
+from .common import check_dp, join_dp, start_dp
 
 NO_ENSEMBLE = ("--seeds with more than one seed is refused: the JAX package has no "
                "multimodal ensemble (its train_multimodal has no --seeds)")
@@ -86,24 +95,29 @@ def main(argv=None):
         args.random_seed, args.seeds = args.seeds[0], None
     if args.seeds:
         raise SystemExit(NO_ENSEMBLE)
-    refuse_dp(args)
+    check_dp(args)
+    if args.dp and not join_dp(args):
+        return start_dp("kstar_torch.cli.train_multimodal", argv, args)
 
     from .. import resolve_device
     from ..config import DT_MULTI, AugmentConfig, Schema
     from ..data import (DevicePreprocessor, ImbalancedSampler, MultiModalDataset,
-                        Scaler, random_split_shots, to_device)
+                        Scaler, random_split_shots)
     from ..data.augment import make_pre_fns
     from ..eval.evaluate import evaluate_probs, format_report
     from ..losses import ldam_margins
     from ..models import TFN, TFNGB, MultiModalConcat, MultiModalGB
     from ..train import (MetricWriter, create_train_state, fit, load_checkpoint)
     from ..train.gb import fit_gb
-    from ..train.loop import make_eval_step, run_eval_epoch
+    from ..train.loop import default_puts, make_eval_step, run_eval_epoch
     from ..viz import plot_learning_curve
-    from .common import (configs_from_args, draw_figure, load_data, make_tag,
-                         partition_shots, resolve_normal_splits, write_alarm_artifacts)
+    from .common import (configs_from_args, draw_figure, load_data, make_dp_mesh,
+                         make_tag, partition_shots, resolve_normal_splits,
+                         setup_dp, write_alarm_artifacts)
 
-    device = resolve_device(args.device)
+    mesh = make_dp_mesh(args)
+    main_rank = mesh is None or mesh.is_main
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     train_cfg, loss_cfg, optim_cfg = configs_from_args(args)
     cols = Schema.INPUT_FEATURES
     test_shot = None if args.synthetic else args.test_shot_num
@@ -129,8 +143,9 @@ def main(argv=None):
     train_ds, valid_ds, test_ds = (mk(list(train_s) + train_n),
                                    mk(list(valid_s) + valid_n),
                                    mk(list(test_s) + test_n))
-    print(f"datasets: train {len(train_ds)} valid {len(valid_ds)} test {len(test_ds)} "
-          f"| class counts {train_ds.class_counts().tolist()}")
+    if main_rank:
+        print(f"datasets: train {len(train_ds)} valid {len(valid_ds)} test {len(test_ds)} "
+              f"| class counts {train_ds.class_counts().tolist()}")
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     crop = min(args.image_size, store.arrays[shots[0]].shape[1])
@@ -150,9 +165,10 @@ def main(argv=None):
     model = cls(vivit_kw, ts_kw, dtype=dtype, generator=init).to(device)
 
     # crop/augment/normalize run inside the train/eval steps on the device;
-    # the put hook only ships the raw uint8 video and the float 0D block
+    # the put hook only ships the raw uint8 video and the float 0D block (on
+    # a mesh, this rank's rows)
     pre_train, pre_eval = make_pre_fns(crop, AugmentConfig(), out_dtype=dtype)
-    put_raw = lambda bl: to_device(bl, device)
+    put_raw = default_puts(device, mesh)[0]
 
     steps = max(len(train_ds) // args.batch_size, 1)
     state = create_train_state(model, optim_cfg, steps_per_epoch=steps,
@@ -164,18 +180,22 @@ def main(argv=None):
         last = os.path.join(args.weight_dir, f"{tag}_last.ckpt")
         if os.path.exists(last):
             state = load_checkpoint(state, last)
-            print(f"resumed from {last} at step {int(state.step)}")
-    writer = MetricWriter(os.path.join(args.save_dir, "tensorboard", tag))
+            if main_rank:
+                print(f"resumed from {last} at step {int(state.step)}")
+    state, _, _ = setup_dp(args, state, mesh)
+    writer = (MetricWriter(os.path.join(args.save_dir, "tensorboard", tag))
+              if main_rank else None)
     sampler = ImbalancedSampler(train_ds.labels) if args.use_sampling else None
 
     if args.use_cca_pretrain and not args.use_GB:
         from ..train.cca import train_cca
         put_train = DevicePreprocessor(crop, AugmentConfig(), train=True,
                                        out_dtype=dtype, seed=args.random_seed,
-                                       device=device)
+                                       device=device, mesh=mesh)
         state, cca_losses = train_cca(state, train_ds, batch_size=args.batch_size,
-                                      n_epochs=4, put=put_train)
-        print(f"CCA pretrain losses: {[round(l, 3) for l in cca_losses]}")
+                                      n_epochs=4, put=put_train, mesh=mesh)
+        if main_rank:
+            print(f"CCA pretrain losses: {[round(l, 3) for l in cca_losses]}")
 
     if args.use_GB:
         gb0 = {"video": args.w_vis, "0D": args.w_0D, "multi": args.w_multi}
@@ -184,17 +204,19 @@ def main(argv=None):
                                    epoch_per_gb_estimate=args.epoch_per_GB_estimate,
                                    n_epochs_gb_estimate=args.n_epochs_GB_estimate,
                                    sampler=sampler, writer=writer, put=put_raw,
-                                   pre_fn=pre_train, pre_fn_eval=pre_eval)
-        print(f"final GB weights: {gb_w}")
+                                   pre_fn=pre_train, pre_fn_eval=pre_eval, mesh=mesh)
+        if main_rank:
+            print(f"final GB weights: {gb_w}")
         model_type = "multi-GB"
     else:
         state, hist = fit(state, train_ds, valid_ds, train_cfg, loss_cfg,
                           model_type="multi", tag=tag, sampler=sampler,
                           writer=writer, put=put_raw, put_eval=put_raw,
-                          pre_fn=pre_train, pre_fn_eval=pre_eval)
+                          pre_fn=pre_train, pre_fn_eval=pre_eval, mesh=mesh)
         model_type = "multi"
     lc_path = os.path.join(args.save_dir, f"{tag}_learning_curve.png")
-    draw_figure(lc_path, lambda: plot_learning_curve(hist, lc_path))
+    if main_rank:
+        draw_figure(lc_path, lambda: plot_learning_curve(hist, lc_path))
 
     # test evaluation + extras run on the BEST checkpoint, not the final
     # epoch (reference train_multimodal.py:464 reloads best before eval)
@@ -203,16 +225,22 @@ def main(argv=None):
         state = load_checkpoint(state, best_path)
 
     put_eval = DevicePreprocessor(crop, AugmentConfig(), train=False, out_dtype=dtype,
-                                  device=device)
-    eval_step = make_eval_step(loss_cfg, model_type=model_type)
+                                  device=device, mesh=mesh)
+    eval_step = make_eval_step(loss_cfg, model_type=model_type, mesh=mesh)
     counts = test_ds.class_counts()
     w = torch.ones(2, device=device)
     m = torch.as_tensor(ldam_margins(counts, loss_cfg.ldam_max_m)).to(device)
     gb = torch.tensor([0.0, 0.0, 1.0], device=device)
     _, _, _, (probs, labels) = run_eval_epoch(eval_step, model, test_ds, args.batch_size,
                                               w, m, put=put_eval, collect_probs=True,
-                                              gb_w=gb)
+                                              gb_w=gb, mesh=mesh)
     results = evaluate_probs(probs, labels, args.threshold)
+    if not main_rank:
+        return results
+    if mesh is not None:
+        # the extras below are one-device computations on rank 0
+        put_eval = DevicePreprocessor(crop, AugmentConfig(), train=False, out_dtype=dtype,
+                                      device=device)
     os.makedirs(args.save_dir, exist_ok=True)
     with open(os.path.join(args.save_dir, f"{tag}_report.txt"), "w") as f:
         f.write(format_report(results))

@@ -19,10 +19,23 @@ every train epoch (``fit(eval_stats_fn=aggregate_batch_stats)``).
 Several ``--seeds`` train a seed ensemble (``train/ensemble.py``): one
 ``{tag}_seed_{s}_{best,last}.ckpt`` pair per seed, then the evaluation and
 the alarm sweep go on with the seed of the best valid F1; with
-``--bn_splits`` they are refused, as in JAX. ``--dp`` is not ported yet
-(refused, ROADMAP.md Queue 1 item 14). Figures go through
+``--bn_splits`` they are refused, as in JAX. Figures go through
 ``common.draw_figure``: without matplotlib each is skipped with a line that
 names its file.
+
+``--dp N`` trains data-parallel over N ranks (``cli/common.py``: spawned
+processes on N GPUs, or ``--device cpu``): each rank uploads its rows of
+every batch, the steps sum the loss, the gradients and the BatchNorm
+statistics over the ranks (``parallel/dp.py``), the test evaluation
+gathers the probabilities, and the alarm sweep splits the shots over the
+ranks (each sweeps its own through the spatial table or the window
+gather); rank 0 alone writes checkpoints, reports and figures. With
+``--seeds`` whose count N divides, each rank trains its block of members
+on the full batches with no collectives and the best seed is chosen over
+all of them (JAX shards the ensemble axis the same way); a count N does
+not divide trains every member on every rank, replicated, rank 0 writing
+(JAX's single controller runs that ensemble unsharded). ``--bn_splits``
+needs the per-rank batch to divide by the split count.
 """
 
 from __future__ import annotations
@@ -33,7 +46,7 @@ import os
 import numpy as np
 import torch
 
-from .common import refuse_dp
+from .common import check_dp, join_dp, start_dp
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -90,11 +103,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unsupported(args) -> None:
     """SystemExit for ``--bn_splits`` with an ensemble (as the JAX CLI
-    refuses it) and for ``--dp``, not ported yet."""
+    refuses it), for a per-rank batch ``--bn_splits`` does not divide, and
+    for a ``--dp`` that cannot run (``common.check_dp``)."""
     if args.bn_splits and args.seeds and len(args.seeds) > 1:
         raise SystemExit("--bn_splits is not supported with the --seeds ensemble "
                          "(stat aggregation is wired into the single-model fit loop)")
-    refuse_dp(args)
+    check_dp(args)
+    if args.bn_splits and args.dp and (args.batch_size // args.dp) % args.bn_splits:
+        raise SystemExit(f"--batch_size {args.batch_size} over --dp {args.dp} ranks "
+                         f"is not divisible by --bn_splits {args.bn_splits} per rank")
 
 
 def model_config(args):
@@ -130,6 +147,8 @@ def main(argv=None):
         # a single --seeds value trains the normal path with that seed
         args.random_seed, args.seeds = args.seeds[0], None
     refuse_unsupported(args)
+    if args.dp and not join_dp(args):
+        return start_dp("kstar_torch.cli.train_vision", argv, args)
 
     from .. import resolve_device
     from ..config import AugmentConfig
@@ -137,14 +156,19 @@ def main(argv=None):
     from ..data.augment import make_pre_fns
     from ..eval.evaluate import evaluate
     from ..models import aggregate_batch_stats, build_video_model
+    from ..parallel.comm import barrier
     from ..train import (MetricWriter, create_ensemble_state, create_train_state, fit,
                          fit_ensemble, load_checkpoint)
+    from ..train.ensemble import local_seeds
+    from ..train.loop import default_puts
     from ..viz import plot_learning_curve
-    from .common import (configs_from_args, draw_figure, emit_alarm_artifacts,
-                         ensemble_tag, load_data, make_tag, partition_shots,
-                         report_ensemble, resolve_normal_splits)
+    from .common import (best_member, configs_from_args, draw_figure, emit_alarm_artifacts,
+                         ensemble_tag, load_data, make_dp_mesh, make_tag,
+                         partition_shots, resolve_normal_splits, setup_dp)
 
-    device = resolve_device(args.device)
+    mesh = make_dp_mesh(args)
+    main_rank = mesh is None or mesh.is_main
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     train_cfg, loss_cfg, optim_cfg = configs_from_args(args)
     test_shot = None if args.synthetic else args.test_shot_num
 
@@ -164,8 +188,9 @@ def main(argv=None):
     train_ds, valid_ds, test_ds = (mk(list(train_s) + train_n),
                                    mk(list(valid_s) + valid_n),
                                    mk(list(test_s) + test_n))
-    print(f"datasets: train {len(train_ds)} valid {len(valid_ds)} test {len(test_ds)} "
-          f"| class counts {train_ds.class_counts().tolist()}")
+    if main_rank:
+        print(f"datasets: train {len(train_ds)} valid {len(valid_ds)} test {len(test_ds)} "
+              f"| class counts {train_ds.class_counts().tolist()}")
 
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
     make_model = lambda gen: build_video_model(args.model, cfg, dtype=dtype, generator=gen)
@@ -180,27 +205,36 @@ def main(argv=None):
 
     crop = min(args.image_size, store.arrays[shots[0]].shape[1])
     # crop/augment/normalize run inside the train/eval steps on the device;
-    # the put hook only ships raw uint8 bytes (pinned, non_blocking)
+    # the put hook only ships raw uint8 bytes (pinned, non_blocking): on a
+    # mesh this rank's rows
     pre_train, pre_eval = make_pre_fns(crop, aug, out_dtype=dtype)
-    put_raw = lambda bl: to_device(bl, device)
+    put_raw = default_puts(device, mesh)[0]
 
     steps = max(len(train_ds) // args.batch_size, 1)
     tag = args.tag or make_tag(args.model, args, loss_cfg, train_cfg)
-    writer = MetricWriter(os.path.join(args.save_dir, "tensorboard", tag))
+    writer = (MetricWriter(os.path.join(args.save_dir, "tensorboard", tag))
+              if main_rank else None)
     sampler = ImbalancedSampler(train_ds.labels) if args.use_sampling else None
 
     if args.seeds:
         # the seed ensemble: members train on shared batches (each member
         # augments with its own draws), then the run goes on with the member
-        # of the best valid F1
+        # of the best valid F1. Under --dp the members split over the ranks
+        # where they can (each on the full batches), else every rank holds
+        # them all and rank 0 writes
         ens_tag = ensemble_tag(tag, args)
+        ens_mesh = mesh if mesh is not None and len(args.seeds) % args.dp == 0 else None
+        mine = local_seeds(args.seeds, ens_mesh)
         states = create_ensemble_state(make_model, args.seeds, optim_cfg,
-                                       steps_per_epoch=steps, device=device)
-        states, hists = fit_ensemble(states, args.seeds, train_ds, valid_ds,
+                                       steps_per_epoch=steps, device=device, mesh=ens_mesh)
+        states, hists = fit_ensemble(states, mine, train_ds, valid_ds,
                                      train_cfg, loss_cfg, tag=ens_tag, sampler=sampler,
-                                     put=put_raw, pre_fn=pre_train, pre_fn_eval=pre_eval)
-        best_i = report_ensemble(args.seeds, hists)
-        state, hist = states[best_i], hists[best_i]
+                                     put=lambda bl: to_device(bl, device), pre_fn=pre_train,
+                                     pre_fn_eval=pre_eval,
+                                     writes=ens_mesh is not None or main_rank)
+        best_i, hist = best_member(args.seeds, hists, ens_mesh)
+        barrier()
+        state = states[0]
         best_path = os.path.join(args.weight_dir,
                                  f"{ens_tag}_seed_{args.seeds[best_i]}_best.ckpt")
     else:
@@ -211,15 +245,19 @@ def main(argv=None):
             last = os.path.join(args.weight_dir, f"{tag}_last.ckpt")
             if os.path.exists(last):
                 state = load_checkpoint(state, last)
-                print(f"resumed from {last} at step {int(state.step)}")
+                if main_rank:
+                    print(f"resumed from {last} at step {int(state.step)}")
+        state, _, _ = setup_dp(args, state, mesh)
         state, hist = fit(state, train_ds, valid_ds, train_cfg, loss_cfg, tag=tag,
                           sampler=sampler, writer=writer, put=put_raw,
                           put_eval=put_raw, pre_fn=pre_train, pre_fn_eval=pre_eval,
-                          eval_stats_fn=aggregate_batch_stats if args.bn_splits else None)
+                          eval_stats_fn=aggregate_batch_stats if args.bn_splits else None,
+                          mesh=mesh)
         best_path = os.path.join(args.weight_dir, f"{tag}_best.ckpt")
     model = state.model
     lc_path = os.path.join(args.save_dir, f"{tag}_learning_curve.png")
-    draw_figure(lc_path, lambda: plot_learning_curve(hist, lc_path))
+    if main_rank:
+        draw_figure(lc_path, lambda: plot_learning_curve(hist, lc_path))
 
     # test evaluation + extras run on the BEST checkpoint, not the final
     # epoch (reference train_vision_network.py:393 reloads best before eval)
@@ -229,14 +267,15 @@ def main(argv=None):
     os.makedirs(args.save_dir, exist_ok=True)
     results = evaluate(model, test_ds, loss_cfg, args.batch_size, args.threshold,
                        save_txt=os.path.join(args.save_dir, f"{tag}_report.txt"),
-                       put=put_raw, pre_fn=pre_eval)
-    print(f"test macro-F1 {results['macro_f1']:.4f} | ROC-AUC {results['roc_auc']:.4f}")
+                       put=put_raw, pre_fn=pre_eval, mesh=mesh)
+    if main_rank:
+        print(f"test macro-F1 {results['macro_f1']:.4f} | ROC-AUC {results['roc_auc']:.4f}")
 
+    curves = []
     if not args.skip_extras:
         # shot-level alarm scoring over the test shots; normal shots join the
         # sweep as the false-alarm population (under --train_with_normal
         # only the held-out test normals)
-        curves = []
         try:
             curves = emit_alarm_artifacts(
                 model, store, disrupt_df,
@@ -245,10 +284,10 @@ def main(argv=None):
                 seq_len=seq_len, dist=args.dist, crop=crop,
                 batch_size=args.batch_size, dtype=dtype,
                 threshold=args.threshold, save_dir=args.save_dir, tag=tag,
-                min_dwell_s=args.alarm_dwell_s, device=device)
+                min_dwell_s=args.alarm_dwell_s, device=device, mesh=mesh)
         except Exception as e:  # noqa: BLE001 — the JAX CLI's best-effort extras
             print(f"alarm evaluation skipped: {type(e).__name__}: {e}")
-
+    if not args.skip_extras and main_rank:
         from ..infer import predict_video_shot
         from ..viz import plot_shot_probability_zoom
 
@@ -270,7 +309,8 @@ def main(argv=None):
         draw_figure(pc_path, lambda: plot_shot_probability_zoom(
             time_x, probs_c, shot, float(row.tftsrt), float(row.tTQend),
             float(row.tipminf), args.dist / 210.0, save_path=pc_path))
-    writer.close()
+    if writer is not None:
+        writer.close()
     return results
 
 

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import PIXEL_MEAN_BGR, AugmentConfig
+from ..parallel.comm import draw_rows
 
 N_PARAMS = 10
 # columns of augment_params' (B, N_PARAMS) output
@@ -81,8 +82,10 @@ def augment_params(generator: torch.Generator, batch: int,
     """The random draws of ``batch`` clips, (batch, N_PARAMS) f32 on the
     generator's device: per clip the brightness offset (floored), the
     contrast alpha and the two shift ratios, each beside the uniform that
-    gates its augmentation, and the blur and flip gates."""
-    p = torch.rand(batch, N_PARAMS, generator=generator, device=generator.device)
+    gates its augmentation, and the blur and flip gates. In a data-parallel
+    step, this rank's rows of the global batch's draws."""
+    p = draw_rows(lambda shape: torch.rand(shape, generator=generator,
+                                           device=generator.device), (batch, N_PARAMS))
     for col, lo, hi in ((BRIGHT, -cfg.bright_val, cfg.bright_val),
                         (ALPHA, cfg.contrast_min, cfg.contrast_max),
                         (V_RATIO, -cfg.vertical_ratio, cfg.vertical_ratio),

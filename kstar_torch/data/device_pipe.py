@@ -17,6 +17,7 @@ import torch
 
 from .. import resolve_device
 from ..config import AugmentConfig
+from ..parallel.comm import data_parallel
 from .augment import preprocess
 from .loader import to_device
 
@@ -27,25 +28,34 @@ class DevicePreprocessor:
     Handles raw video arrays and multimodal {'video', '0D'} dicts; 0D data
     passes straight through (already float). ``train=True`` applies the
     probability-gated augmentations with draws from one generator on the
-    device, seeded with ``seed``. ``device=None`` means the GPU.
+    device, seeded with ``seed``. ``device=None`` means the GPU. ``mesh``:
+    this rank's rows go up (``parallel/mesh.py put_batch``), on the mesh's
+    device, and the augmentations are drawn for the global batch.
     """
 
     def __init__(self, crop_size: int, cfg: Optional[AugmentConfig] = None,
                  train: bool = True, out_dtype=torch.bfloat16, seed: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         self.crop_size = crop_size
         self.cfg = cfg or AugmentConfig()
         self.train = train
         self.out_dtype = out_dtype
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         # one preprocessor may serve several producer threads; the draws of
         # one batch must not interleave with another's
         self._lock = threading.Lock()
 
+    def _put(self, x):
+        if self.mesh is None:
+            return to_device(x, self.device)
+        from ..parallel.mesh import put_batch
+        return put_batch(self.mesh, x)
+
     def _video(self, v):
-        v = to_device(v, self.device)
-        with self._lock:
+        v = self._put(v)
+        with self._lock, data_parallel(self.mesh):
             return preprocess(v, self.crop_size, self.cfg, self.train,
                               self.out_dtype, self._gen)
 
@@ -54,6 +64,6 @@ class DevicePreprocessor:
         if isinstance(batch, dict):
             out = dict(batch)
             out["video"] = self._video(batch["video"])
-            out["0D"] = to_device(batch["0D"], self.device)
-            return out, to_device(labels, self.device)
-        return self._video(batch), to_device(labels, self.device)
+            out["0D"] = self._put(batch["0D"])
+            return out, self._put(labels)
+        return self._video(batch), self._put(labels)

@@ -166,14 +166,20 @@ def threaded_batches(dataset, index_iter, put: Optional[Callable] = None,
 
 
 def grouped_batches(dataset, index_iter, k: int, put: Optional[Callable] = None,
-                    depth: int = 4):
+                    depth: int = 4, put_stack: Optional[Callable] = None):
     """Group the index stream into stacks of ``k`` batches for multi-step
     calls (train/loop.py make_scan_steps): yields ``('stack', (batch,
     labels))`` with shapes (k, B, ...) for each full group — gathered in ONE
     vectorized ``dataset.batch`` call over the concatenated indices — then
     ``('single', (batch, labels))`` for the remainder batches. Host gathers
     (and optional device puts) run in a background thread like
-    ``threaded_batches``."""
+    ``threaded_batches``.
+
+    Stacks go through ``put_stack`` (default ``put``). On a mesh that must
+    slice axis 1, the batch, and never axis 0, the steps
+    (``parallel/mesh.py put_stack``): a put that leaves fewer than ``k``
+    steps raises (the trap JAX's loader guards on a stack's sharding)."""
+    put_stack = put_stack or put
     indices = list(index_iter)
     n_full = len(indices) // k
 
@@ -189,8 +195,13 @@ def grouped_batches(dataset, index_iter, k: int, put: Optional[Callable] = None,
             if stop.is_set():
                 return
             item = gather_stack(indices[i * k:(i + 1) * k])
-            if put is not None:
-                item = put(item)
+            if put_stack is not None:
+                item = put_stack(item)
+                if item[1].shape[0] != k:
+                    raise ValueError(
+                        f"the stack put sliced the step axis: {item[1].shape[0]} of "
+                        f"{k} steps left; a (K, B, ...) stack is split along axis 1 "
+                        "(parallel.mesh.put_stack)")
             if not send(("stack", item)):
                 return
         for idx in indices[n_full * k:]:

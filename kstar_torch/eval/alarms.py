@@ -65,12 +65,14 @@ def sweep_prob_curves(
     batch_size: int = 128,
     compute_dtype: torch.dtype = None,
     device=None,
+    mesh=None,
 ) -> List[Tuple[int, object, np.ndarray, np.ndarray]]:
     """Library sweep -> [(shot, disrupt_row, time_x, probs)].
 
     Padding/startup-suppression/alignment identical to predict_video_shot
     (reference generate_prob_curve, utility.py:896-977). ``device=None``
-    means the GPU."""
+    means the GPU. ``mesh``: the shots are split over its data ranks
+    (``VideoSweeper.sweep_shots``); every rank returns every curve."""
     compute_dtype = compute_dtype or torch.bfloat16
     have_meta = set(disrupt_df.shot)
     skipped = [s for s in shots if s in store and s not in have_meta]
@@ -82,7 +84,7 @@ def sweep_prob_curves(
         return []
 
     sweeper = VideoSweeper(model, seq_len, crop_size, batch_size, compute_dtype,
-                           device=device)
+                           device=device, mesh=mesh)
     frames_list, starts_list, metas = [], [], []
     for shot in shots:
         r = disrupt_df[disrupt_df.shot == shot].iloc[0]
@@ -218,11 +220,14 @@ def evaluate_video_alarms(
     min_dwell_s: float = 0.0,
     compute_dtype: torch.dtype = None,
     device=None,
+    mesh=None,
 ) -> Dict:
     """Sweep the shot library, score alarms. Returns
-    {'per_shot': DataFrame, 'summary': dict}."""
+    {'per_shot': DataFrame, 'summary': dict}. ``mesh``: as in
+    ``sweep_prob_curves``."""
     curves = sweep_prob_curves(model, store, disrupt_df, shots, seq_len, dist,
-                               crop_size, batch_size, compute_dtype, device=device)
+                               crop_size, batch_size, compute_dtype, device=device,
+                               mesh=mesh)
     return score_alarms(curves, threshold, t_min, min_dwell_s)
 
 
@@ -376,7 +381,8 @@ def threshold_sweep(
         model, store, disrupt_df, shots,
         seq_len=kw.pop("seq_len", 21), dist=kw.pop("dist", 3),
         crop_size=kw.pop("crop_size", 128), batch_size=kw.pop("batch_size", 128),
-        compute_dtype=kw.pop("compute_dtype", None), device=kw.pop("device", None))
+        compute_dtype=kw.pop("compute_dtype", None), device=kw.pop("device", None),
+        mesh=kw.pop("mesh", None))
     return threshold_tradeoff_from_curves(curves, thresholds, t_min,
                                           min_dwell_s)
 

@@ -59,28 +59,31 @@ def evaluate_probs(
 def evaluate(model, dataset, loss_cfg, batch_size: int = 128,
              threshold: float = 0.5, save_txt: Optional[str] = None,
              put=None, pre_fn=None, model_type: str = "single",
-             save_fig: Optional[str] = None) -> Dict:
+             save_fig: Optional[str] = None, mesh=None) -> Dict:
     """Full test loop (reference evaluate, src/evaluate.py:11-137) on the
     model's device. ``put`` moves raw batches to the device (default: as
     they are) and ``pre_fn`` preprocesses them there (e.g. the eval half of
     ``data.augment.make_pre_fns`` for uint8 video). ``model_type`` as in
     ``train.loop.make_eval_step`` (a ``"multi-GB"`` model is scored on its
     multi logits, with zero blending weights as JAX's). ``save_fig`` writes
-    ``evaluation_figure``."""
+    ``evaluation_figure``. ``mesh``: data-parallel (``put`` defaults to this
+    rank's rows); every rank returns the results, rank 0 alone writes."""
     from ..train.loop import make_eval_step, run_eval_epoch
 
     device = next(model.parameters()).device
-    eval_step = make_eval_step(loss_cfg, pre_fn=pre_fn, model_type=model_type)
+    eval_step = make_eval_step(loss_cfg, pre_fn=pre_fn, model_type=model_type, mesh=mesh)
     counts = dataset.class_counts()
     w = torch.ones(len(counts), device=device)
     m = torch.as_tensor(ldam_margins(counts, loss_cfg.ldam_max_m)).to(device)
 
     loss, _, _, (probs, labels) = run_eval_epoch(
         eval_step, model, dataset, batch_size, w, m, put=put, collect_probs=True,
-        gb_w=torch.zeros(3, device=device))
+        gb_w=torch.zeros(3, device=device), mesh=mesh)
 
     results = evaluate_probs(probs, labels, threshold)
     results["test_loss"] = loss
+    if mesh is not None and not mesh.is_main:
+        return results
 
     if save_txt:
         os.makedirs(os.path.dirname(os.path.abspath(save_txt)), exist_ok=True)

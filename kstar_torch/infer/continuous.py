@@ -44,6 +44,7 @@ import torch
 from .. import resolve_device
 from ..config import FPS, PIXEL_MEAN_BGR
 from ..ops.preprocess import gather_normalize
+from ..parallel.comm import all_gather_objects
 from ..ops.spatial_table import (extract_spatial_weights, kernel_refusal,
                                  spatial_table, spatial_table_reference)
 
@@ -176,8 +177,9 @@ class VideoSweeper:
 
     def __init__(self, model, seq_len: int, crop_size: int, batch_size: int = 64,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 use_fused_table: Optional[bool] = None, device=None):
-        self.device = resolve_device(device)
+                 use_fused_table: Optional[bool] = None, device=None, mesh=None):
+        self.mesh = mesh     # sweep_shots splits the shot axis over its data ranks
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.model = model.to(self.device).eval()
         self.seq_len, self.crop_size = seq_len, crop_size
         self.batch_size, self.compute_dtype = batch_size, compute_dtype
@@ -345,7 +347,30 @@ class VideoSweeper:
         last shot up to its own shot-count bucket. Shots are packed in
         ascending length order so a group shares a tight frame bucket, and
         the fixed shot count keeps the set of group shapes small. Results
-        return in input order."""
+        return in input order.
+
+        With a ``mesh`` the shot axis is split over its data ranks: the list
+        is padded to a multiple of the data-axis size by repeating its last
+        shot, each rank sweeps its contiguous block as above (its own
+        tables or window gathers), and the curves are all-gathered in shot
+        order, the padding dropped (JAX's ``shard_map`` over the stack)."""
+        S = len(frames_list)
+        if S == 0:
+            return []
+        if self.mesh is not None:
+            d, i = self.mesh.shape["data"], self.mesh.data_index
+            pad = (-S) % d
+            frames_list = list(frames_list) + [frames_list[-1]] * pad
+            starts_list = list(starts_list) + [starts_list[-1]] * pad
+            per = len(frames_list) // d
+            mine = self._sweep_library(frames_list[i * per:(i + 1) * per],
+                                       starts_list[i * per:(i + 1) * per],
+                                       hbm_budget_bytes, timings)
+            parts = all_gather_objects(mine, self.mesh.data_group, d)
+            return [p for part in parts for p in part][:S]
+        return self._sweep_library(frames_list, starts_list, hbm_budget_bytes, timings)
+
+    def _sweep_library(self, frames_list, starts_list, hbm_budget_bytes, timings) -> list:
         S = len(frames_list)
         if S == 0:
             return []

@@ -18,6 +18,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .parallel.comm import reduce_data
+
 
 def _ce_per_sample(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Unreduced cross entropy, f32."""
@@ -84,10 +86,10 @@ def ldam_loss(
     ce = _ce_per_sample(s * x_m, labels)
     if mask is None:
         mask = torch.ones_like(ce)
-    if weight is not None:
-        w = weight[labels] * mask
-        return torch.sum(ce * w) / torch.clamp(torch.sum(w), min=1e-8)
-    return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1e-8)
+    w = weight[labels] * mask if weight is not None else mask
+    # in a data-parallel step the mean is over the global batch: the
+    # denominator is the data group's sum (parallel/comm.py)
+    return torch.sum(ce * w) / torch.clamp(reduce_data(torch.sum(w)), min=1e-8)
 
 
 def classification_loss(

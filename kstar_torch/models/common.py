@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.comm import current_mesh, data_size, draw_rows, gather_rows, reduce_data
 from .vivit import Dense, LayerNorm, _lecun_normal_
 
 BN_MOMENTUM = 0.99      # flax nn.BatchNorm defaults
@@ -50,7 +51,8 @@ BN_EPS = 1e-5
 class NoiseLayer(nn.Module):
     """Train-only additive Gaussian input noise (reference
     src/models/NoiseLayer.py:5-16). The draw comes from ``generator`` (on
-    ``x``'s device), never from torch's global RNG."""
+    ``x``'s device), never from torch's global RNG (in a data-parallel
+    step, this rank's rows of the global batch's draw)."""
 
     def __init__(self, mean: float = 0.0, std: float = 1e-3):
         super().__init__()
@@ -63,8 +65,9 @@ class NoiseLayer(nn.Module):
         if generator is None:
             raise ValueError("input noise in training draws from an explicit "
                              "torch.Generator; pass noise_generator=")
-        return x + self.mean + self.std * torch.randn(
-            x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        noise = draw_rows(lambda shape: torch.randn(
+            shape, generator=generator, device=x.device, dtype=x.dtype), x.shape)
+        return x + self.mean + self.std * noise
 
 
 def apply_act(x: torch.Tensor, act: str, alpha: float = 1.0) -> torch.Tensor:
@@ -133,7 +136,10 @@ class BatchNorm(nn.Module):
     running buffers by ``0.99 * ra + 0.01 * batch``; in evaluation the
     running buffers normalise. Arithmetic and output in f32 whatever the
     input dtype. ``running_mean``/``running_var`` are flax's
-    ``batch_stats`` ``mean``/``var``."""
+    ``batch_stats`` ``mean``/``var``. In a data-parallel step the batch
+    statistics are those of the global batch: the sums of x and x^2 are
+    summed over the data group (differentiably), so every rank normalises
+    alike and keeps the same running buffers."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -146,8 +152,12 @@ class BatchNorm(nn.Module):
         x = x.float()
         if train:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(axes)
-            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            if current_mesh() is None:
+                mean, mean2 = x.mean(axes), (x * x).mean(axes)
+            else:
+                n = x.numel() // x.shape[-1] * data_size()
+                mean, mean2 = reduce_data(torch.stack([x.sum(axes), (x * x).sum(axes)]) / n)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(BN_MOMENTUM * self.running_mean
                                         + (1 - BN_MOMENTUM) * mean)
@@ -308,7 +318,11 @@ class LSTMCellParams(nn.Module):
     kernels ``ii|if|ig|io`` stacked as ``w_ih`` (4H, in), the recurrent
     kernels ``hi|hf|hg|ho`` as ``w_hh`` (4H, H), and their one bias (4H).
     flax initialisation: lecun-normal input kernels, an orthogonal (H, H)
-    block per recurrent gate, zero bias."""
+    block per recurrent gate, zero bias. Split over a model group (``tp``,
+    ``parallel/tp.py``), ``w_ih``/``w_hh`` hold this rank's rows and
+    ``full`` all-gathers them for the recurrence."""
+
+    tp = None
 
     def __init__(self, in_features: int, hidden: int,
                  generator: Optional[torch.Generator] = None):
@@ -319,6 +333,12 @@ class LSTMCellParams(nn.Module):
         for gate in self.w_hh.data.chunk(4):
             nn.init.orthogonal_(gate, generator=generator)
         self.bias = nn.Parameter(torch.zeros(4 * hidden))
+
+    def full(self, name: str) -> torch.Tensor:
+        w = getattr(self, name)
+        if self.tp is None or name not in self.tp.names:
+            return w
+        return gather_rows(w, self.tp.group, self.tp.rank, self.tp.size)
 
 
 class BiLSTM(nn.Module):
@@ -348,7 +368,7 @@ class BiLSTM(nn.Module):
         direction w_ih, w_hh, the bias, and the zero constant."""
         weights = []
         for cell in self.children():
-            weights += [cell.w_ih, cell.w_hh, cell.bias, self._zero_bias]
+            weights += [cell.full("w_ih"), cell.full("w_hh"), cell.bias, self._zero_bias]
         return weights
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,8 @@ from typing import Dict, Mapping
 import torch
 from torch import nn
 
+from ..parallel.comm import current_mesh, data_size, reduce_data
+
 
 class SubBatchNorm(nn.Module):
     """Channels-last SubBatchNorm (reference SubBatchNorm3d semantics).
@@ -35,7 +37,13 @@ class SubBatchNorm(nn.Module):
     running statistics move by ``(1 - m) * old + m * new`` with m = 0.1 and
     the UNBIASED variance, count = (n / s) * prod(spatial). Eval: the
     aggregated ``running_mean``/``running_var`` normalise. f32 arithmetic;
-    the output is cast back to the input's dtype."""
+    the output is cast back to the input's dtype.
+
+    In a data-parallel step the splits are those of the global batch: with
+    contiguous rank slices whose size ``num_splits`` divides, local row j is
+    global row ``rank * n + j``, in split j mod s as on one device, so the
+    per-split sums (of x, then of the squared deviations) are summed over
+    the data group, differentiably."""
 
     def __init__(self, features: int, num_splits: int = 1, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -53,17 +61,25 @@ class SubBatchNorm(nn.Module):
         if train:
             n, c, s = xf.shape[0], xf.shape[-1], self.num_splits
             if n % s:
-                raise ValueError(f"batch {n} not divisible by num_splits {s}")
+                raise ValueError(
+                    f"batch {n} not divisible by num_splits {s}" if current_mesh() is None
+                    else f"this rank's batch {n} (the global batch over the data axis) "
+                         f"is not divisible by num_splits {s}")
             spatial = tuple(xf.shape[1:-1])
             # (n, *spatial, c) -> (n // s, s, *spatial, c): index g of the
             # second axis holds samples g, s + g, 2s + g, ...
             xg = xf.reshape((n // s, s) + spatial + (c,))
             red = (0,) + tuple(range(2, 2 + len(spatial)))
-            mean = xg.mean(red, keepdim=True)
-            var = torch.square(xg - mean).mean(red, keepdim=True)
+            if current_mesh() is None:
+                mean = xg.mean(red, keepdim=True)
+                var = torch.square(xg - mean).mean(red, keepdim=True)
+            else:
+                per_split = n // s * math.prod(spatial) * data_size()
+                mean = reduce_data(xg.sum(red, keepdim=True) / per_split)
+                var = reduce_data(torch.square(xg - mean).sum(red, keepdim=True) / per_split)
             out = ((xg - mean) / torch.sqrt(var + self.eps)).reshape(xf.shape)
             with torch.no_grad():
-                count = (n // s) * math.prod(spatial)
+                count = (n // s) * math.prod(spatial) * data_size()
                 unbiased = var.reshape(s, c) * (count / max(count - 1, 1))
                 m = self.momentum
                 self.split_mean.copy_((1.0 - m) * self.split_mean + m * mean.reshape(s, c))

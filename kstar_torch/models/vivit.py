@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_attention
+from ..parallel.comm import copy_to_group, draw_rows, gather_last
 
 # flax's lecun_normal draws from a normal truncated at +-2 std and rescales
 # by this constant so the kept samples have unit variance
@@ -48,20 +49,28 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: in training keep each element with probability
     1 - rate and scale the kept ones by 1/(1 - rate). The mask comes from
-    ``generator`` (on ``x``'s device), never from torch's global RNG."""
+    ``generator`` (on ``x``'s device), never from torch's global RNG; in a
+    data-parallel step, this rank's rows of the global batch's mask
+    (``parallel/comm.py draw_rows``)."""
     if not train or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training draws its masks from an explicit "
                          "torch.Generator; pass generator=")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = draw_rows(lambda shape: torch.rand(shape, generator=generator, device=x.device),
+                     x.shape) < keep
     return torch.where(mask, x / keep, 0.0)
 
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: f32 parameters, product and bias in ``dtype``.
-    ``weight`` is (out, in) as in ``torch.nn.Linear``."""
+    ``weight`` is (out, in) as in ``torch.nn.Linear``. Split over a model
+    group (``tp``, set by ``parallel/tp.py shard_state_tp``), it holds its
+    rows of ``weight`` and ``bias``, computes those output columns and
+    all-gathers them."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32,
@@ -73,9 +82,13 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            x = copy_to_group(x, self.tp.group)
         y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
+        if self.tp is not None:
+            y = gather_last(y, self.tp.group, self.tp.rank, self.tp.size)
         return y
 
 

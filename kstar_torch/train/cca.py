@@ -9,6 +9,12 @@ evaluation mode, so there is no dropout, no input noise and no BatchNorm
 statistics update; a non-finite loss zeroes the gradients, and the update
 (optimizer moments, count, AdamW's decay) is applied all the same, as the
 JAX step does.
+
+On a mesh the CCA loss stays the global batch's: its covariances run over
+the batch axis, so both encodings are all-gathered over the data group
+(differentiably: each rank's backward keeps its rows) before ``cca_loss``,
+every rank computes the same loss, and the gradients are summed over the
+group.
 """
 
 from __future__ import annotations
@@ -18,43 +24,51 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..data.loader import epoch_batches, to_device
+from ..data.loader import epoch_batches
 from ..losses import cca_loss
+from ..parallel.comm import all_reduce_, gather_rows
+from .loop import default_puts
 from .state import TrainState
 
 
-def make_cca_step(out_dim: int, use_all_singular_values: bool = False):
+def make_cca_step(out_dim: int, use_all_singular_values: bool = False, mesh=None):
     """step(state, batch) -> (state, loss) for a fusion model exposing
-    ``encode``: maximises the canonical correlation between the latents."""
+    ``encode``: maximises the canonical correlation between the latents
+    (on a ``mesh``, of the global batch)."""
 
     def step(state: TrainState, batch):
         for p in state.params:
             p.grad = None
         _, h_vis, h_ts = state.model.encode(batch["video"], batch["0D"])
+        if mesh is not None:
+            d, i = mesh.shape["data"], mesh.data_index
+            h_vis = gather_rows(h_vis, mesh.data_group, i, d)
+            h_ts = gather_rows(h_ts, mesh.data_group, i, d)
         loss = cca_loss(h_vis, h_ts, out_dim, use_all_singular_values)
         loss.backward()
         loss = loss.detach()
-        finite = torch.isfinite(loss)
         with torch.no_grad():
-            for p in state.params:
-                if p.grad is not None:
-                    p.grad = torch.where(finite, p.grad, torch.zeros_like(p.grad))
-        state.apply_gradients(torch.ones((), dtype=torch.bool, device=state.device), None)
+            grads = state.flat_grads()
+            if mesh is not None:
+                all_reduce_(grads, mesh.data_group)
+            grads = torch.where(torch.isfinite(loss), grads, torch.zeros_like(grads))
+        state.apply_gradients(torch.ones((), dtype=torch.bool, device=state.device), None,
+                              grads)
         return state, loss
 
     return step
 
 
 def train_cca(state: TrainState, train_ds, batch_size: int = 32, n_epochs: int = 8,
-              out_dim: int = 16, seed: int = 42, put=None) -> Tuple[TrainState, list]:
+              out_dim: int = 16, seed: int = 42, put=None,
+              mesh=None) -> Tuple[TrainState, list]:
     """CCA pre-training loop (reference train_cca, src/CCA.py:178-222):
     returns the state and the mean loss of each epoch. ``put`` moves a host
     (batch, labels) pair to the device (e.g. ``DevicePreprocessor``, which
     also crops and normalises the video); default: a plain upload to the
-    state's device."""
-    if put is None:
-        put = lambda item: to_device(item, state.device)
-    step = make_cca_step(out_dim)
+    state's device, on a ``mesh`` of this rank's rows."""
+    put = put or default_puts(state.device, mesh)[0]
+    step = make_cca_step(out_dim, mesh=mesh)
     rng = np.random.default_rng(seed)
     losses = []
     for _ in range(n_epochs):

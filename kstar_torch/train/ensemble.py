@@ -26,6 +26,11 @@ cuDNN's ``torch.lstm``. So an ensemble is a list of ``TrainState``s sharing
 one ``Optimizer``, and an ensemble step costs about N solo steps on the
 device (the batch's gather and upload are paid once). Batching the members
 into one launch chain is speed work for later (ROADMAP.md Queue 2).
+
+On a mesh (``create_ensemble_state(mesh=)``, JAX's ensemble axis sharded
+over the data devices) each data rank holds its own block of the members,
+``local_seeds``, and trains them on the full batches with no collectives:
+every rank draws the same batches, as every member does on one device.
 """
 
 from __future__ import annotations
@@ -46,18 +51,34 @@ from .metrics import accuracy, macro_f1
 from .state import TrainState, make_optimizer, save_checkpoint
 
 
+def local_seeds(seeds: Sequence[int], mesh=None) -> List[int]:
+    """The seeds whose members this rank holds: all of them without a mesh,
+    else the data rank's contiguous block (the data axis must divide the
+    member count, as JAX's ensemble-axis sharding requires)."""
+    if mesh is None:
+        return list(seeds)
+    d = mesh.shape["data"]
+    if len(seeds) % d:
+        raise ValueError(f"{len(seeds)} ensemble members do not split over the "
+                         f"mesh's data axis ({d})")
+    k = len(seeds) // d
+    return list(seeds[mesh.data_index * k:(mesh.data_index + 1) * k])
+
+
 def create_ensemble_state(make_model: Callable[[torch.Generator], torch.nn.Module],
                           seeds: Sequence[int], optim_cfg: OptimConfig,
-                          steps_per_epoch: int = 1, device=None) -> List[TrainState]:
+                          steps_per_epoch: int = 1, device=None,
+                          mesh=None) -> List[TrainState]:
     """One ``TrainState`` per seed: ``make_model(generator)`` builds the
     model from ``torch.Generator().manual_seed(s)`` (as the train CLIs
-    initialise theirs), it moves to ``device`` (``None``: the GPU), and the
-    state takes seed ``s`` for its step streams. The members share one
-    ``Optimizer``."""
-    device = resolve_device(device)
+    initialise theirs), it moves to ``device`` (``None``: the GPU; on a
+    mesh, the mesh's device), and the state takes seed ``s`` for its step
+    streams. The members share one ``Optimizer``. ``mesh``: only this
+    rank's members, ``local_seeds(seeds, mesh)``."""
+    device = mesh.device if mesh is not None else resolve_device(device)
     tx = make_optimizer(optim_cfg, steps_per_epoch)
     return [TrainState(make_model(torch.Generator().manual_seed(int(s))).to(device), tx,
-                       seed=int(s)) for s in seeds]
+                       seed=int(s)) for s in local_seeds(seeds, mesh)]
 
 
 # JAX's name for member i of the ensemble (shared, not copied: training it
@@ -142,6 +163,7 @@ def fit_ensemble(
     put=None,
     pre_fn=None,
     pre_fn_eval=None,
+    writes: bool = True,
 ) -> Tuple[List[TrainState], List[History]]:
     """Train all members together; per-member ``History`` and per-member
     ``{tag}_seed_{s}_{best,last}.ckpt`` checkpoints (the tag scheme of the
@@ -154,7 +176,9 @@ def fit_ensemble(
 
     Scope (as JAX's): no early stopping (members would stop at different
     epochs; run the full budget and use each member's best checkpoint) and
-    no metric writer (the histories return to the caller)."""
+    no metric writer (the histories return to the caller). ``writes=False``
+    writes no checkpoint (a replica of the ensemble on a rank other than 0
+    of a data-parallel run)."""
     n = len(seeds)
     device = states[0].device
     if put is None:
@@ -222,16 +246,18 @@ def fit_ensemble(
             h.valid_f1.append(va_f1)
             h.train_acc.append(accuracy(labels_all, preds_all[i]))
             h.valid_acc.append(accuracy(v_labels_all, v_preds_all[i]))
-            save_checkpoint(states[i], os.path.join(train_cfg.weight_dir,
-                                                    f"{tag}_seed_{s}_last.ckpt"))
+            if writes:
+                save_checkpoint(states[i], os.path.join(train_cfg.weight_dir,
+                                                        f"{tag}_seed_{s}_last.ckpt"))
             if va_f1 > best_f1[i]:
                 best_f1[i] = h.best_f1 = va_f1
                 h.best_epoch = epoch
-                save_checkpoint(states[i], os.path.join(
-                    train_cfg.weight_dir, f"{tag}_seed_{s}_best.ckpt"),
-                    extra={"epoch": epoch, "valid_f1": va_f1, "seed": int(s)})
+                if writes:
+                    save_checkpoint(states[i], os.path.join(
+                        train_cfg.weight_dir, f"{tag}_seed_{s}_best.ckpt"),
+                        extra={"epoch": epoch, "valid_f1": va_f1, "seed": int(s)})
 
-        if train_cfg.verbose and epoch % train_cfg.verbose == 0:
+        if writes and train_cfg.verbose and epoch % train_cfg.verbose == 0:
             f1s = " ".join(f"{hists[i].valid_f1[-1]:.3f}" for i in range(n))
             print(f"epoch {epoch+1:3d} | ensemble valid f1 [{f1s}]")
 

@@ -21,6 +21,13 @@ train_per_epoch/valid_per_epoch/train/train_DRW):
   * metrics (macro-F1) accumulate host-side like the reference's sklearn
     f1_score over the epoch's predictions.
 
+``mesh`` (``parallel/mesh.py``) makes each step data-parallel over the
+mesh's data group (``parallel/dp.py`` says what that takes): the step runs
+in ``parallel.comm.data_parallel``, the loss and the flat gradient are
+summed over the group in one ``all_reduce`` before the guarded update, and
+the eval step gathers its probabilities and predictions. With no mesh the
+steps compute exactly what they computed before.
+
 ``model_type`` picks the model's inputs and loss, as in the JAX loop:
 ``"single"`` (one input, the classification loss), ``"multi"`` (a fusion
 model called on ``batch["video"], batch["0D"]``) and ``"multi-GB"`` (the
@@ -44,10 +51,11 @@ from ..data.loader import (epoch_batches, eval_batches, grouped_batches,
                            prefetch_to_device, threaded_batches, to_device)
 from ..losses import (classification_loss, drw_weights, gradient_blending_loss,
                       inverse_freq_weights, ldam_margins)
+from ..parallel.comm import all_gather_cat, all_reduce_, barrier, data_parallel
 from .early_stopping import EarlyStopping
 from .logging import MetricWriter
 from .metrics import accuracy, macro_f1
-from .state import TrainState, save_checkpoint
+from .state import TrainState, save_checkpoint, save_checkpoint_sharded
 
 
 MODEL_TYPES = ("single", "multi", "multi-GB")
@@ -80,8 +88,23 @@ def _loss_and_logits(out, labels, loss_cfg: LossConfig, model_type: str, weight,
     return classification_loss(out, labels, loss_cfg.loss_type, **kw), out
 
 
+def guarded_update(state: TrainState, loss: torch.Tensor, stats_before, mesh):
+    """The NaN-guarded update after a backward. On a mesh this rank's flat
+    gradient, with the loss appended, is summed over the data group in one
+    ``all_reduce``, and the update of the summed gradient is decided on the
+    global loss, so every rank steps or every rank skips. Returns the
+    (global) loss."""
+    if mesh is None:
+        state.apply_gradients(torch.isfinite(loss), stats_before)
+        return loss
+    buf = all_reduce_(torch.cat([state.flat_grads(), loss.reshape(1).float()]),
+                      mesh.data_group)
+    state.apply_gradients(torch.isfinite(buf[-1]), stats_before, buf[:-1])
+    return buf[-1]
+
+
 def make_train_step(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None,
-                    model_type: str = "single") -> Callable:
+                    model_type: str = "single", mesh=None) -> Callable:
     """step(state, batch, labels, weight, m_list, gb_w=None)
     -> (state, loss, preds).
 
@@ -89,30 +112,32 @@ def make_train_step(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None,
     batch)`` (optional), the forward in training mode with dropout (and,
     for the 0D models and encoders, the input noise) drawn from the step's
     generators, the loss (``model_type``), backward, and the guarded
-    update. ``loss`` and ``preds`` stay on the device."""
+    update. ``loss`` and ``preds`` stay on the device. On a ``mesh`` the
+    batch is this rank's rows, ``loss`` the global batch's and ``preds``
+    this rank's rows'."""
     _check_model_type(model_type)
 
     def step(state: TrainState, batch, labels, weight, m_list, gb_w=None):
         gen_pre, gen_drop, gen_noise = state.next_generators()
-        if pre_fn is not None:
-            batch = pre_fn(gen_pre, batch)
-        for p in state.params:
-            p.grad = None
-        stats_before = state.snapshot_stats()
-        out = _model_outputs(state.model, batch, model_type, train=True,
-                             generator=gen_drop, noise_generator=gen_noise)
-        loss, logits = _loss_and_logits(out, labels, loss_cfg, model_type, weight,
-                                        m_list, gb_w)
-        loss.backward()
-        loss = loss.detach()
-        state.apply_gradients(torch.isfinite(loss), stats_before)
+        with data_parallel(mesh):
+            if pre_fn is not None:
+                batch = pre_fn(gen_pre, batch)
+            for p in state.params:
+                p.grad = None
+            stats_before = state.snapshot_stats()
+            out = _model_outputs(state.model, batch, model_type, train=True,
+                                 generator=gen_drop, noise_generator=gen_noise)
+            loss, logits = _loss_and_logits(out, labels, loss_cfg, model_type, weight,
+                                            m_list, gb_w)
+            loss.backward()
+        loss = guarded_update(state, loss.detach(), stats_before, mesh)
         return state, loss, logits.detach().argmax(-1)
 
     return step
 
 
 def make_scan_steps(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None,
-                    model_type: str = "single") -> Callable:
+                    model_type: str = "single", mesh=None) -> Callable:
     """K steps per call over a (K, B, ...) stack of device batches:
 
     multi_step(state, batches, labels, weight, m_list, gb_w=None)
@@ -122,7 +147,7 @@ def make_scan_steps(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None,
     ``make_train_step``'s step, so the trajectory is the same (JAX's
     ``lax.scan`` version amortizes a per-dispatch link latency; here it
     takes one stacked upload per K batches)."""
-    step = make_train_step(loss_cfg, pre_fn, model_type)
+    step = make_train_step(loss_cfg, pre_fn, model_type, mesh)
 
     def multi_step(state: TrainState, batches, labels, weight, m_list, gb_w=None):
         losses, preds = [], []
@@ -138,21 +163,30 @@ def make_scan_steps(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None,
 
 
 def make_eval_step(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None,
-                   model_type: str = "single") -> Callable:
+                   model_type: str = "single", mesh=None) -> Callable:
     """eval_step(model, batch, labels, weight, m_list, mask, gb_w=None)
     -> (loss, probs, preds); probs = softmax(logits) in f32 (the multi
     logits for ``"multi-GB"``), the loss counts only the samples where
-    ``mask`` is 1."""
+    ``mask`` is 1. On a ``mesh`` the batch and mask are this rank's rows;
+    the loss is the global batch's, and probs and preds are all-gathered in
+    rank order, the global batch's order."""
     _check_model_type(model_type)
 
     @torch.no_grad()
     def step(model, batch, labels, weight, m_list, mask, gb_w=None):
-        if pre_fn is not None:
-            batch = pre_fn(None, batch)
-        out = _model_outputs(model, batch, model_type, train=False)
-        loss, logits = _loss_and_logits(out, labels, loss_cfg, model_type, weight,
-                                        m_list, gb_w, mask)
-        return loss, torch.softmax(logits.float(), dim=-1), logits.argmax(-1)
+        with data_parallel(mesh):
+            if pre_fn is not None:
+                batch = pre_fn(None, batch)
+            out = _model_outputs(model, batch, model_type, train=False)
+            loss, logits = _loss_and_logits(out, labels, loss_cfg, model_type, weight,
+                                            m_list, gb_w, mask)
+        probs, preds = torch.softmax(logits.float(), dim=-1), logits.argmax(-1)
+        if mesh is not None:
+            d = mesh.shape["data"]
+            loss = all_reduce_(loss.clone(), mesh.data_group)
+            probs = all_gather_cat(probs, mesh.data_group, d)
+            preds = all_gather_cat(preds, mesh.data_group, d)
+        return loss, probs, preds
 
     return step
 
@@ -187,26 +221,46 @@ def _loss_aux(loss_cfg: LossConfig, cls_counts: np.ndarray, epoch: int,
     return (torch.as_tensor(weight).to(device), torch.as_tensor(m_list).to(device))
 
 
+def default_puts(device, mesh=None, put=None):
+    """(put, put_stack) of host (batch, labels) pairs and (K, B, ...)
+    stacks. Without a ``mesh`` both are the caller's ``put`` (default: a
+    plain upload to ``device``). On a mesh, pairs go through ``put``
+    (default: this rank's rows, ``parallel/mesh.py put_batch``) and stacks
+    through this rank's rows of axis 1 (``put_stack``)."""
+    if mesh is None:
+        put = put or (lambda item: to_device(item, device))
+        return put, put
+    from ..parallel.mesh import put_batch, put_stack
+
+    return (put or (lambda item: (put_batch(mesh, item[0]), put_batch(mesh, item[1]))),
+            lambda item: (put_stack(mesh, item[0]), put_stack(mesh, item[1])))
+
+
 def run_train_epoch(train_step, state: TrainState, dataset, batch_size, rng,
                     weight, m_list, sampler=None, put=None, prefetch=True,
-                    scan_step=None, steps_per_dispatch: int = 1, gb_w=None):
+                    scan_step=None, steps_per_dispatch: int = 1, gb_w=None,
+                    mesh=None):
     """One training epoch, pipelined: batches are gathered (and put on the
     device) by a producer thread ahead of consumption, and the per-step
     losses/preds stay on the device until the epoch ends (one host sync).
 
     scan_step + steps_per_dispatch > 1: full groups of K batches run through
-    the K-step call (make_scan_steps); the remainder through ``train_step``.
-    ``gb_w``: the (3,) Gradient-Blending weights of a ``"multi-GB"`` step.
+    the K-step call (make_scan_steps; stacks through ``put``, or on a mesh
+    this rank's rows of axis 1, ``default_puts``); the
+    remainder through ``train_step``. ``gb_w``: the (3,) Gradient-Blending
+    weights of a ``"multi-GB"`` step. On a ``mesh`` (steps built with it)
+    the predictions and labels are all-gathered once at the end, so the
+    metrics are the global batch's on every rank.
     Returns (state, mean loss, accuracy, macro-F1)."""
-    if put is None:
-        put = lambda item: to_device(item, state.device)
+    put, put_stack = default_puts(state.device, mesh, put)
     n_samples = 0
     dev_losses, dev_preds, dev_labels = [], [], []
     idx_iter = epoch_batches(len(dataset), batch_size, rng, sampler=sampler)
 
     if scan_step is not None and steps_per_dispatch > 1:
         for kind, (batch, labels) in grouped_batches(dataset, idx_iter,
-                                                     steps_per_dispatch, put):
+                                                     steps_per_dispatch, put,
+                                                     put_stack=put_stack):
             if kind == "stack":
                 state, losses_k, preds_k = scan_step(state, batch, labels, weight, m_list,
                                                      gb_w)
@@ -233,31 +287,45 @@ def run_train_epoch(train_step, state: TrainState, dataset, batch_size, rng,
     if n_samples == 0:
         return state, 0.0, 0.0, 0.0
     losses = float(torch.stack(dev_losses).sum())          # the epoch's one sync
-    preds = torch.cat(dev_preds).cpu().numpy()
-    labels = torch.cat(dev_labels).cpu().numpy()
+    preds, labels = torch.cat(dev_preds), torch.cat(dev_labels)
+    if mesh is not None:
+        d = mesh.shape["data"]
+        preds = all_gather_cat(preds, mesh.data_group, d)
+        labels = all_gather_cat(labels, mesh.data_group, d)
+        n_samples = labels.numel()
+    preds, labels = preds.cpu().numpy(), labels.cpu().numpy()
     return state, losses / n_samples, accuracy(labels, preds), macro_f1(labels, preds)
 
 
 def run_eval_epoch(eval_step, model, dataset, batch_size, weight, m_list,
-                   put=None, collect_probs: bool = False, gb_w=None):
+                   put=None, collect_probs: bool = False, gb_w=None, mesh=None):
     """One pass over ``dataset`` in fixed-size batches (the tail padded and
     masked out). Returns (mean loss, accuracy, macro-F1) and, with
     ``collect_probs``, ((N, 2) probabilities, (N,) labels). ``gb_w``: the
-    Gradient-Blending weights of a ``"multi-GB"`` eval step."""
+    Gradient-Blending weights of a ``"multi-GB"`` eval step. On a ``mesh``
+    (an eval step built with it) each rank puts its rows of the batch and
+    of the mask, and the step's gathered results cover the population."""
     device = next(model.parameters()).device
-    if put is None:
-        put = lambda item: to_device(item, device)
+    put = put or default_puts(device, mesh)[0]
+    if mesh is None:
+        put_mask = lambda m: to_device(m, device)
+    else:
+        from ..parallel.mesh import put_batch
+        put_mask = lambda m: put_batch(mesh, m)
     n_samples = 0
     dev_losses, dev_preds, dev_probs, dev_labels, all_masks = [], [], [], [], []
     for idx, mask in eval_batches(len(dataset), batch_size):
-        batch, labels = put(dataset.batch(idx))
+        item = dataset.batch(idx)
+        batch, labels = put(item)
         loss, probs, preds = eval_step(model, batch, labels, weight, m_list,
-                                       to_device(mask.astype(np.float32), device), gb_w)
+                                       put_mask(mask.astype(np.float32)), gb_w)
         dev_losses.append(loss)
         dev_preds.append(preds)
         if collect_probs:
             dev_probs.append(probs)
-        dev_labels.append(labels)
+        # on a mesh the step's outputs are the global batch's: so are the
+        # host labels
+        dev_labels.append(labels if mesh is None else torch.as_tensor(item[1]))
         n_samples += int(mask.sum())
         all_masks.append(mask)
     if n_samples == 0:
@@ -292,6 +360,7 @@ def fit(
     pre_fn=None,
     pre_fn_eval=None,
     eval_stats_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> Tuple[TrainState, History]:
     """Epoch driver covering the reference's ``train`` and ``train_DRW``
     (src/train.py:147-274, :277-422): per-epoch train/valid, metric logging,
@@ -305,13 +374,26 @@ def fit(
     and writes the model's statistics in place, so the state and both
     checkpoints carry its result: the SubBatchNorm aggregate-before-eval
     contract (``models.aggregate_batch_stats``; reference aggregate_stats,
-    src/models/resnet.py:52-61)."""
+    src/models/resnet.py:52-61).
+
+    ``mesh``: data-parallel over its data group (``put``/``put_eval``
+    default to this rank's rows, and multi-step stacks always go up as this
+    rank's rows of axis 1). Every rank runs the same
+    epochs on the same global batches and sees the same metrics; rank 0
+    alone writes the checkpoints, the writer's logs and the printed lines,
+    and the others wait at a barrier after each save (a mesh with a model
+    axis writes ``save_checkpoint_sharded`` directories instead, every rank
+    its shards)."""
     num_epoch = num_epoch or train_cfg.num_epoch
-    train_step = make_train_step(loss_cfg, pre_fn=pre_fn, model_type=model_type)
-    eval_step = make_eval_step(loss_cfg, pre_fn=pre_fn_eval, model_type=model_type)
+    train_step = make_train_step(loss_cfg, pre_fn=pre_fn, model_type=model_type, mesh=mesh)
+    eval_step = make_eval_step(loss_cfg, pre_fn=pre_fn_eval, model_type=model_type,
+                               mesh=mesh)
     k = train_cfg.steps_per_dispatch
-    scan_step = (make_scan_steps(loss_cfg, pre_fn=pre_fn, model_type=model_type)
+    scan_step = (make_scan_steps(loss_cfg, pre_fn=pre_fn, model_type=model_type, mesh=mesh)
                  if k > 1 else None)
+    main = mesh is None or mesh.is_main
+    if not main:
+        writer = None
 
     cls_counts = train_ds.class_counts()
     gb_w = torch.as_tensor(gb_weights if gb_weights is not None else np.zeros(3),
@@ -332,7 +414,8 @@ def fit(
         state, tr_loss, tr_acc, tr_f1 = run_train_epoch(
             train_step, state, train_ds, train_cfg.batch_size, rng,
             weight, m_list, sampler=sampler, put=put,
-            scan_step=scan_step, steps_per_dispatch=k, gb_w=gb_w)
+            scan_step=scan_step, steps_per_dispatch=k, gb_w=gb_w,
+            mesh=mesh)
         if eval_stats_fn is not None:
             with torch.no_grad():
                 eval_stats_fn(state.model)
@@ -340,7 +423,7 @@ def fit(
         va_loss, va_acc, va_f1, *va_probs = run_eval_epoch(
             eval_step, state.model, valid_ds, train_cfg.batch_size, weight, m_list,
             put=put_eval if put_eval is not None else put, gb_w=gb_w,
-            collect_probs=writer is not None)
+            collect_probs=writer is not None, mesh=mesh)
         ep_s = time.perf_counter() - t_ep
 
         hist.train_loss.append(tr_loss); hist.valid_loss.append(va_loss)
@@ -352,16 +435,16 @@ def fit(
             writer.scalars({"Loss/train": tr_loss, "Loss/valid": va_loss,
                             "F1/train": tr_f1, "F1/valid": va_f1,
                             "time/epoch_s": ep_s}, epoch)
-        if train_cfg.verbose and epoch % train_cfg.verbose == 0:
+        if main and train_cfg.verbose and epoch % train_cfg.verbose == 0:
             print(f"epoch {epoch+1:3d} | train loss {tr_loss:.4f} f1 {tr_f1:.4f} "
                   f"| valid loss {va_loss:.4f} f1 {va_f1:.4f} | {ep_s:.1f}s")
 
-        save_checkpoint(state, last_path)
+        save_on_mesh(state, last_path, mesh)
         improved = stopper(va_f1) if stopper else va_f1 > hist.best_f1
         if improved:
             hist.best_f1 = va_f1
             hist.best_epoch = epoch
-            save_checkpoint(state, best_path, extra={"epoch": epoch, "valid_f1": va_f1})
+            save_on_mesh(state, best_path, mesh, extra={"epoch": epoch, "valid_f1": va_f1})
             if writer:
                 # evaluation figure on improvement (the reference emits one
                 # per epoch via evaluate_tensorboard, src/train.py:242-245)
@@ -376,7 +459,21 @@ def fit(
                     # but a broken pipeline must surface in the logs
                     print(f"[fit] eval figure emission failed: {type(e).__name__}: {e}")
         if stopper and stopper.should_stop:
-            print(f"early stopping at epoch {epoch+1}")
+            if main:
+                print(f"early stopping at epoch {epoch+1}")
             break
 
     return state, hist
+
+
+def save_on_mesh(state: TrainState, path: str, mesh=None, extra=None) -> None:
+    """``save_checkpoint`` by rank 0 while the other ranks wait at a barrier
+    (the reference's rank-0 saves); on a mesh with a model axis, a
+    ``save_checkpoint_sharded`` directory that every rank writes into."""
+    if mesh is not None and mesh.shape["model"] > 1:
+        save_checkpoint_sharded(state, path, mesh)
+        return
+    if mesh is None or mesh.is_main:
+        save_checkpoint(state, path, extra=extra)
+    if mesh is not None:
+        barrier()

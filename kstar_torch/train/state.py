@@ -32,7 +32,10 @@ them too with one select; whatever updates them writes in place.
 
 A checkpoint is the full state (parameters, batch statistics, optimizer
 state, step, seed, draws) written with ``torch.save``: ``--resume``
-continues exactly.
+continues exactly. ``save_checkpoint_sharded`` writes every rank's part of
+a data- or tensor-parallel run (a tensor-parallel rank's flat buffer holds
+its shards, ``shard_mask``; the global-norm clip then sums the shards'
+squares over the model group, ``grad_norm``).
 """
 
 from __future__ import annotations
@@ -87,12 +90,15 @@ class Optimizer:
         return state
 
     def update(self, grads: torch.Tensor, state: Dict[str, torch.Tensor],
-               params: torch.Tensor):
+               params: torch.Tensor, norm: Optional[torch.Tensor] = None):
         """(updates, new state) for flat f32 gradients and parameters; the
-        new parameters are ``params + updates`` (``optax.apply_updates``)."""
+        new parameters are ``params + updates`` (``optax.apply_updates``).
+        ``norm``: the global gradient norm where ``grads`` holds only part of
+        the gradient (a tensor-parallel shard); default ``|grads|``."""
         g = grads
         if self.max_norm is not None:
-            norm = torch.linalg.vector_norm(g)
+            if norm is None:
+                norm = torch.linalg.vector_norm(g)
             g = torch.where(norm < self.max_norm, g, g / norm * self.max_norm)
         count = state["count"]
         count_inc = count + 1
@@ -159,11 +165,40 @@ class TrainState:
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.flat = _flatten_parameters(self.params)
         self.device = self.flat.device
+        self._find_shards()
         # batch statistics: the persistent floating-point buffers
         self._flatten_stats()
         self.opt_state = tx.init(self.flat)
         self.step = torch.zeros((), dtype=torch.int64, device=self.device)
         self.draws = 0
+
+    def _find_shards(self) -> None:
+        """``shard_mask``: the entries of ``flat`` that hold a tensor-parallel
+        shard (``parallel/tp.py``), and ``shard_group``, their model group;
+        both None for a model with no split layer."""
+        self.shard_mask = self.shard_group = None
+        split = {}
+        for module in self.model.modules():
+            tp = getattr(module, "tp", None)
+            if tp is not None:
+                split.update({id(getattr(module, n)): tp.group for n in tp.names})
+        if not split:
+            return
+        self.shard_mask = torch.cat([
+            torch.full((p.numel(),), id(p) in split, dtype=torch.bool, device=self.device)
+            for p in self.params])
+        self.shard_group = next(iter(split.values()))
+
+    def grad_norm(self, grads: torch.Tensor) -> Optional[torch.Tensor]:
+        """The global norm of a flat gradient whose shards are split over the
+        model group (None without shards: the optimizer takes |grads|)."""
+        if self.shard_mask is None:
+            return None
+        from ..parallel.comm import all_reduce_
+
+        sq = torch.where(self.shard_mask, grads, 0.0).square().sum()
+        return torch.sqrt(all_reduce_(sq, self.shard_group)
+                          + torch.where(self.shard_mask, 0.0, grads).square().sum())
 
     def _flatten_stats(self) -> None:
         saved = set(self.model.state_dict())
@@ -236,14 +271,18 @@ class TrainState:
 
     @torch.no_grad()
     def apply_gradients(self, finite: torch.Tensor,
-                        stats_before: Optional[torch.Tensor]) -> None:
-        """One optimizer update from the parameters' ``.grad``, kept only
-        where ``finite`` (a device bool): otherwise parameters, optimizer
-        state, step and the batch statistics (back to ``stats_before``, the
-        step's ``snapshot_stats``) stay bit-identical. Decided on the device,
-        with no host sync (``guarded_update``,
-        ``kstar_tpu/train/loop.py:91-104``)."""
-        updates, new_opt = self.tx.update(self.flat_grads(), self.opt_state, self.flat)
+                        stats_before: Optional[torch.Tensor],
+                        grads: Optional[torch.Tensor] = None) -> None:
+        """One optimizer update from the parameters' ``.grad`` (or the flat
+        ``grads``, the data-parallel step's summed buffer), kept only where
+        ``finite`` (a device bool): otherwise parameters, optimizer state,
+        step and the batch statistics (back to ``stats_before``, the step's
+        ``snapshot_stats``) stay bit-identical. Decided on the device, with
+        no host sync (``guarded_update``, ``kstar_tpu/train/loop.py:91-104``)."""
+        if grads is None:
+            grads = self.flat_grads()
+        updates, new_opt = self.tx.update(grads, self.opt_state, self.flat,
+                                          norm=self.grad_norm(grads))
         self.flat.copy_(torch.where(finite, self.flat + updates, self.flat))
         self.opt_state = {k: torch.where(finite, v, self.opt_state[k])
                           for k, v in new_opt.items()}
@@ -293,3 +332,61 @@ def load_params(model: nn.Module, path: str) -> nn.Module:
     device = next(model.parameters()).device
     model.load_state_dict(torch.load(path, map_location=device)["model"])
     return model
+
+
+# ---------------------------------------------------------------------------
+# sharded checkpoints (the counterpart of JAX's orbax checkpoints)
+# ---------------------------------------------------------------------------
+
+SHARDED_META = "meta.json"
+
+
+def _layout(mesh) -> dict:
+    from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+    if mesh is None:
+        return {"world": 1, "data": 1, "model": 1}
+    return {"world": mesh.world, "data": mesh.shape[DATA_AXIS],
+            "model": mesh.shape[MODEL_AXIS]}
+
+
+def _rank_file(path: str, mesh) -> str:
+    return os.path.join(path, f"rank_{0 if mesh is None else mesh.rank:05d}.pt")
+
+
+def save_checkpoint_sharded(state, path: str, mesh=None) -> None:
+    """Every rank writes what it holds into the directory ``path``: its
+    ``TrainState`` (a tensor-parallel rank its shards) or its list of
+    ensemble members, as ``rank_<r>.pt``; rank 0 adds ``meta.json`` with the
+    mesh's layout. Returns when every rank has written (a barrier). The
+    counterpart of ``kstar_tpu/train/state.py save_checkpoint_orbax``; no
+    file format is shared with orbax."""
+    from ..parallel.comm import barrier
+
+    members = isinstance(state, (list, tuple))
+    os.makedirs(path, exist_ok=True)
+    payload = ([s.state_dict() for s in state] if members else state.state_dict())
+    torch.save(payload, _rank_file(path, mesh))
+    if mesh is None or mesh.is_main:
+        meta = {**_layout(mesh), "members": len(state) if members else None}
+        with open(os.path.join(path, SHARDED_META), "w") as f:
+            json.dump(meta, f, indent=2)
+    barrier()
+
+
+def load_checkpoint_sharded(state, path: str, mesh=None):
+    """Restore this rank's part of ``save_checkpoint_sharded``'s directory
+    into a template of the same layout (the same mesh, the same split
+    layers, the same member count), in place; returns it. A different
+    layout raises."""
+    with open(os.path.join(path, SHARDED_META)) as f:
+        meta = json.load(f)
+    members = isinstance(state, (list, tuple))
+    want = {**_layout(mesh), "members": len(state) if members else None}
+    if meta != want:
+        raise ValueError(f"sharded checkpoint {path} has layout {meta}, the template {want}")
+    device = (state[0] if members else state).device
+    payload = torch.load(_rank_file(path, mesh), map_location=device)
+    for st, p in (zip(state, payload) if members else [(state, payload)]):
+        st.load_state_dict(p)
+    return state

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parallel_worker import check_cli_run
+
 from kstar_torch.cli import train_0d
 
 TINY = ["--synthetic", "--synthetic_shots", "6", "--batch_size", "16", "--verbose", "1",
@@ -113,9 +115,13 @@ def test_seeds_train_an_ensemble_and_go_on_with_the_best(tmp_path, capsys, monke
 @pytest.mark.parametrize("extra,item", [
     (["--dp", "2"], "item 14"),
 ])
-def test_unported_options_exit_with_roadmap_item(extra, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
-        train_0d.main(TINY + ["--device", "cpu"] + extra)
+def test_unported_options_exit_with_roadmap_item(extra, item, tmp_path):
+    """Once the refusal of ROADMAP item 14, now ported: ``--dp 2 --device
+    cpu`` trains on two gloo ranks and only rank 0 writes."""
+    result = train_0d.main(TINY + ["--model", "MLSTM_FCN", "--device", "cpu",
+                                   "--num_epoch", "2", "--weight_dir", str(tmp_path / "w"),
+                                   "--save_dir", str(tmp_path / "r")] + extra)
+    check_cli_run(tmp_path, result, "MLSTM_FCN_clip_21_dist_3_Focal_Normal_seed_42", 2)
 
 
 def test_runs_on_the_gpu_unless_asked(tmp_path):
@@ -123,3 +129,11 @@ def test_runs_on_the_gpu_unless_asked(tmp_path):
         pytest.skip("a GPU is present: the default device would run")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_0d.main(TINY + ["--weight_dir", os.fspath(tmp_path)])
+
+
+def test_dp_without_the_cards_raises():
+    """``--dp 2`` on the GPU with fewer than two cards stops before any work."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two GPUs are present: the run would start")
+    with pytest.raises(SystemExit, match="--dp 2 needs 2 CUDA devices"):
+        train_0d.main(TINY + ["--device", "cuda", "--dp", "2"])

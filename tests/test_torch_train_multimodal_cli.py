@@ -11,6 +11,8 @@ import re
 import pytest
 import torch
 
+from _torch_parallel_worker import check_cli_run
+
 from kstar_torch.cli import train_multimodal
 
 TINY = ["--synthetic", "--synthetic_shots", "6", "--batch_size", "16", "--verbose", "1",
@@ -101,9 +103,18 @@ def test_cli_trains_reports_sweeps_and_resumes(tmp_path, capsys, extra, tag):
     (["--seeds", "1", "2"], "the JAX package has no multimodal ensemble"),
     (["--dp", "2"], "item 14"),
 ])
-def test_unported_options_exit_with_roadmap_item(extra, item):
-    with pytest.raises(SystemExit, match=item):
-        train_multimodal.main(TINY + extra + ["--device", "cpu"])
+def test_unported_options_exit_with_roadmap_item(extra, item, tmp_path):
+    """``--seeds`` with several seeds stays refused. ``--dp`` was the refusal
+    of ROADMAP item 14, now ported: ``--dp 2 --device cpu --use_GB`` trains
+    ``fit_gb`` on two gloo ranks and only rank 0 writes."""
+    if item != "item 14":
+        with pytest.raises(SystemExit, match=item):
+            train_multimodal.main(TINY + extra + ["--device", "cpu"])
+        return
+    result = train_multimodal.main(TINY + extra + [
+        "--device", "cpu", "--use_GB", "--num_epoch", "1", "--skip_extras",
+        "--weight_dir", str(tmp_path / "w"), "--save_dir", str(tmp_path / "r")])
+    check_cli_run(tmp_path, result, "concat_GB_clip_5_dist_3_Focal_Normal_seed_42", 1)
 
 
 def test_default_device_is_the_gpu(monkeypatch):
@@ -119,3 +130,11 @@ def test_defaults_follow_the_jax_cli():
     theirs = vars(jt.build_parser().parse_args([]))
     ours.pop("device"), ours.pop("seeds")
     assert ours == theirs
+
+
+def test_dp_without_the_cards_raises():
+    """``--dp 2`` on the GPU with fewer than two cards stops before any work."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two GPUs are present: the run would start")
+    with pytest.raises(SystemExit, match="--dp 2 needs 2 CUDA devices"):
+        train_multimodal.main(TINY + ["--device", "cuda", "--dp", "2"])

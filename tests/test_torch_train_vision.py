@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parallel_worker import check_cli_run
+
 from kstar_torch.cli import train_vision
 
 TINY = ["--synthetic", "--synthetic_shots", "6", "--synthetic_frames", "96",
@@ -172,9 +174,14 @@ def test_seeds_with_bn_splits_refused_as_jax():
 @pytest.mark.parametrize("extra,item", [
     (["--dp", "2"], "item 14"),
 ])
-def test_unported_options_exit_with_roadmap_item(extra, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
-        train_vision.main(TINY + ["--device", "cpu"] + extra)
+def test_unported_options_exit_with_roadmap_item(extra, item, tmp_path):
+    """Once the refusal of ROADMAP item 14, now ported: ``--dp 2 --device
+    cpu`` trains on two gloo ranks and only rank 0 writes."""
+    result = train_vision.main(TINY + ["--device", "cpu", "--num_epoch", "2",
+                                       "--weight_dir", str(tmp_path / "w"),
+                                       "--save_dir", str(tmp_path / "r")] + extra)
+    check_cli_run(tmp_path, result, "ViViT_clip_5_dist_3_Focal_Normal_seed_42", 2)
+    assert (tmp_path / "r" / "ViViT_clip_5_dist_3_Focal_Normal_seed_42_alarms.json").exists()
 
 
 def test_runs_on_the_gpu_unless_asked(tmp_path):
@@ -182,3 +189,12 @@ def test_runs_on_the_gpu_unless_asked(tmp_path):
         pytest.skip("a GPU is present: the default device would run")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_vision.main(TINY + ["--weight_dir", os.fspath(tmp_path)])
+
+
+def test_dp_without_the_cards_raises():
+    """``--dp 2`` on the GPU with fewer than two cards stops before any work
+    (no fallback to fewer ranks or to the CPU)."""
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("two GPUs are present: the run would start")
+    with pytest.raises(SystemExit, match="--dp 2 needs 2 CUDA devices"):
+        train_vision.main(TINY + ["--device", "cuda", "--dp", "2"])
