@@ -148,6 +148,23 @@ that share the card (NCCL refuses two ranks on one device):
             data-parallel steps and the ViViT library sweep (the table
             kernel on both ranks) against one rank
 
+and last what kstar_tpu trained, served and resumed by the port, and the
+scale soaks:
+
+  jax_checkpoint  the flagship ViViT, MLSTM-FCN, R(2+1)D and concat after 3
+                  AdamW steps, written in kstar_tpu's checkpoint format by the
+                  port's encoder (no JAX here): file size and read seconds;
+                  load_params gives the same logits exactly, load_checkpoint
+                  the same next step; evaluate_model --alarms from the ViViT
+                  (table kernel) and R(2+1)D (window-gather kernel)
+                  directories; train_0d --resume from the MLSTM-FCN one
+  soak            the table kernel at T = 12,600 against its plain version;
+                  kstar_torch.analysis.soak_long_shot at 12,600 frames (a
+                  60 s shot: sweep cold and steady, plain-table curve, the
+                  k = 16 stream) and soak_library_sweep at 8 shots of
+                  2,300-4,096 frames (both frame ladders, a budget forced to
+                  several groups, the per-shot path)
+
 Every phase prints one JSON line and any failure exits non-zero. Then come
 the per-kernel summary line, the card's name and power limit as nvidia-smi
 reports them, and the result line {"ok": true, "device": {...}}. Without
@@ -2978,6 +2995,221 @@ def parallel_phase(seed: int, root: str, frames, cfg, model, lib, lib_starts, li
     return bool(ok), fields, k1
 
 
+# ---------------------------------------------------------------------------
+# What kstar_tpu trained, served and resumed by the port: JAX-format
+# checkpoints; and the scale soaks (a 60 s shot, a library of full shots)
+# ---------------------------------------------------------------------------
+
+JAX_CKPT_STEPS, JAX_CKPT_BATCH = 3, 8       # AdamW steps before the file is written
+SOAK_FRAMES = 12600                         # 60 s at 210 fps: the JAX soak's shot
+SOAK_SHOTS = 8                              # of the 50-shot library: cut for time only
+
+
+def jax_checkpoint_phase(seed: int, root: str, dev) -> tuple:
+    """Checkpoints in kstar_tpu's format (``save_checkpoint``'s tree, written
+    by the port's encoder: ``flax_checkpoint_tree`` + ``write_flax_checkpoint``,
+    no JAX on the machine) of four models at full width, each after 3 AdamW
+    steps at the CLIs' optimizer (real Adam moments, batch 8, bf16 over f32
+    parameters): the flagship ViViT, MLSTM-FCN at train_0d's defaults,
+    R(2+1)D at evaluate_model's conv config and concat at train_multimodal's
+    defaults. For each, under the tag its CLI derives: the file's size and
+    read seconds; ``load_params`` into a model of another seed gives the
+    original's eval logits exactly; ``load_checkpoint`` into a fresh state,
+    then one step, gives the original state's next loss (the ``train``
+    phase's 1e-3 relative; the same draws, so 0.0 is expected). Then
+    evaluate_model --alarms on the ViViT (the table kernel) and R(2+1)D (the
+    window-gather kernel) directories, and train_0d --resume for one epoch
+    from the MLSTM-FCN one. Returns (ok, fields, K1 launches, K3 launches)."""
+    import re
+
+    from kstar_torch.cli import evaluate_model, train_0d
+    from kstar_torch.cli.common import configs_from_args, make_tag
+    from kstar_torch.config import LossConfig, OptimConfig, R2Plus1DConfig, ViViTConfig
+    from kstar_torch.models import build_0d_model, build_video_model
+    from kstar_torch.train import (create_train_state, load_checkpoint, load_params,
+                                   make_train_step)
+    from kstar_torch.train.flax_ckpt import read_flax_checkpoint, write_flax_checkpoint
+    from kstar_torch.train.state import flax_checkpoint_tree
+
+    def tag_of(parser, argv, name):
+        args = parser.parse_args(argv)
+        train_cfg, loss_cfg, _ = configs_from_args(args)
+        return make_tag(name, args, loss_cfg, train_cfg)
+
+    zero_d_argv = ["--model", "MLSTM_FCN", "--synthetic"]
+    mlstm_cfg = train_0d.model_config(train_0d.build_parser().parse_args(zero_d_argv), 18)
+    vivit_kw, ts_kw = fusion_kwargs()
+    B, g = JAX_CKPT_BATCH, torch.Generator(device=dev).manual_seed(seed)
+    clips = lambda L: torch.randn((B, L, CROP, CROP, 3), generator=g, device=dev)
+    models = {
+        # name: (make the model from a seed, the step's model_type, a batch,
+        #        the tag's CLI parser and flags)
+        "ViViT": (lambda s: build_video_model("ViViT", ViViTConfig(), dtype=torch.bfloat16,
+                                              generator=torch.Generator().manual_seed(s)),
+                  "single", clips(SEQ_LEN), evaluate_model.build_parser(),
+                  ["--kind", "vision", "--model", "ViViT"]),
+        "MLSTM_FCN": (lambda s: build_0d_model("MLSTM_FCN", mlstm_cfg, dtype=torch.bfloat16,
+                                               generator=torch.Generator().manual_seed(s)),
+                      "single", torch.randn((B, SEQ_LEN, 18), generator=g, device=dev),
+                      train_0d.build_parser(), zero_d_argv),
+        "R2Plus1D": (lambda s: build_video_model(
+            "R2Plus1D", R2Plus1DConfig(image_size=CROP, n_frames=SEQ_LEN,
+                                       layer_sizes=(1, 2, 2, 1), alpha=0.01),
+            dtype=torch.bfloat16, generator=torch.Generator().manual_seed(s)),
+            "single", clips(SEQ_LEN), evaluate_model.build_parser(),
+            ["--kind", "vision", "--model", "R2Plus1D"]),
+        "concat": (lambda s: fusion_models(s, vivit_kw, ts_kw, dtype=torch.bfloat16,
+                                           names=("concat",))["concat"],
+                   "multi", {"video": clips(SEQ_LEN),
+                             "0D": torch.randn((B, SEQ_LEN, 18), generator=g, device=dev)},
+                   evaluate_model.build_parser(), ["--kind", "multimodal"]),
+    }
+    labels = torch.arange(B, device=dev) % 2
+    weight, m_list = torch.ones(2, device=dev), torch.tensor([0.3, 0.5], device=dev)
+    ok, fields = True, {}
+    for name, (make, model_type, batch, parser, argv) in models.items():
+        tag = tag_of(parser, argv + ["--synthetic"], name)
+        wdir = f"{root}/{name}/w"
+        step = make_train_step(LossConfig(), model_type=model_type)
+        state = create_train_state(make(seed).to(dev), OptimConfig(), steps_per_epoch=1,
+                                   seed=seed)
+        for _ in range(JAX_CKPT_STEPS):
+            step(state, batch, labels, weight, m_list)
+        tree = flax_checkpoint_tree(state)
+        t0 = time.perf_counter()
+        for which in ("best", "last"):
+            write_flax_checkpoint(f"{wdir}/{tag}_{which}.ckpt", tree)
+        write_s = (time.perf_counter() - t0) / 2
+        path = f"{wdir}/{tag}_last.ckpt"
+        t0 = time.perf_counter()
+        read_flax_checkpoint(path)
+        read_s = time.perf_counter() - t0
+        # the parameters through load_params: the same eval logits, exactly
+        fresh = make(seed + 100).to(dev)
+        t0 = time.perf_counter()
+        load_params(fresh, path)
+        load_s = time.perf_counter() - t0
+        x = batch if model_type == "single" else (batch["video"], batch["0D"])
+        with torch.no_grad():
+            state.model.eval()
+            want = state.model(*(x if isinstance(x, tuple) else (x,))).float()
+            got = fresh.eval()(*(x if isinstance(x, tuple) else (x,))).float()
+            state.model.train()
+        logits_err = float((got - want).abs().max())
+        # the whole state through load_checkpoint: the same next step
+        resumed = create_train_state(make(seed + 100).to(dev), OptimConfig(),
+                                     steps_per_epoch=1, seed=seed)
+        load_checkpoint(resumed, path)
+        resumed_at = (int(resumed.step), int(resumed.opt_state["count"]), resumed.draws)
+        _, loss_a, _ = step(state, batch, labels, weight, m_list)
+        _, loss_b, _ = step(resumed, batch, labels, weight, m_list)
+        loss_rel = float((loss_a - loss_b).abs() / loss_a.abs())
+        entry = dict(tag=tag, file_mb=os.path.getsize(path) / 1e6,
+                     parameters=int(state.flat.numel()), write_s=write_s, read_s=read_s,
+                     load_params_s=load_s, logits_max_abs=logits_err,
+                     resumed_step_count_draws=resumed_at, next_loss=float(loss_a),
+                     next_loss_resumed=float(loss_b), next_loss_rel=loss_rel, loss_rtol=1e-3)
+        entry["ok"] = (logits_err == 0.0 and loss_rel <= 1e-3 and bool(torch.isfinite(loss_a))
+                       and resumed_at == (JAX_CKPT_STEPS,) * 3)
+        ok = ok and entry["ok"]
+        fields[name] = entry
+        del state, fresh, resumed
+
+    k1 = k3 = 0
+    for name, kernel in (("ViViT", "spatial_table"), ("R2Plus1D", "gather_normalize")):
+        d = f"{root}/{name}"
+        _, text, wall, launches_k = run_cli(evaluate_model.main, models[name][4] + [
+            "--alarms", "--batch_size", "64", "--synthetic", "--weight_dir", f"{d}/w",
+            "--save_dir", f"{d}/eval"])
+        k1 += launches_k["spatial_table"]
+        k3 += launches_k["gather_normalize"]
+        alarms = [f for f in os.listdir(f"{d}/eval") if f.endswith("_alarms.json")]
+        other = "gather_normalize" if kernel == "spatial_table" else "spatial_table"
+        fields[name]["evaluate_model"] = dict(wall_s=wall, test_line=test_line(text),
+                                              alarm_files=alarms, kernel_launches=launches_k)
+        run_ok = (test_line(text) is not None and len(alarms) == 1
+                  and launches_k[kernel] > 0 and launches_k[other] == 0)
+        fields[name]["evaluate_model"]["ok"] = run_ok
+        ok = ok and run_ok
+
+    d = f"{root}/MLSTM_FCN"
+    _, text, wall, launches_k = run_cli(train_0d.main, zero_d_argv + [
+        "--weight_dir", f"{d}/w", "--save_dir", f"{d}/r", "--num_epoch", "1", "--resume",
+        "--skip_extras", "--verbose", "1"])
+    m = re.search(r"resumed from \S+ at step (\d+)", text)
+    fields["MLSTM_FCN"]["train_0d_resume"] = dict(
+        wall_s=wall, resumed_at_step=int(m.group(1)) if m else None,
+        test_line=test_line(text), kernel_launches=launches_k)
+    ok = ok and bool(m) and int(m.group(1)) == JAX_CKPT_STEPS and test_line(text) is not None
+    return ok, fields, k1, k3
+
+
+def soak_phase(seed: int, root: str, dev, tol: tuple) -> tuple:
+    """The scale soaks: K1 at T = 12,600 (the 60 s shot's tokens, flagship
+    ViViT) against its plain version within ``tol``, timed; then
+    ``kstar_torch.analysis.soak_long_shot`` at 12,600 frames (the sweep cold
+    and steady, the plain-table curve, the k = 16 stream; its own checks)
+    and ``soak_library_sweep`` at ``SOAK_SHOTS`` shots of the 50-shot
+    library's length distribution (both ladders at the default budget, a
+    budget forced to a quarter of the stack, the per-shot path; its own
+    checks). Returns (ok, fields, K1 launches, K3 launches, the K1
+    kernel_check row)."""
+    import torch.nn.functional as F
+
+    from kstar_torch.analysis import soak_library_sweep, soak_long_shot
+    from kstar_torch.config import ViViTConfig
+    from kstar_torch.infer import VideoSweeper
+    from kstar_torch.models import build_video_model
+    from kstar_torch.ops.spatial_table import (extract_spatial_weights, spatial_table,
+                                               spatial_table_reference)
+
+    cfg = ViViTConfig()
+    model = build_video_model("ViViT", cfg, dtype=torch.bfloat16,
+                              generator=torch.Generator().manual_seed(seed)).to(dev).eval()
+    sw = VideoSweeper(model, SEQ_LEN, CROP, BATCH, torch.bfloat16, device=dev)
+    frames = soak_long_shot.make_shot(SOAK_FRAMES, RESIZE, seed)
+    tokens = F.pad(sw.embed_tokens(sw.upload_shot(frames)), (0, 0, 1, 0))   # (T, 65, D)
+    del frames
+    hp = dict(depth=cfg.depth, n_heads=cfg.n_heads, d_head=cfg.d_head)
+    w = extract_spatial_weights(model, SEQ_LEN, cfg.depth, torch.bfloat16)
+    run = lambda: spatial_table(tokens, w, SEQ_LEN, compute_dtype=torch.bfloat16, **hp)
+    plain = lambda: spatial_table_reference(tokens, w, SEQ_LEN, compute_dtype=torch.bfloat16,
+                                            **hp)
+    res = compare(run(), plain(), *tol)
+    T, N, D = tokens.shape
+    ops, nbytes = table_work(T, SEQ_LEN, N, D, cfg.depth, cfg.n_heads, cfg.d_head,
+                             cfg.dim * cfg.scale_dim, tokens.element_size())
+    bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
+    check = dict(name="spatial_table", case=f"long shot T={T} bf16 (soak path)",
+                 dtype="bfloat16", shape=list(tokens.shape), route="cuda",
+                 source="kstar_torch/csrc/spatial_table.cu",
+                 replaces="kstar_tpu/ops/spatial_table.py:371", **res,
+                 ms=time_ms(run, 3), plain_ms=time_ms(plain, 1), bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=None, instance=spatial_table.instance,
+                 frames_per_block=spatial_table.frames_per_block, path="soak")
+    del tokens, w, sw, model
+    torch.cuda.empty_cache()
+
+    fields, ok = {}, True
+    t0 = time.perf_counter()
+    try:
+        fields["long_shot"] = soak_long_shot.main(SOAK_FRAMES, dev, seed=seed,
+                                                  out_dir=f"{root}/gif")
+    except RuntimeError as e:              # a failed check of the soak: the phase fails
+        fields["long_shot"], ok = {"error": str(e)}, False
+    fields["long_shot_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        fields["library"] = soak_library_sweep.main(SOAK_SHOTS, dev, seed=seed)
+    except RuntimeError as e:
+        fields["library"], ok = {"error": str(e)}, False
+    fields["library_s"] = time.perf_counter() - t0
+    long, lib = fields["long_shot"], fields["library"]
+    k1 = long.get("k1_launches", 0) + sum(r["k1_launches"] for r in lib.get("runs", {}).values())
+    k3 = long.get("k3_launches", 0)
+    return ok and k1 > 0 and k3 > 0, fields, k1, k3, check
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3614,24 +3846,46 @@ def main() -> int:
     emit("parallel", **par_fields, seconds=time.perf_counter() - t0, ok=par_ok)
     if not par_ok:
         failures.append("parallel")
+
+    # ---- what kstar_tpu trained, served and resumed; the scale soaks ----
+    t0 = time.perf_counter()
+    jc_ok, jc_fields, k1_jax, k3_jax = jax_checkpoint_phase(args.seed, f"{cli_root}/jax_ckpt",
+                                                            dev)
+    emit("jax_checkpoint", **jc_fields, seconds=time.perf_counter() - t0, ok=jc_ok)
+    if not jc_ok:
+        failures.append("jax_checkpoint")
+    t0 = time.perf_counter()
+    soak_ok, soak_fields, k1_soak, k3_soak, soak_check = soak_phase(
+        args.seed, f"{cli_root}/soak", dev, TOL["bfloat16"])
+    checks.append(soak_check)
+    emit("kernel_check", **soak_check)
+    emit("soak", **soak_fields, seconds=time.perf_counter() - t0, ok=soak_ok)
+    if not soak_ok:
+        failures.append("soak")
+    if not soak_check["ok"]:
+        failures.append(f"spatial_table {soak_check['case']}")
     cli_dir.cleanup()
 
     # K3's launches on the main paths: the ViViT stream, and the conv models'
-    # sweeps, streams, CLI alarm sweeps and reload sweep; the L = 20 row the
-    # SlowFast part. K1's: the sweeps above plus the reload and prediction
-    # sweeps, the ETL-built shot's sweep, the ViViT ensemble's alarm sweep and
-    # the parallel phase's CLI alarm sweep and sharded library sweep.
+    # sweeps, streams, CLI alarm sweeps and reload sweep, the R(2+1)D alarm
+    # sweep from a JAX-format checkpoint and the long shot's stream; the
+    # L = 20 row the SlowFast part. K1's: the sweeps above plus the reload
+    # and prediction sweeps, the ETL-built shot's sweep, the ViViT ensemble's
+    # alarm sweep, the parallel phase's CLI alarm sweep and sharded library
+    # sweep, the ViViT alarm sweep from a JAX-format checkpoint and the
+    # soaks' sweeps; the T = 12,600 row the soaks' part.
     k3_slowfast = k3_sweep["SlowFast"] + k3_stream["SlowFast"] + k3_reload
     launches["gather_normalize"] += (sum(k3_sweep.values()) + sum(k3_stream.values())
                                      + k3_cli + k3_reload)
     launches["spatial_table"] += (k1_reload + k1_prediction + k1_etl + k1_ensemble
-                                  + k1_parallel)
+                                  + k1_parallel + k1_jax + k1_soak)
+    launches["gather_normalize"] += k3_jax + k3_soak
 
     kernel_rows = []
     for c in checks:
         entry = {k: c[k] for k in ("name", "route", "source", "replaces")}
-        n_launch = {"multimodal_sweep": k1_multimodal,
-                    "conv SlowFast": k3_slowfast}.get(c.get("path"), launches[c["name"]])
+        n_launch = {"multimodal_sweep": k1_multimodal, "conv SlowFast": k3_slowfast,
+                    "soak": k1_soak}.get(c.get("path"), launches[c["name"]])
         entry.update(launches=n_launch, max_abs_err=c["max_abs_err"],
                      ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
                      bound_by=c["bound_by"], library_ms=c["library_ms"],

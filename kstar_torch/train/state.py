@@ -32,8 +32,13 @@ them too with one select; whatever updates them writes in place.
 
 A checkpoint is the full state (parameters, batch statistics, optimizer
 state, step, seed, draws) written with ``torch.save``: ``--resume``
-continues exactly. ``save_checkpoint_sharded`` writes every rank's part of
-a data- or tensor-parallel run (a tensor-parallel rank's flat buffer holds
+continues exactly. ``load_checkpoint`` and ``load_params`` also read the
+JAX package's flax checkpoints (``flax_ckpt.py``, through the bridge in
+``kstar_torch/weights.py``): parameters, batch statistics, the optax
+moments and ``count``, and ``step``. JAX's ``rng`` is not carried: the
+resumed run draws from (its own seed, steps taken) as any port run does.
+``save_checkpoint_sharded`` writes every rank's part of a data- or
+tensor-parallel run (a tensor-parallel rank's flat buffer holds
 its shards, ``shard_mask``; the global-norm clip then sums the shards'
 squares over the model group, ``grad_norm``).
 """
@@ -51,6 +56,7 @@ import torch
 from torch import nn
 
 from ..config import OptimConfig
+from .flax_ckpt import is_flax_checkpoint, read_flax_checkpoint
 
 OPTIMIZERS = ("sgd", "adam", "adamw", "rmsprop")
 # the optax defaults that kstar_tpu/train/state.py:56-63 leaves in place
@@ -321,17 +327,72 @@ def save_checkpoint(state: TrainState, path: str, extra: Optional[Dict] = None) 
             json.dump(extra, f, indent=2, default=str)
 
 
+def _load_flax_model(model: nn.Module, tree: dict, path: str) -> None:
+    """A flax checkpoint's ``params`` and ``batch_stats`` into ``model``;
+    raises with the first missing or extra key, or the first shape that
+    differs, before anything is copied."""
+    from ..weights import state_dict_from_flax
+
+    sd = state_dict_from_flax(tree["params"], tree.get("batch_stats") or None)
+    want = model.state_dict()
+    missing = [k for k in want if k not in sd]
+    extra = [k for k in sd if k not in want]
+    if missing or extra:
+        raise ValueError(
+            f"flax checkpoint {path} does not match the model: "
+            + (f"first missing key {missing[0]!r}" if missing else f"first extra key {extra[0]!r}")
+            + f" ({len(missing)} missing, {len(extra)} extra)")
+    bad = next((k for k in want if tuple(sd[k].shape) != tuple(want[k].shape)), None)
+    if bad is not None:
+        raise ValueError(f"flax checkpoint {path}: {bad} has shape {tuple(sd[bad].shape)}, "
+                         f"the model {tuple(want[bad].shape)}")
+    model.load_state_dict(sd)         # copies into the views (parameters and statistics)
+
+
 def load_checkpoint(state: TrainState, path: str) -> TrainState:
-    """Restore into an existing (template) state, in place; returns it."""
-    state.load_state_dict(torch.load(path, map_location=state.device))
+    """Restore into an existing (template) state, in place; returns it. A
+    flax checkpoint (``is_flax_checkpoint``) restores parameters, batch
+    statistics, the optimizer state and ``step``; ``draws`` becomes
+    ``step`` and ``seed`` stays the template's."""
+    if not is_flax_checkpoint(path):
+        state.load_state_dict(torch.load(path, map_location=state.device))
+        return state
+    from ..weights import opt_state_from_flax
+
+    tree = read_flax_checkpoint(path)
+    step = int(tree["step"])
+    opt_state = opt_state_from_flax(tree["opt_state"], state, step)   # checked first
+    _load_flax_model(state.model, tree, path)
+    state.opt_state = opt_state
+    state.step = torch.tensor(step, dtype=torch.int64, device=state.device)
+    state.draws = step
     return state
 
 
 def load_params(model: nn.Module, path: str) -> nn.Module:
-    """Restore only the model's parameters (for inference); returns it."""
+    """Restore only the model's parameters and statistics (for inference),
+    from a port or a flax checkpoint; returns it."""
+    if is_flax_checkpoint(path):
+        _load_flax_model(model, read_flax_checkpoint(path), path)
+        return model
     device = next(model.parameters()).device
     model.load_state_dict(torch.load(path, map_location=device)["model"])
     return model
+
+
+def flax_checkpoint_tree(state: TrainState) -> dict:
+    """The tree ``kstar_tpu/train/state.py save_checkpoint`` writes, made
+    from a port state: ``step`` (int32), ``params``/``batch_stats`` and the
+    optax chain state (``kstar_torch/weights.py``), and ``rng`` as the raw
+    data of JAX's key for the state's seed. ``write_flax_checkpoint`` of it
+    is a file the JAX package and ``load_checkpoint`` both read."""
+    from ..weights import flax_from_state_dict, opt_state_to_flax
+
+    params, stats = flax_from_state_dict(state.model)
+    return {"batch_stats": stats, "opt_state": opt_state_to_flax(state), "params": params,
+            "rng": torch.tensor([(state.seed >> 32) & 0xFFFFFFFF, state.seed & 0xFFFFFFFF],
+                                dtype=torch.uint32),
+            "step": state.step.detach().to("cpu", torch.int32).clone()}
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""kstar_torch and chip_smoke.py stand alone: no JAX, flax, optax or
+"""kstar_torch and chip_smoke.py stand alone: no JAX, flax, optax, msgpack or
 kstar_tpu import anywhere, every port module imports with those blocked,
 and chip_smoke.py refuses to run without CUDA."""
 
@@ -12,7 +12,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-BANNED = {"jax", "jaxlib", "flax", "optax", "kstar_tpu"}
+BANNED = {"jax", "jaxlib", "flax", "optax", "msgpack", "kstar_tpu"}
 PORT_FILES = sorted((ROOT / "kstar_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
