@@ -165,6 +165,19 @@ scale soaks:
                   2,300-4,096 frames (both frame ladders, a budget forced to
                   several groups, the per-shot path)
 
+and last the repository's demos and its horizon x seed campaign through the
+port, whose ViViT (64 px, dim 64, 4 heads x 32, MLP 256) takes the
+spatial-table kernel's general instance in bf16 (held against its plain
+version at the demo's 2520 and the campaign's 1680 frames):
+
+  demos     kstar_torch.analysis.demos: exp/demo_vivit.sh's and
+            exp/demo_multimodal.sh's argument lists cut to 2 epochs (and one
+            one-epoch GB estimate): alarm JSON with JAX's keys over the 33
+            swept shots, one table-kernel launch per shot
+  campaign  kstar_torch.analysis.campaign_dist_sweep at dist 21, seeds 40-43,
+            one epoch: every member's row finite, one table-kernel launch
+            per swept shot and member
+
 Every phase prints one JSON line and any failure exits non-zero. Then come
 the per-kernel summary line, the card's name and power limit as nvidia-smi
 reports them, and the result line {"ok": true, "device": {...}}. Without
@@ -3210,6 +3223,132 @@ def soak_phase(seed: int, root: str, dev, tol: tuple) -> tuple:
     return ok and k1 > 0 and k3 > 0, fields, k1, k3, check
 
 
+# ---------------------------------------------------------------------------
+# The repository's demos and the horizon x seed campaign through the port:
+# the demo ViViT's widths take K1's general instance in bf16
+# ---------------------------------------------------------------------------
+
+# exp/demo_vivit.sh's ViViT (also the multimodal demo's and the campaign's):
+# 64 px, patch 16 (17 tokens with the cls), dim 64, 4 heads x 32, MLP 256
+DEMO_VIVIT = dict(image_size=SMALL_CROP, patch_size=16, dim=64, depth=2, n_heads=4,
+                  d_head=32, scale_dim=4)
+DEMO_TABLE_FRAMES = {"demos": 2520, "campaign": 1680}   # the demo's and the campaign's shots
+DEMO_CUT = ["--num_epoch", "2"]                         # the demos, cut for time only
+GB_CUT = ["--epoch_per_GB_estimate", "1", "--n_epochs_GB_estimate", "1"]
+CAMPAIGN_CUT = ["--dist", "21", "--epochs", "1"]        # one horizon, all four seeds
+
+
+def demo_table_checks(seed: int, frames, dev, tol: tuple) -> list:
+    """K1 at the demo ViViT's widths (N 17, D 64, 4 x 32, MLP 256, depth 2,
+    bf16; random weights from ``seed``), which the fast instance does not
+    take, over the first 2520 (the demo's shot) and 1680 (the campaign's)
+    frames of ``frames`` cropped to 64 px: each against its plain version
+    within ``tol``, timed, with its bound, and the whole-shot sweep of those
+    frames (``VideoSweeper.sweep_device``, host time to the copy back) for
+    the kernel's share of it. Returns the kernel_check rows; ``path`` names
+    the phase whose launches the summary line reports."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from kstar_torch.config import ViViTConfig
+    from kstar_torch.infer import VideoSweeper
+    from kstar_torch.models import build_video_model
+    from kstar_torch.ops.spatial_table import (extract_spatial_weights, spatial_table,
+                                               spatial_table_reference)
+
+    cfg = ViViTConfig(n_frames=SEQ_LEN, **DEMO_VIVIT)
+    model = build_video_model("ViViT", cfg, dtype=torch.bfloat16,
+                              generator=torch.Generator().manual_seed(seed)).to(dev).eval()
+    sw = VideoSweeper(model, SEQ_LEN, SMALL_CROP, BATCH, torch.bfloat16, device=dev)
+    w = extract_spatial_weights(model, SEQ_LEN, cfg.depth, torch.bfloat16)
+    hp = dict(depth=cfg.depth, n_heads=cfg.n_heads, d_head=cfg.d_head)
+    rows = []
+    for path, T in DEMO_TABLE_FRAMES.items():
+        shot = sw.upload_shot(frames[:T])
+        tokens = F.pad(sw.embed_tokens(shot), (0, 0, 1, 0))
+        starts = np.arange(len(tokens) - SEQ_LEN - 1, dtype=np.int64)
+        sweep_ms = wall_ms(lambda: sw.sweep_device(shot, starts))
+        run = lambda: spatial_table(tokens, w, SEQ_LEN, compute_dtype=torch.bfloat16, **hp)
+        plain = lambda: spatial_table_reference(tokens, w, SEQ_LEN,
+                                                compute_dtype=torch.bfloat16, **hp)
+        res = compare(run(), plain(), *tol)
+        T, N, D = tokens.shape
+        ops, nbytes = table_work(T, SEQ_LEN, N, D, cfg.depth, cfg.n_heads, cfg.d_head,
+                                 cfg.dim * cfg.scale_dim, tokens.element_size())
+        bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
+        rows.append(dict(
+            name="spatial_table", case=f"demo ViViT T={T} N={N} D={D} bf16 ({path} path)",
+            dtype="bfloat16", shape=list(tokens.shape), route="cuda",
+            source="kstar_torch/csrc/spatial_table.cu",
+            replaces="kstar_tpu/ops/spatial_table.py:371", **res, ms=time_ms(run, 3),
+            plain_ms=time_ms(plain, 1), bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, instance=spatial_table.instance,
+            frames_per_block=spatial_table.frames_per_block, path=path,
+            sweep_ms=sweep_ms))
+        rows[-1]["k1_share_of_sweep"] = rows[-1]["ms"] / sweep_ms
+        rows[-1]["ok"] = res["ok"] and spatial_table.instance == "general"
+    return rows
+
+
+def demos_phase(root: str) -> tuple:
+    """``kstar_torch.analysis.demos.main`` on the card: the ViViT demo
+    (exp/demo_vivit.sh's exact list) and the concat-GB multimodal demo, cut
+    to ``DEMO_CUT`` epochs (the multimodal one also to one GB estimate of one
+    epoch). Each passes if it returns, writes ``{tag}_alarms.json`` with the
+    keys of the JAX file of the same tag (the multimodal one: at least
+    those) over the 17 + 16 swept shots, and
+    launches K1 once per swept shot. Returns (ok, fields, K1 launches)."""
+    import numpy as np
+
+    from kstar_torch.analysis import demos
+    from kstar_torch.ops.spatial_table import spatial_table
+
+    fields, ok, k1 = {}, True, 0
+    for name, extra in (("vivit", DEMO_CUT), ("multimodal", DEMO_CUT + GB_CUT)):
+        spatial_table.launches = 0
+        t0 = time.perf_counter()
+        out = demos.main(name, extra, save_dir=f"{root}/{name}",
+                         weight_dir=f"{root}/{name}/weights")
+        launches = spatial_table.launches
+        k1 += launches
+        port, jax = out["alarms"], out["jax_alarms"]
+        swept = None if port is None else port["n_disrupt"] + port["n_normal"]
+        # the JAX multimodal files predate the dwell key (min_dwell_s)
+        keys_ok = port is not None and jax is not None and (
+            set(port) == set(jax) if name == "vivit" else set(jax) <= set(port))
+        demo_ok = bool(keys_ok and swept == 33 and launches == swept
+                   and np.isfinite(port["detection_rate"])
+                   and np.isfinite(port["false_alarm_rate"]))
+        fields[name] = {"tag": out["tag"], "seconds": time.perf_counter() - t0,
+                        "k1_launches": launches, "alarms": port,
+                        "test_macro_f1": float(out["results"]["macro_f1"]), "ok": demo_ok}
+        ok = ok and demo_ok
+    return ok, fields, k1
+
+
+def campaign_phase(root: str) -> tuple:
+    """``kstar_torch.analysis.campaign_dist_sweep.main`` on the card at one
+    horizon (dist 21) and all four seeds, cut to one epoch: every member's
+    row finite, and K1 launched once per shot of each member's sweep.
+    Returns (ok, fields, K1 launches)."""
+    import numpy as np
+
+    from kstar_torch.analysis import campaign_dist_sweep as campaign
+    from kstar_torch.ops.spatial_table import spatial_table
+
+    spatial_table.launches = 0
+    summary = campaign.main(CAMPAIGN_CUT + ["--out_dir", root])
+    launches = spatial_table.launches
+    rows = summary["rows"]
+    metrics = ("test_macro_f1", "test_roc_auc", "best_valid_f1", "detection_rate",
+               "false_alarm_rate")
+    swept = sum(r["n_disrupt"] + r["n_normal"] for r in rows)
+    ok = bool(len(rows) == len(campaign.SEEDS) and launches == swept > 0
+              and all(np.isfinite(r[k]) for r in rows for k in metrics))
+    return ok, {"k1_launches": launches, "swept_shots": swept, "rows": rows,
+                "wall_clock": summary["wall_clock"]}, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3864,6 +4003,23 @@ def main() -> int:
         failures.append("soak")
     if not soak_check["ok"]:
         failures.append(f"spatial_table {soak_check['case']}")
+
+    # ---- the demos and the campaign: K1's general instance in bf16 ----
+    demo_checks = demo_table_checks(args.seed, frames, dev, TOL["bfloat16"])
+    for c in demo_checks:
+        checks.append(c)
+        emit("kernel_check", **c)
+        if not c["ok"]:
+            failures.append(f"spatial_table {c['case']}")
+    t0 = time.perf_counter()
+    dm_ok, dm_fields, k1_demos = demos_phase(f"{cli_root}/demos")
+    emit("demos", **dm_fields, seconds=time.perf_counter() - t0, ok=dm_ok)
+    t0 = time.perf_counter()
+    cg_ok, cg_fields, k1_campaign = campaign_phase(f"{cli_root}/campaign")
+    emit("campaign", **cg_fields, seconds=time.perf_counter() - t0, ok=cg_ok)
+    for name, phase_ok in (("demos", dm_ok), ("campaign", cg_ok)):
+        if not phase_ok:
+            failures.append(name)
     cli_dir.cleanup()
 
     # K3's launches on the main paths: the ViViT stream, and the conv models'
@@ -3873,19 +4029,22 @@ def main() -> int:
     # and prediction sweeps, the ETL-built shot's sweep, the ViViT ensemble's
     # alarm sweep, the parallel phase's CLI alarm sweep and sharded library
     # sweep, the ViViT alarm sweep from a JAX-format checkpoint and the
-    # soaks' sweeps; the T = 12,600 row the soaks' part.
+    # soaks' sweeps, the demos' and the campaign's alarm sweeps; the
+    # T = 12,600 row the soaks' part, the demo-width rows the demos' and the
+    # campaign's.
     k3_slowfast = k3_sweep["SlowFast"] + k3_stream["SlowFast"] + k3_reload
     launches["gather_normalize"] += (sum(k3_sweep.values()) + sum(k3_stream.values())
                                      + k3_cli + k3_reload)
     launches["spatial_table"] += (k1_reload + k1_prediction + k1_etl + k1_ensemble
-                                  + k1_parallel + k1_jax + k1_soak)
+                                  + k1_parallel + k1_jax + k1_soak + k1_demos + k1_campaign)
     launches["gather_normalize"] += k3_jax + k3_soak
 
     kernel_rows = []
     for c in checks:
         entry = {k: c[k] for k in ("name", "route", "source", "replaces")}
         n_launch = {"multimodal_sweep": k1_multimodal, "conv SlowFast": k3_slowfast,
-                    "soak": k1_soak}.get(c.get("path"), launches[c["name"]])
+                    "soak": k1_soak, "demos": k1_demos,
+                    "campaign": k1_campaign}.get(c.get("path"), launches[c["name"]])
         entry.update(launches=n_launch, max_abs_err=c["max_abs_err"],
                      ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
                      bound_by=c["bound_by"], library_ms=c["library_ms"],
