@@ -167,8 +167,9 @@ scale soaks:
 
 and last the repository's demos and its horizon x seed campaign through the
 port, whose ViViT (64 px, dim 64, 4 heads x 32, MLP 256) takes the
-spatial-table kernel's general instance in bf16 (held against its plain
-version at the demo's 2520 and the campaign's 1680 frames):
+spatial-table kernel's fast instance compiled for D 64 / d_head 32 in bf16
+(held against its plain version at the demo's 2520 and the campaign's 1680
+frames):
 
   demos     kstar_torch.analysis.demos: exp/demo_vivit.sh's and
             exp/demo_multimodal.sh's argument lists cut to 2 epochs (and one
@@ -303,6 +304,17 @@ def table_work(T, n_off, N, D, depth, H, dh, M, elem):
         + depth * 4 * D * 4 + 2 * D * 4
     nbytes = (T * N * D + n_off * N * D + n_off * T * D) * elem + weights
     return ops, nbytes
+
+
+def table_attributes(D: int, d_head: int) -> dict:
+    """The fast instance at (D, d_head) as the card takes it (registers,
+    shared memory, threads, blocks per SM) when the last K1 launch took a
+    fast instance, for its kernel_check row; else nothing."""
+    from kstar_torch.ops.spatial_table import fast_kernel_attributes, spatial_table
+
+    if not (spatial_table.instance or "").startswith("fast"):
+        return {}
+    return {"kernel_attributes": fast_kernel_attributes(D, d_head)}
 
 
 def step_launches(step) -> tuple:
@@ -3199,7 +3211,8 @@ def soak_phase(seed: int, root: str, dev, tol: tuple) -> tuple:
                  replaces="kstar_tpu/ops/spatial_table.py:371", **res,
                  ms=time_ms(run, 3), plain_ms=time_ms(plain, 1), bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=None, instance=spatial_table.instance,
-                 frames_per_block=spatial_table.frames_per_block, path="soak")
+                 frames_per_block=spatial_table.frames_per_block, path="soak",
+                 **table_attributes(D, cfg.d_head))
     del tokens, w, sw, model
     torch.cuda.empty_cache()
 
@@ -3225,7 +3238,7 @@ def soak_phase(seed: int, root: str, dev, tol: tuple) -> tuple:
 
 # ---------------------------------------------------------------------------
 # The repository's demos and the horizon x seed campaign through the port:
-# the demo ViViT's widths take K1's general instance in bf16
+# the demo ViViT's widths take K1's fast instance compiled for D 64 / d_head 32
 # ---------------------------------------------------------------------------
 
 # exp/demo_vivit.sh's ViViT (also the multimodal demo's and the campaign's):
@@ -3236,12 +3249,16 @@ DEMO_TABLE_FRAMES = {"demos": 2520, "campaign": 1680}   # the demo's and the cam
 DEMO_CUT = ["--num_epoch", "2"]                         # the demos, cut for time only
 GB_CUT = ["--epoch_per_GB_estimate", "1", "--n_epochs_GB_estimate", "1"]
 CAMPAIGN_CUT = ["--dist", "21", "--epochs", "1"]        # one horizon, all four seeds
+DEMO_INSTANCE = "fast_D64_F7"                           # 7 frames of 17 tokens a block
+# K1's general instance in bf16 is held at a width no fast instance takes
+GENERAL_CHECK_VIVIT = dict(dim=96, n_heads=2, d_head=48, scale_dim=2)
+GENERAL_CHECK_FRAMES = 512
 
 
 def demo_table_checks(seed: int, frames, dev, tol: tuple) -> list:
     """K1 at the demo ViViT's widths (N 17, D 64, 4 x 32, MLP 256, depth 2,
-    bf16; random weights from ``seed``), which the fast instance does not
-    take, over the first 2520 (the demo's shot) and 1680 (the campaign's)
+    bf16; random weights from ``seed``), which take the fast instance
+    compiled for D 64 / d_head 32 (``DEMO_INSTANCE``), over the first 2520 (the demo's shot) and 1680 (the campaign's)
     frames of ``frames`` cropped to 64 px: each against its plain version
     within ``tol``, timed, with its bound, and the whole-shot sweep of those
     frames (``VideoSweeper.sweep_device``, host time to the copy back) for
@@ -3284,9 +3301,9 @@ def demo_table_checks(seed: int, frames, dev, tol: tuple) -> list:
             plain_ms=time_ms(plain, 1), bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, instance=spatial_table.instance,
             frames_per_block=spatial_table.frames_per_block, path=path,
-            sweep_ms=sweep_ms))
+            sweep_ms=sweep_ms, **table_attributes(D, cfg.d_head)))
         rows[-1]["k1_share_of_sweep"] = rows[-1]["ms"] / sweep_ms
-        rows[-1]["ok"] = res["ok"] and spatial_table.instance == "general"
+        rows[-1]["ok"] = res["ok"] and spatial_table.instance == DEMO_INSTANCE
     return rows
 
 
@@ -3459,7 +3476,8 @@ def main() -> int:
             ms=time_ms(run, iters), plain_ms=time_ms(plain, max(iters // 3, 1)),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             instance=spatial_table.instance,
-            frames_per_block=spatial_table.frames_per_block))
+            frames_per_block=spatial_table.frames_per_block,
+            **table_attributes(D, cfg.d_head)))
         emit("kernel_check", **checks[-1])
     # the multimodal sweep's table: the fusion CLI's ViViT (scale_dim 4, an
     # MLP of 512) over the whole shot
@@ -3485,9 +3503,43 @@ def main() -> int:
         replaces="kstar_tpu/ops/spatial_table.py:371", **res, ms=time_ms(run, 3),
         plain_ms=time_ms(plain, 1), bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         instance=spatial_table.instance, frames_per_block=spatial_table.frames_per_block,
-        path="multimodal_sweep"))
+        path="multimodal_sweep", **table_attributes(D, cfg.d_head)))
     emit("kernel_check", **checks[-1])
     del fusion_bf, fz_tokens, fz_w
+    # K1's general instance in bf16 at a width no fast instance is compiled
+    # for (dim 96, 2 heads x 48, MLP 192, N 17), so that it stays held
+    # against its plain version: no configuration of the repository takes it
+    gw = GENERAL_CHECK_VIVIT
+    gen_model = ViViT(image_size=SMALL_CROP, patch_size=16, n_frames=SEQ_LEN, depth=2,
+                      generator=torch.Generator().manual_seed(args.seed + 5), **gw).to(dev)
+    gen_tokens = F.pad(torch.randn(GENERAL_CHECK_FRAMES, 16, gw["dim"],
+                                   generator=torch.Generator().manual_seed(args.seed + 6)),
+                       (0, 0, 1, 0)).to(dev, torch.bfloat16)
+    gen_w = extract_spatial_weights(gen_model, SEQ_LEN, 2, torch.bfloat16)
+    gen_hp = dict(depth=2, n_heads=gw["n_heads"], d_head=gw["d_head"])
+    run = lambda: spatial_table(gen_tokens, gen_w, SEQ_LEN, compute_dtype=torch.bfloat16,
+                                **gen_hp)
+    plain = lambda: spatial_table_reference(gen_tokens, gen_w, SEQ_LEN,
+                                            compute_dtype=torch.bfloat16, **gen_hp)
+    res = compare(run(), plain(), *TOL["bfloat16"])
+    T, N, D = gen_tokens.shape
+    gen_M = gw["dim"] * gw["scale_dim"]
+    ops, nbytes = table_work(T, SEQ_LEN, N, D, 2, gw["n_heads"], gw["d_head"], gen_M,
+                             gen_tokens.element_size())
+    bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
+    checks.append(dict(
+        name="spatial_table",
+        case=f"general instance bf16 D={D} {gw['n_heads']}x{gw['d_head']} MLP {gen_M} "
+             f"T={T} N={N}", dtype="bfloat16", shape=list(gen_tokens.shape), route="cuda",
+        source="kstar_torch/csrc/spatial_table.cu",
+        replaces="kstar_tpu/ops/spatial_table.py:371", **res, ms=time_ms(run, 3),
+        plain_ms=time_ms(plain, 1), bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        instance=spatial_table.instance, frames_per_block=spatial_table.frames_per_block))
+    checks[-1]["ok"] = res["ok"] and spatial_table.instance == "general"
+    emit("kernel_check", **checks[-1])
+    if not checks[-1]["ok"]:
+        failures.append(f"spatial_table {checks[-1]['case']}")
+    del gen_model, gen_tokens, gen_w
     # the ragged case must take the fast instance with several frames per block
     ragged = next(c for c in checks if "T=61" in c["case"])
     if ragged["frames_per_block"] < 2 or 61 % ragged["frames_per_block"] == 0:
@@ -4004,7 +4056,7 @@ def main() -> int:
     if not soak_check["ok"]:
         failures.append(f"spatial_table {soak_check['case']}")
 
-    # ---- the demos and the campaign: K1's general instance in bf16 ----
+    # ---- the demos and the campaign: K1's fast instance at D 64 / d_head 32 ----
     demo_checks = demo_table_checks(args.seed, frames, dev, TOL["bfloat16"])
     for c in demo_checks:
         checks.append(c)
@@ -4050,8 +4102,9 @@ def main() -> int:
                      bound_by=c["bound_by"], library_ms=c["library_ms"],
                      case=c["case"], max_rel_err=c["max_rel_err"],
                      atol=c["atol"], rtol=c["rtol"], ok=c["ok"], instance=c["instance"])
-        if "frames_per_block" in c:
-            entry["frames_per_block"] = c["frames_per_block"]
+        for key in ("frames_per_block", "kernel_attributes"):
+            if key in c:
+                entry[key] = c[key]
         kernel_rows.append(entry)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     if failures:

@@ -1,21 +1,28 @@
 """Where a block of the spatial-table kernel's fast instance spends its time.
 
-    python -m kstar_torch.analysis.profile_spatial_table [--frames 4096] [--seed 0]
+    python -m kstar_torch.analysis.profile_spatial_table [--widths flagship|demo]
+        [--frames T] [--seed 0] [--baseline path/to/spatial_table.cu]
 
 Profilers that read a kernel's inside do not run on every machine, so this
-builds throw-away variants of ``csrc/spatial_table.cu`` and reads two things
-at the flagship widths (21 offsets, N 65, D 128, 4 heads x 64, MLP 1024,
-depth 2, bf16, random weights from --seed), on the card it runs on:
+builds throw-away variants of ``csrc/spatial_table.cu`` and reads them at
+one of the fast instance's widths (21 offsets, depth 2, bf16, random
+weights from --seed), on the card it runs on: ``flagship`` (N 65, D 128, 4
+heads x 64, MLP 1024, 4096 frames by default) or ``demo``
+(``exp/demo_vivit.sh``'s ViViT: N 17, D 64, 4 heads x 32, MLP 256, 2520
+frames by default):
 
 * the phase profile: a ``-DKSTAR_PROFILE`` build in which thread 0 of every
   block adds its ``clock64()`` cycles per phase to a counter (the phases are
   ``enum Phase`` in the source); printed as mean cycles per block and share.
   It is warp 0's view, and a phase's time includes the wait at the barrier
   that ends it;
-* ablations: whole-kernel CUDA-event times of builds with one piece of work
+* variants: whole-kernel CUDA-event times of builds with one piece of work
   taken out by a one-line source substitution (results then differ, only the
-  time is read). A phase's share in the profile is what warp 0 waits for it;
-  an ablation says what the kernel gains without it. The two differ where
+  time is read), of the other row schemes the width could have, and of
+  ``--baseline`` (another version of the source, an earlier commit's say),
+  taken round-robin ``REPEATS`` times so that they share the card's
+  state. A phase's share in the profile is what warp 0 waits for it; an
+  ablation says what the kernel gains without it. The two differ where
   other warps' work hides behind a phase.
 
 Prints one JSON line per reading and the card's name and power limit.
@@ -28,6 +35,8 @@ import ctypes
 import json
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -41,19 +50,35 @@ PHASES = ("other", "panel wait + barrier", "layer norm", "attention", "residual 
 ABLATIONS = {
     "GELU as identity": ("  return __fdividef(x, 1.f + __expf(-2.f * u));",
                          "  return x + 0.f * u;"),
-    "no LayerNorm": ("  for (int r0 = warp * 4; r0 < rows; r0 += kWarps * 4) {",
-                     "  for (int r0 = warp * 4; r0 < rows && scale == nullptr; r0 += kWarps * 4) {"),
+    "no LayerNorm": (
+        "  for (int r0 = warp * kPerWarp; r0 < rows; r0 += S::kWarps * kPerWarp) {",
+        "  for (int r0 = warp * kPerWarp; r0 < rows && scale == nullptr; "
+        "r0 += S::kWarps * kPerWarp) {"),
     "no attention in the all-row layers": (
         "        for (int s = warp; s < F * spf; s += kWarps) {",
         "        for (int s = warp; s < F * spf && p.T < 0; s += kWarps) {"),
 }
+# the widths, and the other row schemes each could be compiled with (same
+# results, another number of frames per block)
+WIDTHS = {"flagship": dict(), "demo": dict(image_size=64, dim=64, n_heads=4, d_head=32,
+                                           scale_dim=4)}
+DEFAULT_FRAMES = {"flagship": 4096, "demo": 2520}
+ROW_SCHEMES = {
+    "flagship": {},
+    "demo": {"four wgmma warpgroups (F = 15 at N 17, one block per SM)": (
+        "using Demo = Shape<64, 32, 64, 2, 0>;", "using Demo = Shape<64, 32, 64, 4, 0>;")},
+}
+REPEATS = 5
 ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def event_ms(fn, iters: int = 3) -> float:
+    """Mean device time of fn() over iters launches, queued behind a device
+    busy-wait so that the host's enqueueing is not what is timed."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e7))
     start.record()
     for _ in range(iters):
         fn()
@@ -62,11 +87,21 @@ def event_ms(fn, iters: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> int:
+def substituted(source: str, name: str, line: str, repl: str) -> str:
+    if source.count(line) != 1:
+        raise RuntimeError(f"variant {name!r}: the line it replaces occurs "
+                           f"{source.count(line)} times in spatial_table.cu: {line!r}")
+    return source.replace(line, repl)
+
+
+def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--frames", type=int, default=4096)
+    parser.add_argument("--widths", choices=list(WIDTHS), default="flagship")
+    parser.add_argument("--frames", type=int, default=None)
     parser.add_argument("--seed", type=int, default=0)
-    args = parser.parse_args()
+    parser.add_argument("--baseline", type=Path, default=None,
+                        help="another spatial_table.cu to time beside the shipped one")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_spatial_table: CUDA is not available", file=sys.stderr)
         return 1
@@ -75,28 +110,36 @@ def main() -> int:
     from kstar_torch.ops import _build
     from kstar_torch.ops import spatial_table as st
 
-    cfg, n_off, dev = ViViTConfig(), 21, torch.device("cuda")
+    frames = args.frames or DEFAULT_FRAMES[args.widths]
+    cfg, n_off, dev = ViViTConfig(**WIDTHS[args.widths]), 21, torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
     model = build_video_model("ViViT", cfg, dtype=torch.bfloat16, generator=gen).to(dev)
     n_tok = (cfg.image_size // cfg.patch_size) ** 2 + 1
     M = cfg.dim * cfg.scale_dim
-    tokens = F.pad(torch.randn(args.frames, n_tok - 1, cfg.dim, generator=gen), (0, 0, 1, 0))
+    tokens = F.pad(torch.randn(frames, n_tok - 1, cfg.dim, generator=gen), (0, 0, 1, 0))
     tokens = tokens.to(dev, torch.bfloat16)
     w = st.extract_spatial_weights(model, n_off, cfg.depth, torch.bfloat16)
-    wmat = st.pack_fast(w, cfg.depth, cfg.n_heads).to(dev)
+    wmat = {True: st.pack_fast(w, cfg.depth, cfg.n_heads).to(dev),
+            False: st.pack_general(w, cfg.depth, torch.bfloat16).to(dev)}
     wln = st.pack_layer_norms(w, cfg.depth).to(dev)
     base = w.base[:n_off, :n_tok].to(dev, torch.bfloat16).contiguous()
-    out = torch.empty(n_off, args.frames, cfg.dim, device=dev, dtype=torch.bfloat16)
-    frames_per_block = st.fast_frames_per_block(n_tok)
-    blocks = -(-args.frames // frames_per_block) * n_off
+    out = torch.empty(n_off, frames, cfg.dim, device=dev, dtype=torch.bfloat16)
+    frames_per_block = st.fast_frames_per_block(n_tok, cfg.dim, cfg.d_head)
+    blocks = -(-frames // frames_per_block) * n_off
+    widths = dict(widths=args.widths, frames=frames, N=n_tok, D=cfg.dim,
+                  d_head=cfg.d_head, mlp=M)
 
     def runner(lib):
         fn = lib.spatial_table_bf16
         fn.argtypes = ARGTYPES
+        plan = lib.spatial_table_plan
+        plan.argtypes = [ctypes.c_int] * 6
+        # an earlier source may take these widths on its general instance
+        packed = wmat[plan(n_tok, cfg.dim, cfg.n_heads, cfg.d_head, M, 2) > 0]
 
         def run():
-            err = fn(tokens.data_ptr(), base.data_ptr(), wmat.data_ptr(), wln.data_ptr(),
-                     out.data_ptr(), args.frames, n_off, n_tok, cfg.dim, cfg.depth,
+            err = fn(tokens.data_ptr(), base.data_ptr(), packed.data_ptr(), wln.data_ptr(),
+                     out.data_ptr(), frames, n_off, n_tok, cfg.dim, cfg.depth,
                      cfg.n_heads, cfg.d_head, M, cfg.d_head ** -0.5, None)
             if err:
                 raise RuntimeError(f"launch failed with CUDA error {err}")
@@ -104,18 +147,26 @@ def main() -> int:
 
     source = (_build.CSRC / "spatial_table.cu").read_text()
     variants = {"as shipped": source}
-    for name, (line, repl) in ABLATIONS.items():
-        if source.count(line) != 1:
-            raise RuntimeError(f"ablation {name!r}: the line it replaces occurs "
-                               f"{source.count(line)} times in spatial_table.cu: {line!r}")
-        variants[name] = source.replace(line, repl)
-    for i, (name, text) in enumerate(variants.items()):
-        lib = ctypes.CDLL(str(_build.build_variant("spatial_table", f"ablate{i}",
-                                                   source_text=text)))
-        print(json.dumps({"reading": "kernel_ms", "variant": name,
-                          "ms": event_ms(runner(lib)), "frames": args.frames}), flush=True)
+    for name, (line, repl) in {**ABLATIONS, **ROW_SCHEMES[args.widths]}.items():
+        variants[name] = substituted(source, name, line, repl)
+    if args.baseline is not None:
+        variants[f"baseline {args.baseline}"] = args.baseline.read_text()
+    # one nvcc per variant and the profile build, all at once
+    with ThreadPoolExecutor(len(variants) + 1) as pool:
+        built = [pool.submit(_build.build_variant, "spatial_table", f"variant{i}",
+                             source_text=text) for i, text in enumerate(variants.values())]
+        profile_build = pool.submit(_build.build_variant, "spatial_table", "profile",
+                                    ("-DKSTAR_PROFILE",))
+        runs = {name: runner(ctypes.CDLL(str(b.result()))) for name, b in zip(variants, built)}
+    readings = {name: [] for name in runs}
+    for _ in range(REPEATS):
+        for name, run in runs.items():
+            readings[name].append(event_ms(run))
+    for name, ms in readings.items():
+        print(json.dumps({"reading": "kernel_ms", "variant": name, "ms": ms, **widths}),
+              flush=True)
 
-    lib = ctypes.CDLL(str(_build.build_variant("spatial_table", "profile", ("-DKSTAR_PROFILE",))))
+    lib = ctypes.CDLL(str(profile_build.result()))
     prof = torch.zeros(len(PHASES), dtype=torch.int64, device=dev)
     lib.spatial_table_set_profile.argtypes = [ctypes.c_void_p]
     lib.spatial_table_set_profile(prof.data_ptr())
@@ -127,7 +178,8 @@ def main() -> int:
     torch.cuda.synchronize()
     cycles = prof.tolist()
     total = sum(cycles)
-    print(json.dumps({"reading": "phase_profile", "frames_per_block": frames_per_block,
+    print(json.dumps({"reading": "phase_profile", **widths,
+                      "frames_per_block": frames_per_block,
                       "blocks": blocks, "cycles_per_block": total / blocks,
                       "phases": {name: {"cycles_per_block": c / blocks, "share": c / total}
                                  for name, c in zip(PHASES, cycles)}}), flush=True)

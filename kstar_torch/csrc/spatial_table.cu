@@ -24,21 +24,24 @@
 // (spatial_table_plan), as the window-gather kernel chooses its aligned and
 // unaligned ones:
 //
-//  * fast (bf16, D 128, d_head 64, MLP a multiple of 128, N <= 80: the
-//    flagship and its smaller crops). One block of three warpgroups owns F
-//    neighbouring frames of one offset, their tokens packed without padding
-//    into rows of shared memory (F = 2 at N 65, 8 at N 17), so every weight
-//    panel is fetched once per F frames and a barrier is paid once per F
-//    frames. T that is no multiple of F is masked at the edge.
+//  * fast (bf16, N <= 80), one design compiled for two widths (the Shape
+//    template below): the flagship's D 128 / d_head 64 with an MLP a
+//    multiple of 128, and the demo ViViT's D 64 / d_head 32 with an MLP a
+//    multiple of 64. One block owns F neighbouring frames of one offset,
+//    their tokens packed without padding into rows of shared memory (F = 2
+//    at N 65 and 8 at N 17 for the flagship; 7 at N 17 for the demo), so
+//    every weight panel is fetched once per F frames and a barrier is paid
+//    once per F frames. T that is no multiple of F is masked at the edge.
 //    - The row-wise products (qkv, out-projection, FF1, FF2: 92% of the
-//      operations) run on wgmma.m64n64k16 for rows 0..127 (two warpgroups;
-//      A fragments from ldmatrix, loaded once per product, B straight from
-//      the weight panel through a matrix descriptor: the panel is read from
-//      shared memory once per warpgroup, not once per warp), and on
-//      mma.sync for rows 128..143 (the third warpgroup, B fragments from
-//      the same panel through ldmatrix). 2 x 64 + 16 = 144 rows hold two
-//      frames of 65 tokens with 14 rows to spare, where three 64-row wgmma
-//      tiles would spend a third of the tensor time on padding.
+//      operations) run on wgmma.m64n64k16 (m64n32k16 for a 32-wide head's
+//      v) for rows 0..127 (two warpgroups; A fragments from ldmatrix,
+//      loaded once per product, B straight from the weight panel through a
+//      matrix descriptor: the panel is read from shared memory once per
+//      warpgroup, not once per warp). The flagship adds rows 128..143 on
+//      mma.sync (a third warpgroup, B fragments from the same panel through
+//      ldmatrix): 2 x 64 + 16 = 144 rows hold two frames of 65 tokens with
+//      14 rows to spare, where three 64-row wgmma tiles would spend a third
+//      of the tensor time on padding.
 //    - Attention goes through the register-resident core of attn_core.cuh,
 //      one warp per (frame, 16-query strip), compiled per count of key
 //      tiles: scores and probabilities never touch shared memory, and a
@@ -58,8 +61,22 @@
 //      operations per sequence, the same arithmetic for the rows kept. That
 //      layer then runs at the rate its panels stream from L2.
 //    Shared memory: x, LN output, one head's q, k, v (q and k reused by the
-//    MLP chunk, q's region by the cls tiles) and two panel buffers, 221,696
-//    bytes; 168 registers a thread (the cap at 384 threads).
+//    MLP chunk, q's region by the cls tiles) and two panel buffers. The
+//    flagship's: 221,696 bytes, 168 registers a thread (the cap at 384
+//    threads), one block per SM.
+//    The demo width (a 2520-frame shot is 161 GFLOP, a bound of 0.163 ms)
+//    is bound by what a block pays per product, not by the tensor cores: at
+//    K = 64 a product is a quarter of the flagship's tensor work behind the
+//    same barrier and panel wait. So the design buys fewer barriers per
+//    frame and hides the ones left: 7 frames of 17 tokens in two wgmma tiles
+//    (119 of 128 rows used; four tiles would hold 15 frames, but at 160,000
+//    bytes only one block would fit an SM), q and k of a head in one
+//    64-column product, v on m64n32k16, the MLP in 64-column chunks (so the
+//    chunk fits in q and k), 55 barriers a block of 7 frames (the general
+//    instance pays ~80 a frame). The block is 92,416 bytes and 256 threads,
+//    so two share an SM and one multiplies while the other waits. Its
+//    weights are 256 KB for two layers, streamed from L2 once per block:
+//    ~1.9 GB a 2520-frame call.
 //  * general (f32, and bf16 at any other width the wrapper accepts): one
 //    block per (offset, frame), 16 x 16 warp tiles with 32-bit fragment
 //    loads, scores through shared memory, f32 on scalar FMAs with the
@@ -486,47 +503,94 @@ int launch(const void* tokens, const void* base, const void* wmat, const void* w
 }
 
 // ---------------------------------------------------------------------------
-// fast instance: bf16, D 128, d_head 64, MLP a multiple of 128, N <= 80
+// fast instance: one design, compiled for each width in the list below
 // ---------------------------------------------------------------------------
 
 namespace fast {
 
-constexpr int kD = 128, kDh = 64, kMc = 128;
-constexpr int kRows = 160;                  // packed token rows in shared memory
-constexpr int kProdRows = 144;              // rows the products compute: 2 x 64 + 16
-constexpr int kWarps = 12, kThreads = kWarps * 32;   // three warpgroups
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// One compiled width of the fast instance and its row scheme: D and DH the
+// model's and a head's width, MC the MLP columns of one FF panel, WG the
+// warpgroups on wgmma (64 rows each), REM the rows one more warpgroup
+// computes on mma.sync (0 or 16).
+template <int D_, int DH_, int MC_, int WG_, int REM_>
+struct Shape {
+  static constexpr int kD = D_, kDh = DH_, kMc = MC_, kWg = WG_, kRem = REM_;
+  static constexpr int kProdRows = 64 * kWg + kRem;   // rows the products compute
+  static constexpr int kRows = kProdRows + 16;         // rows of q, k, v: the last
+                                                       // frame's keys padded to 16
+  static constexpr int kWgmmaWarps = 4 * kWg;
+  static constexpr int kWarps = kWgmmaWarps + (kRem ? 4 : 0), kThreads = kWarps * 32;
+  // row strides: an odd number of 16-byte units, so that the eight rows of
+  // an ldmatrix tile fall into different banks
+  static constexpr int kLdx = kD + 8;                  // x, h
+  static constexpr int kLdq = kDh + 8;                 // q, k, v
+  static constexpr int kLdm = kMc + 8;                 // the FF chunk
+  // weight panels as the wrapper packs them: blocked (wgmma.cuh), no padding
+  static constexpr int kQkPanel = 2 * kDh * kD;        // a head's q rows, then its k rows
+  static constexpr int kVPanel = kDh * kD;
+  static constexpr int kOutPanel = kD * kDh;
+  static constexpr int kFfPanel = kMc * kD;            // FF1 chunk (mc x D), FF2 chunk (D x mc)
+  static constexpr int kPanelMax = cmax(cmax(kQkPanel, kVPanel), cmax(kOutPanel, kFfPanel));
+
+  static constexpr size_t kOffX = 0;
+  static constexpr size_t kOffH = kOffX + sizeof(bf16) * kRows * kLdx;
+  static constexpr size_t kOffQ = kOffH + sizeof(bf16) * kRows * kLdx;
+  static constexpr size_t kOffK = kOffQ + sizeof(bf16) * kRows * kLdq;
+  static constexpr size_t kOffV = kOffK + sizeof(bf16) * kRows * kLdq;
+  static constexpr size_t kOffMid = kOffQ;             // the FF chunk reuses q and k
+  static constexpr size_t kOffPanel = kOffV + sizeof(bf16) * kRows * kLdq;
+  static constexpr size_t kSmemBytes = kOffPanel + 2 * sizeof(bf16) * kPanelMax;
+  // two blocks to an SM where two fit in its 228 KB (1 KB reserved for each)
+  static constexpr int kMinBlocks = 2 * (kSmemBytes + 1024) <= 233472 ? 2 : 1;
+
+  static_assert(kRem == 0 || (kRem == 16 && kDh % 64 == 0),
+                "the mma.sync warpgroup takes 16 rows of 64-column products");
+  static_assert(kDh == 32 || kDh == 64, "q and k share one 64-column product, or fill one each");
+  static_assert(kD % 64 == 0 && kMc % 64 == 0 && 32 % (kD / 16) == 0, "64-column tiles");
+  static_assert(kD / 16 <= kWarps && kMc / 16 <= kWarps, "a warp per 16 columns of a cls tile");
+  static_assert(sizeof(bf16) * kRows * kLdm <= kOffV - kOffMid, "mid fits in q and k");
+  static_assert(16 * kLdx + 48 * kLdq + 16 * kLdm <= kRows * kLdq, "cls tiles fit in q's region");
+  static_assert(kOffPanel % 128 == 0, "panels start on a core-matrix boundary");
+  static_assert(kSmemBytes <= 232448, "fits in one block's shared memory");
+};
+
+// The instances. The flagship ViViT (D 128, d_head 64): 2 x 64 wgmma rows
+// and 16 mma.sync rows hold two frames of 65 tokens (or 8 of 17), where a
+// third wgmma tile would spend a third of the tensor time on padding;
+// 221,696 bytes, one block per SM. The demo ViViT (D 64, d_head 32): 2 x 64
+// wgmma rows hold 7 frames of 17 tokens in 92,416 bytes, so two blocks share
+// an SM and one computes while the other waits at a barrier.
+using Flagship = Shape<128, 64, 128, 2, 16>;
+using Demo = Shape<64, 32, 64, 2, 0>;
+
+// fn(S()) for the instance compiled for (D, dh), or `none` where there is none
+template <typename R, typename Fn>
+R with_instance(int D, int dh, R none, Fn fn) {
+  if (D == Flagship::kD && dh == Flagship::kDh) return fn(Flagship());
+  if (D == Demo::kD && dh == Demo::kDh) return fn(Demo());
+  return none;
+}
+
 constexpr int kMaxN = 80;                   // five 16-key tiles in the core
 constexpr int kMaxFrames = 16;              // rows of the last layer's cls tiles
-constexpr int kLdx = kD + 8;                // x, h and mid: 272-byte rows
-constexpr int kLdq = kDh + 8;               // q, k, v: 144-byte rows
-// weight panels as the wrapper packs them: blocked (wgmma.cuh), no padding
-constexpr int kQkPanel = 2 * kDh * kD;      // a head's q rows, then its k rows
-constexpr int kVPanel = kDh * kD;
-constexpr int kOutPanel = kD * kDh;
-constexpr int kFfPanel = kMc * kD;          // FF1 chunk (mc x D) and FF2 chunk (D x mc)
-constexpr int kPanelMax = kFfPanel;
-
-constexpr size_t kOffX = 0;
-constexpr size_t kOffH = kOffX + sizeof(bf16) * kRows * kLdx;
-constexpr size_t kOffQ = kOffH + sizeof(bf16) * kRows * kLdx;
-constexpr size_t kOffK = kOffQ + sizeof(bf16) * kRows * kLdq;
-constexpr size_t kOffV = kOffK + sizeof(bf16) * kRows * kLdq;
-constexpr size_t kOffMid = kOffQ;           // the FF chunk reuses q and k
-constexpr size_t kOffPanel = kOffV + sizeof(bf16) * kRows * kLdq;
-constexpr size_t kSmemBytes = kOffPanel + 2 * sizeof(bf16) * kPanelMax;
-static_assert(sizeof(bf16) * kRows * kLdx <= kOffV - kOffMid, "mid fits in q and k");
-static_assert(kOffPanel % 128 == 0, "panels start on a core-matrix boundary");
-static_assert(kSmemBytes <= 232448, "fits in one block's shared memory");
 
 // Frames per block: the most whose packed rows fit in the kProdRows rows
 // the products compute and, with the last frame's keys padded to a multiple
-// of 16, in the kRows rows of shared memory; at most the 16 rows of the last
+// of 16, in the kRows rows of q, k and v; at most the 16 rows of the last
 // layer's cls tiles. 0 where the instance does not apply.
+template <class S>
 __host__ __device__ inline int frames_per_block(int N) {
   if (N < 1 || N > kMaxN) return 0;
-  int fit = (kRows - (N + 15) / 16 * 16) / N + 1;
-  if (fit > kProdRows / N) fit = kProdRows / N;
+  int fit = (S::kRows - (N + 15) / 16 * 16) / N + 1;
+  if (fit > S::kProdRows / N) fit = S::kProdRows / N;
   return fit < kMaxFrames ? fit : kMaxFrames;
+}
+
+template <class S>
+bool applies(int N, int M) {
+  return M > 0 && M % S::kMc == 0 && frames_per_block<S>(N) > 0;
 }
 
 // Phase profile of a throw-away build (-DKSTAR_PROFILE, see
@@ -569,23 +633,24 @@ __device__ __forceinline__ float gelu_fast(float x) {
   return __fdividef(x, 1.f + __expf(-2.f * u));
 }
 
-// flax LayerNorm in f32 (eps 1e-6) of `rows` rows of kD bf16. Eight lanes
-// share a row, 16 elements each, so a warp has four rows in flight. Row r is
-// read at x + src(r) * kLdx and written at y + r * kLdx.
-template <typename Src>
+// flax LayerNorm in f32 (eps 1e-6) of `rows` rows of kD bf16. kD / 16 lanes
+// share a row, 16 elements each, so a warp has 32 / (kD / 16) rows in
+// flight. Row r is read at x + src(r) * kLdx and written at y + r * kLdx.
+template <class S, typename Src>
 __device__ __forceinline__ void layer_norm_fast(const bf16* x, bf16* y, int rows, Src src,
                                                 const float* scale, const float* bias) {
+  constexpr int kLanes = S::kD / 16, kPerWarp = 32 / kLanes;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int sub = lane >> 3, c0 = (lane & 7) * 16;
+  const int sub = lane / kLanes, c0 = (lane % kLanes) * 16;
   float sc[16], bi[16];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     *reinterpret_cast<float4*>(sc + 4 * j) = *reinterpret_cast<const float4*>(scale + c0 + 4 * j);
     *reinterpret_cast<float4*>(bi + 4 * j) = *reinterpret_cast<const float4*>(bias + c0 + 4 * j);
   }
-  for (int r0 = warp * 4; r0 < rows; r0 += kWarps * 4) {
+  for (int r0 = warp * kPerWarp; r0 < rows; r0 += S::kWarps * kPerWarp) {
     const int r = r0 + sub < rows ? r0 + sub : rows - 1;   // idle lanes repeat the last row
-    const bf16* xr = x + src(r) * kLdx + c0;
+    const bf16* xr = x + src(r) * S::kLdx + c0;
     uint4 raw[2] = {*reinterpret_cast<const uint4*>(xr), *reinterpret_cast<const uint4*>(xr + 8)};
     const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(raw);
     float v[16], s = 0.f, s2 = 0.f;
@@ -597,19 +662,19 @@ __device__ __forceinline__ void layer_norm_fast(const bf16* x, bf16* y, int rows
       s2 += v[2 * j] * v[2 * j] + v[2 * j + 1] * v[2 * j + 1];
     }
 #pragma unroll
-    for (int o = 4; o > 0; o >>= 1) {
+    for (int o = kLanes / 2; o > 0; o >>= 1) {
       s += __shfl_xor_sync(0xffffffffu, s, o);
       s2 += __shfl_xor_sync(0xffffffffu, s2, o);
     }
-    const float mean = s / kD;
-    const float inv = rsqrtf(fmaxf(s2 / kD - mean * mean, 0.f) + 1e-6f);
+    const float mean = s / S::kD;
+    const float inv = rsqrtf(fmaxf(s2 / S::kD - mean * mean, 0.f) + 1e-6f);
     uint32_t res[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       res[j] = pack_bf16((v[2 * j] - mean) * (inv * sc[2 * j]) + bi[2 * j],
                          (v[2 * j + 1] - mean) * (inv * sc[2 * j + 1]) + bi[2 * j + 1]);
     if (r0 + sub < rows) {
-      bf16* yr = y + r * kLdx + c0;
+      bf16* yr = y + r * S::kLdx + c0;
       *reinterpret_cast<uint4*>(yr) = make_uint4(res[0], res[1], res[2], res[3]);
       *reinterpret_cast<uint4*>(yr + 8) = make_uint4(res[4], res[5], res[6], res[7]);
     }
@@ -640,61 +705,67 @@ __device__ __forceinline__ void mma_gemm_blocked(float (*acc)[4], const bf16* A,
   }
 }
 
-// The all-row product, 64 output columns at a time: acc (+)= A * panel^T for
-// the kProdRows rows of A (row-major, stride lda) and HALVES * 64 rows of a
-// blocked panel with K columns; output columns 64 h .. 64 h + 63 go to
-// acc[8 h .. 8 h + 7]. Warps 0..7 are two warpgroups on wgmma, warp w
-// holding rows 16 w .. 16 w + 15 and all 64 columns of a half (A fragments
-// from ldmatrix, loaded once for all halves; B through the descriptor; one
-// commit and one wait for the lot). The third warpgroup takes rows 128..143
-// on mma.sync, warp 8 + i columns 16 i .. 16 i + 15 of each half, in
-// acc[8 h], acc[8 h + 1].
-template <int K, int HALVES>
-__device__ __forceinline__ void rows_gemm64(float (*acc)[4], const bf16* A, int lda,
-                                            const bf16* panel) {
+// The all-row product, NW (64 or 32) output columns at a time: acc (+)= A *
+// panel^T for the kProdRows rows of A (row-major, stride lda) and TILES * NW
+// rows of a blocked panel with K columns; output columns NW t .. NW t + NW -
+// 1 go to acc[NW / 8 * t ..]. Wgmma warp w holds rows 16 w .. 16 w + 15 and
+// all NW columns of a tile (A fragments from ldmatrix, loaded once for all
+// tiles; B through the descriptor; one commit and one wait for the lot).
+// Where the instance has one, the mma.sync warpgroup takes the 16 rows after
+// theirs, its warp i columns 16 i .. 16 i + 15 of each 64-column tile, in
+// acc[8 t], acc[8 t + 1].
+template <class S, int K, int NW, int TILES>
+__device__ __forceinline__ void rows_gemm(float (*acc)[4], const bf16* A, int lda,
+                                          const bf16* panel) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp < 8) {
+  if (warp < S::kWgmmaWarps) {
     uint32_t a[K / 16][4];
     const bf16* ap = A + warp * 16 * lda + lane_off_a(lane, lda);
 #pragma unroll
     for (int kk = 0; kk < K / 16; ++kk) ldsm4(a[kk], ap + kk * 16);
     wgmma_fence();
 #pragma unroll
-    for (int h = 0; h < HALVES; ++h) {
-      uint64_t desc = wgmma_desc(panel + blocked_off(h * 64, 0, K), K);
+    for (int t = 0; t < TILES; ++t) {
+      uint64_t desc = wgmma_desc(panel + blocked_off(t * NW, 0, K), K);
 #pragma unroll
       for (int kk = 0; kk < K / 16; ++kk) {
-        wgmma_m64n64k16(acc + 8 * h, a[kk], desc);
+        wgmma_m64k16<NW>(acc + NW / 8 * t, a[kk], desc);
         desc = wgmma_desc_next_k(desc);
       }
     }
     wgmma_commit();
     wgmma_wait();
-  } else {
+  } else if constexpr (S::kRem > 0) {
+    static_assert(NW == 64, "the mma.sync warpgroup splits 64-column tiles");
 #pragma unroll
-    for (int h = 0; h < HALVES; ++h)
-      mma_gemm_blocked<2, K>(acc + 8 * h, A + 128 * lda, lda, panel + blocked_off(h * 64, 0, K),
-                             (warp - 8) * 16);
+    for (int t = 0; t < TILES; ++t)
+      mma_gemm_blocked<2, K>(acc + 8 * t, A + S::kWgmmaWarps * 16 * lda, lda,
+                             panel + blocked_off(t * 64, 0, K), (warp - S::kWgmmaWarps) * 16);
   }
 }
 
-// This thread's first column of the 64 that rows_gemm64 produces (its
+// This thread's first column of the NW that rows_gemm produces per tile (its
 // pairs are at this column + 8 j) and the number of its column pairs.
-__device__ __forceinline__ int out64_col0() {
+template <class S>
+__device__ __forceinline__ int out_col0() {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  return (warp < 8 ? 0 : (warp - 8) * 16) + (lane & 3) * 2;
+  return (warp < S::kWgmmaWarps ? 0 : (warp - S::kWgmmaWarps) * 16) + (lane & 3) * 2;
 }
-__device__ __forceinline__ int out64_pairs() { return threadIdx.x < 256 ? 8 : 2; }
+template <class S, int NW>
+__device__ __forceinline__ int out_pairs() {
+  return static_cast<int>(threadIdx.x >> 5) < S::kWgmmaWarps ? NW / 8 : 2;
+}
 
 // epi(row, col, j, v0, v1) for every pair of neighbouring columns this warp
-// holds after rows_gemm64 (row in 0..143, col = out64_col0() + 8 j).
-template <typename Epi>
-__device__ __forceinline__ void for_each_out64(float (*acc)[4], Epi epi) {
+// holds of one NW-column tile after rows_gemm (row < kProdRows, col =
+// out_col0() + 8 j).
+template <class S, int NW, typename Epi>
+__device__ __forceinline__ void for_each_out(float (*acc)[4], Epi epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = (warp < 8 ? warp * 16 : 128) + (lane >> 2);
-  const int col = out64_col0(), pairs = out64_pairs();
+  const int row = (warp < S::kWgmmaWarps ? warp : S::kWgmmaWarps) * 16 + (lane >> 2);
+  const int col = out_col0<S>(), pairs = out_pairs<S, NW>();
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NW / 8; ++j) {
     if (j < pairs) {
       epi(row, col + j * 8, j, acc[j][0], acc[j][1]);
       epi(row + 8, col + j * 8, j, acc[j][2], acc[j][3]);
@@ -702,11 +773,12 @@ __device__ __forceinline__ void for_each_out64(float (*acc)[4], Epi epi) {
   }
 }
 
-// The bias pairs of this thread's columns, loaded ahead of an epilogue so
-// that no global load sits between its shared-memory stores: bias points at
-// the first of the 64 columns.
+// The bias pairs of this thread's columns of a 64-column tile, loaded ahead
+// of an epilogue so that no global load sits between its shared-memory
+// stores: bias points at the tile's first column.
+template <class S>
 __device__ __forceinline__ void load_bias64(__nv_bfloat162 (&b)[8], const bf16* bias) {
-  const int col = out64_col0(), pairs = out64_pairs();
+  const int col = out_col0<S>(), pairs = out_pairs<S, 64>();
 #pragma unroll
   for (int j = 0; j < 8; ++j)
     if (j < pairs) b[j] = *reinterpret_cast<const __nv_bfloat162*>(bias + col + j * 8);
@@ -717,36 +789,55 @@ __device__ __forceinline__ float add_bias(float v, float bias) {
   return round_to<bf16>(round_to<bf16>(v) + bias);
 }
 
-// softmax(q k^T * scale) v for one 16-query strip against the n_keys keys
-// at k and v (KT16 = ceil(n_keys / 16) tiles), P rounded to bf16
-template <int KT16>
-__device__ __forceinline__ void attend_strip(const bf16* q_rows, const bf16* k, const bf16* v,
-                                             int n_keys, float scale, float (&o)[kDh / 8][4]) {
-  uint32_t qf[kDh / 16][4];
-  attn_load_q<kDh>(qf, q_rows, kLdq);
-  float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int t = 0; t < kDh / 8; ++t)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[t][i] = 0.f;
-  attn_strip_block<kDh, KT16, kPNormBf16, true>(qf, k, v, kLdq, n_keys, scale, m, lsum, o);
+__device__ __forceinline__ void store_pair(bf16* dst, float v0, float v1) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
 }
 
-__device__ __forceinline__ void zero8(float (*acc)[4]) {
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (*acc)[4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 }
 
-__global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params p) {
+// The all-row product of h with NW rows of a kD-column panel, rounded to
+// bf16: output column c of row r goes to dst(r, c).
+template <class S, int NW, typename Dst>
+__device__ __forceinline__ void project(const bf16* hs, const bf16* panel, Dst dst) {
+  float acc[NW / 8][4];
+  zero_acc<NW / 8>(acc);
+  rows_gemm<S, S::kD, NW, 1>(acc, hs, S::kLdx, panel);
+  for_each_out<S, NW>(acc, [&](int r, int c, int, float v0, float v1) {
+    store_pair(dst(r, c), v0, v1);
+  });
+}
+
+// softmax(q k^T * scale) v for one 16-query strip against the n_keys keys
+// at k and v (KT16 = ceil(n_keys / 16) tiles), P rounded to bf16
+template <class S, int KT16>
+__device__ __forceinline__ void attend_strip(const bf16* q_rows, const bf16* k, const bf16* v,
+                                             int n_keys, float scale,
+                                             float (&o)[S::kDh / 8][4]) {
+  uint32_t qf[S::kDh / 16][4];
+  attn_load_q<S::kDh>(qf, q_rows, S::kLdq);
+  float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f};
+  zero_acc<S::kDh / 8>(o);
+  attn_strip_block<S::kDh, KT16, kPNormBf16, true>(qf, k, v, S::kLdq, n_keys, scale, m, lsum, o);
+}
+
+template <class S>
+__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
+spatial_table_fast_kernel(Params p) {
+  constexpr int kD = S::kD, kDh = S::kDh, kMc = S::kMc, kWarps = S::kWarps;
+  constexpr int kLdx = S::kLdx, kLdq = S::kLdq, kLdm = S::kLdm;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem + kOffX);
-  bf16* hs = reinterpret_cast<bf16*>(smem + kOffH);
-  bf16* qs = reinterpret_cast<bf16*>(smem + kOffQ);
-  bf16* ks = reinterpret_cast<bf16*>(smem + kOffK);
-  bf16* vs = reinterpret_cast<bf16*>(smem + kOffV);
-  bf16* mid = reinterpret_cast<bf16*>(smem + kOffMid);
+  bf16* xs = reinterpret_cast<bf16*>(smem + S::kOffX);
+  bf16* hs = reinterpret_cast<bf16*>(smem + S::kOffH);
+  bf16* qs = reinterpret_cast<bf16*>(smem + S::kOffQ);
+  bf16* ks = reinterpret_cast<bf16*>(smem + S::kOffK);
+  bf16* vs = reinterpret_cast<bf16*>(smem + S::kOffV);
+  bf16* mid = reinterpret_cast<bf16*>(smem + S::kOffMid);
   // The last layer's 16-row tiles for the cls rows (row f = frame f's cls
   // token) live in q's region, which that layer does not fill: LN output,
   // q (32 rows: strip f reads rows f..f+15), attention output, FF chunk.
@@ -754,9 +845,8 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
   bf16* qc = hc + 16 * kLdx;
   bf16* oc = qc + 32 * kLdq;
   bf16* midc = oc + 16 * kLdq;
-  static_assert(16 * kLdx * 2 + 48 * kLdq <= kRows * kLdq, "cls tiles fit in q's region");
-  bf16* const buf[2] = {reinterpret_cast<bf16*>(smem + kOffPanel),
-                        reinterpret_cast<bf16*>(smem + kOffPanel) + kPanelMax};
+  bf16* const buf[2] = {reinterpret_cast<bf16*>(smem + S::kOffPanel),
+                        reinterpret_cast<bf16*>(smem + S::kOffPanel) + S::kPanelMax};
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
@@ -765,8 +855,8 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
   const int n_chunks = M / kMc;
   const int per_layer = 3 * H + 2 * n_chunks;
   const int n_panels = p.depth * per_layer;
-  const size_t layer_panels = static_cast<size_t>(H) * (kQkPanel + kVPanel + kOutPanel) +
-                              static_cast<size_t>(n_chunks) * 2 * kFfPanel;
+  const size_t layer_panels = static_cast<size_t>(H) * (S::kQkPanel + S::kVPanel + S::kOutPanel) +
+                              static_cast<size_t>(n_chunks) * 2 * S::kFfPanel;
   const size_t layer_elems = layer_panels + 2 * kD + M;
 
   // The weight panels lie in wmat in the order they are used, each in the
@@ -788,10 +878,10 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
   auto issue_next = [&]() {
     if (issued < n_panels) {
       const int i = issued % per_layer;
-      const int n = i >= 3 * H ? kFfPanel : i % 3 == 0 ? kQkPanel : i % 3 == 1 ? kVPanel
-                                                                               : kOutPanel;
+      const int n = i >= 3 * H ? S::kFfPanel : i % 3 == 0 ? S::kQkPanel
+                                             : i % 3 == 1 ? S::kVPanel : S::kOutPanel;
       bf16* dst = buf[issued & 1];
-      for (int e = tid * 8; e < n; e += kThreads * 8)
+      for (int e = tid * 8; e < n; e += S::kThreads * 8)
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst + e)),
                      "l"(wnext + e));
       wnext += n;
@@ -820,7 +910,7 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
   // x = tokens + base, rounded to bf16, frames packed without padding: row
   // f * N + i is token i of frame frame0 + f. Rows of frames past T and
   // rows past F * N are zero (finite through every layer, never stored).
-  for (int i = tid; i < kRows * (kD / 8); i += kThreads) {
+  for (int i = tid; i < S::kRows * (kD / 8); i += S::kThreads) {
     const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
     const int f = r / N, tok = r % N;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -839,12 +929,12 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
     }
     *reinterpret_cast<uint4*>(xs + r * kLdx + c) = val;
   }
-  // The products fill rows 0..143 of q, k and v; the last frame's padding
-  // keys may reach up to row 159. Masked keys never count, but their V rows
-  // are multiplied by p = 0, so they must be finite: zero them once (the FF
-  // chunk reuses q and k only).
-  for (int i = tid; i < (kRows - kProdRows) * kLdq; i += kThreads)
-    vs[kProdRows * kLdq + i] = from_f<bf16>(0.f);
+  // The products fill rows 0..kProdRows-1 of q, k and v; the last frame's
+  // padding keys may reach up to row kRows-1. Masked keys never count, but
+  // their V rows are multiplied by p = 0, so they must be finite: zero them
+  // once (the FF chunk reuses q and k only).
+  for (int i = tid; i < (S::kRows - S::kProdRows) * kLdq; i += S::kThreads)
+    vs[S::kProdRows * kLdq + i] = from_f<bf16>(0.f);
   __syncthreads();
 
   // x <- x + round(round(v) + bias), in bf16, for two neighbouring columns
@@ -853,29 +943,20 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
     *xp = __floats2bfloat162_rn(__low2float(*xp) + add_bias(v0, __low2float(bias)),
                                 __high2float(*xp) + add_bias(v1, __high2float(bias)));
   };
-  // the all-row residual: x[:, 64 half ..] += acc + bias, per 64 columns
+  // the all-row residual: x[:, 64 t ..] += acc + bias, per 64 columns
   auto residual_rows = [&](float (*acc)[4], const bf16* bias) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
+    for (int t = 0; t < kD / 64; ++t) {
       __nv_bfloat162 b2[8];
-      load_bias64(b2, bias + half * 64);
-      for_each_out64(acc + 8 * half, [&](int r, int c, int j, float v0, float v1) {
-        residual_pair(xs + r * kLdx + half * 64 + c, b2[j], v0, v1);
+      load_bias64<S>(b2, bias + t * 64);
+      for_each_out<S, 64>(acc + 8 * t, [&](int r, int c, int j, float v0, float v1) {
+        residual_pair(xs + r * kLdx + t * 64 + c, b2[j], v0, v1);
       });
     }
   };
-  auto store_pair = [](bf16* dst, float v0, float v1) {
-    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(v0, v1);
-  };
-  // dst[row, col] = A * panel^T for 64 output columns (dst row-major, ld)
-  auto project64 = [&](const bf16* A, const bf16* panel, bf16* dst, int ld) {
-    float acc[8][4];
-    zero8(acc);
-    rows_gemm64<kD, 1>(acc, A, kLdx, panel);
-    for_each_out64(acc, [&](int r, int c, int, float v0, float v1) {
-      store_pair(dst + r * ld + c, v0, v1);
-    });
-  };
+  auto q_at = [=](int r, int c) { return qs + r * kLdq + c; };
+  auto k_at = [=](int r, int c) { return ks + r * kLdq + c; };
+  auto v_at = [=](int r, int c) { return vs + r * kLdq + c; };
   // One warp, one 16-query strip of one frame: the frame's keys are its N
   // rows at row0; the rows up to the next multiple of 16 belong to the next
   // frame or the zero tail and are masked in the core. The core is compiled
@@ -884,15 +965,15 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
     const bf16* k = ks + row0 * kLdq;
     const bf16* v = vs + row0 * kLdq;
     switch ((N + 15) / 16) {
-      case 1: attend_strip<1>(q_rows, k, v, N, p.scale, o); break;
-      case 2: attend_strip<2>(q_rows, k, v, N, p.scale, o); break;
-      case 3: attend_strip<3>(q_rows, k, v, N, p.scale, o); break;
-      case 4: attend_strip<4>(q_rows, k, v, N, p.scale, o); break;
-      default: attend_strip<5>(q_rows, k, v, N, p.scale, o); break;
+      case 1: attend_strip<S, 1>(q_rows, k, v, N, p.scale, o); break;
+      case 2: attend_strip<S, 2>(q_rows, k, v, N, p.scale, o); break;
+      case 3: attend_strip<S, 3>(q_rows, k, v, N, p.scale, o); break;
+      case 4: attend_strip<S, 4>(q_rows, k, v, N, p.scale, o); break;
+      default: attend_strip<S, 5>(q_rows, k, v, N, p.scale, o); break;
     }
     __syncwarp();
   };
-  // the 16-row cls tiles' products: warps 0..7 take 16 of 128 columns each
+  // the 16-row cls tiles' products: warp w takes columns 16 w .. 16 w + 15
   const int ccol = warp * 16;
 
   const int spf = (N + 15) / 16;            // strips per frame
@@ -901,24 +982,29 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
     const bf16* b_ff1 = b_out + kD;
     const bf16* b_ff2 = b_ff1 + M;
     const float* ln = p.wln + 4 * l * kD;
-    layer_norm_fast(xs, hs, kProdRows, [](int r) { return r; }, ln, ln + kD);
+    layer_norm_fast<S>(xs, hs, S::kProdRows, [](int r) { return r; }, ln, ln + kD);
     __syncthreads();
     KSTAR_STAMP(kPhLayerNorm);
 
     if (l < p.depth - 1) {
       // ---- attention, all rows ----
-      float oacc[16][4];                    // out-projection, summed over heads
-      zero8(oacc);
-      zero8(oacc + 8);
+      float oacc[kD / 8][4];                // out-projection, summed over heads
+      zero_acc<kD / 8>(oacc);
       for (int hh = 0; hh < H; ++hh) {
-        {  // q (panel rows 0..63) and k (64..127) of this head
+        {  // q (the panel's first kDh rows) and k (the next kDh) of this head
           const bf16* w = next_panel();
           KSTAR_NEXT(kPhQk);
-          project64(hs, w, qs, kLdq);
-          project64(hs, w + blocked_off(kDh, 0, kD), ks, kLdq);
+          if constexpr (kDh == 64) {
+            project<S, 64>(hs, w, q_at);
+            project<S, 64>(hs, w + blocked_off(kDh, 0, kD), k_at);
+          } else {                          // q and k side by side in one product
+            project<S, 64>(hs, w, [=](int r, int c) {
+              return c < kDh ? q_at(r, c) : k_at(r, c - kDh);
+            });
+          }
         }
         // v, row-major: the core reads it through ldmatrix.trans
-        project64(hs, next_panel(), vs, kLdq);
+        project<S, kDh>(hs, next_panel(), v_at);
         __syncthreads();
         KSTAR_STAMP(kPhV);
         // The output replaces the strip's own q rows (rows past the frame's
@@ -937,7 +1023,7 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
         }
         KSTAR_STAMP(kPhAttention);
         // out-projection of this head's output, summed in registers
-        rows_gemm64<kDh, 2>(oacc, qs, kLdq, next_panel());
+        rows_gemm<S, kDh, 64, kD / 64>(oacc, qs, kLdq, next_panel());
         KSTAR_NEXT(kPhOut);
       }
       KSTAR_STAMP(kPhOut);
@@ -945,30 +1031,30 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
       __syncthreads();
       KSTAR_STAMP(kPhResidual);
 
-      // ---- feed-forward, all rows, over chunks of 128 MLP columns ----
-      layer_norm_fast(xs, hs, kProdRows, [](int r) { return r; }, ln + 2 * kD, ln + 3 * kD);
+      // ---- feed-forward, all rows, over chunks of kMc MLP columns ----
+      layer_norm_fast<S>(xs, hs, S::kProdRows, [](int r) { return r; }, ln + 2 * kD,
+                         ln + 3 * kD);
       KSTAR_STAMP(kPhLayerNorm);
-      zero8(oacc);                          // FF2, summed over the chunks
-      zero8(oacc + 8);
+      zero_acc<kD / 8>(oacc);               // FF2, summed over the chunks
       for (int ch = 0; ch < n_chunks; ++ch) {
         {
           const bf16* w = next_panel();
           KSTAR_NEXT(kPhFf1);
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
+          for (int t = 0; t < kMc / 64; ++t) {
             __nv_bfloat162 b2[8];
-            load_bias64(b2, b_ff1 + ch * kMc + half * 64);
+            load_bias64<S>(b2, b_ff1 + ch * kMc + t * 64);
             float acc[8][4];
-            zero8(acc);
-            rows_gemm64<kD, 1>(acc, hs, kLdx, w + blocked_off(half * 64, 0, kD));
-            for_each_out64(acc, [&](int r, int c, int j, float v0, float v1) {
-              store_pair(mid + r * kLdx + half * 64 + c,
+            zero_acc<8>(acc);
+            rows_gemm<S, kD, 64, 1>(acc, hs, kLdx, w + blocked_off(t * 64, 0, kD));
+            for_each_out<S, 64>(acc, [&](int r, int c, int j, float v0, float v1) {
+              store_pair(mid + r * kLdm + t * 64 + c,
                          gelu_fast(add_bias(v0, __low2float(b2[j]))),
                          gelu_fast(add_bias(v1, __high2float(b2[j]))));
             });
           }
         }
-        rows_gemm64<kMc, 2>(oacc, mid, kLdx, next_panel());
+        rows_gemm<S, kMc, 64, kD / 64>(oacc, mid, kLdm, next_panel());
         KSTAR_NEXT(kPhFf2);
       }
       KSTAR_STAMP(kPhFf2);
@@ -980,21 +1066,21 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
       // LayerNorm, so K and V are needed for all rows and everything else
       // for the F cls rows, gathered into 16-row tiles (row f = frame f).
       // The same arithmetic for those rows as the all-row path.
-      for (int i = tid; i < 16 * (kD / 8); i += kThreads) {
+      for (int i = tid; i < 16 * (kD / 8); i += S::kThreads) {
         const int f = i / (kD / 8), c = (i % (kD / 8)) * 8;
         *reinterpret_cast<uint4*>(hc + f * kLdx + c) =
             *reinterpret_cast<const uint4*>(hs + (f < F ? f * N : 0) * kLdx + c);
       }
       float cacc[2][4];                     // out-projection of the cls rows
-#pragma unroll
-      for (int i = 0; i < 4; ++i) cacc[0][i] = cacc[1][i] = 0.f;
+      zero_acc<2>(cacc);
       for (int hh = 0; hh < H; ++hh) {
-        {  // k for all rows (the panel's rows 64..127), q for the cls rows
+        {  // k for all rows (the panel's rows kDh..2 kDh-1), q for the cls rows
           const bf16* w = next_panel();
           KSTAR_NEXT(kPhLastKq);
-          project64(hs, w + blocked_off(kDh, 0, kD), ks, kLdq);
-          if (warp < 4) {
-            float qa[2][4] = {};
+          project<S, kDh>(hs, w + blocked_off(kDh, 0, kD), k_at);
+          if (warp < kDh / 16) {
+            float qa[2][4];
+            zero_acc<2>(qa);
             mma_gemm_blocked<2, kD>(qa, hc, kLdx, w, ccol);
             store_pair(qc + g * kLdq + ccol + c2, qa[0][0], qa[0][1]);
             store_pair(qc + (g + 8) * kLdq + ccol + c2, qa[0][2], qa[0][3]);
@@ -1002,7 +1088,7 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
             store_pair(qc + (g + 8) * kLdq + ccol + 8 + c2, qa[1][2], qa[1][3]);
           }
         }
-        project64(hs, next_panel(), vs, kLdq);
+        project<S, kDh>(hs, next_panel(), v_at);
         __syncthreads();
         KSTAR_STAMP(kPhV);
         // strip f: queries qc rows f..f+15, of which row 0 is frame f's cls
@@ -1019,12 +1105,12 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
         {
           const bf16* w = next_panel();
           KSTAR_NEXT(kPhLastOut);
-          if (warp < 8) mma_gemm_blocked<2, kDh>(cacc, oc, kLdq, w, ccol);
+          if (warp < kD / 16) mma_gemm_blocked<2, kDh>(cacc, oc, kLdq, w, ccol);
         }
       }
       // cls tile row g is frame g (rows 8..15 hold no frame when F <= 8)
       auto cls_residual = [&](const bf16* bias) {
-        if (warp < 8) {
+        if (warp < kD / 16) {
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int c = ccol + j * 8 + c2;
@@ -1040,25 +1126,25 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
       __syncthreads();
       KSTAR_STAMP(kPhResidual);
 
-      layer_norm_fast(xs, hc, F, [N](int r) { return r * N; }, ln + 2 * kD, ln + 3 * kD);
+      layer_norm_fast<S>(xs, hc, F, [N](int r) { return r * N; }, ln + 2 * kD, ln + 3 * kD);
       KSTAR_STAMP(kPhLayerNorm);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) cacc[0][i] = cacc[1][i] = 0.f;   // FF2 of the cls rows
+      zero_acc<2>(cacc);                    // FF2 of the cls rows
       for (int ch = 0; ch < n_chunks; ++ch) {
         {
           const bf16* w = next_panel();
           KSTAR_NEXT(kPhLastFf1);
-          if (warp < 8) {
+          if (warp < kMc / 16) {
             const bf16* bias = b_ff1 + ch * kMc + ccol + c2;
             const __nv_bfloat162 b2[2] = {*reinterpret_cast<const __nv_bfloat162*>(bias),
                                           *reinterpret_cast<const __nv_bfloat162*>(bias + 8)};
-            float acc[2][4] = {};
+            float acc[2][4];
+            zero_acc<2>(acc);
             mma_gemm_blocked<2, kD>(acc, hc, kLdx, w, ccol);
 #pragma unroll
             for (int j = 0; j < 2; ++j)
 #pragma unroll
               for (int hi = 0; hi < 2; ++hi)
-                store_pair(midc + (g + 8 * hi) * kLdx + ccol + j * 8 + c2,
+                store_pair(midc + (g + 8 * hi) * kLdm + ccol + j * 8 + c2,
                            gelu_fast(add_bias(acc[j][2 * hi], __low2float(b2[j]))),
                            gelu_fast(add_bias(acc[j][2 * hi + 1], __high2float(b2[j]))));
           }
@@ -1066,7 +1152,7 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
         {
           const bf16* w = next_panel();
           KSTAR_NEXT(kPhLastFf2);
-          if (warp < 8) mma_gemm_blocked<2, kMc>(cacc, midc, kLdx, w, ccol);
+          if (warp < kD / 16) mma_gemm_blocked<2, kMc>(cacc, midc, kLdm, w, ccol);
         }
       }
       KSTAR_STAMP(kPhLastFf2);
@@ -1099,10 +1185,16 @@ __global__ void __launch_bounds__(kThreads, 1) spatial_table_fast_kernel(Params 
   }
 }
 
-bool applies(int N, int D, int dh, int M) {
-  return D == kD && dh == kDh && M > 0 && M % kMc == 0 && frames_per_block(N) > 0;
+// Sets the kernel's shared-memory limit: before it is launched or asked
+// for its occupancy.
+template <class S>
+cudaError_t prepare() {
+  return cudaFuncSetAttribute(spatial_table_fast_kernel<S>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(S::kSmemBytes));
 }
 
+template <class S>
 int launch(const void* tokens, const void* base, const void* wmat, const void* wln,
            void* out, int T, int n_off, int N, int depth, int H, int M, float scale,
            void* stream) {
@@ -1116,7 +1208,7 @@ int launch(const void* tokens, const void* base, const void* wmat, const void* w
   p.out = static_cast<bf16*>(out);
   p.T = T;
   p.N = N;
-  p.F = frames_per_block(N);
+  p.F = frames_per_block<S>(N);
   p.depth = depth;
   p.H = H;
   p.M = M;
@@ -1124,12 +1216,10 @@ int launch(const void* tokens, const void* base, const void* wmat, const void* w
 #ifdef KSTAR_PROFILE
   p.prof = g_prof;
 #endif
-  cudaError_t err = cudaFuncSetAttribute(spatial_table_fast_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
+  cudaError_t err = prepare<S>();
   if (err != cudaSuccess) return err;
-  spatial_table_fast_kernel<<<dim3((T + p.F - 1) / p.F, n_off), kThreads, kSmemBytes,
-                              static_cast<cudaStream_t>(stream)>>>(p);
+  spatial_table_fast_kernel<S><<<dim3((T + p.F - 1) / p.F, n_off), S::kThreads, S::kSmemBytes,
+                                 static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
 }
 
@@ -1146,20 +1236,49 @@ void spatial_table_set_profile(void* prof) {
 }
 #endif
 
-// Which instance a call takes: 0 the general one, otherwise the fast one,
-// the value being its frames per block.
+// Which instance a call takes: 0 the general one, otherwise the fast one
+// compiled for (D, dh), the value being its frames per block.
 int spatial_table_plan(int N, int D, int H, int dh, int M, int elem_bytes) {
   (void)H;
-  return elem_bytes == 2 && fast::applies(N, D, dh, M) ? fast::frames_per_block(N) : 0;
+  if (elem_bytes != 2) return 0;
+  return fast::with_instance(D, dh, 0, [&](auto s) {
+    using S = decltype(s);
+    return fast::applies<S>(N, M) ? fast::frames_per_block<S>(N) : 0;
+  });
 }
 
 // Dynamic shared memory one block needs, in bytes (elem_bytes 2 or 4).
 long long spatial_table_smem_bytes(int N, int D, int H, int dh, int M, int elem_bytes) {
   if (spatial_table_plan(N, D, H, dh, M, elem_bytes) > 0)
-    return static_cast<long long>(fast::kSmemBytes);
+    return fast::with_instance(D, dh, 0LL, [](auto s) {
+      return static_cast<long long>(decltype(s)::kSmemBytes);
+    });
   const Dims d = make_dims(1, 1, N, D, 1, H, dh, M, 1.f);
   return elem_bytes == 2 ? static_cast<long long>(Layout<bf16>(d).total)
                          : static_cast<long long>(Layout<float>(d).total);
+}
+
+// The fast instance compiled for (D, dh) as the card takes it: out[0]
+// registers a thread, out[1] dynamic and out[2] static shared memory a
+// block (bytes), out[3] threads a block, out[4] blocks resident on one SM.
+// Returns a CUDA error code; cudaErrorInvalidValue where no instance is.
+int spatial_table_fast_attributes(int D, int dh, int* out) {
+  return fast::with_instance(D, dh, static_cast<int>(cudaErrorInvalidValue), [&](auto s) {
+    using S = decltype(s);
+    cudaFuncAttributes attr{};
+    int blocks = 0;
+    cudaError_t err = fast::prepare<S>();
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fast::spatial_table_fast_kernel<S>);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, fast::spatial_table_fast_kernel<S>, S::kThreads, S::kSmemBytes);
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(S::kSmemBytes);
+    out[2] = static_cast<int>(attr.sharedSizeBytes);
+    out[3] = S::kThreads;
+    out[4] = blocks;
+    return static_cast<int>(err);
+  });
 }
 
 // wmat is packed for the instance spatial_table_plan names (the wrapper's
@@ -1168,8 +1287,10 @@ int spatial_table_bf16(const void* tokens, const void* base, const void* wmat,
                        const void* wln, void* out, int T, int n_off, int N, int D,
                        int depth, int H, int dh, int M, float scale, void* stream) {
   if (spatial_table_plan(N, D, H, dh, M, 2) > 0)
-    return fast::launch(tokens, base, wmat, wln, out, T, n_off, N, depth, H, M, scale,
-                        stream);
+    return fast::with_instance(D, dh, 0, [&](auto s) {
+      return fast::launch<decltype(s)>(tokens, base, wmat, wln, out, T, n_off, N, depth, H,
+                                       M, scale, stream);
+    });
   return launch<bf16>(tokens, base, wmat, wln, out, T, n_off, N, D, depth, H, dh, M,
                       scale, stream);
 }

@@ -1,13 +1,13 @@
 // Warpgroup matrix multiply (wgmma) for Hopper (sm_90a): the pieces the
 // spatial-table kernel needs, written on the PTX instruction directly.
 //
-// wgmma.mma_async.m64n64k16 (bf16 operands, f32 sum): the four warps of a
-// warpgroup (warp index a multiple of 4) multiply a 64 x 16 tile of A by a
-// 16 x 64 tile of B. A comes from registers, each warp its own 16 rows in
-// the mma.m16n8k16 A-fragment layout (so ldmatrix loads it from any
+// wgmma.mma_async.m64nNk16 (bf16 operands, f32 sum; N 64 or 32): the four
+// warps of a warpgroup (warp index a multiple of 4) multiply a 64 x 16 tile
+// of A by a 16 x N tile of B. A comes from registers, each warp its own 16
+// rows in the mma.m16n8k16 A-fragment layout (so ldmatrix loads it from any
 // row-major tile); B comes from shared memory through a 64-bit matrix
 // descriptor; the sum stays in registers, warp w holding rows 16 w .. 16 w
-// + 15 as eight m16n8 C fragments: d[j][i] is row lane / 4 + 8 * (i / 2),
+// + 15 as N / 8 m16n8 C fragments: d[j][i] is row lane / 4 + 8 * (i / 2),
 // column 8 j + 2 * (lane % 4) + i % 2.
 //
 // B is "K-major" (row n of B holds output column n's k run) without
@@ -84,4 +84,34 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (*d)[4], const uint32_t (&
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The same with a 16 x 32 tile of B: d[0..3].
+__device__ __forceinline__ void wgmma_m64n32k16(float (*d)[4], const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (+)= A * B^T on the instruction of width N (64 or 32)
+template <int N>
+__device__ __forceinline__ void wgmma_m64k16(float (*d)[4], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  static_assert(N == 64 || N == 32, "wgmma widths compiled here: 64 and 32");
+  if constexpr (N == 64)
+    wgmma_m64n64k16(d, a, desc_b);
+  else
+    wgmma_m64n32k16(d, a, desc_b);
 }

@@ -16,14 +16,16 @@ layouts, the inexact ``none`` and ``debug_skip`` profiling modes,
 
 The source holds two hand-written instances, chosen by shape in its C
 launcher (``spatial_table.instance`` names the one the last launch took):
-the fast one (bf16 at D 128, d_head 64, an MLP that is a multiple of 128
-and N <= 80: several frames per block, ``wgmma`` products, register-resident
-attention, the last layer for the cls rows only) and the general one (f32,
-and bf16 at any other accepted width). The wrapper packs the weights for
-the instance (``pack_fast``: the kernel's panel stream; ``pack_general``)
-once per weights bundle and dtype. ``packed_walk_reference`` walks the fast
-instance's stream in plain PyTorch, so that the packing and the kernel's
-order of work are tested without a GPU.
+the fast one (bf16, N <= 80: several frames per block, ``wgmma`` products,
+register-resident attention, the last layer for the cls rows only), one
+design compiled for each width in ``FAST_INSTANCES`` (the flagship ViViT's
+D 128 / d_head 64 and the demo ViViT's D 64 / d_head 32), and the general
+one (f32, and bf16 at any other accepted width). The wrapper packs the
+weights for the instance (``pack_fast``: the kernel's panel stream;
+``pack_general``) once per weights bundle and dtype.
+``packed_walk_reference`` walks the fast instance's stream in plain
+PyTorch, so that the packing and the kernel's order of work are tested
+without a GPU.
 """
 
 from __future__ import annotations
@@ -295,7 +297,7 @@ def _launch(tokens, w: SpatialWeights, n_offsets, depth, n_heads, d_head,
         raise ValueError(f"spatial_table: shape not supported by the CUDA kernel "
                          f"({shape}): {refusal}")
     frames, _ = _kernel_plan(N, D, n_heads, d_head, M, cd)
-    if frames != (fast_frames_per_block(N) if cd == torch.bfloat16
+    if frames != (fast_frames_per_block(N, D, d_head) if cd == torch.bfloat16
                   and fast_applies(N, D, d_head, M) else 0):
         raise RuntimeError(f"spatial_table: the kernel source and its wrapper "
                            f"disagree on the instance for {shape}")
@@ -311,7 +313,7 @@ def _launch(tokens, w: SpatialWeights, n_offsets, depth, n_heads, d_head,
              float(scale), torch.cuda.current_stream(dev).cuda_stream)
     _build.check("spatial_table", err, "spatial_table")
     spatial_table.launches += 1
-    spatial_table.instance = f"fast_F{frames}" if frames else "general"
+    spatial_table.instance = f"fast_D{D}_F{frames}" if frames else "general"
     spatial_table.frames_per_block = frames or 1
     return out
 
@@ -323,31 +325,77 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 # ---- weights laid out for the kernel ---------------------------------------
-# The fast instance (csrc/spatial_table.cu, namespace fast) is compiled for
-# these widths and consumes the weights as a stream of panels, each in the
-# layout it has in shared memory, so that a panel is one flat copy: the
-# blocked layout wgmma reads (csrc/wgmma.cuh), 8 x 8 core matrices of 64
-# contiguous elements, those of one 8-row group side by side along k.
-FAST_D, FAST_D_HEAD, FAST_MLP_CHUNK = 128, 64, 128
-FAST_ROWS, FAST_PRODUCT_ROWS, FAST_MAX_N, FAST_MAX_FRAMES = 160, 144, 80, 16
+# The fast instance (csrc/spatial_table.cu, namespace fast) is one design
+# compiled for each width below, and consumes the weights as a stream of
+# panels, each in the layout it has in shared memory, so that a panel is one
+# flat copy: the blocked layout wgmma reads (csrc/wgmma.cuh), 8 x 8 core
+# matrices of 64 contiguous elements, those of one 8-row group side by side
+# along k.
+
+
+class FastInstance(NamedTuple):
+    """One compiled width of the fast instance (``Shape`` in the source):
+    model and head width, the MLP columns of one FF panel, the rows its
+    products compute and the rows of q, k and v in shared memory."""
+    d: int
+    d_head: int
+    mlp_chunk: int
+    product_rows: int
+    rows: int
+
+
+# the flagship ViViT's (2 x 64 wgmma rows + 16 on mma.sync) and the demo
+# ViViT's (2 x 64 wgmma rows)
+FAST_INSTANCES = (FastInstance(128, 64, 128, 144, 160), FastInstance(64, 32, 64, 128, 144))
+# both: five 16-key tiles in the attention core; the last layer's 16-row cls tile
+FAST_MAX_N, FAST_MAX_FRAMES = 80, 16
 
 _GENERAL_ORDER = ("w_qkv", "w_out", "b_out", "w_ff1", "b_ff1", "w_ff2", "b_ff2")
 _LN_ORDER = ("ln_a_s", "ln_a_b", "ln_f_s", "ln_f_b")
 
 
+def fast_instance(D: int, d_head: int):
+    """The fast instance compiled for these widths, or None."""
+    return next((i for i in FAST_INSTANCES if (i.d, i.d_head) == (D, d_head)), None)
+
+
+def _instance_of(D: int, d_head: int) -> FastInstance:
+    inst = fast_instance(D, d_head)
+    if inst is None:
+        raise ValueError(f"no fast instance is compiled for D {D}, d_head {d_head}")
+    return inst
+
+
 def fast_applies(N: int, D: int, d_head: int, M: int) -> bool:
     """Whether a bf16 call at these widths takes the fast instance."""
-    return (D == FAST_D and d_head == FAST_D_HEAD and M > 0
-            and M % FAST_MLP_CHUNK == 0 and 1 <= N <= FAST_MAX_N)
+    inst = fast_instance(D, d_head)
+    return (inst is not None and M > 0 and M % inst.mlp_chunk == 0
+            and 1 <= N <= FAST_MAX_N)
 
 
-def fast_frames_per_block(N: int) -> int:
-    """Frames one block of the fast instance owns: the most whose packed
-    rows fit in the FAST_PRODUCT_ROWS rows its products compute and, the
-    last frame's keys padded to a multiple of 16, in its FAST_ROWS rows of
-    shared memory; at most FAST_MAX_FRAMES (the last layer's cls tile)."""
-    return min((FAST_ROWS - -(-N // 16) * 16) // N + 1, FAST_PRODUCT_ROWS // N,
+def fast_frames_per_block(N: int, D: int, d_head: int) -> int:
+    """Frames one block of the fast instance at these widths owns: the most
+    whose packed rows fit in the ``product_rows`` rows its products compute
+    and, the last frame's keys padded to a multiple of 16, in its ``rows``
+    rows of q, k and v; at most FAST_MAX_FRAMES (the last layer's cls
+    tile)."""
+    inst = _instance_of(D, d_head)
+    return min((inst.rows - -(-N // 16) * 16) // N + 1, inst.product_rows // N,
                FAST_MAX_FRAMES)
+
+
+def fast_kernel_attributes(D: int, d_head: int) -> dict:
+    """The fast instance at these widths as the card takes it (builds the
+    kernel library): registers a thread, dynamic and static shared memory a
+    block, threads a block and blocks resident on one SM."""
+    out = (ctypes.c_int * 5)()
+    fn = _build.function("spatial_table", "spatial_table_fast_attributes",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    _build.check("spatial_table", fn(D, d_head, ctypes.addressof(out)),
+                 "spatial_table_fast_attributes")
+    keys = ("registers", "dynamic_smem_bytes", "static_smem_bytes", "threads",
+            "blocks_per_sm")
+    return dict(zip(keys, out))
 
 
 def _panel(m: torch.Tensor) -> torch.Tensor:
@@ -364,13 +412,15 @@ def _unpanel(flat: torch.Tensor, rows: int, K: int) -> torch.Tensor:
 
 def pack_fast(w: SpatialWeights, depth: int, n_heads: int,
               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """The fast instance's weight stream. Per layer, in the order the kernel
-    multiplies: per head h the q rows then the k rows of w_qkv as one panel
-    (2*d_head, D), its v rows (d_head, D), and its columns of w_out
-    (D, d_head); per chunk c of FAST_MLP_CHUNK MLP columns the rows of w_ff1
-    (chunk, D) and the columns of w_ff2 (D, chunk); then b_out, b_ff1,
-    b_ff2."""
-    dh, mc = FAST_D_HEAD, FAST_MLP_CHUNK
+    """The fast instance's weight stream, for the instance of the bundle's
+    widths. Per layer, in the order the kernel multiplies: per head h the q
+    rows then the k rows of w_qkv as one panel (2*d_head, D), its v rows
+    (d_head, D), and its columns of w_out (D, d_head); per chunk c of the
+    instance's ``mlp_chunk`` MLP columns the rows of w_ff1 (chunk, D) and
+    the columns of w_ff2 (D, chunk); then b_out, b_ff1, b_ff2."""
+    D = w.w_qkv[0].shape[1]
+    dh = w.w_qkv[0].shape[0] // (3 * n_heads)
+    mc = _instance_of(D, dh).mlp_chunk
     inner = n_heads * dh
     parts = []
     for d in range(depth):
@@ -387,12 +437,13 @@ def pack_fast(w: SpatialWeights, depth: int, n_heads: int,
     return torch.cat(parts)
 
 
-def fast_panels(packed: torch.Tensor, depth: int, n_heads: int, M: int):
-    """Walk a ``pack_fast`` stream in the kernel's order: yields
-    ``(layer, kind, index, matrix)`` with the blocking undone, kind one of
-    "qk", "v", "out" (index = head), "ff1", "ff2" (index = chunk), and
-    "b_out", "b_ff1", "b_ff2" (vectors)."""
-    D, dh, mc = FAST_D, FAST_D_HEAD, FAST_MLP_CHUNK
+def fast_panels(packed: torch.Tensor, depth: int, n_heads: int, M: int, D: int,
+                d_head: int):
+    """Walk a ``pack_fast`` stream of the instance at (D, d_head) in the
+    kernel's order: yields ``(layer, kind, index, matrix)`` with the
+    blocking undone, kind one of "qk", "v", "out" (index = head), "ff1",
+    "ff2" (index = chunk), and "b_out", "b_ff1", "b_ff2" (vectors)."""
+    dh, mc = d_head, _instance_of(D, d_head).mlp_chunk
     pos = 0
 
     def take(rows, K):
@@ -420,12 +471,14 @@ def fast_panels(packed: torch.Tensor, depth: int, n_heads: int, M: int):
                          f"walked {pos}")
 
 
-def unpack_fast(packed: torch.Tensor, depth: int, n_heads: int, M: int) -> dict:
-    """The matrices and biases a ``pack_fast`` stream was made from, as
-    ``{field: tuple over layers}`` in ``SpatialWeights`` layout."""
-    dh = FAST_D_HEAD
+def unpack_fast(packed: torch.Tensor, depth: int, n_heads: int, M: int, D: int,
+                d_head: int) -> dict:
+    """The matrices and biases a ``pack_fast`` stream of the instance at (D,
+    d_head) was made from, as ``{field: tuple over layers}`` in
+    ``SpatialWeights`` layout."""
+    dh = d_head
     got = {}
-    for d, kind, _, m in fast_panels(packed, depth, n_heads, M):
+    for d, kind, _, m in fast_panels(packed, depth, n_heads, M, D, d_head):
         got.setdefault((d, kind), []).append(m)
     out = {name: [] for name in _GENERAL_ORDER}
     for d in range(depth):
@@ -464,7 +517,7 @@ def _mm_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def packed_walk_reference(tokens: torch.Tensor, packed: torch.Tensor, wln: torch.Tensor,
-                          base: torch.Tensor, depth: int, n_heads: int, M: int,
+                          base: torch.Tensor, depth: int, n_heads: int, d_head: int, M: int,
                           compute_dtype: torch.dtype = torch.bfloat16,
                           scale: float = None, cls_last: bool = True) -> torch.Tensor:
     """The fast instance's walk in plain PyTorch: the same function as
@@ -477,11 +530,13 @@ def packed_walk_reference(tokens: torch.Tensor, packed: torch.Tensor, wln: torch
     through ``_mm_rows``, so the cls row's arithmetic is the same either
     way, bit for bit; it is meant for small inputs."""
     cd = compute_dtype
-    D, dh = FAST_D, FAST_D_HEAD
+    D, dh = tokens.shape[-1], d_head
+    mc = _instance_of(D, dh).mlp_chunk
     scale = dh ** -0.5 if scale is None else scale
     rnd = lambda t: t.to(cd).float()
     ln = wln.float().reshape(-1, D)
-    panels = {(d, kind, i): rnd(m) for d, kind, i, m in fast_panels(packed, depth, n_heads, M)}
+    panels = {(d, kind, i): rnd(m)
+              for d, kind, i, m in fast_panels(packed, depth, n_heads, M, D, dh)}
     tokens, base = rnd(tokens), rnd(base[:, :tokens.shape[1]])
     out = []
     for off in range(base.shape[0]):
@@ -501,8 +556,8 @@ def packed_walk_reference(tokens: torch.Tensor, packed: torch.Tensor, wln: torch
             x = rnd(x[:, rows] + rnd(rnd(acc) + panels[d, "b_out", 0]))
             f = rnd(_layer_norm(x, ln[4 * d + 2], ln[4 * d + 3]))
             acc = 0.0
-            for c in range(M // FAST_MLP_CHUNK):
-                bias = panels[d, "b_ff1", 0][c * FAST_MLP_CHUNK:(c + 1) * FAST_MLP_CHUNK]
+            for c in range(M // mc):
+                bias = panels[d, "b_ff1", 0][c * mc:(c + 1) * mc]
                 mid = rnd(rnd(_mm_rows(f, panels[d, "ff1", c])) + bias)
                 acc = acc + _mm_rows(rnd(F.gelu(mid, approximate="tanh")),
                                      panels[d, "ff2", c])

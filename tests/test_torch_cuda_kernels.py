@@ -81,10 +81,10 @@ def test_spatial_table_fast_instance_ragged_frames(dev, flagship, n_tok, t_case)
     N 17, the cap of 16 at N 5), and a frame count that is no multiple of F is masked at the
     edge."""
     model, tokens = flagship
-    F_blk = tst.fast_frames_per_block(n_tok)
+    F_blk = tst.fast_frames_per_block(n_tok, 128, 64)
     T = {"1": 1, "F-1": max(F_blk - 1, 1), "F": F_blk, "F+1": F_blk + 1, "61": 61}[t_case]
     _table_case(dev, model, tokens[:T, :n_tok], torch.bfloat16)
-    assert tst.spatial_table.instance == f"fast_F{F_blk}"
+    assert tst.spatial_table.instance == f"fast_D128_F{F_blk}"
 
 
 def test_spatial_table_fast_instance_frames_do_not_mix(dev, flagship):
@@ -109,14 +109,71 @@ def test_spatial_table_fast_instance_misaligned_tokens(dev, flagship):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_spatial_table_general_instance_at_flagship_like_widths(dev, dtype):
-    """A width the fast instance is not compiled for (dim 64, 2 heads x 32,
-    MLP 192) and f32 at any width take the general instance."""
+    """A width no fast instance is compiled for (dim 96, 2 heads x 48, MLP
+    192) and f32 at any width take the general instance."""
     g = torch.Generator().manual_seed(6)
-    model = ViViT(image_size=64, patch_size=16, n_frames=5, dim=64, depth=2, n_heads=2,
-                  d_head=32, scale_dim=3, generator=g)
-    tokens = F.pad(torch.randn(7, 16, 64, generator=g), (0, 0, 1, 0))
-    _table_case(dev, model, tokens, dtype, n_heads=2, d_head=32)
+    model = ViViT(image_size=64, patch_size=16, n_frames=5, dim=96, depth=2, n_heads=2,
+                  d_head=48, scale_dim=2, generator=g)
+    tokens = F.pad(torch.randn(7, 16, 96, generator=g), (0, 0, 1, 0))
+    _table_case(dev, model, tokens, dtype, n_heads=2, d_head=48)
     assert tst.spatial_table.instance == "general"
+
+
+@pytest.fixture(scope="module")
+def demo_vivit():
+    """exp/demo_vivit.sh's ViViT (64 px, dim 64, depth 2, 4 heads x 32, MLP
+    256) with random weights, and 61 frames of zero-cls-padded tokens."""
+    g = torch.Generator().manual_seed(9)
+    model = ViViT(image_size=64, patch_size=16, n_frames=5, dim=64, depth=2, n_heads=4,
+                  d_head=32, scale_dim=4, generator=g)
+    tokens = F.pad(torch.randn(61, 16, 64, generator=g), (0, 0, 1, 0))
+    return model, tokens
+
+
+@pytest.mark.parametrize("t_case", ["1", "F-1", "F", "F+1", "61"])
+def test_spatial_table_demo_instance_ragged_frames(dev, demo_vivit, t_case):
+    """The demo ViViT's widths in bf16 take the fast instance compiled for
+    D 64 / d_head 32 (7 frames of 17 tokens per block), and a frame count
+    that is no multiple of 7 is masked at the edge."""
+    model, tokens = demo_vivit
+    F_blk = tst.fast_frames_per_block(17, 64, 32)
+    assert F_blk == 7
+    T = {"1": 1, "F-1": F_blk - 1, "F": F_blk, "F+1": F_blk + 1, "61": 61}[t_case]
+    _table_case(dev, model, tokens[:T], torch.bfloat16, n_off=5, n_heads=4, d_head=32)
+    assert tst.spatial_table.instance == "fast_D64_F7"
+
+
+def test_spatial_table_demo_instance_frames_do_not_mix(dev, demo_vivit):
+    """Frames that share a block of the demo-width instance do not see each
+    other: a frame's row is the same whichever neighbours it is packed
+    with."""
+    model, tokens = demo_vivit
+    hp = dict(n_off=5, n_heads=4, d_head=32)
+    full = _table_case(dev, model, tokens[:15], torch.bfloat16, **hp)
+    shifted = _table_case(dev, model, tokens[1:15], torch.bfloat16, **hp)
+    assert torch.equal(full[:, 1:], shifted)
+
+
+@pytest.mark.parametrize("n_tok,frames", [(5, 16), (65, 1)], ids=["N5", "N65"])
+def test_spatial_table_demo_instance_other_crops(dev, n_tok, frames):
+    """Other crops at the demo widths (and an MLP of 192, three chunks of
+    64) take the same instance with the frames per block their N allows."""
+    g = torch.Generator().manual_seed(10)
+    model = ViViT(image_size=128, patch_size=16, n_frames=5, dim=64, depth=2, n_heads=2,
+                  d_head=32, scale_dim=3, generator=g)
+    tokens = F.pad(torch.randn(23, n_tok - 1, 64, generator=g), (0, 0, 1, 0))
+    _table_case(dev, model, tokens, torch.bfloat16, n_heads=2, d_head=32)
+    assert tst.spatial_table.instance == f"fast_D64_F{frames}"
+
+
+def test_spatial_table_fast_instances_fit_the_card(dev):
+    """Each fast instance as the card takes it: the demo width's block fits
+    twice on an SM, the flagship's once."""
+    demo = tst.fast_kernel_attributes(64, 32)
+    flagship = tst.fast_kernel_attributes(128, 64)
+    assert demo["blocks_per_sm"] == 2 and demo["threads"] == 256
+    assert flagship["blocks_per_sm"] == 1 and flagship["threads"] == 384
+    assert demo["registers"] <= 128 and flagship["registers"] <= 168
 
 
 def test_spatial_table_f32_flagship_takes_the_general_instance(dev, flagship):
@@ -142,7 +199,7 @@ def test_spatial_table_fast_instance_at_the_fusion_mlp(dev, n_tok):
     model = ViViT(scale_dim=4, generator=g)
     tokens = F.pad(torch.randn(37, n_tok - 1, 128, generator=g), (0, 0, 1, 0))
     _table_case(dev, model, tokens, torch.bfloat16)
-    assert tst.spatial_table.instance == f"fast_F{tst.fast_frames_per_block(n_tok)}"
+    assert tst.spatial_table.instance == f"fast_D128_F{tst.fast_frames_per_block(n_tok, 128, 64)}"
 
 
 def test_video_sweep_falls_back_where_the_kernel_refuses(dev):

@@ -87,6 +87,40 @@ def test_matches_pallas_interpret_bf16(setup):
     assert np.abs(got - want).mean() < 2 ** -8
 
 
+# exp/demo_vivit.sh's ViViT: 64 px, patch 16 (16 patches + cls), dim 64, 4 x 32, MLP 256
+DEMO = dict(image_size=64, patch_size=16, dim=64, depth=2, n_heads=4, d_head=32,
+            scale_dim=4)
+
+
+@pytest.fixture(scope="module")
+def demo_setup():
+    model = JaxViViT(n_frames=SEQ_LEN, dtype=jnp.float32, **DEMO)
+    key = jax.random.key(2)
+    variables = model.init({"params": key, "dropout": key},
+                           jnp.zeros((1, SEQ_LEN, 64, 64, 3)), train=False)
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    tokens = np.random.default_rng(4).standard_normal((8, 16, 64)).astype(np.float32)
+    return model, variables, params, tokens
+
+
+def test_demo_widths_match_pallas_interpret_and_xla_f32(demo_setup):
+    """The plain version at the demo ViViT's widths, which the second fast
+    instance is compiled for, against the Pallas kernel in interpret mode
+    and the XLA scan on the same inputs, at the JAX test's tolerance."""
+    model, variables, params, tokens = demo_setup
+    hp = dict(depth=2, n_heads=4, d_head=32)
+    w = tst.extract_spatial_weights(params, SEQ_LEN, depth=2, dtype=torch.float32)
+    got = tst.spatial_table(F.pad(torch.from_numpy(tokens), (0, 0, 1, 0)), w, SEQ_LEN,
+                            compute_dtype=torch.float32, **hp).numpy()
+    assert got.shape == (SEQ_LEN, 8, 64)
+    jw = jst.extract_spatial_weights(variables["params"], SEQ_LEN, depth=2, dtype=jnp.float32)
+    padded = jnp.pad(jnp.asarray(tokens), ((0, 0), (1, 0), (0, 0)))
+    pallas = np.asarray(jst.spatial_table(padded, jw, SEQ_LEN, block_f=4,
+                                          compute_dtype=jnp.float32, interpret=True, **hp))
+    np.testing.assert_allclose(got, pallas, **TOL)
+    np.testing.assert_allclose(got, _xla(model, variables, tokens), **TOL)
+
+
 def test_port_module_gives_the_same_bundle(setup):
     """extract_spatial_weights on the port module (Linear layout) equals the
     one on the flax tree, and the JAX bundle converts to the same."""
@@ -143,21 +177,31 @@ def test_rejects_bad_inputs(setup):
 
 # ---- the fast instance's weight stream and its walk, on the CPU ------------
 
-def _flagship_like(n_heads, scale_dim, depth, n_frames=4, image_size=64, seed=3):
-    """A model at the fast instance's widths (dim 128, d_head 64) with random
-    weights, its bundle, and zero-cls-padded tokens (5 frames)."""
+def _flagship_like(n_heads, scale_dim, depth, dim=128, d_head=64, n_frames=4, image_size=64,
+                   seed=3):
+    """A model at one of the fast instance's widths (dim 128 and d_head 64
+    by default) with random weights, its bundle, and zero-cls-padded tokens
+    (5 frames of 17 tokens at the default 64 px)."""
     g = torch.Generator().manual_seed(seed)
-    model = TorchViViT(image_size=image_size, patch_size=16, n_frames=n_frames, dim=128,
-                       depth=depth, n_heads=n_heads, d_head=64, scale_dim=scale_dim,
+    model = TorchViViT(image_size=image_size, patch_size=16, n_frames=n_frames, dim=dim,
+                       depth=depth, n_heads=n_heads, d_head=d_head, scale_dim=scale_dim,
                        generator=g)
     w = tst.extract_spatial_weights(model, n_frames, depth, torch.float32)
     n_tok = (image_size // 16) ** 2
-    tokens = F.pad(torch.randn(5, n_tok, 128, generator=g), (0, 0, 1, 0))
+    tokens = F.pad(torch.randn(5, n_tok, dim, generator=g), (0, 0, 1, 0))
     return w, tokens
 
 
 WIDTHS = {"flagship": dict(n_heads=4, scale_dim=8, depth=2),      # MLP 1024
-          "odd": dict(n_heads=3, scale_dim=3, depth=3)}            # MLP 384, 3 chunks
+          "odd": dict(n_heads=3, scale_dim=3, depth=3),            # MLP 384, 3 chunks
+          # exp/demo_vivit.sh's ViViT: dim 64, 4 x 32, MLP 256 (4 chunks of 64)
+          "demo": dict(dim=64, d_head=32, n_heads=4, scale_dim=4, depth=2)}
+
+
+def _widths(hp):
+    """(D, d_head, MLP width, the fast instance) of a WIDTHS entry."""
+    D, dh = hp.get("dim", 128), hp.get("d_head", 64)
+    return D, dh, D * hp["scale_dim"], tst.fast_instance(D, dh)
 
 
 @pytest.mark.parametrize("widths", list(WIDTHS), ids=list(WIDTHS))
@@ -165,13 +209,14 @@ WIDTHS = {"flagship": dict(n_heads=4, scale_dim=8, depth=2),      # MLP 1024
 def test_packed_weights_unpack_to_the_bundle(widths, dtype):
     hp = WIDTHS[widths]
     w, _ = _flagship_like(**hp)
-    M = 128 * hp["scale_dim"]
+    D, dh, M, inst = _widths(hp)
     packed = tst.pack_fast(w, hp["depth"], hp["n_heads"], dtype)
     assert packed.dtype == dtype and packed.numel() % 8 == 0    # 16-byte panels
-    per_layer = (hp["n_heads"] * (128 * 128 + 64 * 128 + 128 * 64)
-                 + (M // 128) * 2 * 128 * 128 + 2 * 128 + M)
+    mc = inst.mlp_chunk
+    per_layer = (hp["n_heads"] * (2 * dh * D + dh * D + D * dh)
+                 + (M // mc) * 2 * mc * D + 2 * D + M)
     assert packed.numel() == hp["depth"] * per_layer
-    got = tst.unpack_fast(packed, hp["depth"], hp["n_heads"], M)
+    got = tst.unpack_fast(packed, hp["depth"], hp["n_heads"], M, D, dh)
     for name, layers in got.items():
         assert len(layers) == hp["depth"]
         for d, m in enumerate(layers):
@@ -184,7 +229,7 @@ def test_packed_stream_order_and_blocking():
     the core matrices of an 8-row group side by side along k."""
     w, _ = _flagship_like(**WIDTHS["odd"])
     packed = tst.pack_fast(w, 3, 3, torch.float32)
-    kinds = [(d, kind, i) for d, kind, i, _ in tst.fast_panels(packed, 3, 3, 384)]
+    kinds = [(d, kind, i) for d, kind, i, _ in tst.fast_panels(packed, 3, 3, 384, 128, 64)]
     layer0 = [k[1:] for k in kinds if k[0] == 0]
     assert layer0 == ([(kind, h) for h in range(3) for kind in ("qk", "v", "out")]
                       + [(kind, c) for c in range(3) for kind in ("ff1", "ff2")]
@@ -200,22 +245,33 @@ def test_packed_stream_order_and_blocking():
     out0 = packed[128 * 128 + 64 * 128:][:128 * 64]                   # head 0's out panel
     assert out0[(2 * (64 // 8) + 1) * 64 + 3 * 8 + 4] == w.w_out[0][19, 12]
     with pytest.raises(ValueError, match="walked"):
-        list(tst.fast_panels(packed[:-8], 3, 3, 384))
+        list(tst.fast_panels(packed[:-8], 3, 3, 384, 128, 64))
 
 
-@pytest.mark.parametrize("n,frames", [(65, 2), (17, 8), (72, 2), (73, 1), (80, 1), (37, 3),
-                                      (10, 14), (5, 16), (1, 16)])
-def test_fast_frames_per_block(n, frames):
-    """As many frames as fit in the 144 rows the products compute and, with
-    the last frame's keys padded to a multiple of 16, in 160 rows of shared
-    memory; no more than the 16 rows of the last layer's cls tile."""
-    assert tst.fast_frames_per_block(n) == frames
-    fits = lambda f: (f * n <= tst.FAST_PRODUCT_ROWS
-                      and (f - 1) * n + -(-n // 16) * 16 <= tst.FAST_ROWS)
+_FLAGSHIP_FRAMES = [(65, 2), (17, 8), (72, 2), (73, 1), (80, 1), (37, 3), (10, 14), (5, 16),
+                    (1, 16)]
+_DEMO_FRAMES = [(17, 7), (65, 1), (64, 2), (80, 1), (37, 3), (10, 12), (5, 16), (1, 16)]
+
+
+@pytest.mark.parametrize(
+    "widths,n,frames",
+    [pytest.param((128, 64), n, f, id=f"{n}-{f}") for n, f in _FLAGSHIP_FRAMES]
+    + [pytest.param((64, 32), n, f, id=f"D64-{n}-{f}") for n, f in _DEMO_FRAMES])
+def test_fast_frames_per_block(widths, n, frames):
+    """As many frames as fit in the rows the instance's products compute
+    (144 at D 128, 128 at D 64) and, with the last frame's keys padded to a
+    multiple of 16, in the rows of q, k and v (160, 144); no more than the
+    16 rows of the last layer's cls tile."""
+    D, dh = widths
+    inst = tst.fast_instance(D, dh)
+    assert tst.fast_frames_per_block(n, D, dh) == frames
+    fits = lambda f: (f * n <= inst.product_rows
+                      and (f - 1) * n + -(-n // 16) * 16 <= inst.rows)
     assert fits(frames) and (frames == tst.FAST_MAX_FRAMES or not fits(frames + 1))
-    assert tst.fast_applies(n, 128, 64, 1024)
-    assert not tst.fast_applies(n, 128, 64, 1000) and not tst.fast_applies(n, 64, 64, 1024)
-    assert not tst.fast_applies(81, 128, 64, 1024)
+    assert tst.fast_applies(n, D, dh, 8 * inst.mlp_chunk)
+    assert not tst.fast_applies(n, D, dh, 8 * inst.mlp_chunk + 16)
+    assert not tst.fast_applies(n, 64, 64, 1024) and not tst.fast_applies(n, 128, 32, 1024)
+    assert not tst.fast_applies(81, D, dh, 8 * inst.mlp_chunk)
 
 
 @pytest.mark.parametrize("widths", list(WIDTHS), ids=list(WIDTHS))
@@ -226,15 +282,15 @@ def test_packed_walk_reproduces_the_reference_f32(widths, cls_last):
     function as the plain version: f32, summation order only."""
     hp = WIDTHS[widths]
     w, tokens = _flagship_like(**hp)
-    M = 128 * hp["scale_dim"]
+    D, dh, M, _ = _widths(hp)
     packed = tst.pack_fast(w, hp["depth"], hp["n_heads"], torch.float32)
     wln = tst.pack_layer_norms(w, hp["depth"])
     got = tst.packed_walk_reference(tokens, packed, wln, w.base, hp["depth"], hp["n_heads"],
-                                    M, torch.float32, cls_last=cls_last)
+                                    dh, M, torch.float32, cls_last=cls_last)
     want = tst.spatial_table_reference(tokens, w, 4, depth=hp["depth"],
-                                       n_heads=hp["n_heads"], d_head=64,
+                                       n_heads=hp["n_heads"], d_head=dh,
                                        compute_dtype=torch.float32)
-    assert got.shape == want.shape == (4, 5, 128)
+    assert got.shape == want.shape == (4, 5, D)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
@@ -245,27 +301,39 @@ def test_cls_only_last_layer_is_bit_identical_f32(widths):
     row, bit for bit."""
     hp = WIDTHS[widths]
     w, tokens = _flagship_like(**hp)
-    M = 128 * hp["scale_dim"]
+    _, dh, M, _ = _widths(hp)
     packed = tst.pack_fast(w, hp["depth"], hp["n_heads"], torch.float32)
     wln = tst.pack_layer_norms(w, hp["depth"])
     walk = lambda cls_last: tst.packed_walk_reference(
-        tokens, packed, wln, w.base, hp["depth"], hp["n_heads"], M, torch.float32,
+        tokens, packed, wln, w.base, hp["depth"], hp["n_heads"], dh, M, torch.float32,
         cls_last=cls_last)
     assert torch.equal(walk(True), walk(False))
+
+
+def _walk_bf16_against_the_plain_version(widths):
+    hp = WIDTHS[widths]
+    w, tokens = _flagship_like(**hp)
+    _, dh, M, _ = _widths(hp)
+    packed = tst.pack_fast(w, 2, 4, torch.bfloat16)
+    got = tst.packed_walk_reference(tokens, packed, tst.pack_layer_norms(w, 2), w.base,
+                                    2, 4, dh, M, torch.bfloat16).float()
+    want = tst.spatial_table_reference(tokens, w, 4, d_head=dh,
+                                       compute_dtype=torch.bfloat16).float()
+    torch.testing.assert_close(got, want, atol=6.25e-2, rtol=6.25e-2)
+    assert (got - want).abs().mean() < 2 ** -8
 
 
 def test_packed_walk_bf16_within_the_kernel_tolerance():
     """bf16 cast points: the walk rounds where the kernel does (the sums over
     heads and chunks once, not per head and chunk), within the tolerance the
     kernel is held to against the plain version."""
-    hp = WIDTHS["flagship"]
-    w, tokens = _flagship_like(**hp)
-    packed = tst.pack_fast(w, 2, 4, torch.bfloat16)
-    got = tst.packed_walk_reference(tokens, packed, tst.pack_layer_norms(w, 2), w.base,
-                                    2, 4, 1024, torch.bfloat16).float()
-    want = tst.spatial_table_reference(tokens, w, 4, compute_dtype=torch.bfloat16).float()
-    torch.testing.assert_close(got, want, atol=6.25e-2, rtol=6.25e-2)
-    assert (got - want).abs().mean() < 2 ** -8
+    _walk_bf16_against_the_plain_version("flagship")
+
+
+def test_packed_walk_bf16_within_the_kernel_tolerance_at_the_demo_widths():
+    """The same at the demo ViViT's widths (D 64, 4 x 32, MLP in four
+    chunks of 64)."""
+    _walk_bf16_against_the_plain_version("demo")
 
 
 def test_packed_weights_are_cached_per_bundle_and_dtype():
