@@ -26,9 +26,18 @@ width of the flagship ViViT (dim 128, depth 2, 4 heads x 64, MLP 1024,
   train_cli     kstar_torch.cli.train_vision --synthetic for 2 epochs, then
                 --resume for one more (the alarm sweep runs the table kernel)
   video_sweep_fallback
-                the sweep's table route at 257 tokens (patch 4, 64 px), past
+                the sweep's table route at 401 tokens (patch 4, 80 px), past
                 what the table kernel takes: the plain table, no launch, and
                 an error when the kernel is forced; the flagship takes it
+  full_frame_sweep
+                the flagship widths at image_size 256 over the shot's whole
+                256 px frames (257 tokens, the table kernel's two-block
+                cluster instance, one launch a sweep): clips/s, the table and
+                window loop apart, the curve against the plain table's (timed
+                once); and 512-frame sweeps at the 160, 192 and 224 px crops
+                (101, 145, 197 tokens), each one launch; the table kernel is
+                held against its plain version at each of those crops and
+                over the whole shot at 256 px
 
 and then the three 0D models at their default widths (Transformer dim 128
 x 4 layers x 8 heads, FF 1024; CnnLSTM conv 64, LSTM 128 x 4 layers,
@@ -306,15 +315,16 @@ def table_work(T, n_off, N, D, depth, H, dh, M, elem):
     return ops, nbytes
 
 
-def table_attributes(D: int, d_head: int) -> dict:
-    """The fast instance at (D, d_head) as the card takes it (registers,
-    shared memory, threads, blocks per SM) when the last K1 launch took a
-    fast instance, for its kernel_check row; else nothing."""
+def table_attributes(D: int, d_head: int, N: int = 1) -> dict:
+    """The fast instance at (D, d_head) for N tokens as the card takes it
+    (registers, shared memory, threads, blocks per SM, blocks per cluster
+    and clusters resident) when the last K1 launch took a fast instance,
+    for its kernel_check row; else nothing."""
     from kstar_torch.ops.spatial_table import fast_kernel_attributes, spatial_table
 
     if not (spatial_table.instance or "").startswith("fast"):
         return {}
-    return {"kernel_attributes": fast_kernel_attributes(D, d_head)}
+    return {"kernel_attributes": fast_kernel_attributes(D, d_head, N)}
 
 
 def step_launches(step) -> tuple:
@@ -1068,6 +1078,9 @@ def random_walk_table(seed: int, rows: int):
     return (np.cumsum(rng.normal(size=(rows, 18)), axis=0) * 0.1).astype(np.float32)
 
 
+FALLBACK_CROP = 80                # patch 4: 401 tokens, past every instance of K1
+
+
 def first(out):
     """The fusion logits of a forward (the multi logits of a GB model)."""
     return out[0] if isinstance(out, tuple) else out
@@ -1075,11 +1088,12 @@ def first(out):
 
 def video_sweep_fallback_phase(frames, dev, cfg, model) -> tuple:
     """The video sweep's tri-state table route: a flagship-config ViViT at
-    patch 4 over a 64 px crop (16 x 16 patches + cls = 257 tokens, past the
-    kernel's 128) sweeps 256 frames with use_fused_table=None: it must report
-    the plain table, launch the kernel 0 times and give use_fused_table=
-    False's curve exactly; True must raise; the flagship (patch 16, 128 px,
-    65 tokens) under None must report the kernel and launch it once."""
+    patch 4 over an 80 px crop (20 x 20 patches + cls = 401 tokens, past the
+    257 of the kernel's largest instance) sweeps 256 frames with
+    use_fused_table=None: it must report the plain table, launch the kernel
+    0 times and give use_fused_table=False's curve exactly; True must raise;
+    the flagship (patch 16, 128 px, 65 tokens) under None must report the
+    kernel and launch it once."""
     import numpy as np
 
     from kstar_torch.infer import VideoSweeper
@@ -1088,22 +1102,23 @@ def video_sweep_fallback_phase(frames, dev, cfg, model) -> tuple:
 
     shot = frames[:256]
     starts = np.arange(len(shot) - SEQ_LEN - 1, dtype=np.int64)
-    cfg257 = dataclasses.replace(cfg, patch_size=4, image_size=64)
-    m257 = build_video_model("ViViT", cfg257, dtype=torch.bfloat16,
+    crop = FALLBACK_CROP
+    cfg_fb = dataclasses.replace(cfg, patch_size=4, image_size=crop)
+    m_fb = build_video_model("ViViT", cfg_fb, dtype=torch.bfloat16,
                              generator=torch.Generator().manual_seed(3)).to(dev)
-    fields = {"tokens": (64 // 4) ** 2 + 1, "frames": len(shot), "windows": len(starts)}
+    fields = {"tokens": (crop // 4) ** 2 + 1, "frames": len(shot), "windows": len(starts)}
     spatial_table.launches = 0
     t0 = time.perf_counter()
-    auto = VideoSweeper(m257, SEQ_LEN, 64, BATCH, torch.bfloat16, device=dev)
+    auto = VideoSweeper(m_fb, SEQ_LEN, crop, BATCH, torch.bfloat16, device=dev)
     p_auto = auto.sweep(shot, starts)
     fields.update(none_ms=(time.perf_counter() - t0) * 1e3,
                   none_fused_table_active=auto.fused_table_active,
                   none_launches=spatial_table.launches)
-    p_off = VideoSweeper(m257, SEQ_LEN, 64, BATCH, torch.bfloat16, use_fused_table=False,
+    p_off = VideoSweeper(m_fb, SEQ_LEN, crop, BATCH, torch.bfloat16, use_fused_table=False,
                          device=dev).sweep(shot, starts)
     fields["none_equals_false_exactly"] = bool(np.array_equal(p_auto, p_off))
     try:
-        VideoSweeper(m257, SEQ_LEN, 64, BATCH, torch.bfloat16, use_fused_table=True,
+        VideoSweeper(m_fb, SEQ_LEN, crop, BATCH, torch.bfloat16, use_fused_table=True,
                      device=dev)
         fields["true_raised"] = None
     except ValueError as e:
@@ -3366,6 +3381,159 @@ def campaign_phase(root: str) -> tuple:
                 "wall_clock": summary["wall_clock"]}, launches
 
 
+# ---------------------------------------------------------------------------
+# The full frame: the flagship ViViT over the patch-16 crops of the stored
+# 256 px frames past 128 px (N 101..257), on K1's one-frame instances
+# ---------------------------------------------------------------------------
+
+FULL_FRAME = 256                  # the size the ETL decodes to and bench.py's shot has
+WIDE_CROPS = (160, 192, 224, 256)  # 101, 145, 197 and 257 tokens with the cls
+WIDE_TABLE_FRAMES = 512           # frames of the kernel_check rows (and of the crop sweeps)
+
+
+def full_frame_model(seed: int, cfg, dev):
+    """The flagship ViViT at image_size 256 (its positional embedding covers
+    257 tokens, a prefix of it any smaller crop), random weights from seed."""
+    from kstar_torch.models import build_video_model
+
+    cfg_ff = dataclasses.replace(cfg, image_size=FULL_FRAME)
+    return build_video_model("ViViT", cfg_ff, dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(seed + 14)).to(dev).eval()
+
+
+def wide_table_checks(seed: int, frames, dev, cfg, tol: tuple) -> list:
+    """K1 at the flagship widths past 80 tokens (bf16, 21 offsets): the
+    first 512 frames of ``frames`` at each crop of WIDE_CROPS, and the whole
+    shot at 256 px, each against its plain version within ``tol``, timed
+    (the plain version once), with its bound, instance and attributes. A row
+    is right only if it took the fast instance for its N that owns one frame
+    (``fast_D128_N<N>_C<blocks per frame>``). ``path`` names the sweep whose
+    launches the summary line reports."""
+    import torch.nn.functional as F
+
+    from kstar_torch.infer import VideoSweeper
+    from kstar_torch.ops.spatial_table import (extract_spatial_weights, fast_applies,
+                                               fast_instance_name, spatial_table,
+                                               spatial_table_reference)
+
+    model = full_frame_model(seed, cfg, dev)
+    w = extract_spatial_weights(model, SEQ_LEN, cfg.depth, torch.bfloat16)
+    hp = dict(depth=cfg.depth, n_heads=cfg.n_heads, d_head=cfg.d_head)
+    rows = []
+    for crop, T in [(c, WIDE_TABLE_FRAMES) for c in WIDE_CROPS] + [(FULL_FRAME, len(frames))]:
+        sw = VideoSweeper(model, SEQ_LEN, crop, BATCH, torch.bfloat16, device=dev)
+        tokens = F.pad(sw.embed_tokens(sw.upload_shot(frames[:T])), (0, 0, 1, 0))
+        run = lambda: spatial_table(tokens, w, SEQ_LEN, compute_dtype=torch.bfloat16, **hp)
+        plain = lambda: spatial_table_reference(tokens, w, SEQ_LEN,
+                                                compute_dtype=torch.bfloat16, **hp)
+        res = compare(run(), plain(), *tol)
+        T, N, D = tokens.shape
+        ops, nbytes = table_work(T, SEQ_LEN, N, D, cfg.depth, cfg.n_heads, cfg.d_head,
+                                 cfg.dim * cfg.scale_dim, tokens.element_size())
+        bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
+        path = "full_frame_sweep" if crop == FULL_FRAME else f"full_frame_sweep crop {crop}"
+        rows.append(dict(
+            name="spatial_table", case=f"flagship crop {crop} px N={N} T={T} bf16 ({path} path)",
+            dtype="bfloat16", shape=list(tokens.shape), route="cuda",
+            source="kstar_torch/csrc/spatial_table.cu",
+            replaces="kstar_tpu/ops/spatial_table.py:371", **res, ms=time_ms(run, 3),
+            plain_ms=time_ms(plain, 1), bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, instance=spatial_table.instance,
+            frames_per_block=spatial_table.frames_per_block, path=path,
+            **table_attributes(D, cfg.d_head, N)))
+        want = (fast_instance_name(N, D, cfg.d_head)
+                if fast_applies(N, D, cfg.d_head, cfg.dim * cfg.scale_dim) else None)
+        rows[-1]["ok"] = (res["ok"] and want is not None and "_N" in want
+                          and spatial_table.instance == want)
+        del tokens
+    return rows
+
+
+def full_frame_sweep_phase(seed: int, frames, dev, cfg) -> tuple:
+    """The flagship ViViT at image_size 256 sweeps the whole shot as the
+    repository stores it (256 px, no crop) with use_fused_table=None: it must
+    take the kernel (K1's cluster instance at 257 tokens) and launch it once
+    per sweep. Clips/s over 3 sweeps after a warm-up, the embedding, table
+    and window loop apart, the curve against the plain table's (the route
+    the sweep took before K1 took 257 tokens, timed once) to M1's limits;
+    and a sweep of the first 512 frames at each smaller crop of WIDE_CROPS,
+    one launch each, against its plain curve. Returns (ok, fields,
+    {path: K1 launches})."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from kstar_torch.infer import VideoSweeper
+    from kstar_torch.ops.spatial_table import extract_spatial_weights, spatial_table
+
+    model = full_frame_model(seed, cfg, dev)
+    hp = dict(depth=cfg.depth, n_heads=cfg.n_heads, d_head=cfg.d_head)
+    starts = np.arange(len(frames) - SEQ_LEN - 1, dtype=np.int64)
+    sw = VideoSweeper(model, SEQ_LEN, FULL_FRAME, BATCH, torch.bfloat16, device=dev)
+    shot = sw.upload_shot(frames)
+    sw.sweep_device(shot, starts)                       # warm-up
+    torch.cuda.synchronize()
+    spatial_table.launches = 0
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        probs = sw.sweep_device(shot, starts)          # ends in a host copy
+        walls.append(time.perf_counter() - t0)
+    launches = {"full_frame_sweep": spatial_table.launches}
+    instance = spatial_table.instance
+    sweep_s = float(np.median(walls))
+    w = extract_spatial_weights(model, SEQ_LEN, cfg.depth, torch.bfloat16)
+    tokens = F.pad(sw.embed_tokens(shot), (0, 0, 1, 0))
+    table = sw.embed_all(shot)
+    phases = {"embed_ms": wall_ms(lambda: sw.embed_tokens(shot)),
+              "table_ms": wall_ms(lambda: spatial_table(
+                  tokens, w, SEQ_LEN, compute_dtype=torch.bfloat16, **hp)),
+              "windows_ms": wall_ms(lambda: sw.sweep_table(table, starts))}
+    del tokens, table
+    plain_sw = VideoSweeper(model, SEQ_LEN, FULL_FRAME, BATCH, torch.bfloat16,
+                            use_fused_table=False, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs_plain = plain_sw.sweep_device(shot, starts)
+    plain_s = time.perf_counter() - t0
+    err = np.abs(probs - probs_plain)
+    fields = dict(frames=len(frames), frame_px=FULL_FRAME, tokens=(FULL_FRAME // 16) ** 2 + 1,
+                  windows=len(starts), batch=BATCH, fused_table_active=sw.fused_table_active,
+                  plain_fused_table_active=plain_sw.fused_table_active,
+                  spatial_table_launches=launches["full_frame_sweep"], instance=instance,
+                  clips_per_s=len(starts) / sweep_s, sweep_ms=sweep_s * 1e3,
+                  sweep_runs_ms=[x * 1e3 for x in walls], **phases,
+                  plain_table_sweep_ms=plain_s * 1e3,
+                  plain_table_clips_per_s=len(starts) / plain_s,
+                  curve_vs_plain_max_abs=float(err.max()),
+                  curve_vs_plain_mean_abs=float(err.mean()))
+    ok = bool(fields["fused_table_active"] is True and fields["plain_fused_table_active"] is False
+          and launches["full_frame_sweep"] == 3 and probs.shape == starts.shape
+          and bool(np.isfinite(probs).all()) and fields["curve_vs_plain_max_abs"] <= 5e-2
+          and fields["curve_vs_plain_mean_abs"] <= 5e-3)
+    del shot
+    sub = frames[:WIDE_TABLE_FRAMES]
+    sub_starts = np.arange(len(sub) - SEQ_LEN - 1, dtype=np.int64)
+    fields["crops"] = {}
+    for crop in WIDE_CROPS[:-1]:
+        csw = VideoSweeper(model, SEQ_LEN, crop, BATCH, torch.bfloat16, device=dev)
+        spatial_table.launches = 0
+        p_k = csw.sweep(sub, sub_starts)
+        path = f"full_frame_sweep crop {crop}"
+        launches[path] = spatial_table.launches
+        p_p = VideoSweeper(model, SEQ_LEN, crop, BATCH, torch.bfloat16, use_fused_table=False,
+                           device=dev).sweep(sub, sub_starts)
+        e = np.abs(p_k - p_p)
+        fields["crops"][crop] = dict(tokens=(crop // 16) ** 2 + 1, frames=len(sub),
+                                     fused_table_active=csw.fused_table_active,
+                                     spatial_table_launches=launches[path],
+                                     instance=spatial_table.instance,
+                                     curve_vs_plain_max_abs=float(e.max()),
+                                     curve_vs_plain_mean_abs=float(e.mean()))
+        ok = bool(ok and csw.fused_table_active is True and launches[path] == 1
+                  and np.isfinite(p_k).all() and e.max() <= 5e-2 and e.mean() <= 5e-3)
+    return ok, fields, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3540,6 +3708,11 @@ def main() -> int:
     if not checks[-1]["ok"]:
         failures.append(f"spatial_table {checks[-1]['case']}")
     del gen_model, gen_tokens, gen_w
+    # K1 past 80 tokens at the flagship widths: the 160 .. 256 px crops of
+    # the stored 256 px frames, each on a fast instance that owns one frame
+    checks += wide_table_checks(args.seed, frames, dev, cfg, TOL["bfloat16"])
+    for c in checks[-len(WIDE_CROPS) - 1:]:
+        emit("kernel_check", **c)
     # the ragged case must take the fast instance with several frames per block
     ragged = next(c for c in checks if "T=61" in c["case"])
     if ragged["frames_per_block"] < 2 or 61 % ragged["frames_per_block"] == 0:
@@ -3676,6 +3849,13 @@ def main() -> int:
     emit("video_sweep_fallback", **fb_fields, seconds=time.perf_counter() - t0, ok=fb_ok)
     if not fb_ok:
         failures.append("video_sweep_fallback")
+
+    # ---- full_frame_sweep: the flagship ViViT over the stored 256 px frame ----
+    t0 = time.perf_counter()
+    ff_ok, ff_fields, k1_full = full_frame_sweep_phase(args.seed, frames, dev, cfg)
+    emit("full_frame_sweep", **ff_fields, seconds=time.perf_counter() - t0, ok=ff_ok)
+    if not ff_ok:
+        failures.append("full_frame_sweep")
 
     # ---- vivit_pallas: ViViT with the fused-attention kernel ----
     # ViViT's defaults are the flagship ViViTConfig
@@ -4081,22 +4261,24 @@ def main() -> int:
     # and prediction sweeps, the ETL-built shot's sweep, the ViViT ensemble's
     # alarm sweep, the parallel phase's CLI alarm sweep and sharded library
     # sweep, the ViViT alarm sweep from a JAX-format checkpoint and the
-    # soaks' sweeps, the demos' and the campaign's alarm sweeps; the
-    # T = 12,600 row the soaks' part, the demo-width rows the demos' and the
-    # campaign's.
+    # soaks' sweeps, the demos' and the campaign's alarm sweeps and the
+    # full-frame sweeps; the T = 12,600 row the soaks' part, the demo-width
+    # rows the demos' and the campaign's, the rows past 80 tokens their
+    # full-frame sweep's.
     k3_slowfast = k3_sweep["SlowFast"] + k3_stream["SlowFast"] + k3_reload
     launches["gather_normalize"] += (sum(k3_sweep.values()) + sum(k3_stream.values())
                                      + k3_cli + k3_reload)
     launches["spatial_table"] += (k1_reload + k1_prediction + k1_etl + k1_ensemble
-                                  + k1_parallel + k1_jax + k1_soak + k1_demos + k1_campaign)
+                                  + k1_parallel + k1_jax + k1_soak + k1_demos + k1_campaign
+                                  + sum(k1_full.values()))
     launches["gather_normalize"] += k3_jax + k3_soak
 
     kernel_rows = []
     for c in checks:
         entry = {k: c[k] for k in ("name", "route", "source", "replaces")}
         n_launch = {"multimodal_sweep": k1_multimodal, "conv SlowFast": k3_slowfast,
-                    "soak": k1_soak, "demos": k1_demos,
-                    "campaign": k1_campaign}.get(c.get("path"), launches[c["name"]])
+                    "soak": k1_soak, "demos": k1_demos, "campaign": k1_campaign,
+                    **k1_full}.get(c.get("path"), launches[c["name"]])
         entry.update(launches=n_launch, max_abs_err=c["max_abs_err"],
                      ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
                      bound_by=c["bound_by"], library_ms=c["library_ms"],

@@ -1,15 +1,18 @@
 """Where a block of the spatial-table kernel's fast instance spends its time.
 
-    python -m kstar_torch.analysis.profile_spatial_table [--widths flagship|demo]
-        [--frames T] [--seed 0] [--baseline path/to/spatial_table.cu]
+    python -m kstar_torch.analysis.profile_spatial_table
+        [--widths flagship|demo|full_frame] [--crop px] [--frames T] [--seed 0]
+        [--baseline path/to/spatial_table.cu]
 
 Profilers that read a kernel's inside do not run on every machine, so this
 builds throw-away variants of ``csrc/spatial_table.cu`` and reads them at
 one of the fast instance's widths (21 offsets, depth 2, bf16, random
 weights from --seed), on the card it runs on: ``flagship`` (N 65, D 128, 4
-heads x 64, MLP 1024, 4096 frames by default) or ``demo``
+heads x 64, MLP 1024, 4096 frames by default), ``demo``
 (``exp/demo_vivit.sh``'s ViViT: N 17, D 64, 4 heads x 32, MLP 256, 2520
-frames by default):
+frames by default) or ``full_frame`` (the flagship widths at image_size
+256: N 257, one frame per two-block cluster, or with ``--crop`` a smaller
+crop of it, 160 px for N 101 on one block; 512 frames by default):
 
 * the phase profile: a ``-DKSTAR_PROFILE`` build in which thread 0 of every
   block adds its ``clock64()`` cycles per phase to a counter (the phases are
@@ -55,18 +58,25 @@ ABLATIONS = {
         "  for (int r0 = warp * kPerWarp; r0 < rows && scale == nullptr; "
         "r0 += S::kWarps * kPerWarp) {"),
     "no attention in the all-row layers": (
-        "        for (int s = warp; s < F * spf; s += kWarps) {",
-        "        for (int s = warp; s < F * spf && p.T < 0; s += kWarps) {"),
+        "        for (int s = warp; s < n_strips; s += kWarps) {",
+        "        for (int s = warp; s < n_strips && p.T < 0; s += kWarps) {"),
 }
 # the widths, and the other row schemes each could be compiled with (same
 # results, another number of frames per block)
 WIDTHS = {"flagship": dict(), "demo": dict(image_size=64, dim=64, n_heads=4, d_head=32,
-                                           scale_dim=4)}
-DEFAULT_FRAMES = {"flagship": 4096, "demo": 2520}
+                                           scale_dim=4),
+          "full_frame": dict(image_size=256)}
+DEFAULT_FRAMES = {"flagship": 4096, "demo": 2520, "full_frame": 512}
 ROW_SCHEMES = {
     "flagship": {},
     "demo": {"four wgmma warpgroups (F = 15 at N 17, one block per SM)": (
         "using Demo = Shape<64, 32, 64, 2, 0>;", "using Demo = Shape<64, 32, 64, 4, 0>;")},
+    "full_frame": {
+        "two-block cluster from N 81 (no one-block instance)": (
+            "constexpr int kOneBlockMaxN = 144;", "constexpr int kOneBlockMaxN = 80;"),
+        "two-pass key blocks of 32": (
+            "constexpr int kKeyTiles = 4;", "constexpr int kKeyTiles = 2;"),
+    },
 }
 REPEATS = 5
 ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
@@ -97,6 +107,8 @@ def substituted(source: str, name: str, line: str, repl: str) -> str:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--widths", choices=list(WIDTHS), default="flagship")
+    parser.add_argument("--crop", type=int, default=None,
+                        help="crop of the widths' image size (patch 16), N = (crop/16)^2 + 1")
     parser.add_argument("--frames", type=int, default=None)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--baseline", type=Path, default=None,
@@ -114,18 +126,18 @@ def main(argv=None) -> int:
     cfg, n_off, dev = ViViTConfig(**WIDTHS[args.widths]), 21, torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
     model = build_video_model("ViViT", cfg, dtype=torch.bfloat16, generator=gen).to(dev)
-    n_tok = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    n_tok = ((args.crop or cfg.image_size) // cfg.patch_size) ** 2 + 1
     M = cfg.dim * cfg.scale_dim
     tokens = F.pad(torch.randn(frames, n_tok - 1, cfg.dim, generator=gen), (0, 0, 1, 0))
     tokens = tokens.to(dev, torch.bfloat16)
     w = st.extract_spatial_weights(model, n_off, cfg.depth, torch.bfloat16)
-    wmat = {True: st.pack_fast(w, cfg.depth, cfg.n_heads).to(dev),
-            False: st.pack_general(w, cfg.depth, torch.bfloat16).to(dev)}
+    wmat = {0: st.pack_general(w, cfg.depth, torch.bfloat16).to(dev)}
     wln = st.pack_layer_norms(w, cfg.depth).to(dev)
     base = w.base[:n_off, :n_tok].to(dev, torch.bfloat16).contiguous()
     out = torch.empty(n_off, frames, cfg.dim, device=dev, dtype=torch.bfloat16)
     frames_per_block = st.fast_frames_per_block(n_tok, cfg.dim, cfg.d_head)
-    blocks = -(-frames // frames_per_block) * n_off
+    cluster = st.fast_instance(cfg.dim, cfg.d_head, n_tok).cluster
+    blocks = -(-frames // frames_per_block) * n_off * cluster
     widths = dict(widths=args.widths, frames=frames, N=n_tok, D=cfg.dim,
                   d_head=cfg.d_head, mlp=M)
 
@@ -134,8 +146,18 @@ def main(argv=None) -> int:
         fn.argtypes = ARGTYPES
         plan = lib.spatial_table_plan
         plan.argtypes = [ctypes.c_int] * 6
-        # an earlier source may take these widths on its general instance
-        packed = wmat[plan(n_tok, cfg.dim, cfg.n_heads, cfg.d_head, M, 2) > 0]
+        dims = (n_tok, cfg.dim, cfg.n_heads, cfg.d_head, M, 2)
+        # an earlier source may take these widths on its general instance,
+        # or pack its stream in the one MLP chunk of its width
+        chunk = 0
+        if plan(*dims) > 0:
+            chunk = st.fast_instance(cfg.dim, cfg.d_head).mlp_chunk
+            if hasattr(lib, "spatial_table_mlp_chunk"):
+                lib.spatial_table_mlp_chunk.argtypes = [ctypes.c_int] * 6
+                chunk = lib.spatial_table_mlp_chunk(*dims)
+        if chunk not in wmat:
+            wmat[chunk] = st.pack_fast(w, cfg.depth, cfg.n_heads, mlp_chunk=chunk).to(dev)
+        packed = wmat[chunk]
 
         def run():
             err = fn(tokens.data_ptr(), base.data_ptr(), packed.data_ptr(), wln.data_ptr(),
@@ -179,7 +201,7 @@ def main(argv=None) -> int:
     cycles = prof.tolist()
     total = sum(cycles)
     print(json.dumps({"reading": "phase_profile", **widths,
-                      "frames_per_block": frames_per_block,
+                      "frames_per_block": frames_per_block, "cluster": cluster,
                       "blocks": blocks, "cycles_per_block": total / blocks,
                       "phases": {name: {"cycles_per_block": c / blocks, "share": c / total}
                                  for name, c in zip(PHASES, cycles)}}), flush=True)

@@ -33,6 +33,9 @@
 //               the kernel is bound by bytes, not by these products.
 // Keys come in blocks of KT16 * 16; with more than one block the running
 // max, sum and output are rescaled between blocks (online softmax).
+// attn_strip_two_pass keeps kPNormBf16's cast point over any number of key
+// blocks: a first pass takes each row's max and sum, a second recomputes
+// the scores and multiplies the normalised, rounded P by V.
 #pragma once
 
 #include "common.cuh"
@@ -208,6 +211,106 @@ __device__ __forceinline__ void attn_strip_block(const uint32_t (&qf)[DH / 16][4
         if (kMode == kPHiLo) {
           mma_bf16(o[2 * dn], lo, b[0], b[1]);
           mma_bf16(o[2 * dn + 1], lo, b[2], b[3]);
+        }
+      }
+    }
+  }
+}
+
+// Scaled scores of one 16-query strip against the KT16 key tiles at ks:
+// s = q k^T * scale, -inf for keys at or past n_keys (>= 1); tiles wholly
+// past n_keys are not multiplied.
+template <int DH, int KT16>
+__device__ __forceinline__ void attn_scores(const uint32_t (&qf)[DH / 16][4], const bf16* ks,
+                                            int ld, int n_keys, float scale,
+                                            float (&s)[2 * KT16][4]) {
+  const int lane = threadIdx.x & 31, c2 = (lane & 3) * 2;
+  const bf16* kp = ks + lane_off_b(lane, ld);
+#pragma unroll
+  for (int t = 0; t < 2 * KT16; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[t][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+#pragma unroll
+    for (int kt = 0; kt < KT16; ++kt) {
+      if (kt * 16 < n_keys) {
+        uint32_t b[4];
+        ldsm4(b, kp + kt * 16 * ld + kk * 16);
+        mma_bf16(s[2 * kt], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * kt + 1], qf[kk], b[2], b[3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < 2 * KT16; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      s[t][i] = t * 8 + c2 + (i & 1) < n_keys ? s[t][i] * scale : -INFINITY;
+}
+
+// softmax(q k^T * scale) v for one 16-query strip against n_keys (>= 1)
+// keys at ks and vs, in blocks of KT16 key tiles, with P normalised and
+// rounded to bf16 before P V as kPNormBf16 does (the V rows up to the next
+// multiple of 16 must be finite). Pass one keeps each row's running max
+// and its sum of exponentials, rescaled when the max grows; pass two
+// recomputes the scores, divides by the sum and multiplies by V, so the
+// products Q K^T run twice and no score leaves the registers. The
+// normalised output is left in o.
+template <int DH, int KT16>
+__device__ __forceinline__ void attn_strip_two_pass(const uint32_t (&qf)[DH / 16][4],
+                                                    const bf16* ks, const bf16* vs, int ld,
+                                                    int n_keys, float scale,
+                                                    float (&o)[DH / 8][4]) {
+  constexpr int kKeys = KT16 * 16;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int k0 = 0; k0 < n_keys; k0 += kKeys) {
+    float s[2 * KT16][4];
+    attn_scores<DH, KT16>(qf, ks + k0 * ld, ld, n_keys - k0, scale, s);
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < 2 * KT16; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], s[t][i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mx[r] = fmaxf(m[r], quad_max(mx[r]));   // finite
+#pragma unroll
+    for (int t = 0; t < 2 * KT16; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[i >> 1] += __expf(s[t][i] - mx[i >> 1]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = l[r] * __expf(m[r] - mx[r]) + quad_sum(sum[r]);   // 0 * 0 for the first block
+      m[r] = mx[r];
+    }
+  }
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+  for (int t = 0; t < DH / 8; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[t][i] = 0.f;
+  const bf16* vp = vs + lane_off_bt(threadIdx.x & 31, ld);
+  for (int k0 = 0; k0 < n_keys; k0 += kKeys) {
+    float s[2 * KT16][4];
+    attn_scores<DH, KT16>(qf, ks + k0 * ld, ld, n_keys - k0, scale, s);
+#pragma unroll
+    for (int kt = 0; kt < KT16; ++kt) {
+      if (k0 + kt * 16 < n_keys) {
+        uint32_t p[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // A fragment j: rows lane/4 + 8*(j%2), keys kt*16 + 8*(j/2) + c2, +1
+          const float* sj = s[2 * kt + (j >> 1)];
+          const float r = inv[j & 1];
+          p[j] = pack_bf16(__expf(sj[(j & 1) * 2] - m[j & 1]) * r,
+                           __expf(sj[(j & 1) * 2 + 1] - m[j & 1]) * r);
+        }
+#pragma unroll
+        for (int dn = 0; dn < DH / 16; ++dn) {
+          uint32_t b[4];
+          ldsm4_t(b, vp + (k0 + kt * 16) * ld + dn * 16);
+          mma_bf16(o[2 * dn], p, b[0], b[1]);
+          mma_bf16(o[2 * dn + 1], p, b[2], b[3]);
         }
       }
     }

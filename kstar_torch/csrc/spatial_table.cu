@@ -24,10 +24,11 @@
 // (spatial_table_plan), as the window-gather kernel chooses its aligned and
 // unaligned ones:
 //
-//  * fast (bf16, N <= 80), one design compiled for two widths (the Shape
-//    template below): the flagship's D 128 / d_head 64 with an MLP a
-//    multiple of 128, and the demo ViViT's D 64 / d_head 32 with an MLP a
-//    multiple of 64. One block owns F neighbouring frames of one offset,
+//  * fast (bf16), one design compiled for two widths (the Shape template
+//    below): the flagship's D 128 / d_head 64 with an MLP a multiple of 128
+//    (64 past N 144), and the demo ViViT's D 64 / d_head 32 with an MLP a
+//    multiple of 64. Up to N 80 one block owns F neighbouring frames of one
+//    offset,
 //    their tokens packed without padding into rows of shared memory (F = 2
 //    at N 65 and 8 at N 17 for the flagship; 7 at N 17 for the demo), so
 //    every weight panel is fetched once per F frames and a barrier is paid
@@ -77,7 +78,43 @@
 //    so two share an SM and one multiplies while the other waits. Its
 //    weights are 256 KB for two layers, streamed from L2 once per block:
 //    ~1.9 GB a 2520-frame call.
-//  * general (f32, and bf16 at any other width the wrapper accepts): one
+//    Past N 80, at the flagship widths (the 144 .. 256 px crops of the
+//    stored 256 px frames at patch 16, up to the whole frame's 257 tokens),
+//    a frame no longer packs with another, and past N 144 it no longer
+//    fits one block: at N 257 the block above would need 337,920 bytes
+//    (x and h of 272 rows, q, k, v of 288, two 32 KB panels) against
+//    232,448. The same kernel body, with two template parameters more:
+//    - N 81..144: one frame a block in the flagship's own layout (its 144
+//      product rows, 160 rows of q, k, v).
+//    - N 145..257: one frame over a cluster of two blocks on neighbouring
+//      SMs. Block r computes the frame's rows 144 r .. 144 r + 143 in the
+//      flagship's row scheme, so every product is the same 144-row product
+//      (89% of its rows real at N 257), and writes each head's k and v rows
+//      into its own and the other block's shared memory (mapa +
+//      st.shared::cluster), so both hold the frame's 272 key rows and
+//      attend from their own rows with ldmatrix as before. A cluster
+//      barrier in two halves orders it: before a head's first k store the
+//      other block must be done reading the last head's keys, after its v
+//      both blocks' rows must have landed. The key rows leave room for
+//      two 16 KB panel buffers only (221,184 bytes in all), so a head's q
+//      and k are two panels and the MLP goes in chunks of 64 (more
+//      barriers per row than the packed case; the stream is the same up to
+//      the chunk). In the last layer only block 0's cls row is kept: block
+//      1 adds its k and v rows and leaves.
+//    - Attention over more than five key tiles keeps the JAX kernel's cast
+//      point (P normalised, then rounded to bf16, then P V) with two
+//      passes over blocks of 64 keys (attn_strip_two_pass): the first
+//      takes each row's max and sum, the second recomputes the scores and
+//      multiplies. Q K^T runs twice (+33% of the attention's products, 2
+//      exponentials a score) so that no rounding differs from the plain
+//      version's; online softmax would round the unnormalised P instead.
+//    What bounds it: at N 257 a 4096-frame shot is 26.2 TFLOP (26.5 ms of
+//    bf16 tensor peak) against ~0.3 GB of tokens and table; a block pays
+//    the flagship's product costs, 5.1x its attention per strip (17 key
+//    tiles in two passes against 5 in one) on 9 of its 12 warps, and a
+//    cluster barrier pair per head.
+//  * general (f32, and bf16 at any other width the wrapper accepts, N up
+//    to 128): one
 //    block per (offset, frame), 16 x 16 warp tiles with 32-bit fragment
 //    loads, scores through shared memory, f32 on scalar FMAs with the
 //    weights read from global memory. It holds the algorithm to the f32
@@ -509,17 +546,55 @@ int launch(const void* tokens, const void* base, const void* wmat, const void* w
 namespace fast {
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+// The cluster's other block: its shared memory at the address p has in
+// this block, a release/acquire barrier over both blocks in two halves, and
+// this block's rank.
+__device__ __forceinline__ uint32_t peer_smem(const void* p, uint32_t rank) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_addr(p)), "r"(rank));
+  return addr;
+}
+__device__ __forceinline__ void st_peer(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+constexpr int kPackedMaxN = 80;             // five 16-key tiles: one pass of the core
+constexpr int kMaxFrames = 16;              // rows of the last layer's cls tiles
+constexpr int kOneBlockMaxN = 144;          // one frame a block up to its 144 product rows
+constexpr int kKeyTiles = 4;                // 16-key tiles per block of the two-pass core
 
 // One compiled width of the fast instance and its row scheme: D and DH the
 // model's and a head's width, MC the MLP columns of one FF panel, WG the
 // warpgroups on wgmma (64 rows each), REM the rows one more warpgroup
-// computes on mma.sync (0 or 16).
-template <int D_, int DH_, int MC_, int WG_, int REM_>
+// computes on mma.sync (0 or 16), MAXN the most tokens a frame may have,
+// CLUSTER the blocks that share one frame (1 or 2). Up to kPackedMaxN
+// tokens a block packs several frames and the attention core takes all of
+// a frame's keys in one pass; past it a block (or a cluster) owns one
+// frame and the core runs two passes over blocks of keys.
+template <int D_, int DH_, int MC_, int WG_, int REM_, int MAXN_ = kPackedMaxN,
+          int CLUSTER_ = 1>
 struct Shape {
   static constexpr int kD = D_, kDh = DH_, kMc = MC_, kWg = WG_, kRem = REM_;
+  static constexpr int kMaxN = MAXN_, kCluster = CLUSTER_;
+  static constexpr bool kPacked = kMaxN <= kPackedMaxN;
   static constexpr int kProdRows = 64 * kWg + kRem;   // rows the products compute
-  static constexpr int kRows = kProdRows + 16;         // rows of q, k, v: the last
-                                                       // frame's keys padded to 16
+  static constexpr int kRows = kProdRows + 16;         // rows of x, h, q (and of k, v
+                                                       // packed): the last frame's
+                                                       // keys padded to 16
+  static constexpr int kKeyRows = cmax(kRows, (kMaxN + 15) / 16 * 16);   // rows of k, v
   static constexpr int kWgmmaWarps = 4 * kWg;
   static constexpr int kWarps = kWgmmaWarps + (kRem ? 4 : 0), kThreads = kWarps * 32;
   // row strides: an odd number of 16-byte units, so that the eight rows of
@@ -527,20 +602,25 @@ struct Shape {
   static constexpr int kLdx = kD + 8;                  // x, h
   static constexpr int kLdq = kDh + 8;                 // q, k, v
   static constexpr int kLdm = kMc + 8;                 // the FF chunk
-  // weight panels as the wrapper packs them: blocked (wgmma.cuh), no padding
+  // weight panels as the wrapper packs them: blocked (wgmma.cuh), no padding.
+  // A cluster's k and v rows leave room for two 16 KB panel buffers only,
+  // so there a head's q and k rows are two panels (the same stream).
+  static constexpr int kQkParts = kCluster > 1 ? 2 : 1;
+  static constexpr int kHeadPanels = kQkParts + 2;     // q|k (or q, k), v, out
   static constexpr int kQkPanel = 2 * kDh * kD;        // a head's q rows, then its k rows
   static constexpr int kVPanel = kDh * kD;
   static constexpr int kOutPanel = kD * kDh;
   static constexpr int kFfPanel = kMc * kD;            // FF1 chunk (mc x D), FF2 chunk (D x mc)
-  static constexpr int kPanelMax = cmax(cmax(kQkPanel, kVPanel), cmax(kOutPanel, kFfPanel));
+  static constexpr int kPanelMax = cmax(cmax(kQkPanel / kQkParts, kVPanel),
+                                        cmax(kOutPanel, kFfPanel));
 
   static constexpr size_t kOffX = 0;
   static constexpr size_t kOffH = kOffX + sizeof(bf16) * kRows * kLdx;
   static constexpr size_t kOffQ = kOffH + sizeof(bf16) * kRows * kLdx;
   static constexpr size_t kOffK = kOffQ + sizeof(bf16) * kRows * kLdq;
-  static constexpr size_t kOffV = kOffK + sizeof(bf16) * kRows * kLdq;
-  static constexpr size_t kOffMid = kOffQ;             // the FF chunk reuses q and k
-  static constexpr size_t kOffPanel = kOffV + sizeof(bf16) * kRows * kLdq;
+  static constexpr size_t kOffV = kOffK + sizeof(bf16) * kKeyRows * kLdq;
+  static constexpr size_t kOffMid = kOffQ;             // the FF chunk reuses q (and k)
+  static constexpr size_t kOffPanel = kOffV + sizeof(bf16) * kKeyRows * kLdq;
   static constexpr size_t kSmemBytes = kOffPanel + 2 * sizeof(bf16) * kPanelMax;
   // two blocks to an SM where two fit in its 228 KB (1 KB reserved for each)
   static constexpr int kMinBlocks = 2 * (kSmemBytes + 1024) <= 233472 ? 2 : 1;
@@ -551,6 +631,11 @@ struct Shape {
   static_assert(kD % 64 == 0 && kMc % 64 == 0 && 32 % (kD / 16) == 0, "64-column tiles");
   static_assert(kD / 16 <= kWarps && kMc / 16 <= kWarps, "a warp per 16 columns of a cls tile");
   static_assert(sizeof(bf16) * kRows * kLdm <= kOffV - kOffMid, "mid fits in q and k");
+  static_assert(kCluster == 1 || kLdm <= kLdq,
+                "mid stays in q: the other block of the cluster writes k and v");
+  static_assert(kPacked ? kCluster == 1 : kMaxN <= kCluster * kProdRows,
+                "one frame's rows in the cluster's product rows");
+  static_assert(kQkParts == 1 || kDh == 64, "q and k apart: one 64-column product each");
   static_assert(16 * kLdx + 48 * kLdq + 16 * kLdm <= kRows * kLdq, "cls tiles fit in q's region");
   static_assert(kOffPanel % 128 == 0, "panels start on a core-matrix boundary");
   static_assert(kSmemBytes <= 232448, "fits in one block's shared memory");
@@ -561,28 +646,36 @@ struct Shape {
 // third wgmma tile would spend a third of the tensor time on padding;
 // 221,696 bytes, one block per SM. The demo ViViT (D 64, d_head 32): 2 x 64
 // wgmma rows hold 7 frames of 17 tokens in 92,416 bytes, so two blocks share
-// an SM and one computes while the other waits at a barrier.
+// an SM and one computes while the other waits at a barrier. Past 80 tokens
+// at the flagship widths (crops of 144 px and up): one frame in the same
+// block up to its 144 rows, then one frame over a cluster of two.
 using Flagship = Shape<128, 64, 128, 2, 16>;
 using Demo = Shape<64, 32, 64, 2, 0>;
+using FlagshipOneBlock = Shape<128, 64, 128, 2, 16, kOneBlockMaxN, 1>;
+using FlagshipCluster = Shape<128, 64, 64, 2, 16, 257, 2>;
 
-// fn(S()) for the instance compiled for (D, dh), or `none` where there is none
+// fn(S()) for the instance compiled for (N, D, dh), or `none` where there is none
 template <typename R, typename Fn>
-R with_instance(int D, int dh, R none, Fn fn) {
-  if (D == Flagship::kD && dh == Flagship::kDh) return fn(Flagship());
-  if (D == Demo::kD && dh == Demo::kDh) return fn(Demo());
+R with_instance(int N, int D, int dh, R none, Fn fn) {
+  if (N < 1) return none;
+  if (D == Flagship::kD && dh == Flagship::kDh) {
+    if (N <= Flagship::kMaxN) return fn(Flagship());
+    if (N <= FlagshipOneBlock::kMaxN) return fn(FlagshipOneBlock());
+    if (N <= FlagshipCluster::kMaxN) return fn(FlagshipCluster());
+  }
+  if (D == Demo::kD && dh == Demo::kDh && N <= Demo::kMaxN) return fn(Demo());
   return none;
 }
 
-constexpr int kMaxN = 80;                   // five 16-key tiles in the core
-constexpr int kMaxFrames = 16;              // rows of the last layer's cls tiles
-
-// Frames per block: the most whose packed rows fit in the kProdRows rows
+// Frames per block: packed, the most whose rows fit in the kProdRows rows
 // the products compute and, with the last frame's keys padded to a multiple
 // of 16, in the kRows rows of q, k and v; at most the 16 rows of the last
-// layer's cls tiles. 0 where the instance does not apply.
+// layer's cls tiles. One past kPackedMaxN. 0 where the instance does not
+// apply.
 template <class S>
 __host__ __device__ inline int frames_per_block(int N) {
-  if (N < 1 || N > kMaxN) return 0;
+  if (N < 1 || N > S::kMaxN) return 0;
+  if (!S::kPacked) return 1;
   int fit = (S::kRows - (N + 15) / 16 * 16) / N + 1;
   if (fit > S::kProdRows / N) fit = S::kProdRows / N;
   return fit < kMaxFrames ? fit : kMaxFrames;
@@ -802,14 +895,14 @@ __device__ __forceinline__ void zero_acc(float (*acc)[4]) {
 }
 
 // The all-row product of h with NW rows of a kD-column panel, rounded to
-// bf16: output column c of row r goes to dst(r, c).
-template <class S, int NW, typename Dst>
-__device__ __forceinline__ void project(const bf16* hs, const bf16* panel, Dst dst) {
+// bf16: output columns c and c + 1 of row r go to store(r, c, the pair).
+template <class S, int NW, typename Store>
+__device__ __forceinline__ void project(const bf16* hs, const bf16* panel, Store store) {
   float acc[NW / 8][4];
   zero_acc<NW / 8>(acc);
   rows_gemm<S, S::kD, NW, 1>(acc, hs, S::kLdx, panel);
   for_each_out<S, NW>(acc, [&](int r, int c, int, float v0, float v1) {
-    store_pair(dst(r, c), v0, v1);
+    store(r, c, pack_bf16(v0, v1));
   });
 }
 
@@ -851,9 +944,13 @@ spatial_table_fast_kernel(Params p) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
   const int N = p.N, F = p.F, H = p.H, M = p.M;
-  const int frame0 = blockIdx.x * F, off = blockIdx.y;
+  // a cluster's blocks share one frame: block `rank` owns its rows from
+  // key_row0 on (0 for a block of its own), and k and v hold all its rows
+  const uint32_t rank = S::kCluster > 1 ? cluster_rank() : 0;
+  const int key_row0 = S::kPacked ? 0 : static_cast<int>(rank) * S::kProdRows;
+  const int frame0 = blockIdx.x / S::kCluster * F, off = blockIdx.y;
   const int n_chunks = M / kMc;
-  const int per_layer = 3 * H + 2 * n_chunks;
+  const int per_layer = S::kHeadPanels * H + 2 * n_chunks;
   const int n_panels = p.depth * per_layer;
   const size_t layer_panels = static_cast<size_t>(H) * (S::kQkPanel + S::kVPanel + S::kOutPanel) +
                               static_cast<size_t>(n_chunks) * 2 * S::kFfPanel;
@@ -877,9 +974,10 @@ spatial_table_fast_kernel(Params p) {
   int issued = 0, consumed = 0;
   auto issue_next = [&]() {
     if (issued < n_panels) {
-      const int i = issued % per_layer;
-      const int n = i >= 3 * H ? S::kFfPanel : i % 3 == 0 ? S::kQkPanel
-                                             : i % 3 == 1 ? S::kVPanel : S::kOutPanel;
+      const int i = issued % per_layer, part = i % S::kHeadPanels;
+      const int n = i >= S::kHeadPanels * H ? S::kFfPanel
+                    : part < S::kQkParts    ? S::kQkPanel / S::kQkParts
+                    : part == S::kQkParts   ? S::kVPanel : S::kOutPanel;
       bf16* dst = buf[issued & 1];
       for (int e = tid * 8; e < n; e += S::kThreads * 8)
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst + e)),
@@ -908,13 +1006,15 @@ spatial_table_fast_kernel(Params p) {
   issue_next();
 
   // x = tokens + base, rounded to bf16, frames packed without padding: row
-  // f * N + i is token i of frame frame0 + f. Rows of frames past T and
-  // rows past F * N are zero (finite through every layer, never stored).
+  // f * N + i is token i of frame frame0 + f (one frame: row i is its token
+  // key_row0 + i). Rows of frames past T and rows past F * N (past N) are
+  // zero (finite through every layer, never stored).
   for (int i = tid; i < S::kRows * (kD / 8); i += S::kThreads) {
     const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
-    const int f = r / N, tok = r % N;
+    const int f = S::kPacked ? r / N : 0;
+    const int tok = S::kPacked ? r % N : key_row0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (f < F && frame0 + f < p.T) {
+    if (S::kPacked ? f < F && frame0 + f < p.T : r < S::kProdRows && tok < N) {
       const uint4 a = *reinterpret_cast<const uint4*>(
           p.tokens + (static_cast<size_t>(frame0 + f) * N + tok) * kD + c);
       const uint4 b = *reinterpret_cast<const uint4*>(
@@ -932,10 +1032,16 @@ spatial_table_fast_kernel(Params p) {
   // The products fill rows 0..kProdRows-1 of q, k and v; the last frame's
   // padding keys may reach up to row kRows-1. Masked keys never count, but
   // their V rows are multiplied by p = 0, so they must be finite: zero them
-  // once (the FF chunk reuses q and k only).
-  for (int i = tid; i < (S::kRows - S::kProdRows) * kLdq; i += S::kThreads)
-    vs[S::kProdRows * kLdq + i] = from_f<bf16>(0.f);
+  // once (the FF chunk reuses q and k only). One frame: the products fill
+  // every row up to the frame's keys padded to 16.
+  if constexpr (S::kPacked)
+    for (int i = tid; i < (S::kRows - S::kProdRows) * kLdq; i += S::kThreads)
+      vs[S::kProdRows * kLdq + i] = from_f<bf16>(0.f);
   __syncthreads();
+  // The cluster's barrier runs in two halves around each head's k and v:
+  // this first arrival pairs with the first wait, before any store into the
+  // other block, which must have started.
+  if constexpr (S::kCluster > 1) cluster_arrive();
 
   // x <- x + round(round(v) + bias), in bf16, for two neighbouring columns
   auto residual_pair = [](bf16* x, __nv_bfloat162 bias, float v0, float v1) {
@@ -954,29 +1060,74 @@ spatial_table_fast_kernel(Params p) {
       });
     }
   };
-  auto q_at = [=](int r, int c) { return qs + r * kLdq + c; };
-  auto k_at = [=](int r, int c) { return ks + r * kLdq + c; };
-  auto v_at = [=](int r, int c) { return vs + r * kLdq + c; };
+  // stores of a product's output pairs: q into this block's rows; k and v
+  // at the frame's row key_row0 + r, in a cluster into both blocks (rows
+  // past kKeyRows are the last block's padding and dropped)
+  auto q_at = [=](int r, int c, uint32_t v) {
+    *reinterpret_cast<uint32_t*>(qs + r * kLdq + c) = v;
+  };
+  auto kv_at = [=](bf16* buf) {
+    return [=](int r, int c, uint32_t v) {
+      const int row = key_row0 + r;
+      if (S::kPacked || row < S::kKeyRows) {
+        bf16* dst = buf + row * kLdq + c;
+        *reinterpret_cast<uint32_t*>(dst) = v;
+        if constexpr (S::kCluster > 1) st_peer(peer_smem(dst, rank ^ 1u), v);
+      }
+    };
+  };
+  const auto k_at = kv_at(ks), v_at = kv_at(vs);
+  // In a cluster each block's k and v rows land in both blocks: before the
+  // first store of a head's k the other block must be done reading the
+  // last head's (wait), and after the head's v both blocks' rows must be
+  // there before the strips read them (arrive, wait); a block's strips done,
+  // it arrives again. Alone, a block barrier makes k and v visible.
+  auto kv_before_store = [&]() {
+    if constexpr (S::kCluster > 1) cluster_wait();
+  };
+  auto kv_complete = [&]() {
+    if constexpr (S::kCluster > 1) {
+      cluster_arrive();
+      cluster_wait();
+    } else {
+      __syncthreads();
+    }
+  };
+  auto kv_read_done = [&]() {
+    if constexpr (S::kCluster > 1) cluster_arrive();
+  };
   // One warp, one 16-query strip of one frame: the frame's keys are its N
   // rows at row0; the rows up to the next multiple of 16 belong to the next
-  // frame or the zero tail and are masked in the core. The core is compiled
-  // for each count of 16-key tiles, so its loops carry no branches.
+  // frame or the zero tail and are masked in the core. Packed, the core is
+  // compiled for each count of 16-key tiles, so its loops carry no
+  // branches; past kPackedMaxN it runs two passes over blocks of keys.
   auto attend = [&](const bf16* q_rows, int row0, float (&o)[kDh / 8][4]) {
     const bf16* k = ks + row0 * kLdq;
     const bf16* v = vs + row0 * kLdq;
-    switch ((N + 15) / 16) {
-      case 1: attend_strip<S, 1>(q_rows, k, v, N, p.scale, o); break;
-      case 2: attend_strip<S, 2>(q_rows, k, v, N, p.scale, o); break;
-      case 3: attend_strip<S, 3>(q_rows, k, v, N, p.scale, o); break;
-      case 4: attend_strip<S, 4>(q_rows, k, v, N, p.scale, o); break;
-      default: attend_strip<S, 5>(q_rows, k, v, N, p.scale, o); break;
+    if constexpr (S::kPacked) {
+      switch ((N + 15) / 16) {
+        case 1: attend_strip<S, 1>(q_rows, k, v, N, p.scale, o); break;
+        case 2: attend_strip<S, 2>(q_rows, k, v, N, p.scale, o); break;
+        case 3: attend_strip<S, 3>(q_rows, k, v, N, p.scale, o); break;
+        case 4: attend_strip<S, 4>(q_rows, k, v, N, p.scale, o); break;
+        default: attend_strip<S, 5>(q_rows, k, v, N, p.scale, o); break;
+      }
+    } else {
+      uint32_t qf[kDh / 16][4];
+      attn_load_q<kDh>(qf, q_rows, kLdq);
+      attn_strip_two_pass<kDh, kKeyTiles>(qf, k, v, kLdq, N, p.scale, o);
     }
     __syncwarp();
   };
   // the 16-row cls tiles' products: warp w takes columns 16 w .. 16 w + 15
   const int ccol = warp * 16;
+  // the cls rows: this block's, or in a cluster block 0's alone
+  const bool has_cls = rank == 0;
 
   const int spf = (N + 15) / 16;            // strips per frame
+  // query strips of this block: spf per packed frame, else those of its rows
+  const int n_strips = S::kPacked ? F * spf
+                                  : (cmin(S::kProdRows, N - key_row0) + 15) / 16;
   for (int l = 0; l < p.depth; ++l) {
     const bf16* b_out = p.wmat + l * layer_elems + layer_panels;
     const bf16* b_ff1 = b_out + kD;
@@ -994,33 +1145,43 @@ spatial_table_fast_kernel(Params p) {
         {  // q (the panel's first kDh rows) and k (the next kDh) of this head
           const bf16* w = next_panel();
           KSTAR_NEXT(kPhQk);
-          if constexpr (kDh == 64) {
+          if constexpr (S::kQkParts == 2) { // q and k in two panels
+            project<S, 64>(hs, w, q_at);
+            w = next_panel();
+            kv_before_store();
+            project<S, 64>(hs, w, k_at);
+          } else if constexpr (kDh == 64) {
             project<S, 64>(hs, w, q_at);
             project<S, 64>(hs, w + blocked_off(kDh, 0, kD), k_at);
           } else {                          // q and k side by side in one product
-            project<S, 64>(hs, w, [=](int r, int c) {
-              return c < kDh ? q_at(r, c) : k_at(r, c - kDh);
+            project<S, 64>(hs, w, [=](int r, int c, uint32_t v) {
+              if (c < kDh)
+                q_at(r, c, v);
+              else
+                k_at(r, c - kDh, v);
             });
           }
         }
         // v, row-major: the core reads it through ldmatrix.trans
         project<S, kDh>(hs, next_panel(), v_at);
-        __syncthreads();
+        kv_complete();
         KSTAR_STAMP(kPhV);
         // The output replaces the strip's own q rows (rows past the frame's
         // end are left alone: they are the next frame's q).
-        for (int s = warp; s < F * spf; s += kWarps) {
-          const int row0 = (s / spf) * N, q0 = (s % spf) * 16;
+        for (int s = warp; s < n_strips; s += kWarps) {
+          const int f = S::kPacked ? s / spf : 0, q0 = (S::kPacked ? s % spf : s) * 16;
+          const int row0 = f * N, left = N - (S::kPacked ? 0 : key_row0) - q0;
           float o[kDh / 8][4];
           bf16* dst = qs + (row0 + q0) * kLdq;
           attend(dst, row0, o);
 #pragma unroll
           for (int t = 0; t < kDh / 8; ++t) {
-            if (q0 + g < N) store_pair(dst + g * kLdq + t * 8 + c2, o[t][0], o[t][1]);
-            if (q0 + g + 8 < N)
+            if (g < left) store_pair(dst + g * kLdq + t * 8 + c2, o[t][0], o[t][1]);
+            if (g + 8 < left)
               store_pair(dst + (g + 8) * kLdq + t * 8 + c2, o[t][2], o[t][3]);
           }
         }
+        kv_read_done();
         KSTAR_STAMP(kPhAttention);
         // out-projection of this head's output, summed in registers
         rows_gemm<S, kDh, 64, kD / 64>(oacc, qs, kLdq, next_panel());
@@ -1065,34 +1226,47 @@ spatial_table_fast_kernel(Params p) {
       // ---- last layer: the table keeps the cls row after the final
       // LayerNorm, so K and V are needed for all rows and everything else
       // for the F cls rows, gathered into 16-row tiles (row f = frame f).
-      // The same arithmetic for those rows as the all-row path.
+      // The same arithmetic for those rows as the all-row path. In a
+      // cluster block 0 holds the cls row; block 1 adds its k and v rows
+      // and leaves.
       for (int i = tid; i < 16 * (kD / 8); i += S::kThreads) {
         const int f = i / (kD / 8), c = (i % (kD / 8)) * 8;
         *reinterpret_cast<uint4*>(hc + f * kLdx + c) =
             *reinterpret_cast<const uint4*>(hs + (f < F ? f * N : 0) * kLdx + c);
       }
+      // q of the cls rows from a panel holding q's kDh rows first
+      auto cls_q = [&](const bf16* w) {
+        if (has_cls && warp < kDh / 16) {
+          float qa[2][4];
+          zero_acc<2>(qa);
+          mma_gemm_blocked<2, kD>(qa, hc, kLdx, w, ccol);
+          store_pair(qc + g * kLdq + ccol + c2, qa[0][0], qa[0][1]);
+          store_pair(qc + (g + 8) * kLdq + ccol + c2, qa[0][2], qa[0][3]);
+          store_pair(qc + g * kLdq + ccol + 8 + c2, qa[1][0], qa[1][1]);
+          store_pair(qc + (g + 8) * kLdq + ccol + 8 + c2, qa[1][2], qa[1][3]);
+        }
+      };
       float cacc[2][4];                     // out-projection of the cls rows
       zero_acc<2>(cacc);
       for (int hh = 0; hh < H; ++hh) {
         {  // k for all rows (the panel's rows kDh..2 kDh-1), q for the cls rows
           const bf16* w = next_panel();
           KSTAR_NEXT(kPhLastKq);
-          project<S, kDh>(hs, w + blocked_off(kDh, 0, kD), k_at);
-          if (warp < kDh / 16) {
-            float qa[2][4];
-            zero_acc<2>(qa);
-            mma_gemm_blocked<2, kD>(qa, hc, kLdx, w, ccol);
-            store_pair(qc + g * kLdq + ccol + c2, qa[0][0], qa[0][1]);
-            store_pair(qc + (g + 8) * kLdq + ccol + c2, qa[0][2], qa[0][3]);
-            store_pair(qc + g * kLdq + ccol + 8 + c2, qa[1][0], qa[1][1]);
-            store_pair(qc + (g + 8) * kLdq + ccol + 8 + c2, qa[1][2], qa[1][3]);
+          if constexpr (S::kQkParts == 2) {
+            cls_q(w);
+            w = next_panel();
+            kv_before_store();
+            project<S, kDh>(hs, w, k_at);
+          } else {
+            project<S, kDh>(hs, w + blocked_off(kDh, 0, kD), k_at);
+            cls_q(w);
           }
         }
         project<S, kDh>(hs, next_panel(), v_at);
-        __syncthreads();
+        kv_complete();
         KSTAR_STAMP(kPhV);
         // strip f: queries qc rows f..f+15, of which row 0 is frame f's cls
-        for (int f = warp; f < F; f += kWarps) {
+        for (int f = warp; f < F && has_cls; f += kWarps) {
           float o[kDh / 8][4];
           attend(qc + f * kLdq, f * N, o);
           if (g == 0) {
@@ -1101,11 +1275,19 @@ spatial_table_fast_kernel(Params p) {
               store_pair(oc + f * kLdq + t * 8 + c2, o[t][0], o[t][1]);
           }
         }
+        kv_read_done();
         KSTAR_STAMP(kPhAttention);
         {
           const bf16* w = next_panel();
           KSTAR_NEXT(kPhLastOut);
-          if (warp < kD / 16) mma_gemm_blocked<2, kDh>(cacc, oc, kLdq, w, ccol);
+          if (has_cls && warp < kD / 16) mma_gemm_blocked<2, kDh>(cacc, oc, kLdq, w, ccol);
+        }
+      }
+      if constexpr (S::kCluster > 1) {
+        cluster_wait();                     // every store into block 0 has landed
+        if (!has_cls) {
+          asm volatile("cp.async.wait_all;\n" ::: "memory");
+          return;
         }
       }
       // cls tile row g is frame g (rows 8..15 hold no frame when F <= 8)
@@ -1194,6 +1376,26 @@ cudaError_t prepare() {
                               static_cast<int>(S::kSmemBytes));
 }
 
+// The launch configuration of a call over T frames and n_off offsets: a
+// cluster's blocks are neighbours along x.
+template <class S>
+struct LaunchConfig {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  LaunchConfig(int T, int n_off, void* stream) {
+    cfg.blockDim = dim3(S::kThreads);
+    cfg.dynamicSmemBytes = S::kSmemBytes;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = S::kCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cfg.gridDim = dim3(T * S::kCluster, n_off);
+  }
+};
+
 template <class S>
 int launch(const void* tokens, const void* base, const void* wmat, const void* wln,
            void* out, int T, int n_off, int N, int depth, int H, int M, float scale,
@@ -1218,8 +1420,14 @@ int launch(const void* tokens, const void* base, const void* wmat, const void* w
 #endif
   cudaError_t err = prepare<S>();
   if (err != cudaSuccess) return err;
-  spatial_table_fast_kernel<S><<<dim3((T + p.F - 1) / p.F, n_off), S::kThreads, S::kSmemBytes,
-                                 static_cast<cudaStream_t>(stream)>>>(p);
+  if constexpr (S::kCluster == 1) {
+    spatial_table_fast_kernel<S><<<dim3((T + p.F - 1) / p.F, n_off), S::kThreads,
+                                   S::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  } else {
+    LaunchConfig<S> lc(T, n_off, stream);
+    err = cudaLaunchKernelEx(&lc.cfg, spatial_table_fast_kernel<S>, p);
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
 }
 
@@ -1237,20 +1445,35 @@ void spatial_table_set_profile(void* prof) {
 #endif
 
 // Which instance a call takes: 0 the general one, otherwise the fast one
-// compiled for (D, dh), the value being its frames per block.
+// compiled for (N, D, dh), the value being its frames per block (1 where
+// one frame has a block or a cluster of its own).
 int spatial_table_plan(int N, int D, int H, int dh, int M, int elem_bytes) {
   (void)H;
   if (elem_bytes != 2) return 0;
-  return fast::with_instance(D, dh, 0, [&](auto s) {
+  return fast::with_instance(N, D, dh, 0, [&](auto s) {
     using S = decltype(s);
     return fast::applies<S>(N, M) ? fast::frames_per_block<S>(N) : 0;
   });
 }
 
+// The blocks that share a frame in the fast instance a call takes (1 or 2),
+// 0 for the general one.
+int spatial_table_cluster_size(int N, int D, int H, int dh, int M, int elem_bytes) {
+  if (spatial_table_plan(N, D, H, dh, M, elem_bytes) == 0) return 0;
+  return fast::with_instance(N, D, dh, 0, [](auto s) { return decltype(s)::kCluster; });
+}
+
+// The MLP columns of one FF panel of the fast instance a call takes (the
+// wrapper's pack_fast chunk), 0 for the general one.
+int spatial_table_mlp_chunk(int N, int D, int H, int dh, int M, int elem_bytes) {
+  if (spatial_table_plan(N, D, H, dh, M, elem_bytes) == 0) return 0;
+  return fast::with_instance(N, D, dh, 0, [](auto s) { return decltype(s)::kMc; });
+}
+
 // Dynamic shared memory one block needs, in bytes (elem_bytes 2 or 4).
 long long spatial_table_smem_bytes(int N, int D, int H, int dh, int M, int elem_bytes) {
   if (spatial_table_plan(N, D, H, dh, M, elem_bytes) > 0)
-    return fast::with_instance(D, dh, 0LL, [](auto s) {
+    return fast::with_instance(N, D, dh, 0LL, [](auto s) {
       return static_cast<long long>(decltype(s)::kSmemBytes);
     });
   const Dims d = make_dims(1, 1, N, D, 1, H, dh, M, 1.f);
@@ -1258,36 +1481,46 @@ long long spatial_table_smem_bytes(int N, int D, int H, int dh, int M, int elem_
                          : static_cast<long long>(Layout<float>(d).total);
 }
 
-// The fast instance compiled for (D, dh) as the card takes it: out[0]
+// The fast instance compiled for (N, D, dh) as the card takes it: out[0]
 // registers a thread, out[1] dynamic and out[2] static shared memory a
-// block (bytes), out[3] threads a block, out[4] blocks resident on one SM.
-// Returns a CUDA error code; cudaErrorInvalidValue where no instance is.
-int spatial_table_fast_attributes(int D, int dh, int* out) {
-  return fast::with_instance(D, dh, static_cast<int>(cudaErrorInvalidValue), [&](auto s) {
+// block (bytes), out[3] threads a block, out[4] blocks resident on one SM,
+// out[5] blocks a cluster, out[6] clusters resident on the card at once
+// (0 for a block of its own). Returns a CUDA error code;
+// cudaErrorInvalidValue where no instance is.
+int spatial_table_fast_attributes(int N, int D, int dh, int* out) {
+  return fast::with_instance(N, D, dh, static_cast<int>(cudaErrorInvalidValue), [&](auto s) {
     using S = decltype(s);
     cudaFuncAttributes attr{};
-    int blocks = 0;
+    int blocks = 0, clusters = 0;
     cudaError_t err = fast::prepare<S>();
     if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fast::spatial_table_fast_kernel<S>);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &blocks, fast::spatial_table_fast_kernel<S>, S::kThreads, S::kSmemBytes);
+    if (err == cudaSuccess && S::kCluster > 1) {
+      fast::LaunchConfig<S> lc(1, 1, nullptr);
+      err = cudaOccupancyMaxActiveClusters(&clusters, fast::spatial_table_fast_kernel<S>,
+                                           &lc.cfg);
+    }
     out[0] = attr.numRegs;
     out[1] = static_cast<int>(S::kSmemBytes);
     out[2] = static_cast<int>(attr.sharedSizeBytes);
     out[3] = S::kThreads;
     out[4] = blocks;
+    out[5] = S::kCluster;
+    out[6] = clusters;
     return static_cast<int>(err);
   });
 }
 
 // wmat is packed for the instance spatial_table_plan names (the wrapper's
-// pack_fast or pack_general); the fast one needs 16-byte-aligned pointers.
+// pack_fast with spatial_table_mlp_chunk's chunk, or pack_general); the
+// fast one needs 16-byte-aligned pointers.
 int spatial_table_bf16(const void* tokens, const void* base, const void* wmat,
                        const void* wln, void* out, int T, int n_off, int N, int D,
                        int depth, int H, int dh, int M, float scale, void* stream) {
   if (spatial_table_plan(N, D, H, dh, M, 2) > 0)
-    return fast::with_instance(D, dh, 0, [&](auto s) {
+    return fast::with_instance(N, D, dh, 0, [&](auto s) {
       return fast::launch<decltype(s)>(tokens, base, wmat, wln, out, T, n_off, N, depth, H,
                                        M, scale, stream);
     });

@@ -16,16 +16,18 @@ layouts, the inexact ``none`` and ``debug_skip`` profiling modes,
 
 The source holds two hand-written instances, chosen by shape in its C
 launcher (``spatial_table.instance`` names the one the last launch took):
-the fast one (bf16, N <= 80: several frames per block, ``wgmma`` products,
-register-resident attention, the last layer for the cls rows only), one
-design compiled for each width in ``FAST_INSTANCES`` (the flagship ViViT's
-D 128 / d_head 64 and the demo ViViT's D 64 / d_head 32), and the general
-one (f32, and bf16 at any other accepted width). The wrapper packs the
-weights for the instance (``pack_fast``: the kernel's panel stream;
-``pack_general``) once per weights bundle and dtype.
-``packed_walk_reference`` walks the fast instance's stream in plain
-PyTorch, so that the packing and the kernel's order of work are tested
-without a GPU.
+the fast one (bf16: ``wgmma`` products, register-resident attention, the
+last layer for the cls rows only), one design compiled for each entry of
+``FAST_INSTANCES`` (the flagship ViViT's D 128 / d_head 64 with several
+frames per block up to N 80, one frame per block up to N 144 and one frame
+per two-block cluster up to N 257, the full 256 px frame at patch 16; the
+demo ViViT's D 64 / d_head 32 up to N 80), and the general one (f32, and
+bf16 at any other accepted width, N <= 128). The wrapper packs the weights
+for the instance (``pack_fast``: the kernel's panel stream, in the
+instance's MLP chunks; ``pack_general``) once per weights bundle, dtype and
+chunk. ``packed_walk_reference`` walks the fast instance's stream in plain
+PyTorch (past N 80 with the two-pass attention of blocks of keys), so that
+the packing and the kernel's order of work are tested without a GPU.
 """
 
 from __future__ import annotations
@@ -249,11 +251,14 @@ def kernel_refusal(T: int, N: int, D: int, depth: int, n_heads: int, d_head: int
     ``_launch`` raises with this reason, so the two cannot disagree."""
     if compute_dtype not in _DTYPES:
         return f"compute dtype {compute_dtype} not supported (float32 or bfloat16)"
-    if not (0 < N <= MAX_N and 0 < D <= MAX_D and 0 < d_head <= MAX_D_HEAD
+    # N <= MAX_N is the general instance's limit; a fast instance sets its own
+    fast = compute_dtype == torch.bfloat16 and fast_applies(N, D, d_head, M)
+    if not ((0 < N <= MAX_N or fast) and 0 < D <= MAX_D and 0 < d_head <= MAX_D_HEAD
             and T > 0 and depth > 0 and n_heads > 0 and M > 0
             and D % 16 == 0 and d_head % 16 == 0 and M % 16 == 0):
         return (f"it takes N <= {MAX_N}, D <= {MAX_D}, d_head <= {MAX_D_HEAD}, "
-                f"with D, d_head and the MLP width multiples of 16")
+                f"with D, d_head and the MLP width multiples of 16"
+                + _fast_limits(D, d_head))
     if weights is not None:
         inner = n_heads * d_head
         expect = {"w_qkv": (3 * inner, D), "w_out": (D, inner), "w_ff1": (M, D),
@@ -266,7 +271,7 @@ def kernel_refusal(T: int, N: int, D: int, depth: int, n_heads: int, d_head: int
                         f"match {want}")
     device = torch.device(device) if device is not None else None
     if device is not None and device.type == "cuda":
-        _, smem = _kernel_plan(N, D, n_heads, d_head, M, compute_dtype)
+        smem = _kernel_plan(N, D, n_heads, d_head, M, compute_dtype)[1]
         limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
         if smem > limit:
             return (f"needs {smem} bytes of shared memory per block, the device "
@@ -274,14 +279,22 @@ def kernel_refusal(T: int, N: int, D: int, depth: int, n_heads: int, d_head: int
     return None
 
 
+def _fast_limits(D: int, d_head: int) -> str:
+    """The fast instances' own limits at these widths, for a refusal."""
+    max_n = max((i.max_n for i in FAST_INSTANCES if (i.d, i.d_head) == (D, d_head)),
+                default=None)
+    return "" if max_n is None else f" (N <= {max_n} in bfloat16 at D {D}, d_head {d_head})"
+
+
 def _kernel_plan(N, D, n_heads, d_head, M, cd) -> tuple:
     """(frames per block of the fast instance or 0 for the general one,
-    shared-memory bytes per block), from the kernel source's own plan."""
+    shared-memory bytes per block, blocks per cluster, MLP chunk of the
+    weight stream), from the kernel source's own plan."""
     dims = (N, D, n_heads, d_head, M, torch.finfo(cd).bits // 8)
-    frames = _build.function("spatial_table", "spatial_table_plan", [ctypes.c_int] * 6)(*dims)
-    smem = _build.function("spatial_table", "spatial_table_smem_bytes",
-                           [ctypes.c_int] * 6, ctypes.c_longlong)(*dims)
-    return frames, smem
+    fn = lambda name, restype=ctypes.c_int: _build.function(
+        "spatial_table", name, [ctypes.c_int] * 6, restype)(*dims)
+    return (fn("spatial_table_plan"), fn("spatial_table_smem_bytes", ctypes.c_longlong),
+            fn("spatial_table_cluster_size"), fn("spatial_table_mlp_chunk"))
 
 
 def _launch(tokens, w: SpatialWeights, n_offsets, depth, n_heads, d_head,
@@ -296,13 +309,15 @@ def _launch(tokens, w: SpatialWeights, n_offsets, depth, n_heads, d_head,
     if refusal is not None:
         raise ValueError(f"spatial_table: shape not supported by the CUDA kernel "
                          f"({shape}): {refusal}")
-    frames, _ = _kernel_plan(N, D, n_heads, d_head, M, cd)
-    if frames != (fast_frames_per_block(N, D, d_head) if cd == torch.bfloat16
-                  and fast_applies(N, D, d_head, M) else 0):
+    frames, _, cluster, chunk = _kernel_plan(N, D, n_heads, d_head, M, cd)
+    inst = fast_instance(D, d_head, N)
+    expect = ((fast_frames_per_block(N, D, d_head), inst.cluster, inst.mlp_chunk)
+              if cd == torch.bfloat16 and fast_applies(N, D, d_head, M) else (0, 0, 0))
+    if (frames, cluster, chunk) != expect:
         raise RuntimeError(f"spatial_table: the kernel source and its wrapper "
                            f"disagree on the instance for {shape}")
 
-    wmat, wln = _packed_weights(w, depth, n_heads, cd, dev, fast=frames > 0)
+    wmat, wln = _packed_weights(w, depth, n_heads, cd, dev, mlp_chunk=chunk)
     tok = _aligned(tokens.to(cd).contiguous())
     base = _aligned(w.base[:n_offsets, :N].to(device=dev, dtype=cd).contiguous())
     out = torch.empty((n_offsets, T, D), device=dev, dtype=cd)
@@ -313,7 +328,7 @@ def _launch(tokens, w: SpatialWeights, n_offsets, depth, n_heads, d_head,
              float(scale), torch.cuda.current_stream(dev).cuda_stream)
     _build.check("spatial_table", err, "spatial_table")
     spatial_table.launches += 1
-    spatial_table.instance = f"fast_D{D}_F{frames}" if frames else "general"
+    spatial_table.instance = fast_instance_name(N, D, d_head) if frames else "general"
     spatial_table.frames_per_block = frames or 1
     return out
 
@@ -336,65 +351,92 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 class FastInstance(NamedTuple):
     """One compiled width of the fast instance (``Shape`` in the source):
     model and head width, the MLP columns of one FF panel, the rows its
-    products compute and the rows of q, k and v in shared memory."""
+    products compute per block, the rows of q, k and v in shared memory
+    (packed frames), the most tokens a frame may have, and the blocks that
+    share one frame."""
     d: int
     d_head: int
     mlp_chunk: int
     product_rows: int
     rows: int
+    max_n: int = 80
+    cluster: int = 1
 
 
-# the flagship ViViT's (2 x 64 wgmma rows + 16 on mma.sync) and the demo
-# ViViT's (2 x 64 wgmma rows)
-FAST_INSTANCES = (FastInstance(128, 64, 128, 144, 160), FastInstance(64, 32, 64, 128, 144))
-# both: five 16-key tiles in the attention core; the last layer's 16-row cls tile
-FAST_MAX_N, FAST_MAX_FRAMES = 80, 16
+# Up to PACKED_MAX_N tokens (five 16-key tiles, one pass of the attention
+# core) a block packs several frames; past it a block, or a cluster of two,
+# owns one frame. The flagship ViViT's widths (2 x 64 wgmma rows + 16 on
+# mma.sync a block): packed up to N 80, one frame a block up to its 144
+# rows, one frame over a two-block cluster (MLP chunks of 64, so that the
+# panels fit beside the frame's k and v) up to N 257, the full 256 px frame
+# at patch 16. The demo ViViT's (2 x 64 wgmma rows): packed up to N 80.
+PACKED_MAX_N = 80
+FAST_INSTANCES = (FastInstance(128, 64, 128, 144, 160),
+                  FastInstance(128, 64, 128, 144, 160, max_n=144),
+                  FastInstance(128, 64, 64, 144, 160, max_n=257, cluster=2),
+                  FastInstance(64, 32, 64, 128, 144))
+# the last layer's 16-row cls tile
+FAST_MAX_FRAMES = 16
 
 _GENERAL_ORDER = ("w_qkv", "w_out", "b_out", "w_ff1", "b_ff1", "w_ff2", "b_ff2")
 _LN_ORDER = ("ln_a_s", "ln_a_b", "ln_f_s", "ln_f_b")
 
 
-def fast_instance(D: int, d_head: int):
-    """The fast instance compiled for these widths, or None."""
-    return next((i for i in FAST_INSTANCES if (i.d, i.d_head) == (D, d_head)), None)
+def fast_instance(D: int, d_head: int, N: int = 1):
+    """The fast instance compiled for these widths that takes frames of N
+    tokens (by default the packed one), or None."""
+    return next((i for i in FAST_INSTANCES
+                 if (i.d, i.d_head) == (D, d_head) and 1 <= N <= i.max_n), None)
 
 
-def _instance_of(D: int, d_head: int) -> FastInstance:
-    inst = fast_instance(D, d_head)
+def _instance_of(D: int, d_head: int, N: int = 1) -> FastInstance:
+    inst = fast_instance(D, d_head, N)
     if inst is None:
-        raise ValueError(f"no fast instance is compiled for D {D}, d_head {d_head}")
+        raise ValueError(f"no fast instance is compiled for D {D}, d_head {d_head}, N {N}")
     return inst
 
 
 def fast_applies(N: int, D: int, d_head: int, M: int) -> bool:
     """Whether a bf16 call at these widths takes the fast instance."""
-    inst = fast_instance(D, d_head)
-    return (inst is not None and M > 0 and M % inst.mlp_chunk == 0
-            and 1 <= N <= FAST_MAX_N)
+    inst = fast_instance(D, d_head, N)
+    return inst is not None and M > 0 and M % inst.mlp_chunk == 0
 
 
 def fast_frames_per_block(N: int, D: int, d_head: int) -> int:
-    """Frames one block of the fast instance at these widths owns: the most
-    whose packed rows fit in the ``product_rows`` rows its products compute
-    and, the last frame's keys padded to a multiple of 16, in its ``rows``
-    rows of q, k and v; at most FAST_MAX_FRAMES (the last layer's cls
-    tile)."""
-    inst = _instance_of(D, d_head)
+    """Frames one block of the fast instance at these widths owns: packed
+    (N <= PACKED_MAX_N), the most whose rows fit in the ``product_rows`` rows
+    its products compute and, the last frame's keys padded to a multiple of
+    16, in its ``rows`` rows of q, k and v, at most FAST_MAX_FRAMES (the last
+    layer's cls tile); past it one (a block or a cluster owns a frame)."""
+    inst = _instance_of(D, d_head, N)
+    if inst.max_n > PACKED_MAX_N:
+        return 1
     return min((inst.rows - -(-N // 16) * 16) // N + 1, inst.product_rows // N,
                FAST_MAX_FRAMES)
 
 
-def fast_kernel_attributes(D: int, d_head: int) -> dict:
-    """The fast instance at these widths as the card takes it (builds the
-    kernel library): registers a thread, dynamic and static shared memory a
-    block, threads a block and blocks resident on one SM."""
-    out = (ctypes.c_int * 5)()
+def fast_instance_name(N: int, D: int, d_head: int) -> str:
+    """``spatial_table.instance`` for the fast instance at N tokens: by its
+    frames per block where it packs them, else by N and its cluster size."""
+    inst = _instance_of(D, d_head, N)
+    if inst.max_n > PACKED_MAX_N:
+        return f"fast_D{D}_N{N}_C{inst.cluster}"
+    return f"fast_D{D}_F{fast_frames_per_block(N, D, d_head)}"
+
+
+def fast_kernel_attributes(D: int, d_head: int, N: int = 1) -> dict:
+    """The fast instance at these widths that takes N tokens as the card
+    takes it (builds the kernel library): registers a thread, dynamic and
+    static shared memory a block, threads a block, blocks resident on one
+    SM, blocks a cluster and clusters resident on the card (0 for a block
+    of its own)."""
+    out = (ctypes.c_int * 7)()
     fn = _build.function("spatial_table", "spatial_table_fast_attributes",
-                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    _build.check("spatial_table", fn(D, d_head, ctypes.addressof(out)),
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    _build.check("spatial_table", fn(N, D, d_head, ctypes.addressof(out)),
                  "spatial_table_fast_attributes")
     keys = ("registers", "dynamic_smem_bytes", "static_smem_bytes", "threads",
-            "blocks_per_sm")
+            "blocks_per_sm", "cluster_size", "active_clusters")
     return dict(zip(keys, out))
 
 
@@ -411,16 +453,17 @@ def _unpanel(flat: torch.Tensor, rows: int, K: int) -> torch.Tensor:
 
 
 def pack_fast(w: SpatialWeights, depth: int, n_heads: int,
-              dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+              dtype: torch.dtype = torch.bfloat16, mlp_chunk: int = None) -> torch.Tensor:
     """The fast instance's weight stream, for the instance of the bundle's
     widths. Per layer, in the order the kernel multiplies: per head h the q
     rows then the k rows of w_qkv as one panel (2*d_head, D), its v rows
-    (d_head, D), and its columns of w_out (D, d_head); per chunk c of the
-    instance's ``mlp_chunk`` MLP columns the rows of w_ff1 (chunk, D) and
-    the columns of w_ff2 (D, chunk); then b_out, b_ff1, b_ff2."""
+    (d_head, D), and its columns of w_out (D, d_head); per chunk c of
+    ``mlp_chunk`` MLP columns (by default the packed instance's) the rows of
+    w_ff1 (chunk, D) and the columns of w_ff2 (D, chunk); then b_out,
+    b_ff1, b_ff2."""
     D = w.w_qkv[0].shape[1]
     dh = w.w_qkv[0].shape[0] // (3 * n_heads)
-    mc = _instance_of(D, dh).mlp_chunk
+    mc = mlp_chunk or _instance_of(D, dh).mlp_chunk
     inner = n_heads * dh
     parts = []
     for d in range(depth):
@@ -438,12 +481,12 @@ def pack_fast(w: SpatialWeights, depth: int, n_heads: int,
 
 
 def fast_panels(packed: torch.Tensor, depth: int, n_heads: int, M: int, D: int,
-                d_head: int):
+                d_head: int, mlp_chunk: int = None):
     """Walk a ``pack_fast`` stream of the instance at (D, d_head) in the
     kernel's order: yields ``(layer, kind, index, matrix)`` with the
     blocking undone, kind one of "qk", "v", "out" (index = head), "ff1",
     "ff2" (index = chunk), and "b_out", "b_ff1", "b_ff2" (vectors)."""
-    dh, mc = d_head, _instance_of(D, d_head).mlp_chunk
+    dh, mc = d_head, mlp_chunk or _instance_of(D, d_head).mlp_chunk
     pos = 0
 
     def take(rows, K):
@@ -472,13 +515,13 @@ def fast_panels(packed: torch.Tensor, depth: int, n_heads: int, M: int, D: int,
 
 
 def unpack_fast(packed: torch.Tensor, depth: int, n_heads: int, M: int, D: int,
-                d_head: int) -> dict:
+                d_head: int, mlp_chunk: int = None) -> dict:
     """The matrices and biases a ``pack_fast`` stream of the instance at (D,
     d_head) was made from, as ``{field: tuple over layers}`` in
     ``SpatialWeights`` layout."""
     dh = d_head
     got = {}
-    for d, kind, _, m in fast_panels(packed, depth, n_heads, M, D, d_head):
+    for d, kind, _, m in fast_panels(packed, depth, n_heads, M, D, d_head, mlp_chunk):
         got.setdefault((d, kind), []).append(m)
     out = {name: [] for name in _GENERAL_ORDER}
     for d in range(depth):
@@ -516,27 +559,47 @@ def _mm_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.unsqueeze(-2) * b.unsqueeze(-3)).sum(-1)
 
 
+def two_pass_probs(scores: torch.Tensor, key_block: int) -> torch.Tensor:
+    """Softmax over the last axis as the fast instance takes it past
+    PACKED_MAX_N tokens (``attn_strip_two_pass``): a first pass over blocks
+    of ``key_block`` keys keeps each row's running max and its sum of
+    exponentials, rescaled when the max grows; the second divides each
+    exponential by the sum (as a product with its reciprocal). f32."""
+    m = torch.full_like(scores[..., :1], float("-inf"))
+    total = torch.zeros_like(m)
+    for k0 in range(0, scores.shape[-1], key_block):
+        blk = scores[..., k0:k0 + key_block]
+        m_new = torch.maximum(m, blk.amax(-1, keepdim=True))
+        total = total * torch.exp(m - m_new) + torch.exp(blk - m_new).sum(-1, keepdim=True)
+        m = m_new
+    return torch.exp(scores - m) * (1.0 / total)
+
+
 def packed_walk_reference(tokens: torch.Tensor, packed: torch.Tensor, wln: torch.Tensor,
                           base: torch.Tensor, depth: int, n_heads: int, d_head: int, M: int,
                           compute_dtype: torch.dtype = torch.bfloat16,
-                          scale: float = None, cls_last: bool = True) -> torch.Tensor:
+                          scale: float = None, cls_last: bool = True,
+                          mlp_chunk: int = None, key_block: int = None) -> torch.Tensor:
     """The fast instance's walk in plain PyTorch: the same function as
     ``spatial_table_reference``, computed from a ``pack_fast`` stream panel
     by panel in the kernel's order (per head q|k, v, attention,
     out-projection summed over heads in f32; per MLP chunk FF1, GELU, FF2
     summed over chunks in f32), with the kernel's cast points. With
     ``cls_last`` the last layer computes K and V for all rows and everything
-    else for the cls row only, which is all the table keeps. Products go
-    through ``_mm_rows``, so the cls row's arithmetic is the same either
-    way, bit for bit; it is meant for small inputs."""
+    else for the cls row only, which is all the table keeps. ``mlp_chunk``
+    is the stream's chunk (by default the packed instance's); with
+    ``key_block`` the softmax runs as the two-pass core does
+    (``two_pass_probs``), else over all keys at once. Products go through
+    ``_mm_rows``, so the cls row's arithmetic is the same either way, bit
+    for bit; it is meant for small inputs."""
     cd = compute_dtype
     D, dh = tokens.shape[-1], d_head
-    mc = _instance_of(D, dh).mlp_chunk
+    mc = mlp_chunk or _instance_of(D, dh).mlp_chunk
     scale = dh ** -0.5 if scale is None else scale
     rnd = lambda t: t.to(cd).float()
     ln = wln.float().reshape(-1, D)
     panels = {(d, kind, i): rnd(m)
-              for d, kind, i, m in fast_panels(packed, depth, n_heads, M, D, dh)}
+              for d, kind, i, m in fast_panels(packed, depth, n_heads, M, D, dh, mc)}
     tokens, base = rnd(tokens), rnd(base[:, :tokens.shape[1]])
     out = []
     for off in range(base.shape[0]):
@@ -550,8 +613,12 @@ def packed_walk_reference(tokens: torch.Tensor, packed: torch.Tensor, wln: torch
                 q, k = rnd(_mm_rows(h[:, rows], qk[:dh])), rnd(_mm_rows(h, qk[dh:]))
                 v = rnd(_mm_rows(h, wv))
                 sc = _mm_rows(q, k) * scale
-                e = torch.exp(sc - sc.amax(-1, keepdim=True))
-                o = rnd(_mm_rows(rnd(e / e.sum(-1, keepdim=True)), v.transpose(-1, -2)))
+                if key_block:
+                    prob = two_pass_probs(sc, key_block)
+                else:
+                    e = torch.exp(sc - sc.amax(-1, keepdim=True))
+                    prob = e / e.sum(-1, keepdim=True)
+                o = rnd(_mm_rows(rnd(prob), v.transpose(-1, -2)))
                 acc = acc + _mm_rows(o, panels[d, "out", hh])
             x = rnd(x[:, rows] + rnd(rnd(acc) + panels[d, "b_out", 0]))
             f = rnd(_layer_norm(x, ln[4 * d + 2], ln[4 * d + 3]))
@@ -570,14 +637,17 @@ _pack_cache: dict = {}
 _PACK_CACHE_SIZE = 8
 
 
-def _packed_weights(w: SpatialWeights, depth, n_heads, cd, dev, fast: bool):
-    """(matrices, LayerNorm vectors) on ``dev`` for the instance, cached per
-    weights object (its tensors' identity and version), dtype and device."""
+def _packed_weights(w: SpatialWeights, depth, n_heads, cd, dev, mlp_chunk: int):
+    """(matrices, LayerNorm vectors) on ``dev`` for the instance (the fast
+    one's stream in MLP chunks of ``mlp_chunk``, or with 0 the general
+    one's), cached per weights object (its tensors' identity and version),
+    dtype, device and chunk."""
     tensors = [t for field in w[1:] for t in (field if isinstance(field, tuple) else (field,))]
-    key = (tuple((id(t), t._version) for t in tensors), depth, n_heads, cd, str(dev), fast)
+    key = (tuple((id(t), t._version) for t in tensors), depth, n_heads, cd, str(dev), mlp_chunk)
     hit = _pack_cache.get(key)
     if hit is None:
-        wmat = pack_fast(w, depth, n_heads, cd) if fast else pack_general(w, depth, cd)
+        wmat = (pack_fast(w, depth, n_heads, cd, mlp_chunk) if mlp_chunk
+                else pack_general(w, depth, cd))
         # the entry keeps `tensors` alive, so their ids stay theirs
         hit = (wmat.to(dev), pack_layer_norms(w, depth).to(dev), tensors)
         while len(_pack_cache) >= _PACK_CACHE_SIZE:

@@ -203,9 +203,37 @@ def test_spatial_table_fast_instance_at_the_fusion_mlp(dev, n_tok):
 
 
 def test_video_sweep_falls_back_where_the_kernel_refuses(dev):
-    """N = 257 tokens (patch 4 over 64 px): ``use_fused_table=None`` builds
-    the plain table on the GPU without a launch, ``True`` raises; at patch
-    16 the same sweeper launches the kernel once per shot."""
+    """N = 401 tokens (patch 4 over 80 px), past the kernel's largest
+    instance: ``use_fused_table=None`` builds the plain table on the GPU
+    without a launch, ``True`` raises; at patch 16 the same sweeper
+    launches the kernel once per shot."""
+    import numpy as np
+
+    from kstar_torch.infer.continuous import VideoSweeper
+
+    model = ViViT(image_size=80, patch_size=4, n_frames=5, dim=128, depth=1, n_heads=2,
+                  d_head=64, scale_dim=2, generator=torch.Generator().manual_seed(8))
+    frames = np.random.default_rng(0).integers(0, 255, (40, 80, 80, 3), dtype=np.uint8)
+    starts = np.arange(30)
+    before = tst.spatial_table.launches
+    plain = VideoSweeper(model, 5, 80, 16, torch.bfloat16, device=dev)
+    p_none = plain.sweep(frames, starts)
+    assert plain.fused_table_active is False and tst.spatial_table.launches == before
+    forced = VideoSweeper(model, 5, 80, 16, torch.bfloat16, use_fused_table=False, device=dev)
+    np.testing.assert_array_equal(p_none, forced.sweep(frames, starts))
+    with pytest.raises(ValueError, match="not supported"):
+        VideoSweeper(model, 5, 80, 16, torch.bfloat16, use_fused_table=True, device=dev)
+    small = VideoSweeper(model, 5, 16, 16, torch.bfloat16, device=dev)
+    assert small.fused_table_active is True
+    small.sweep(frames, starts)
+    assert tst.spatial_table.launches == before + 1
+
+
+def test_video_sweep_takes_the_kernel_at_257_tokens(dev):
+    """N = 257 tokens (patch 4 over 64 px, the shape the kernel refused
+    before its cluster instance): ``use_fused_table=None`` takes the kernel,
+    launches it once per shot, and its curve is the plain table's within
+    the sweep's limits (max 0.05, mean 5e-3)."""
     import numpy as np
 
     from kstar_torch.infer.continuous import VideoSweeper
@@ -215,17 +243,51 @@ def test_video_sweep_falls_back_where_the_kernel_refuses(dev):
     frames = np.random.default_rng(0).integers(0, 255, (40, 64, 64, 3), dtype=np.uint8)
     starts = np.arange(30)
     before = tst.spatial_table.launches
-    plain = VideoSweeper(model, 5, 64, 16, torch.bfloat16, device=dev)
-    p_none = plain.sweep(frames, starts)
-    assert plain.fused_table_active is False and tst.spatial_table.launches == before
-    forced = VideoSweeper(model, 5, 64, 16, torch.bfloat16, use_fused_table=False, device=dev)
-    np.testing.assert_array_equal(p_none, forced.sweep(frames, starts))
-    with pytest.raises(ValueError, match="not supported"):
-        VideoSweeper(model, 5, 64, 16, torch.bfloat16, use_fused_table=True, device=dev)
-    small = VideoSweeper(model, 5, 16, 16, torch.bfloat16, device=dev)
-    assert small.fused_table_active is True
-    small.sweep(frames, starts)
+    fused = VideoSweeper(model, 5, 64, 16, torch.bfloat16, device=dev)
+    assert fused.fused_table_active is True
+    p_kernel = fused.sweep(frames, starts)
     assert tst.spatial_table.launches == before + 1
+    assert tst.spatial_table.instance == "fast_D128_N257_C2"
+    p_plain = VideoSweeper(model, 5, 64, 16, torch.bfloat16, use_fused_table=False,
+                           device=dev).sweep(frames, starts)
+    err = np.abs(p_kernel - p_plain)
+    assert np.isfinite(p_kernel).all() and err.max() <= 5e-2 and err.mean() <= 5e-3
+
+
+@pytest.fixture(scope="module")
+def full_frame():
+    """The flagship ViViT at image_size 256 (a positional embedding for 257
+    tokens) with random weights, an MLP of 1024 and of 512, and 23 frames
+    of zero-cls-padded random tokens at the full frame."""
+    g = torch.Generator().manual_seed(12)
+    models = {M: ViViT(image_size=256, scale_dim=M // 128, generator=g) for M in (1024, 512)}
+    tokens = F.pad(torch.randn(23, 256, 128, generator=g), (0, 0, 1, 0))
+    return models, tokens
+
+
+@pytest.mark.parametrize("M", [1024, 512], ids=["MLP1024", "MLP512"])
+@pytest.mark.parametrize("n_tok", [81, 101, 144, 145, 197, 257])
+def test_spatial_table_one_frame_instances(dev, full_frame, n_tok, M):
+    """Past 80 tokens at the flagship widths in bf16: one frame a block up
+    to 144 tokens, one frame over a two-block cluster up to 257 (the
+    patch-16 crops of the stored 256 px frame), each against the plain
+    version; frames are independent (a frame's row is the same in another
+    call)."""
+    models, tokens = full_frame
+    x = tokens[:, :n_tok]
+    full = _table_case(dev, models[M], x, torch.bfloat16)
+    assert tst.spatial_table.instance == f"fast_D128_N{n_tok}_C{1 if n_tok <= 144 else 2}"
+    assert torch.equal(full[:, 3:5], _table_case(dev, models[M], x[3:5], torch.bfloat16))
+
+
+def test_spatial_table_one_frame_instances_fit_the_card(dev):
+    """The one-frame instances as the card takes them: one block per SM,
+    384 threads; the cluster instance's two blocks fit beside each other."""
+    one = tst.fast_kernel_attributes(128, 64, 101)
+    two = tst.fast_kernel_attributes(128, 64, 257)
+    assert one["blocks_per_sm"] == 1 and one["threads"] == 384 and one["cluster_size"] == 1
+    assert two["blocks_per_sm"] == 1 and two["threads"] == 384 and two["cluster_size"] == 2
+    assert two["active_clusters"] >= 1 and two["dynamic_smem_bytes"] <= 232448
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -271,7 +271,9 @@ def test_fast_frames_per_block(widths, n, frames):
     assert tst.fast_applies(n, D, dh, 8 * inst.mlp_chunk)
     assert not tst.fast_applies(n, D, dh, 8 * inst.mlp_chunk + 16)
     assert not tst.fast_applies(n, 64, 64, 1024) and not tst.fast_applies(n, 128, 32, 1024)
-    assert not tst.fast_applies(81, D, dh, 8 * inst.mlp_chunk)
+    # past 80 tokens the flagship widths take the one-frame instances; the
+    # demo widths have none
+    assert tst.fast_applies(81, D, dh, 8 * inst.mlp_chunk) == (D == 128)
 
 
 @pytest.mark.parametrize("widths", list(WIDTHS), ids=list(WIDTHS))
@@ -339,11 +341,13 @@ def test_packed_walk_bf16_within_the_kernel_tolerance_at_the_demo_widths():
 def test_packed_weights_are_cached_per_bundle_and_dtype():
     w, _ = _flagship_like(**WIDTHS["flagship"])
     cpu = torch.device("cpu")
-    a = tst._packed_weights(w, 2, 4, torch.bfloat16, cpu, fast=True)
-    b = tst._packed_weights(w, 2, 4, torch.bfloat16, cpu, fast=True)
+    a = tst._packed_weights(w, 2, 4, torch.bfloat16, cpu, mlp_chunk=128)
+    b = tst._packed_weights(w, 2, 4, torch.bfloat16, cpu, mlp_chunk=128)
     assert a[0] is b[0] and a[1] is b[1]
-    c = tst._packed_weights(w, 2, 4, torch.float32, cpu, fast=False)
+    c = tst._packed_weights(w, 2, 4, torch.float32, cpu, mlp_chunk=0)
     assert c[0] is not a[0] and torch.equal(c[0], tst.pack_general(w, 2, torch.float32))
+    e = tst._packed_weights(w, 2, 4, torch.bfloat16, cpu, mlp_chunk=64)   # the cluster's chunks
+    assert e[0] is not a[0] and torch.equal(e[0], tst.pack_fast(w, 2, 4, mlp_chunk=64))
     w.w_ff1[0].mul_(2.0)                      # an in-place update invalidates the entry
-    d = tst._packed_weights(w, 2, 4, torch.bfloat16, cpu, fast=True)
+    d = tst._packed_weights(w, 2, 4, torch.bfloat16, cpu, mlp_chunk=128)
     assert d[0] is not a[0] and not torch.equal(d[0], a[0])
