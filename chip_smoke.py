@@ -11,7 +11,12 @@ width of the flagship ViViT (dim 128, depth 2, 4 heads x 64, MLP 1024,
   sweep         the stride-1 whole-shot sweep over a synthetic 4096-frame
                 shot, the probability curve and its alarm (spatial-table
                 kernel)
-  vivit_pallas  the ViViT forward with the fused-attention kernel
+  f32_sweep     the same sweep with compute_dtype float32 (the spatial-table
+                kernel's f32 instance, split TF32): clips/s, the table,
+                window loop and embedding apart, the curve against the plain
+                f32 table's (three timed sweeps)
+  vivit_pallas  the ViViT forward with the fused-attention kernel, in bf16
+                and in f32 (its split-TF32 instance)
   stream        frames in, alarms out: block size chosen by probing at the
                 camera's 210 fps, block times and frame-to-alarm latency,
                 blocks against single pushes and against the plain gather
@@ -116,7 +121,9 @@ until the end):
   continuous_prediction  kstar_torch.cli.make_continuous_prediction
                          --video_tag <train_cli's tag>: one table-kernel
                          launch, the curve against predict_video_shot, the
-                         figures or their skip lines (no matplotlib)
+                         figures or their skip lines (no matplotlib); then
+                         again with --compute_dtype float32, its one launch
+                         on the table kernel's f32 instance
   xai                    Grad-CAM (R(2+1)D), guided-backprop saliency
                          (R(2+1)D, SlowFast) and attention rollout (ViViT)
                          at batch 2 in f32, card against CPU; no kernel
@@ -213,7 +220,8 @@ SEQ_LEN, CROP, RESIZE, BATCH = 21, 128, 256, 128
 SMALL_CROP = 64                   # 16 patches + cls = 17 tokens
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12,   # dense tensor cores
-                  "float32": 67e12}     # f32 outside the tensor cores
+                  "float32": 67e12,     # f32 outside the tensor cores
+                  "tf32": 495e12}       # dense tensor cores, TF32 operands
 
 
 T_START = time.perf_counter()
@@ -297,6 +305,21 @@ def bound(ops: float, nbytes: float, dtype: str) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def row_bounds(ops: float, nbytes: float, dtype: str) -> dict:
+    """bound_ms and bound_by of a kernel_check row: in bf16 the tensor
+    cores' rate; in f32 the lesser of two bounds, both printed: the
+    operations on the f32 FMA units (67 TFLOP/s), and in split TF32 (three
+    TF32 products each, 495 TFLOP/s) on the tensor cores."""
+    bound_ms, bound_by = bound(ops, nbytes, dtype)
+    if dtype != "float32":
+        return dict(bound_ms=bound_ms, bound_by=bound_by)
+    tf32_ms, tf32_by = bound(3 * ops, nbytes, "tf32")
+    fields = dict(bound_f32_fma_ms=bound_ms, bound_split_tf32_ms=tf32_ms)
+    if tf32_ms < bound_ms:
+        bound_ms, bound_by = tf32_ms, tf32_by
+    return dict(bound_ms=bound_ms, bound_by=bound_by, **fields)
+
+
 def table_work(T, n_off, N, D, depth, H, dh, M, elem):
     """Operations and bytes of one spatial-table call, counting only what
     the output needs: the table keeps the cls row after the final LN, so
@@ -315,16 +338,28 @@ def table_work(T, n_off, N, D, depth, H, dh, M, elem):
     return ops, nbytes
 
 
-def table_attributes(D: int, d_head: int, N: int = 1) -> dict:
-    """The fast instance at (D, d_head) for N tokens as the card takes it
-    (registers, shared memory, threads, blocks per SM, blocks per cluster
-    and clusters resident) when the last K1 launch took a fast instance,
-    for its kernel_check row; else nothing."""
+def table_attributes(D: int, d_head: int, N: int = 1, dtype=torch.bfloat16) -> dict:
+    """The fast (or f32) instance at (D, d_head) for N tokens as the card
+    takes it (registers, shared memory, threads, blocks per SM, blocks per
+    cluster and clusters resident) when the last K1 launch took a fast
+    instance, for its kernel_check row; else nothing."""
     from kstar_torch.ops.spatial_table import fast_kernel_attributes, spatial_table
 
     if not (spatial_table.instance or "").startswith("fast"):
         return {}
-    return {"kernel_attributes": fast_kernel_attributes(D, d_head, N)}
+    return {"kernel_attributes": fast_kernel_attributes(D, d_head, N, dtype)}
+
+
+def time_once(fn) -> float:
+    """Device time of one call of fn() (CUDA events), for a plain version
+    too slow to repeat; the caller has run it once before."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def step_launches(step) -> tuple:
@@ -2173,14 +2208,16 @@ def reload_eval_phase(root: str, trained: dict) -> tuple:
     return ok, fields, k1, k3
 
 
-def continuous_prediction_phase(root: str, dev) -> tuple:
+def continuous_prediction_phase(root: str, dev, extra=(), instance=None) -> tuple:
     """python -m kstar_torch.cli.make_continuous_prediction --synthetic at its
     default widths (the flagship ViViT, a 0D Transformer with random weights)
-    with --video_tag of train_cli's checkpoint: one spatial-table launch for
-    the whole-shot video sweep, the printed alarm line, the curve equal to
-    predict_video_shot called directly with the same weights and frames
-    (|dp| <= 1e-6), and the figures and GIFs by the figure rule. Returns
-    (ok, fields, spatial-table launches)."""
+    with --video_tag of train_cli's checkpoint and the ``extra`` flags (say
+    --compute_dtype float32): one spatial-table launch for the whole-shot
+    video sweep (on an instance whose name starts with ``instance`` where
+    given: the CLI's 64 px crop packs F frames), the printed alarm line, the
+    curve equal to predict_video_shot called directly with the same weights,
+    frames and dtype (|dp| <= 1e-6), and the figures and GIFs by the figure
+    rule. Returns (ok, fields, spatial-table launches)."""
     import re
 
     import numpy as np
@@ -2194,9 +2231,12 @@ def continuous_prediction_phase(root: str, dev) -> tuple:
 
     wdir = f"{root}/vivit/w"
     tag = [f for f in os.listdir(wdir) if f.endswith("_best.ckpt")][0][:-len("_best.ckpt")]
+    from kstar_torch.ops.spatial_table import spatial_table
+
     argv = ["--synthetic", "--video_tag", tag, "--weight_dir", wdir,
-            "--save_dir", f"{root}/prediction"]
+            "--save_dir", f"{root}/prediction", *extra]
     res, text, wall, launches_k = run_cli(make_continuous_prediction.main, argv)
+    taken = spatial_table.instance
     shot = res["shot"]
     alarm = re.search(rf"shot {shot} \| video alarm at .*", text)
 
@@ -2222,14 +2262,16 @@ def continuous_prediction_phase(root: str, dev) -> tuple:
     figs = figures_check(text, [f"{root}/prediction/{name}" for name in (
         f"prob_0D_{shot}.png", f"real_time_disruption_prediction_0D_{shot}.gif",
         f"prob_video_{shot}.png", f"real_time_disruption_prediction_{shot}.gif")])
-    fields = dict(wall_s=wall, shot=shot, alarm_line=alarm.group(0) if alarm else None,
+    fields = dict(wall_s=wall, compute_dtype=args.compute_dtype, shot=shot,
+                  alarm_line=alarm.group(0) if alarm else None,
                   curve_len=int(len(p_vid)), curve_max=float(np.max(p_vid)),
                   vs_direct_max_abs=err, zero_d_curve=res["0D"] is not None,
-                  kernel_launches=launches_k, figures=figs)
+                  kernel_launches=launches_k, spatial_table_instance=taken, figures=figs)
     ok = (launches_k["spatial_table"] == 1 and launches_k["gather_normalize"] == 0
           and launches_k["fused_attention"] == 0 and alarm is not None
           and bool(np.isfinite(p_vid).all()) and err <= 1e-6
-          and res["0D"] is not None and figs["ok"])
+          and res["0D"] is not None and figs["ok"]
+          and (instance is None or (taken or "").startswith(instance)))
     return ok, fields, launches_k["spatial_table"]
 
 
@@ -3534,6 +3576,79 @@ def full_frame_sweep_phase(seed: int, frames, dev, cfg) -> tuple:
     return ok, fields, launches
 
 
+F32_INSTANCE = "fast_f32_D128_F1"   # K1's f32 instance at the flagship's 65 tokens
+# f32 curves: the kernel's table is within the f32 table limits (1e-4 +
+# 1e-4 |x|, mean 1e-5) of the plain one, and the window loop is the same
+# f32 arithmetic on both, so the probabilities are held to the same limits
+F32_CURVE_TOL = (1e-4, 1e-5)
+
+
+def f32_twin(model, cfg, dev):
+    """The flagship ViViT with the same parameters, computing in f32."""
+    from kstar_torch.models import build_video_model
+
+    twin = build_video_model("ViViT", cfg, dtype=torch.float32)
+    twin.load_state_dict(model.state_dict())
+    return twin.to(dev).eval()
+
+
+def f32_sweep_phase(frames_dev, dev, cfg, model) -> tuple:
+    """VideoSweeper(compute_dtype=torch.float32) over the whole uploaded
+    shot (the flagship ViViT's f32 twin, use_fused_table=None): it must take
+    K1's f32 instance and launch it once per sweep. Clips/s over 3 sweeps
+    after a warm-up, the embedding, table and window loop apart, the curve
+    against the plain f32 table's (timed once) within F32_CURVE_TOL.
+    Returns (ok, fields, K1 launches of the timed sweeps)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from kstar_torch.infer import VideoSweeper
+    from kstar_torch.ops.spatial_table import extract_spatial_weights, spatial_table
+
+    m32 = f32_twin(model, cfg, dev)
+    hp = dict(depth=cfg.depth, n_heads=cfg.n_heads, d_head=cfg.d_head)
+    starts = np.arange(len(frames_dev) - SEQ_LEN - 1, dtype=np.int64)
+    sw = VideoSweeper(m32, SEQ_LEN, CROP, BATCH, torch.float32, device=dev)
+    sw.sweep_device(frames_dev, starts)                 # warm-up
+    torch.cuda.synchronize()
+    spatial_table.launches = 0
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        probs = sw.sweep_device(frames_dev, starts)    # ends in a host copy
+        walls.append(time.perf_counter() - t0)
+    launches, instance = spatial_table.launches, spatial_table.instance
+    sweep_s = float(np.median(walls))
+    w = extract_spatial_weights(m32, SEQ_LEN, cfg.depth, torch.float32)
+    tokens = F.pad(sw.embed_tokens(frames_dev), (0, 0, 1, 0))
+    table = sw.embed_all(frames_dev)
+    phases = {"embed_ms": wall_ms(lambda: sw.embed_tokens(frames_dev)),
+              "table_ms": wall_ms(lambda: spatial_table(
+                  tokens, w, SEQ_LEN, compute_dtype=torch.float32, **hp)),
+              "windows_ms": wall_ms(lambda: sw.sweep_table(table, starts))}
+    del tokens, table
+    plain_sw = VideoSweeper(m32, SEQ_LEN, CROP, BATCH, torch.float32, use_fused_table=False,
+                            device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs_plain = plain_sw.sweep_device(frames_dev, starts)
+    plain_s = time.perf_counter() - t0
+    err = np.abs(probs - probs_plain)
+    fields = dict(frames=len(frames_dev), windows=len(starts), batch=BATCH, dtype="float32",
+                  fused_table_active=sw.fused_table_active, instance=instance,
+                  spatial_table_launches=launches, clips_per_s=len(starts) / sweep_s,
+                  sweep_ms=sweep_s * 1e3, sweep_runs_ms=[x * 1e3 for x in walls], **phases,
+                  plain_table_sweep_ms=plain_s * 1e3,
+                  plain_table_clips_per_s=len(starts) / plain_s,
+                  curve_vs_plain_max_abs=float(err.max()),
+                  curve_vs_plain_mean_abs=float(err.mean()), curve_tol=F32_CURVE_TOL)
+    ok = bool(sw.fused_table_active is True and plain_sw.fused_table_active is False
+              and instance == F32_INSTANCE and launches == 3 and probs.shape == starts.shape
+              and np.isfinite(probs).all() and err.max() <= F32_CURVE_TOL[0]
+              and err.mean() <= F32_CURVE_TOL[1])
+    return ok, fields, launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3616,9 +3731,13 @@ def main() -> int:
     # elements may differ by a few 2^-8 while the mean error stays below one
     # ulp at 1.0. f32: the same algorithm, differing only in summation order.
     TOL = {"bfloat16": (6.25e-2, 6.25e-2, 2 ** -8), "float32": (1e-4, 1e-4, 1e-5)}
+    # the f32 rows (the f32 sweep's table and its 64 px crop) must take the
+    # f32 instance; its T = 4096 plain table (~2.6 s) is timed once
     for label, toks, cd, iters in (
             ("flagship T=4096 bf16 (main path)", tokens, torch.bfloat16, 3),
+            ("flagship T=4096 f32 (f32 path)", tokens, torch.float32, 3),
             ("flagship T=64 f32", tokens[:64], torch.float32, 5),
+            ("small crop N=17 T=64 f32", tokens_small, torch.float32, 10),
             ("flagship T=64 bf16", tokens[:64], torch.bfloat16, 10),
             ("flagship T=61 bf16 (T no multiple of the frames per block)", tokens[:61],
              torch.bfloat16, 10),
@@ -3636,16 +3755,20 @@ def main() -> int:
         T, N, D = x.shape
         ops, nbytes = table_work(T, SEQ_LEN, N, D, cfg.depth, cfg.n_heads,
                                  cfg.d_head, M, x.element_size())
-        bound_ms, bound_by = bound(ops, nbytes, dt)
+        instance = spatial_table.instance
         checks.append(dict(
             name="spatial_table", case=label, dtype=dt, shape=list(x.shape),
             route="cuda", source="kstar_torch/csrc/spatial_table.cu",
             replaces="kstar_tpu/ops/spatial_table.py:371", **res,
-            ms=time_ms(run, iters), plain_ms=time_ms(plain, max(iters // 3, 1)),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            instance=spatial_table.instance,
-            frames_per_block=spatial_table.frames_per_block,
-            **table_attributes(D, cfg.d_head)))
+            ms=time_ms(run, iters),
+            plain_ms=time_once(plain) if T > 1024 and dt == "float32"
+            else time_ms(plain, max(iters // 3, 1)),
+            **row_bounds(ops, nbytes, dt), library_ms=None,
+            instance=instance, frames_per_block=spatial_table.frames_per_block,
+            **table_attributes(D, cfg.d_head, N, cd)))
+        if dt == "float32":
+            checks[-1]["path"] = "f32"
+            checks[-1]["ok"] = res["ok"] and instance.startswith("fast_f32")
         emit("kernel_check", **checks[-1])
     # the multimodal sweep's table: the fusion CLI's ViViT (scale_dim 4, an
     # MLP of 512) over the whole shot
@@ -3738,17 +3861,20 @@ def main() -> int:
             tol = (2e-5, 2e-5, 1e-6) if dt == "float32" else (1e-2, 1e-2, 1e-3)
             res = compare(got, want, *tol)
             BH, N, D = shape[0] * shape[1], shape[2], shape[3]
-            bound_ms, bound_by = bound(4.0 * BH * N * N * D, 4.0 * BH * N * D * q.element_size(), dt)
+            instance = fused_attention.instance
             checks.append(dict(
                 name="fused_attention", case=f"{list(shape)} {dt}", dtype=dt,
                 shape=list(shape), route="cuda", source="kstar_torch/csrc/attention.cu",
                 replaces="kstar_tpu/ops/attention.py:60", **res,
                 ms=time_ms(lambda: fused_attention(q, k, v, scale), 50),
                 plain_ms=time_ms(lambda: fused_attention_reference(q, k, v, scale), 50),
-                bound_ms=bound_ms, bound_by=bound_by,
+                **row_bounds(4.0 * BH * N * N * D, 4.0 * BH * N * D * q.element_size(), dt),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, scale=scale), 50),
-                instance=fused_attention.instance))
+                instance=instance))
+            if dt == "float32":      # the split-TF32 tensor-core instance
+                checks[-1]["path"] = "f32 attention"
+                checks[-1]["ok"] = res["ok"] and instance.startswith("tf32x3")
             emit("kernel_check", **checks[-1])
 
     # window gather + normalise: exact (uint8 minus an integer mean is
@@ -3843,6 +3969,13 @@ def main() -> int:
     if not sweep_ok:
         failures.append("sweep")
 
+    # ---- f32_sweep: the same sweep in f32 (K1's split-TF32 instance) ----
+    t0 = time.perf_counter()
+    f32_ok, f32_fields, k1_f32 = f32_sweep_phase(frames_dev, dev, cfg, model)
+    emit("f32_sweep", **f32_fields, seconds=time.perf_counter() - t0, ok=f32_ok)
+    if not f32_ok:
+        failures.append("f32_sweep")
+
     # ---- video_sweep_fallback: the table route where the kernel refuses ----
     t0 = time.perf_counter()
     fb_ok, fb_fields = video_sweep_fallback_phase(frames, dev, cfg, model)
@@ -3876,10 +4009,29 @@ def main() -> int:
     # reads 0.0101 at seed 0 on an H100, and the limit is five times it
     logit_err = float((logits_k - logits_p).abs().max())
     expect = 2 * cfg.depth                # one per MHSA: spatial + temporal layers
+    # the same forward in f32: the kernel's split-TF32 instance against the
+    # plain f32 attention, the same arithmetic up to summation order and the
+    # split, held to the f32 table limit (1e-4)
+    pallas32 = ViViT(dtype=torch.float32, use_pallas=True).to(dev).eval()
+    pallas32.load_state_dict(model.state_dict())
+    plain32 = f32_twin(model, cfg, dev)
+    x32 = frames_dev[win].float() - mean.float()
+    with torch.no_grad():
+        fused_attention.launches = 0
+        logits32_k = pallas32(x32)
+        torch.cuda.synchronize()
+        k2_f32 = fused_attention.launches
+        instance32 = fused_attention.instance
+        logit32_err = float((logits32_k - plain32(x32)).abs().max())
     pallas_ok = (launches["fused_attention"] == expect and logits_k.shape == (8, 2)
-                 and bool(torch.isfinite(logits_k).all()) and logit_err <= 0.05)
+                 and bool(torch.isfinite(logits_k).all()) and logit_err <= 0.05
+                 and k2_f32 == expect and instance32.startswith("tf32x3")
+                 and bool(torch.isfinite(logits32_k).all()) and logit32_err <= 1e-4)
     emit("vivit_pallas", input=list(x.shape), launches=launches["fused_attention"],
-         expect_launches=expect, logits_max_abs_vs_plain=logit_err, ok=pallas_ok)
+         expect_launches=expect, logits_max_abs_vs_plain=logit_err,
+         f32_launches=k2_f32, f32_instance=instance32,
+         f32_logits_max_abs_vs_plain=logit32_err, f32_logits_tol=1e-4, ok=pallas_ok)
+    del pallas32, plain32, x32
     if not pallas_ok:
         failures.append("vivit_pallas")
 
@@ -4179,6 +4331,12 @@ def main() -> int:
     t0 = time.perf_counter()
     cp_ok, cp_fields, k1_prediction = continuous_prediction_phase(cli_root, dev)
     emit("continuous_prediction", **cp_fields, seconds=time.perf_counter() - t0, ok=cp_ok)
+    # the same CLI in f32: one launch of K1's f32 instance
+    t0 = time.perf_counter()
+    cp32_ok, cp32_fields, k1_prediction_f32 = continuous_prediction_phase(
+        cli_root, dev, ["--compute_dtype", "float32"], "fast_f32_D128")
+    emit("continuous_prediction", **cp32_fields, seconds=time.perf_counter() - t0, ok=cp32_ok)
+    cp_ok = cp_ok and cp32_ok
     t0 = time.perf_counter()
     xai_ok, xai_fields = xai_phase(args.seed, frames_dev, dev, conv_cpu)
     emit("xai", **xai_fields, seconds=time.perf_counter() - t0, ok=xai_ok)
@@ -4278,6 +4436,7 @@ def main() -> int:
         entry = {k: c[k] for k in ("name", "route", "source", "replaces")}
         n_launch = {"multimodal_sweep": k1_multimodal, "conv SlowFast": k3_slowfast,
                     "soak": k1_soak, "demos": k1_demos, "campaign": k1_campaign,
+                    "f32": k1_f32 + k1_prediction_f32, "f32 attention": k2_f32,
                     **k1_full}.get(c.get("path"), launches[c["name"]])
         entry.update(launches=n_launch, max_abs_err=c["max_abs_err"],
                      ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],

@@ -1,7 +1,7 @@
 """Where a block of the spatial-table kernel's fast instance spends its time.
 
     python -m kstar_torch.analysis.profile_spatial_table
-        [--widths flagship|demo|full_frame] [--crop px] [--frames T] [--seed 0]
+        [--widths flagship|demo|full_frame|f32] [--crop px] [--frames T] [--seed 0]
         [--baseline path/to/spatial_table.cu]
 
 Profilers that read a kernel's inside do not run on every machine, so this
@@ -12,7 +12,10 @@ heads x 64, MLP 1024, 4096 frames by default), ``demo``
 (``exp/demo_vivit.sh``'s ViViT: N 17, D 64, 4 heads x 32, MLP 256, 2520
 frames by default) or ``full_frame`` (the flagship widths at image_size
 256: N 257, one frame per two-block cluster, or with ``--crop`` a smaller
-crop of it, 160 px for N 101 on one block; 512 frames by default):
+crop of it, 160 px for N 101 on one block; 512 frames by default), or
+``f32`` (the flagship widths in f32 on the f32 instance, products in split
+TF32; 4096 frames by default; variants only, its source has no phase
+stamps):
 
 * the phase profile: a ``-DKSTAR_PROFILE`` build in which thread 0 of every
   block adds its ``clock64()`` cycles per phase to a counter (the phases are
@@ -61,14 +64,26 @@ ABLATIONS = {
         "        for (int s = warp; s < n_strips; s += kWarps) {",
         "        for (int s = warp; s < n_strips && p.T < 0; s += kWarps) {"),
 }
+# the f32 instance's: the split (three TF32 products per product, in
+# attn_core.cuh, which the source includes), its attention, its GELU
+F32_ABLATIONS = {
+    "one TF32 product (hi hi) instead of three": (
+        "  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n", ""),
+    "no attention in the all-row layers": (
+        "        for (int s = warp; s < F * spf; s += kWarps) {",
+        "        for (int s = warp; s < F * spf && p.T < 0; s += kWarps) {"),
+    "GELU as identity": (
+        "  return x * (0.5f * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x))));",
+        "  return x;"),
+}
 # the widths, and the other row schemes each could be compiled with (same
 # results, another number of frames per block)
 WIDTHS = {"flagship": dict(), "demo": dict(image_size=64, dim=64, n_heads=4, d_head=32,
                                            scale_dim=4),
-          "full_frame": dict(image_size=256)}
-DEFAULT_FRAMES = {"flagship": 4096, "demo": 2520, "full_frame": 512}
+          "full_frame": dict(image_size=256), "f32": dict()}
+DEFAULT_FRAMES = {"flagship": 4096, "demo": 2520, "full_frame": 512, "f32": 4096}
 ROW_SCHEMES = {
-    "flagship": {},
+    "flagship": {}, "f32": {},
     "demo": {"four wgmma warpgroups (F = 15 at N 17, one block per SM)": (
         "using Demo = Shape<64, 32, 64, 2, 0>;", "using Demo = Shape<64, 32, 64, 4, 0>;")},
     "full_frame": {
@@ -124,39 +139,42 @@ def main(argv=None) -> int:
 
     frames = args.frames or DEFAULT_FRAMES[args.widths]
     cfg, n_off, dev = ViViTConfig(**WIDTHS[args.widths]), 21, torch.device("cuda")
+    f32 = args.widths == "f32"
+    cd = torch.float32 if f32 else torch.bfloat16
     gen = torch.Generator().manual_seed(args.seed)
-    model = build_video_model("ViViT", cfg, dtype=torch.bfloat16, generator=gen).to(dev)
+    model = build_video_model("ViViT", cfg, dtype=cd, generator=gen).to(dev)
     n_tok = ((args.crop or cfg.image_size) // cfg.patch_size) ** 2 + 1
     M = cfg.dim * cfg.scale_dim
     tokens = F.pad(torch.randn(frames, n_tok - 1, cfg.dim, generator=gen), (0, 0, 1, 0))
-    tokens = tokens.to(dev, torch.bfloat16)
-    w = st.extract_spatial_weights(model, n_off, cfg.depth, torch.bfloat16)
-    wmat = {0: st.pack_general(w, cfg.depth, torch.bfloat16).to(dev)}
+    tokens = tokens.to(dev, cd)
+    w = st.extract_spatial_weights(model, n_off, cfg.depth, cd)
+    wmat = {0: st.pack_general(w, cfg.depth, cd).to(dev)}
     wln = st.pack_layer_norms(w, cfg.depth).to(dev)
-    base = w.base[:n_off, :n_tok].to(dev, torch.bfloat16).contiguous()
-    out = torch.empty(n_off, frames, cfg.dim, device=dev, dtype=torch.bfloat16)
-    frames_per_block = st.fast_frames_per_block(n_tok, cfg.dim, cfg.d_head)
-    cluster = st.fast_instance(cfg.dim, cfg.d_head, n_tok).cluster
-    blocks = -(-frames // frames_per_block) * n_off * cluster
+    base = w.base[:n_off, :n_tok].to(dev, cd).contiguous()
+    out = torch.empty(n_off, frames, cfg.dim, device=dev, dtype=cd)
+    inst = st.fast_instance(cfg.dim, cfg.d_head, n_tok, cd)
+    frames_per_block = st.fast_frames_per_block(n_tok, cfg.dim, cfg.d_head, cd)
+    blocks = -(-frames // frames_per_block) * n_off * inst.cluster
     widths = dict(widths=args.widths, frames=frames, N=n_tok, D=cfg.dim,
-                  d_head=cfg.d_head, mlp=M)
+                  d_head=cfg.d_head, mlp=M, dtype=str(cd).split(".")[1])
 
     def runner(lib):
-        fn = lib.spatial_table_bf16
+        fn = lib.spatial_table_f32 if f32 else lib.spatial_table_bf16
         fn.argtypes = ARGTYPES
         plan = lib.spatial_table_plan
         plan.argtypes = [ctypes.c_int] * 6
-        dims = (n_tok, cfg.dim, cfg.n_heads, cfg.d_head, M, 2)
+        dims = (n_tok, cfg.dim, cfg.n_heads, cfg.d_head, M, 4 if f32 else 2)
         # an earlier source may take these widths on its general instance,
         # or pack its stream in the one MLP chunk of its width
         chunk = 0
         if plan(*dims) > 0:
-            chunk = st.fast_instance(cfg.dim, cfg.d_head).mlp_chunk
+            chunk = st.fast_instance(cfg.dim, cfg.d_head, dtype=cd).mlp_chunk
             if hasattr(lib, "spatial_table_mlp_chunk"):
                 lib.spatial_table_mlp_chunk.argtypes = [ctypes.c_int] * 6
                 chunk = lib.spatial_table_mlp_chunk(*dims)
         if chunk not in wmat:
-            wmat[chunk] = st.pack_fast(w, cfg.depth, cfg.n_heads, mlp_chunk=chunk).to(dev)
+            wmat[chunk] = st.pack_fast(w, cfg.depth, cfg.n_heads, cd, mlp_chunk=chunk,
+                                       layout=inst.layout).to(dev)
         packed = wmat[chunk]
 
         def run():
@@ -169,8 +187,16 @@ def main(argv=None) -> int:
 
     source = (_build.CSRC / "spatial_table.cu").read_text()
     variants = {"as shipped": source}
-    for name, (line, repl) in {**ABLATIONS, **ROW_SCHEMES[args.widths]}.items():
-        variants[name] = substituted(source, name, line, repl)
+    if f32:
+        # the source with attn_core.cuh written out in place, so that a line
+        # of the header can be substituted too
+        include = '#include "attn_core.cuh"'
+        inlined = source.replace(include, (_build.CSRC / "attn_core.cuh").read_text())
+        for name, (line, repl) in F32_ABLATIONS.items():
+            variants[name] = substituted(inlined, name, line, repl)
+    else:
+        for name, (line, repl) in {**ABLATIONS, **ROW_SCHEMES[args.widths]}.items():
+            variants[name] = substituted(source, name, line, repl)
     if args.baseline is not None:
         variants[f"baseline {args.baseline}"] = args.baseline.read_text()
     # one nvcc per variant and the profile build, all at once
@@ -188,6 +214,12 @@ def main(argv=None) -> int:
         print(json.dumps({"reading": "kernel_ms", "variant": name, "ms": ms, **widths}),
               flush=True)
 
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    if f32:                              # the f32 instance has no phase stamps
+        profile_build.result()
+        print(smi)
+        return 0
     lib = ctypes.CDLL(str(profile_build.result()))
     prof = torch.zeros(len(PHASES), dtype=torch.int64, device=dev)
     lib.spatial_table_set_profile.argtypes = [ctypes.c_void_p]
@@ -201,12 +233,11 @@ def main(argv=None) -> int:
     cycles = prof.tolist()
     total = sum(cycles)
     print(json.dumps({"reading": "phase_profile", **widths,
-                      "frames_per_block": frames_per_block, "cluster": cluster,
+                      "frames_per_block": frames_per_block, "cluster": inst.cluster,
                       "blocks": blocks, "cycles_per_block": total / blocks,
                       "phases": {name: {"cycles_per_block": c / blocks, "share": c / total}
                                  for name, c in zip(PHASES, cycles)}}), flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    print(smi)
     return 0
 
 

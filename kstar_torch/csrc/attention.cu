@@ -14,7 +14,7 @@
 // if they run as scalar FMAs.
 //
 // Design: the TPU kernel pads N to the 128-lane tile and holds one whole
-// row in VMEM. Here two hand-written instances share the interface, chosen
+// row in VMEM. Here three hand-written instances share the interface, chosen
 // in the C launcher by shape and alignment (fused_attention_plan):
 //
 //  * bf16 with D in {16, 32, 64, 128} and 16-byte-aligned rows: the
@@ -30,13 +30,26 @@
 //    key block is compiled at 32, 80 and 128 keys so that a short row does
 //    not carry 64 score registers. The output strip is staged in the strip's
 //    own (already consumed) Q rows and leaves with 16-byte stores.
-//  * f32, and bf16 at any other D <= 256 or alignment: scalar FMAs in f32
-//    (TF32 would break the f32 tolerance of 2e-5), register-tiled: tiles of
-//    32 queries x 64 keys, each thread a 4 x 4 query-by-key tile of the
-//    scores and a 4 x 4 query-by-column tile of P V, so eight shared loads
-//    feed sixteen FMAs; online softmax across key tiles. Tiles are filled
-//    one warp per row (coalesced, no index division), and warps and key
-//    columns wholly past the sequence's end are skipped.
+//  * f32 with D in {16, 32, 64, 128} and 16-byte-aligned rows: the same
+//    tensor-core design in split TF32 (attn_strip_block_f32 in
+//    attn_core.cuh). Q, K and V are copied to shared memory in f32 with
+//    16-byte cp.async (Q and K rows at a stride of 16 mod 32 floats, V at
+//    4 mod 32, for conflict-free fragment loads); each warp's strip splits
+//    its fragments into hi + lo TF32 pairs as it loads them and runs S =
+//    Q K^T and P V as three m16n8k8 TF32 products each (lo hi, hi lo, hi
+//    hi), with P unnormalised and split the same way, online softmax
+//    across blocks of 32, 80 or 128 keys as in bf16. Every product term is
+//    off by ~2^-21 relative (the header's argument), so the f32 tolerance
+//    of 2e-5 holds; a single TF32 product (~2^-11) would break it. The
+//    split costs six MMAs where bf16 runs one or two, but the call is
+//    bound by bytes (f32 moves twice bf16's), not by these products.
+//  * f32 and bf16 at any other D <= 256 or alignment: scalar FMAs in f32,
+//    register-tiled: tiles of 32 queries x 64 keys, each thread a 4 x 4
+//    query-by-key tile of the scores and a 4 x 4 query-by-column tile of
+//    P V, so eight shared loads feed sixteen FMAs; online softmax across
+//    key tiles. Tiles are filled one warp per row (coalesced, no index
+//    division), and warps and key columns wholly past the sequence's end
+//    are skipped.
 
 #include "attn_core.cuh"
 
@@ -48,14 +61,13 @@ namespace {
 
 constexpr int kMaxWarps = 8;                 // 128 queries per block
 
-// 16-byte cp.async of `rows` rows of D bf16 from src (row stride D) into
-// dst (row stride ld)
-template <int D>
-__device__ __forceinline__ void copy_rows_async(bf16* dst, int ld, const bf16* src,
-                                                int rows) {
-  constexpr int kPerRow = D / 8;
+// 16-byte cp.async of `rows` rows of D elements (bf16 or f32) from src
+// (row stride D) into dst (row stride ld)
+template <int D, typename T>
+__device__ __forceinline__ void copy_rows_async(T* dst, int ld, const T* src, int rows) {
+  constexpr int kVec = 16 / sizeof(T), kPerRow = D / kVec;
   for (int i = threadIdx.x; i < rows * kPerRow; i += blockDim.x) {
-    const int r = i / kPerRow, c = (i % kPerRow) * 8;
+    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                      smem_addr(dst + r * ld + c)),
                  "l"(src + static_cast<size_t>(r) * D + c));
@@ -155,7 +167,115 @@ int launch_mma_d(const void* q, const void* k, const void* v, void* o, int rows,
 }
 
 // ---------------------------------------------------------------------------
-// scalar instance (f32, and bf16 at the shapes the tensor-core one leaves)
+// tensor-core instance (f32, split TF32)
+// ---------------------------------------------------------------------------
+
+// Row strides in floats: Q and K are read as float4 fragments (16 mod 32),
+// V as single words at rows 2t, 2t + 1 (4 mod 32); both keep 16-byte rows.
+template <int D> struct Tf32Ld {
+  static constexpr int kQk = D % 32 == 0 ? D + 16 : D + 32;
+  static constexpr int kV = D + 4;
+};
+
+template <int D, int KT16>
+__host__ __device__ constexpr size_t tf32_smem_bytes(int nwarps) {
+  return (static_cast<size_t>(nwarps * 16 + KT16 * 16) * Tf32Ld<D>::kQk +
+          static_cast<size_t>(KT16 * 16) * Tf32Ld<D>::kV) * sizeof(float);
+}
+
+template <int D, int KT16>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o, int N,
+                      float scale) {
+  constexpr int kLd = Tf32Ld<D>::kQk, kLdv = Tf32Ld<D>::kV;
+  constexpr int kKeys = KT16 * 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nwarps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* Qs = reinterpret_cast<float*>(smem_raw);      // 16 * nwarps rows
+  float* Ks = Qs + nwarps * 16 * kLd;                  // kKeys rows
+  float* Vs = Ks + kKeys * kLd;                        // kKeys rows, stride kLdv
+
+  const size_t row = static_cast<size_t>(blockIdx.x) * N * D;
+  const int q0 = blockIdx.y * (kMaxWarps * 16);
+  const int nq = min(N - q0, nwarps * 16);
+  copy_rows_async<D>(Qs, kLd, q + row + static_cast<size_t>(q0) * D, nq);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[t][i] = 0.f;
+
+  for (int k0 = 0; k0 < N; k0 += kKeys) {
+    const int nk = min(N - k0, kKeys);
+    if (k0 > 0) __syncthreads();             // the previous key block is consumed
+    copy_rows_async<D>(Ks, kLd, k + row + static_cast<size_t>(k0) * D, nk);
+    copy_rows_async<D>(Vs, kLdv, v + row + static_cast<size_t>(k0) * D, nk);
+    // V rows up to the next multiple of 16 enter P V with p = 0: make them 0
+    const int pad_rows = ((nk + 15) & ~15) - nk;
+    for (int i = threadIdx.x; i < pad_rows * (D / 4); i += blockDim.x)
+      *reinterpret_cast<float4*>(Vs + (nk + i / (D / 4)) * kLdv + (i % (D / 4)) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    if (warp * 16 < nq)
+      attn_strip_block_f32<D, KT16>(Qs + warp * 16 * kLd, kLd, Ks, kLd, Vs, kLdv, nk, scale,
+                                    m, l, acc);
+  }
+
+  // stage the strip in its own Q rows (only this warp reads or writes them),
+  // then 16 bytes per lane to global
+  if (warp * 16 >= nq) return;
+  __syncwarp();
+  float* stage = Qs + warp * 16 * kLd;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
+#pragma unroll
+  for (int t = 0; t < D / 8; ++t) {
+    *reinterpret_cast<float2*>(stage + g * kLd + t * 8 + c2) =
+        make_float2(acc[t][0] * inv0, acc[t][1] * inv0);
+    *reinterpret_cast<float2*>(stage + (g + 8) * kLd + t * 8 + c2) =
+        make_float2(acc[t][2] * inv1, acc[t][3] * inv1);
+  }
+  __syncwarp();
+  float* dst = o + row + static_cast<size_t>(q0 + warp * 16) * D;
+  const int rows = min(16, nq - warp * 16);
+  for (int i = lane; i < rows * (D / 4); i += 32) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    *reinterpret_cast<float4*>(dst + static_cast<size_t>(r) * D + c) =
+        *reinterpret_cast<const float4*>(stage + r * kLd + c);
+  }
+}
+
+template <int D, int KT16>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, int rows, int N,
+                float scale, cudaStream_t stream) {
+  const int nwarps = min(kMaxWarps, (N + 15) / 16);
+  const int qtiles = (N + kMaxWarps * 16 - 1) / (kMaxWarps * 16);
+  const size_t bytes = tf32_smem_bytes<D, KT16>(nwarps);
+  cudaError_t err = cudaFuncSetAttribute(attention_tf32_kernel<D, KT16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  attention_tf32_kernel<D, KT16><<<dim3(rows, qtiles), nwarps * 32, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), N, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_tf32_d(const void* q, const void* k, const void* v, void* o, int rows, int N,
+                  float scale, cudaStream_t stream) {
+  if (N <= 32) return launch_tf32<D, 2>(q, k, v, o, rows, N, scale, stream);
+  if (N <= 80) return launch_tf32<D, 5>(q, k, v, o, rows, N, scale, stream);
+  return launch_tf32<D, 8>(q, k, v, o, rows, N, scale, stream);
+}
+
+// ---------------------------------------------------------------------------
+// scalar instance (f32 and bf16 at the shapes the tensor-core ones leave)
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads = 128;
@@ -343,9 +463,12 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 extern "C" {
 
 // Which instance a call takes: 0 the scalar one; otherwise the tensor-core
-// one, the value being its key block (32, 80 or 128 keys).
+// one of the element type (bf16, or f32 in split TF32), the value being its
+// key block (32, 80 or 128 keys).
 int fused_attention_plan(int N, int D, int elem_bytes, int aligned) {
-  if (elem_bytes != 2 || !aligned || (D != 16 && D != 32 && D != 64 && D != 128)) return 0;
+  if ((elem_bytes != 2 && elem_bytes != 4) || !aligned ||
+      (D != 16 && D != 32 && D != 64 && D != 128))
+    return 0;
   return N <= 32 ? 32 : N <= 80 ? 80 : 128;
 }
 
@@ -365,8 +488,16 @@ int fused_attention_bf16(const void* q, const void* k, const void* v, void* o, i
 
 int fused_attention_f32(const void* q, const void* k, const void* v, void* o, int rows,
                         int N, int D, float scale, void* stream) {
-  return launch_scalar<float>(q, k, v, o, rows, N, D, scale,
-                              static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int aligned = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
+  if (fused_attention_plan(N, D, 4, aligned) == 0)
+    return launch_scalar<float>(q, k, v, o, rows, N, D, scale, s);
+  switch (D) {
+    case 16: return launch_tf32_d<16>(q, k, v, o, rows, N, scale, s);
+    case 32: return launch_tf32_d<32>(q, k, v, o, rows, N, scale, s);
+    case 64: return launch_tf32_d<64>(q, k, v, o, rows, N, scale, s);
+    default: return launch_tf32_d<128>(q, k, v, o, rows, N, scale, s);
+  }
 }
 
 }  // extern "C"

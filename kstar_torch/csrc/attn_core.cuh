@@ -36,6 +36,31 @@
 // attn_strip_two_pass keeps kPNormBf16's cast point over any number of key
 // blocks: a first pass takes each row's max and sum, a second recomputes
 // the scores and multiplies the normalised, rounded P by V.
+//
+// f32 operands run on the same tensor cores in split TF32
+// (attn_strip_block_f32, and the helpers the spatial-table kernel's f32
+// products use). A TF32 operand keeps 11 significant bits, so one TF32
+// product is off by ~2^-11 relative, far outside the f32 kernels' 2e-5.
+// The split rule: x = hi + lo with hi = cvt.rna.tf32(x) and lo =
+// cvt.rna.tf32(x - hi) (x - hi is exact in f32; |lo| <= 2^-11 |x|, and lo's
+// own rounding leaves ~2^-22 |x|). a b = hi_a hi_b + hi_a lo_b + lo_a hi_b
+// + lo_a lo_b; the kernels run the first three (the small two first) as
+// mma.sync.m16n8k8 products with f32 sums and drop lo_a lo_b (<= 2^-22 |a
+// b|), so each term is off by ~2^-21 relative, the order of f32
+// summation noise, and the products differ from a plain f32 product by
+// summation order and that. Fragments come from f32 shared memory as 16-byte
+// loads: within a block of 16 columns lane t holds columns 4t .. 4t + 3 of
+// its rows, and k step s (0, 1) of the block takes columns 4t + 2s and 4t +
+// 2s + 1 as its k indices t and t + 4. Both operands follow the same map, so
+// the product is the sum over all 16 columns, and A and B are float4 loads
+// (ldmatrix moves 16-bit elements: an f32 fragment would need the b16-pairs
+// trick and two loads where one float4 does). Rows read this way have a
+// stride of 16 mod 32 floats, so the two rows of a quarter warp fill all 32
+// banks. P V takes P from the score fragments in registers, keys 2t and 2t
+// + 1 of an 8-key tile as its k indices t and t + 4, so V's B fragment is
+// rows 2t and 2t + 1 of a row-major V: single words, conflict-free at a
+// stride of 4 mod 32 floats. P stays unnormalised (online softmax) and is
+// split like any operand.
 #pragma once
 
 #include "common.cuh"
@@ -312,6 +337,148 @@ __device__ __forceinline__ void attn_strip_two_pass(const uint32_t (&qf)[DH / 16
           mma_bf16(o[2 * dn], p, b[0], b[1]);
           mma_bf16(o[2 * dn + 1], p, b[2], b[3]);
         }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32 operands in split TF32 (see the header)
+// ---------------------------------------------------------------------------
+
+// x rounded to TF32: nearest, ties away from zero; the low 13 bits are 0
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// Four f32 values split into TF32 pairs, value = hi + lo (+ ~2^-22 |value|)
+struct Split4 {
+  uint32_t hi[4], lo[4];
+};
+__device__ __forceinline__ Split4 split4(const float4& v) {
+  Split4 r;
+  const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    r.hi[i] = tf32_rna(x[i]);
+    r.lo[i] = tf32_rna(x[i] - __uint_as_float(r.hi[i]));
+  }
+  return r;
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// c += a b on mma.sync.m16n8k8 with TF32 operands and f32 sums. a[0] is
+// row g = lane / 4, k index t = lane % 4; a[1] row g + 8, k t; a[2] row g,
+// k t + 4; a[3] row g + 8, k t + 4; b0 k t, column g; b1 k t + 4, column g;
+// c as an m16n8k16 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in split TF32: lo_a hi_b, hi_a lo_b, then hi_a hi_b
+__device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// k step s (0 or 1) of a 16-column block: the A fragment from the split
+// float4s of rows g (r0) and g + 8 (r1), and the product with the B
+// fragment of the split float4 of output column g (b)
+__device__ __forceinline__ void mma_k16_step(float (&c)[4], const Split4& r0, const Split4& r1,
+                                             const Split4& b, int s) {
+  const uint32_t ah[4] = {r0.hi[2 * s], r1.hi[2 * s], r0.hi[2 * s + 1], r1.hi[2 * s + 1]};
+  const uint32_t al[4] = {r0.lo[2 * s], r1.lo[2 * s], r0.lo[2 * s + 1], r1.lo[2 * s + 1]};
+  mma_tf32x3(c, ah, al, b.hi[2 * s], b.hi[2 * s + 1], b.lo[2 * s], b.lo[2 * s + 1]);
+}
+
+// One block of keys for one 16-query strip, f32 operands in split TF32:
+// the contract of attn_strip_block's kPHiLo mode (o unnormalised, m, l the
+// running max and sum; start them at -inf, 0, 0). qs: the strip's 16 query
+// rows, ks: the block's key rows (strides ldq, ldk: 16 mod 32 floats), vs:
+// its value rows (stride ldv: 4 mod 32). n_keys (>= 1) of the KT16 * 16 rows
+// are real, the rest masked (their V rows up to the next multiple of 16
+// must be finite); 8-key tiles wholly past n_keys are skipped unless
+// kAllTiles (then all rows must be finite).
+template <int DH, int KT16, bool kAllTiles = false>
+__device__ __forceinline__ void attn_strip_block_f32(const float* qs, int ldq, const float* ks,
+                                                     int ldk, const float* vs, int ldv,
+                                                     int n_keys, float scale, float (&m)[2],
+                                                     float (&l)[2], float (&o)[DH / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, c2 = t * 2;
+  float s[2 * KT16][4];
+#pragma unroll
+  for (int j = 0; j < 2 * KT16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+  const float* q0 = qs + g * ldq + 4 * t;
+  const float* kp = ks + g * ldk + 4 * t;
+#pragma unroll
+  for (int kb = 0; kb < DH / 16; ++kb) {
+    const Split4 a0 = split4(ld4(q0 + kb * 16)), a1 = split4(ld4(q0 + 8 * ldq + kb * 16));
+#pragma unroll
+    for (int j = 0; j < 2 * KT16; ++j) {
+      if (kAllTiles || j * 8 < n_keys) {
+        const Split4 b = split4(ld4(kp + j * 8 * ldk + kb * 16));
+        mma_k16_step(s[j], a0, a1, b, 0);
+        mma_k16_step(s[j], a0, a1, b, 1);
+      }
+    }
+  }
+
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 2 * KT16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[j][i] = j * 8 + c2 + (i & 1) < n_keys ? s[j][i] * scale : -INFINITY;
+      mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
+    }
+  float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));   // finite: n_keys >= 1
+    corr[r] = expf(m[r] - m_new);                       // 0 for the first block
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < 2 * KT16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[j][i] = expf(s[j][i] - m[i >> 1]);
+      sum[i >> 1] += s[j][i];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(sum[r]);
+#pragma unroll
+  for (int t8 = 0; t8 < DH / 8; ++t8)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[t8][i] *= corr[i >> 1];
+
+  // P V: keys 2t, 2t + 1 of tile j as k indices t, t + 4
+  const float* vp = vs + c2 * ldv + g;
+#pragma unroll
+  for (int j = 0; j < 2 * KT16; ++j) {
+    if (kAllTiles || j * 8 < n_keys) {
+      const Split4 p = split4(make_float4(s[j][0], s[j][2], s[j][1], s[j][3]));
+#pragma unroll
+      for (int dn = 0; dn < DH / 8; ++dn) {
+        const float* v = vp + j * 8 * ldv + dn * 8;
+        const float v0 = v[0], v1 = v[ldv];
+        const uint32_t h0 = tf32_rna(v0), h1 = tf32_rna(v1);
+        mma_tf32x3(o[dn], p.hi, p.lo, h0, h1, tf32_rna(v0 - __uint_as_float(h0)),
+                   tf32_rna(v1 - __uint_as_float(h1)));
       }
     }
   }

@@ -20,7 +20,7 @@
 // outside the tensor cores (GELU, softmax, LayerNorm, residuals), and the
 // weights (1.7 MB for two layers), which every block streams from L2.
 //
-// Two hand-written instances, chosen by shape in the C launcher
+// Three hand-written instances, chosen by shape and type in the C launcher
 // (spatial_table_plan), as the window-gather kernel chooses its aligned and
 // unaligned ones:
 //
@@ -113,12 +113,46 @@
 //    the flagship's product costs, 5.1x its attention per strip (17 key
 //    tiles in two passes against 5 in one) on 9 of its 12 warps, and a
 //    cluster barrier pair per head.
-//  * general (f32, and bf16 at any other width the wrapper accepts, N up
-//    to 128): one
-//    block per (offset, frame), 16 x 16 warp tiles with 32-bit fragment
-//    loads, scores through shared memory, f32 on scalar FMAs with the
-//    weights read from global memory. It holds the algorithm to the f32
-//    tolerance and is not tuned.
+//  * f32 (namespace tf32), at the flagship's D 128 / d_head 64 with an MLP
+//    a multiple of 64, N up to 80 (the 128 px crop's 65 tokens, the 64 px
+//    crop's 17): a sibling of the fast template rather than an instance of
+//    it, because f32 doubles every row and the wgmma layout does not carry
+//    over. The order of work is the fast instance's: frames packed without
+//    padding into one block of 80 rows (F = 1 at N 65, 3 at N 17), the
+//    weights as a stream of panels double-buffered through shared memory
+//    with cp.async and one barrier per product, out-projection and FF2
+//    summed in registers, the register-resident attention core
+//    (attn_strip_block_f32, one warp per strip), and the last layer's
+//    queries, attention, out-projection and FF for the cls rows only.
+//    - Products run on the tensor cores in split TF32 (attn_core.cuh:
+//      hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), three m16n8k8
+//      products lo hi, hi lo, hi hi; each term ~2^-21 relative, so the f32
+//      tolerance of the plain version holds where one TF32 product, ~2^-11,
+//      would not). Hopper's tf32 wgmma reads B from shared memory, so its
+//      split would need hi and lo panels there; mma.sync takes both
+//      operands from registers, so weights and activations are split as
+//      their fragments are loaded (a float4 per lane of each) and a panel
+//      stays one f32 copy.
+//    - Shared memory is the constraint: 80 rows of x (stride D + 4), h
+//      (D + 16), q and k (d_head + 16) and v (d_head + 4), and two panel
+//      buffers of 64 x 128 floats (32 KB: a head's q, k and v rows, its
+//      out-projection columns, and MLP chunks of 64 are each one panel),
+//      226,816 bytes in all, one block of 8 warps per SM. Pre-split hi/lo
+//      panels would need 64 KB more, which is why the split is in
+//      registers. The FF chunk reuses q and k, the cls tiles q (and h).
+//    - Each warp owns 8 (or 16) output columns of a product for all 80
+//      rows, so every weight element is read from shared memory by one
+//      warp, and the activations by all eight; the panels, ~3.1 MB of f32
+//      weights a block, stream from L2 once per block.
+//    LayerNorm, softmax, GELU, biases and residuals are f32, as the plain
+//    version computes them.
+//  * general (f32 and bf16 at any other width the wrapper accepts, N up to
+//    128: f32 at N 81..128 or at the demo's D 64, bf16 at widths no fast
+//    instance is compiled for): one block per (offset, frame), 16 x 16 warp
+//    tiles with 32-bit fragment loads, scores through shared memory, f32 on
+//    scalar FMAs with the weights read from global memory. It holds the
+//    algorithm to the f32 tolerance, is not tuned, and stays for the
+//    shapes the other two leave.
 
 #include "attn_core.cuh"
 #include "wgmma.cuh"
@@ -1433,6 +1467,498 @@ int launch(const void* tokens, const void* base, const void* wmat, const void* w
 
 }  // namespace fast
 
+// ---------------------------------------------------------------------------
+// f32 instance: the fast design's order of work on f32 operands, products in
+// split TF32
+// ---------------------------------------------------------------------------
+
+namespace tf32 {
+
+constexpr int kWarps = 8, kThreads = kWarps * 32;
+
+// One compiled width: D and DH the model's and a head's width, MC the MLP
+// columns of one FF panel, ROWS the rows of a block (frames packed without
+// padding, the last frame's keys padded to 16 inside them). Row strides in
+// floats: the products' A operands and q, k are read as float4 fragments
+// (16 mod 32, attn_core.cuh), v as single words (4 mod 32), x by LayerNorm
+// and the residual epilogues only. Every weight panel is 64 x D or D x 64
+// (kPanel floats), in 8 x 16 tiles: its 8-row group g, 16-column block b is
+// 128 contiguous floats, so a lane's B fragment is one float4 and a panel
+// is one flat copy.
+template <int D_, int DH_, int MC_, int ROWS_>
+struct Shape {
+  static constexpr int kD = D_, kDh = DH_, kMc = MC_, kRows = ROWS_, kMt = ROWS_ / 16;
+  static constexpr int kMaxN = ROWS_, kCluster = 1;
+  static constexpr int kLdx = kD + 4, kLdh = kD + 16, kLdq = kDh + 16, kLdv = kDh + 4;
+  static constexpr int kLdm = kMc + 16;
+  static constexpr int kPanel = fast::cmax(kDh * kD, kMc * kD);
+  static constexpr size_t kOffX = 0;
+  static constexpr size_t kOffH = kOffX + sizeof(float) * kRows * kLdx;
+  static constexpr size_t kOffQ = kOffH + sizeof(float) * kRows * kLdh;
+  static constexpr size_t kOffK = kOffQ + sizeof(float) * kRows * kLdq;
+  static constexpr size_t kOffV = kOffK + sizeof(float) * kRows * kLdq;
+  static constexpr size_t kOffPanel = kOffV + sizeof(float) * kRows * kLdv;
+  static constexpr size_t kSmemBytes = kOffPanel + 2 * sizeof(float) * kPanel;
+
+  static_assert(kDh == 8 * kWarps && kMc == 8 * kWarps,
+                "64-column panels: one 8-column tile a warp");
+  static_assert(kD == 16 * kWarps, "D-column products: two 8-column tiles a warp");
+  static_assert(kLdh % 32 == 16 && kLdq % 32 == 16 && kLdm % 32 == 16 && kLdv % 32 == 4,
+                "fragment strides");
+  static_assert(kRows % 16 == 0 && kRows >= 48, "16-row tiles; q holds the cls tiles");
+  static_assert(kRows * kLdm <= 2 * kRows * kLdq, "the FF chunk fits in q and k");
+  static_assert(48 * kLdq + 16 * kLdm <= kRows * kLdq, "the cls tiles fit in q");
+  static_assert(kSmemBytes <= 232448, "fits in one block's shared memory");
+};
+
+// The flagship ViViT (D 128, d_head 64): one frame of up to 80 tokens a
+// block (F = 1 at N 65, 3 at N 17), 226,816 bytes, one block per SM.
+using Flagship = Shape<128, 64, 64, 80>;
+
+template <typename R, typename Fn>
+R with_instance(int N, int D, int dh, R none, Fn fn) {
+  if (N >= 1 && D == Flagship::kD && dh == Flagship::kDh && N <= Flagship::kMaxN)
+    return fn(Flagship());
+  return none;
+}
+
+// Frames per block: the most whose rows fit, the last frame's keys padded
+// to a multiple of 16, at most the cls tile's 16; 0 where none fits.
+template <class S>
+__host__ __device__ inline int frames_per_block(int N) {
+  const int pad = (N + 15) / 16 * 16;
+  if (N < 1 || pad > S::kRows) return 0;
+  return fast::cmin((S::kRows - pad) / N + 1, fast::kMaxFrames);
+}
+
+template <class S>
+bool applies(int N, int M) {
+  return M > 0 && M % S::kMc == 0 && frames_per_block<S>(N) > 0;
+}
+
+struct Params {
+  const float* tokens;  // (T, N, D)
+  const float* base;    // (n_off, N, D)
+  const float* wmat;    // packed panels and biases (pack_fast, layout "tile8x16")
+  const float* wln;     // per layer 4 x D, then 2 x D
+  float* out;           // (n_off, T, D)
+  int T, N, F, depth, H, M;
+  float scale;
+};
+
+// acc[i][j] (+)= A x panel^T in split TF32 for MT 16-row tiles of A (row r
+// at arow(r), K floats) and the warp's NT 8-column tiles of the panel
+// (output columns 8 NT w .. 8 NT w + 8 NT - 1 for warp w). Per 16-column
+// block each lane loads one float4 of B per tile and two of A per row tile
+// and splits them as it loads.
+template <int MT, int NT, int K, typename ARow>
+__device__ __forceinline__ void tc_rows(float (&acc)[MT][NT][4], ARow arow,
+                                        const float* panel) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float* bp = panel + warp * NT * (K / 16) * 128 + lane * 4;
+#pragma unroll 2
+  for (int kb = 0; kb < K / 16; ++kb) {
+    Split4 b[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) b[j] = split4(ld4(bp + (j * (K / 16) + kb) * 128));
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const Split4 a0 = split4(ld4(arow(16 * i + g) + kb * 16 + 4 * t));
+      const Split4 a1 = split4(ld4(arow(16 * i + g + 8) + kb * 16 + 4 * t));
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        mma_k16_step(acc[i][j], a0, a1, b[j], 0);
+        mma_k16_step(acc[i][j], a0, a1, b[j], 1);
+      }
+    }
+  }
+}
+
+// epi(row, col, v0, v1) for the pairs of neighbouring columns a thread
+// holds after tc_rows
+template <int MT, int NT, typename Epi>
+__device__ __forceinline__ void for_each_pair(float (&acc)[MT][NT][4], Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = warp * NT * 8 + (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      epi(16 * i + g, c + 8 * j, acc[i][j][0], acc[i][j][1]);
+      epi(16 * i + g + 8, c + 8 * j, acc[i][j][2], acc[i][j][3]);
+    }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// flax LayerNorm in f32 (eps 1e-6) of `rows` rows of x: kD / 4 lanes share
+// a row, a float4 each. Row r is read at x + src(r) * kLdx and written at
+// y + r * ldy.
+template <class S, typename Src>
+__device__ __forceinline__ void layer_norm(const float* x, float* y, int ldy, int rows, Src src,
+                                           const float* scale, const float* bias) {
+  constexpr int kLanes = S::kD / 4, kPerWarp = 32 / kLanes;
+  static_assert(32 % kLanes == 0, "a row's lanes within a warp");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sub = lane / kLanes, c0 = (lane % kLanes) * 4;
+  const float4 sc = ld4(scale + c0), bi = ld4(bias + c0);
+  for (int r0 = warp * kPerWarp; r0 < rows; r0 += kWarps * kPerWarp) {
+    const int r = r0 + sub < rows ? r0 + sub : rows - 1;   // idle lanes repeat the last row
+    const float4 v = ld4(x + src(r) * S::kLdx + c0);
+    float s = v.x + v.y + v.z + v.w;
+    float s2 = v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+#pragma unroll
+    for (int o = kLanes / 2; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    const float mean = s / S::kD;
+    const float inv = rsqrtf(fmaxf(s2 / S::kD - mean * mean, 0.f) + 1e-6f);
+    if (r0 + sub < rows)
+      *reinterpret_cast<float4*>(y + r * ldy + c0) =
+          make_float4((v.x - mean) * (inv * sc.x) + bi.x, (v.y - mean) * (inv * sc.y) + bi.y,
+                      (v.z - mean) * (inv * sc.z) + bi.z, (v.w - mean) * (inv * sc.w) + bi.w);
+  }
+}
+
+// softmax(q k^T * scale) v for one 16-query strip against the n_keys keys at
+// k and v (KT16 = ceil(n_keys / 16) tiles), normalised
+template <class S, int KT16>
+__device__ __forceinline__ void attend_strip(const float* q_rows, const float* k, const float* v,
+                                             int n_keys, float scale,
+                                             float (&o)[S::kDh / 8][4]) {
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int t = 0; t < S::kDh / 8; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[t][i] = 0.f;
+  attn_strip_block_f32<S::kDh, KT16, true>(q_rows, S::kLdq, k, S::kLdq, v, S::kLdv, n_keys,
+                                           scale, m, l, o);
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+  for (int t = 0; t < S::kDh / 8; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[t][i] *= inv[i >> 1];
+}
+
+template <class S>
+__global__ void __launch_bounds__(kThreads, 1)
+spatial_table_tf32_kernel(Params p) {
+  constexpr int kD = S::kD, kDh = S::kDh, kMc = S::kMc, kMt = S::kMt, kRows = S::kRows;
+  constexpr int kLdx = S::kLdx, kLdh = S::kLdh, kLdq = S::kLdq, kLdv = S::kLdv;
+  constexpr int kLdm = S::kLdm;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem + S::kOffX);
+  float* hs = reinterpret_cast<float*>(smem + S::kOffH);
+  float* qs = reinterpret_cast<float*>(smem + S::kOffQ);
+  float* ks = reinterpret_cast<float*>(smem + S::kOffK);
+  float* vs = reinterpret_cast<float*>(smem + S::kOffV);
+  float* mid = qs;                          // the FF chunk reuses q (and k)
+  // The last layer's 16-row cls tiles (row f = frame f's cls token): q (32
+  // rows: strip f reads rows f..f+15), the attention output and the FF
+  // chunk in q's region; the LayerNorm output in h's.
+  float* qc = qs;
+  float* oc = qc + 32 * kLdq;
+  float* midc = oc + 16 * kLdq;
+  float* hc = hs;
+  float* const buf[2] = {reinterpret_cast<float*>(smem + S::kOffPanel),
+                         reinterpret_cast<float*>(smem + S::kOffPanel) + S::kPanel};
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  const int N = p.N, F = p.F, H = p.H, M = p.M;
+  const int frame0 = blockIdx.x * F, off = blockIdx.y;
+  const int n_chunks = M / kMc;
+  const int per_layer = 4 * H + 2 * n_chunks;
+  const int n_panels = p.depth * per_layer;
+  const size_t layer_panels = static_cast<size_t>(H) * 4 * kDh * kD +
+                              static_cast<size_t>(n_chunks) * 2 * kMc * kD;
+  const size_t layer_elems = layer_panels + 2 * kD + M;
+
+  // The panels lie in wmat in the order they are used: per head q, k, v,
+  // out-projection; per MLP chunk FF1, FF2; then the layer's biases. Panel i
+  // goes to buffer i % 2 while panel i - 1 is multiplied.
+  const float* wnext = p.wmat;
+  int issued = 0, consumed = 0;
+  auto issue_next = [&]() {
+    if (issued < n_panels) {
+      const int i = issued % per_layer;
+      const int n = i < 4 * H ? kDh * kD : kMc * kD;
+      float* dst = buf[issued & 1];
+      for (int e = tid * 4; e < n; e += kThreads * 4)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst + e)),
+                     "l"(wnext + e));
+      wnext += n;
+      if (i == per_layer - 1) wnext += 2 * kD + M;      // the layer's biases
+      ++issued;
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // One barrier per product: after it the product's panel has landed, what
+  // earlier stages wrote is visible, and every warp is done with the
+  // product before, whose buffer then takes the next panel's copy.
+  auto next_panel = [&]() -> const float* {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    issue_next();
+    return buf[consumed++ & 1];
+  };
+  issue_next();
+
+  // x = tokens + base, frames packed without padding: row f * N + i is token
+  // i of frame frame0 + f. Rows of frames past T and past F * N are zero
+  // (finite through every layer, never stored). q's region starts at zero,
+  // so that the cls strips' padding rows are finite at any depth.
+  for (int i = tid; i < kRows * (kD / 4); i += kThreads) {
+    const int r = i / (kD / 4), c = (i % (kD / 4)) * 4;
+    const int f = r / N, tok = r % N;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (f < F && frame0 + f < p.T) {
+      const float4 a = ld4(p.tokens + (static_cast<size_t>(frame0 + f) * N + tok) * kD + c);
+      const float4 b = ld4(p.base + (static_cast<size_t>(off) * N + tok) * kD + c);
+      val = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+    }
+    *reinterpret_cast<float4*>(xs + r * kLdx + c) = val;
+  }
+  for (int i = tid; i < kRows * kLdq; i += kThreads) qs[i] = 0.f;
+  __syncthreads();
+
+  auto rows_of = [](const float* base, int ld) {
+    return [=](int r) { return base + r * ld; };
+  };
+  // x[r, c..c+1] += v + bias, for two neighbouring columns
+  auto residual_pair = [&](int r, int c, const float* bias, float v0, float v1) {
+    float2* xp = reinterpret_cast<float2*>(xs + r * kLdx + c);
+    const float2 b = *reinterpret_cast<const float2*>(bias + c);
+    const float2 x = *xp;
+    *xp = make_float2(x.x + (v0 + b.x), x.y + (v1 + b.y));
+  };
+  // One warp, one 16-query strip of one frame: the frame's keys are its N
+  // rows at row0; the rows up to the next multiple of 16 belong to the next
+  // frame or the zero tail and are masked in the core.
+  auto attend = [&](const float* q_rows, int row0, float (&o)[kDh / 8][4]) {
+    const float* k = ks + row0 * kLdq;
+    const float* v = vs + row0 * kLdv;
+    switch ((N + 15) / 16) {
+      case 1: attend_strip<S, 1>(q_rows, k, v, N, p.scale, o); break;
+      case 2: attend_strip<S, 2>(q_rows, k, v, N, p.scale, o); break;
+      case 3: attend_strip<S, 3>(q_rows, k, v, N, p.scale, o); break;
+      case 4: attend_strip<S, 4>(q_rows, k, v, N, p.scale, o); break;
+      default: attend_strip<S, 5>(q_rows, k, v, N, p.scale, o); break;
+    }
+    __syncwarp();
+  };
+  // the all-row product of h with the next 64-row panel into dst (stride ld)
+  auto project = [&](float* dst, int ld) {
+    float acc[kMt][1][4];
+    zero(acc);
+    tc_rows<kMt, 1, kD>(acc, rows_of(hs, kLdh), next_panel());
+    for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+      *reinterpret_cast<float2*>(dst + r * ld + c) = make_float2(v0, v1);
+    });
+  };
+
+  const int spf = (N + 15) / 16;            // strips per frame
+  for (int l = 0; l < p.depth; ++l) {
+    const float* b_out = p.wmat + l * layer_elems + layer_panels;
+    const float* b_ff1 = b_out + kD;
+    const float* b_ff2 = b_ff1 + M;
+    const float* ln = p.wln + 4 * l * kD;
+    layer_norm<S>(xs, hs, kLdh, kRows, [](int r) { return r; }, ln, ln + kD);
+    __syncthreads();
+
+    if (l < p.depth - 1) {
+      // ---- attention, all rows ----
+      float oacc[kMt][2][4];                // out-projection, summed over heads
+      zero(oacc);
+      for (int hh = 0; hh < H; ++hh) {
+        project(qs, kLdq);
+        project(ks, kLdq);
+        project(vs, kLdv);
+        __syncthreads();
+        // the output replaces the strip's own q rows (rows past the frame's
+        // end are left alone: they are the next frame's q)
+        for (int s = warp; s < F * spf; s += kWarps) {
+          const int row0 = s / spf * N, q0 = s % spf * 16, left = N - q0;
+          float* dst = qs + (row0 + q0) * kLdq;
+          float o[kDh / 8][4];
+          attend(dst, row0, o);
+#pragma unroll
+          for (int t = 0; t < kDh / 8; ++t) {
+            if (g < left)
+              *reinterpret_cast<float2*>(dst + g * kLdq + t * 8 + c2) = make_float2(o[t][0], o[t][1]);
+            if (g + 8 < left)
+              *reinterpret_cast<float2*>(dst + (g + 8) * kLdq + t * 8 + c2) =
+                  make_float2(o[t][2], o[t][3]);
+          }
+        }
+        tc_rows<kMt, 2, kDh>(oacc, rows_of(qs, kLdq), next_panel());
+      }
+      for_each_pair(oacc, [&](int r, int c, float v0, float v1) {
+        residual_pair(r, c, b_out, v0, v1);
+      });
+      __syncthreads();
+
+      // ---- feed-forward, all rows, over chunks of kMc MLP columns ----
+      layer_norm<S>(xs, hs, kLdh, kRows, [](int r) { return r; }, ln + 2 * kD, ln + 3 * kD);
+      zero(oacc);                           // FF2, summed over the chunks
+      for (int ch = 0; ch < n_chunks; ++ch) {
+        {
+          float acc[kMt][1][4];
+          zero(acc);
+          tc_rows<kMt, 1, kD>(acc, rows_of(hs, kLdh), next_panel());
+          const float* bias = b_ff1 + ch * kMc;
+          for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+            *reinterpret_cast<float2*>(mid + r * kLdm + c) =
+                make_float2(gelu_tanh(v0 + bias[c]), gelu_tanh(v1 + bias[c + 1]));
+          });
+        }
+        tc_rows<kMt, 2, kMc>(oacc, rows_of(mid, kLdm), next_panel());
+      }
+      for_each_pair(oacc, [&](int r, int c, float v0, float v1) {
+        residual_pair(r, c, b_ff2, v0, v1);
+      });
+      __syncthreads();
+    } else {
+      // ---- last layer: the table keeps the cls row after the final
+      // LayerNorm, so K and V are needed for all rows and everything else
+      // for the F cls rows, as 16-row tiles (row f = frame f; rows past F
+      // repeat frame 0 or hold finite leftovers, and are never stored).
+      auto cls_h = [&](int r) { return hs + (r < F ? r * N : 0) * kLdh; };
+      float cacc[1][2][4];                  // out-projection of the cls rows
+      zero(cacc);
+      for (int hh = 0; hh < H; ++hh) {
+        {
+          float qa[1][1][4];
+          zero(qa);
+          tc_rows<1, 1, kD>(qa, cls_h, next_panel());
+          for_each_pair(qa, [&](int r, int c, float v0, float v1) {
+            *reinterpret_cast<float2*>(qc + r * kLdq + c) = make_float2(v0, v1);
+          });
+        }
+        project(ks, kLdq);
+        project(vs, kLdv);
+        __syncthreads();
+        // strip f: queries qc rows f..f+15, of which row 0 is frame f's cls
+        for (int f = warp; f < F; f += kWarps) {
+          float o[kDh / 8][4];
+          attend(qc + f * kLdq, f * N, o);
+          if (g == 0) {
+#pragma unroll
+            for (int t = 0; t < kDh / 8; ++t)
+              *reinterpret_cast<float2*>(oc + f * kLdq + t * 8 + c2) = make_float2(o[t][0], o[t][1]);
+          }
+        }
+        tc_rows<1, 2, kDh>(cacc, rows_of(oc, kLdq), next_panel());
+      }
+      auto cls_residual = [&](const float* bias) {
+        for_each_pair(cacc, [&](int r, int c, float v0, float v1) {
+          if (r < F) residual_pair(r * N, c, bias, v0, v1);
+        });
+      };
+      cls_residual(b_out);
+      __syncthreads();
+
+      layer_norm<S>(xs, hc, kLdh, F, [N](int r) { return r * N; }, ln + 2 * kD, ln + 3 * kD);
+      zero(cacc);                           // FF2 of the cls rows
+      for (int ch = 0; ch < n_chunks; ++ch) {
+        {
+          float acc[1][1][4];
+          zero(acc);
+          tc_rows<1, 1, kD>(acc, rows_of(hc, kLdh), next_panel());
+          const float* bias = b_ff1 + ch * kMc;
+          for_each_pair(acc, [&](int r, int c, float v0, float v1) {
+            *reinterpret_cast<float2*>(midc + r * kLdm + c) =
+                make_float2(gelu_tanh(v0 + bias[c]), gelu_tanh(v1 + bias[c + 1]));
+          });
+        }
+        tc_rows<1, 2, kMc>(cacc, rows_of(midc, kLdm), next_panel());
+      }
+      cls_residual(b_ff2);
+      __syncthreads();
+    }
+  }
+
+  // final LayerNorm of each frame's cls row
+  const float* fs = p.wln + 4 * p.depth * kD;
+  for (int f = warp; f < F && frame0 + f < p.T; f += kWarps) {
+    const float* x = xs + f * N * kLdx;
+    float* dst = p.out + (static_cast<size_t>(off) * p.T + frame0 + f) * kD;
+    float v[kD / 32], s = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kD / 32; ++j) {
+      v[j] = x[lane + 32 * j];
+      s += v[j];
+      s2 += v[j] * v[j];
+    }
+    const float mean = warp_sum(s) / kD;
+    const float var = fmaxf(warp_sum(s2) / kD - mean * mean, 0.f);
+    const float inv = rsqrtf(var + 1e-6f);
+#pragma unroll
+    for (int j = 0; j < kD / 32; ++j) {
+      const int c = lane + 32 * j;
+      dst[c] = (v[j] - mean) * (inv * fs[c]) + fs[kD + c];
+    }
+  }
+}
+
+template <class S>
+cudaError_t prepare() {
+  return cudaFuncSetAttribute(spatial_table_tf32_kernel<S>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(S::kSmemBytes));
+}
+
+template <class S>
+int launch(const void* tokens, const void* base, const void* wmat, const void* wln,
+           void* out, int T, int n_off, int N, int depth, int H, int M, float scale,
+           void* stream) {
+  for (const void* ptr : {tokens, base, wmat})
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return cudaErrorMisalignedAddress;
+  Params p;
+  p.tokens = static_cast<const float*>(tokens);
+  p.base = static_cast<const float*>(base);
+  p.wmat = static_cast<const float*>(wmat);
+  p.wln = static_cast<const float*>(wln);
+  p.out = static_cast<float*>(out);
+  p.T = T;
+  p.N = N;
+  p.F = frames_per_block<S>(N);
+  p.depth = depth;
+  p.H = H;
+  p.M = M;
+  p.scale = scale;
+  cudaError_t err = prepare<S>();
+  if (err != cudaSuccess) return err;
+  spatial_table_tf32_kernel<S><<<dim3((T + p.F - 1) / p.F, n_off), kThreads, S::kSmemBytes,
+                                 static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace tf32
+
+}  // namespace
+
+extern "C" int spatial_table_plan(int N, int D, int H, int dh, int M, int elem_bytes);
+
+namespace {
+// fn(S()) for the instance a call at these widths takes (the f32 one's or
+// the fast one's Shape), `none` for the general one
+template <typename R, typename Fn>
+R with_planned(int N, int D, int H, int dh, int M, int elem_bytes, R none, Fn fn) {
+  if (spatial_table_plan(N, D, H, dh, M, elem_bytes) == 0) return none;
+  return elem_bytes == 4 ? tf32::with_instance(N, D, dh, none, fn)
+                         : fast::with_instance(N, D, dh, none, fn);
+}
 }  // namespace
 
 extern "C" {
@@ -1445,10 +1971,15 @@ void spatial_table_set_profile(void* prof) {
 #endif
 
 // Which instance a call takes: 0 the general one, otherwise the fast one
-// compiled for (N, D, dh), the value being its frames per block (1 where
-// one frame has a block or a cluster of its own).
+// (bf16) or the f32 one compiled for (N, D, dh), the value being its frames
+// per block (1 where one frame has a block or a cluster of its own).
 int spatial_table_plan(int N, int D, int H, int dh, int M, int elem_bytes) {
   (void)H;
+  if (elem_bytes == 4)
+    return tf32::with_instance(N, D, dh, 0, [&](auto s) {
+      using S = decltype(s);
+      return tf32::applies<S>(N, M) ? tf32::frames_per_block<S>(N) : 0;
+    });
   if (elem_bytes != 2) return 0;
   return fast::with_instance(N, D, dh, 0, [&](auto s) {
     using S = decltype(s);
@@ -1456,38 +1987,57 @@ int spatial_table_plan(int N, int D, int H, int dh, int M, int elem_bytes) {
   });
 }
 
-// The blocks that share a frame in the fast instance a call takes (1 or 2),
-// 0 for the general one.
+// The blocks that share a frame in the fast or f32 instance a call takes
+// (1 or 2), 0 for the general one.
 int spatial_table_cluster_size(int N, int D, int H, int dh, int M, int elem_bytes) {
-  if (spatial_table_plan(N, D, H, dh, M, elem_bytes) == 0) return 0;
-  return fast::with_instance(N, D, dh, 0, [](auto s) { return decltype(s)::kCluster; });
+  return with_planned(N, D, H, dh, M, elem_bytes, 0,
+                      [](auto s) { return decltype(s)::kCluster; });
 }
 
-// The MLP columns of one FF panel of the fast instance a call takes (the
-// wrapper's pack_fast chunk), 0 for the general one.
+// The MLP columns of one FF panel of the fast or f32 instance a call takes
+// (the wrapper's pack_fast chunk), 0 for the general one.
 int spatial_table_mlp_chunk(int N, int D, int H, int dh, int M, int elem_bytes) {
-  if (spatial_table_plan(N, D, H, dh, M, elem_bytes) == 0) return 0;
-  return fast::with_instance(N, D, dh, 0, [](auto s) { return decltype(s)::kMc; });
+  return with_planned(N, D, H, dh, M, elem_bytes, 0,
+                      [](auto s) { return decltype(s)::kMc; });
 }
 
 // Dynamic shared memory one block needs, in bytes (elem_bytes 2 or 4).
 long long spatial_table_smem_bytes(int N, int D, int H, int dh, int M, int elem_bytes) {
-  if (spatial_table_plan(N, D, H, dh, M, elem_bytes) > 0)
-    return fast::with_instance(N, D, dh, 0LL, [](auto s) {
-      return static_cast<long long>(decltype(s)::kSmemBytes);
-    });
+  const long long fast_bytes = with_planned(N, D, H, dh, M, elem_bytes, 0LL, [](auto s) {
+    return static_cast<long long>(decltype(s)::kSmemBytes);
+  });
+  if (fast_bytes > 0) return fast_bytes;
   const Dims d = make_dims(1, 1, N, D, 1, H, dh, M, 1.f);
   return elem_bytes == 2 ? static_cast<long long>(Layout<bf16>(d).total)
                          : static_cast<long long>(Layout<float>(d).total);
 }
 
-// The fast instance compiled for (N, D, dh) as the card takes it: out[0]
-// registers a thread, out[1] dynamic and out[2] static shared memory a
-// block (bytes), out[3] threads a block, out[4] blocks resident on one SM,
-// out[5] blocks a cluster, out[6] clusters resident on the card at once
-// (0 for a block of its own). Returns a CUDA error code;
-// cudaErrorInvalidValue where no instance is.
-int spatial_table_fast_attributes(int N, int D, int dh, int* out) {
+// The fast (elem_bytes 2) or f32 (4) instance compiled for (N, D, dh) as
+// the card takes it: out[0] registers a thread, out[1] dynamic and out[2]
+// static shared memory a block (bytes), out[3] threads a block, out[4]
+// blocks resident on one SM, out[5] blocks a cluster, out[6] clusters
+// resident on the card at once (0 for a block of its own). Returns a CUDA
+// error code; cudaErrorInvalidValue where no instance is.
+int spatial_table_fast_attributes(int N, int D, int dh, int elem_bytes, int* out) {
+  if (elem_bytes == 4)
+    return tf32::with_instance(N, D, dh, static_cast<int>(cudaErrorInvalidValue), [&](auto s) {
+      using S = decltype(s);
+      cudaFuncAttributes attr{};
+      int blocks = 0;
+      cudaError_t err = tf32::prepare<S>();
+      if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, tf32::spatial_table_tf32_kernel<S>);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &blocks, tf32::spatial_table_tf32_kernel<S>, tf32::kThreads, S::kSmemBytes);
+      out[0] = attr.numRegs;
+      out[1] = static_cast<int>(S::kSmemBytes);
+      out[2] = static_cast<int>(attr.sharedSizeBytes);
+      out[3] = tf32::kThreads;
+      out[4] = blocks;
+      out[5] = 1;
+      out[6] = 0;
+      return static_cast<int>(err);
+    });
   return fast::with_instance(N, D, dh, static_cast<int>(cudaErrorInvalidValue), [&](auto s) {
     using S = decltype(s);
     cudaFuncAttributes attr{};
@@ -1514,8 +2064,9 @@ int spatial_table_fast_attributes(int N, int D, int dh, int* out) {
 }
 
 // wmat is packed for the instance spatial_table_plan names (the wrapper's
-// pack_fast with spatial_table_mlp_chunk's chunk, or pack_general); the
-// fast one needs 16-byte-aligned pointers.
+// pack_fast with spatial_table_mlp_chunk's chunk, in 8 x 8 core matrices
+// for the fast instance and 8 x 16 tiles for the f32 one, or
+// pack_general); the fast and f32 ones need 16-byte-aligned pointers.
 int spatial_table_bf16(const void* tokens, const void* base, const void* wmat,
                        const void* wln, void* out, int T, int n_off, int N, int D,
                        int depth, int H, int dh, int M, float scale, void* stream) {
@@ -1531,6 +2082,11 @@ int spatial_table_bf16(const void* tokens, const void* base, const void* wmat,
 int spatial_table_f32(const void* tokens, const void* base, const void* wmat,
                       const void* wln, void* out, int T, int n_off, int N, int D,
                       int depth, int H, int dh, int M, float scale, void* stream) {
+  if (spatial_table_plan(N, D, H, dh, M, 4) > 0)
+    return tf32::with_instance(N, D, dh, 0, [&](auto s) {
+      return tf32::launch<decltype(s)>(tokens, base, wmat, wln, out, T, n_off, N, depth, H,
+                                       M, scale, stream);
+    });
   return launch<float>(tokens, base, wmat, wln, out, T, n_off, N, D, depth, H, dh, M,
                        scale, stream);
 }

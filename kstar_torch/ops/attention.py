@@ -7,12 +7,14 @@ per clip). ``fused_attention`` runs QK^T -> f32 softmax -> AV for each
 plain ``fused_attention_reference`` on a CPU tensor. ``MHSA`` calls it when
 built with ``use_pallas=True`` (models/vivit.py).
 
-The source holds two hand-written instances, chosen by its C launcher: a
-tensor-core one (bf16, D in {16, 32, 64, 128}, 16-byte-aligned tensors) and
-a scalar f32 one for everything else; ``fused_attention.instance`` names
-the one the last launch took. ``strip_attention_emulation`` repeats the
-tensor-core instance's arithmetic in plain PyTorch, so that its tolerance
-can be checked without a GPU.
+The source holds three hand-written instances, chosen by its C launcher:
+two tensor-core ones for D in {16, 32, 64, 128} and 16-byte-aligned tensors
+(bf16, ``mma_keys<block>``; f32 in split TF32, ``tf32x3_keys<block>``) and a
+scalar one for everything else; ``fused_attention.instance`` names the one
+the last launch took. ``strip_attention_emulation`` repeats the tensor-core
+instances' arithmetic in plain PyTorch (``tf32_round`` and
+``split_tf32_matmul`` the f32 one's products), so that their tolerances can
+be checked without a GPU.
 """
 
 from __future__ import annotations
@@ -81,7 +83,8 @@ def fused_attention(q, k, v, scale: float):
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
     block = _build.function("attention", "fused_attention_plan", [ctypes.c_int] * 4)(
         N, D, q.element_size(), int(aligned))
-    fused_attention.instance = f"mma_keys{block}" if block else "scalar"
+    kind = "mma" if q.dtype == torch.bfloat16 else "tf32x3"
+    fused_attention.instance = f"{kind}_keys{block}" if block else "scalar"
     return out
 
 
@@ -93,20 +96,54 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32 as ``cvt.rna.tf32.f32`` rounds them: to
+    nearest on the bit pattern, ties away from zero (half of the 13 dropped
+    bits is added to the magnitude, which may carry into the exponent),
+    the 13 low bits of the result zero. NaN stays NaN."""
+    x = x.float()
+    bits = x.contiguous().view(torch.int32).to(torch.int64)
+    sign, mag = bits & 0x80000000, bits & 0x7FFFFFFF
+    out = sign | ((mag + 0x1000) & ~0x1FFF)
+    out = torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(torch.int32).view(torch.float32)
+    return torch.where(torch.isnan(x), x, out)
+
+
+def split_tf32(x: torch.Tensor) -> tuple:
+    """(hi, lo): hi = tf32(x), lo = tf32(x - hi), as the kernels split an
+    operand (x - hi is exact in f32)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the f32 kernels' tensor-core products compute it: each
+    operand split into a TF32 pair, then lo_a hi_b + hi_a lo_b + hi_a hi_b,
+    three TF32 products (each exact in f32) summed in f32 (lo_a lo_b,
+    ~2^-22 of a product, is dropped)."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
 def strip_attention_emulation(q, k, v, scale: float, p_mode: str = "hi_lo",
                               key_block: int = None):
-    """The tensor-core instance's arithmetic in plain PyTorch, for bf16
-    (B, H, N, D) inputs: strips of 16 queries, keys in blocks of
-    ``key_block`` (the compiled block the launcher would pick by default)
-    padded to a multiple of 16 with keys >= N masked, running max and sum
-    across blocks, and the probabilities entering P V as bf16 fragments:
-    ``"hi_lo"`` (the kernel: p = hi + lo, two products), ``"bf16"`` (one
-    rounded fragment) or ``"f32"`` (no rounding). Products accumulate in
+    """The tensor-core instances' arithmetic in plain PyTorch, for (B, H,
+    N, D) inputs: strips of 16 queries, keys in blocks of ``key_block``
+    (the compiled block the launcher would pick by default) padded to a
+    multiple of 16 with keys >= N masked, running max and sum across
+    blocks. bf16 inputs (the bf16 instance): the probabilities enter P V as
+    bf16 fragments, ``"hi_lo"`` (the kernel: p = hi + lo, two products),
+    ``"bf16"`` (one rounded fragment) or ``"f32"`` (no rounding).
+    ``"split_tf32"`` (the f32 instance, f32 inputs): both products in split
+    TF32 (``split_tf32_matmul``), P unnormalised. Products accumulate in
     f32 as the MMA does, up to summation order."""
     B, H, N, D = q.shape
     if key_block is None:
         key_block = next((kb for kb in KEY_BLOCKS if N <= kb), KEY_BLOCKS[-1])
-    qf, kf, vf = (_bf16(t) for t in (q, k, v))
+    split = p_mode == "split_tf32"
+    mm = split_tf32_matmul if split else torch.matmul
+    qf, kf, vf = (t.float() if split else _bf16(t) for t in (q, k, v))
     out = torch.empty(B, H, N, D)
     for q0 in range(0, N, 16):
         qs = F.pad(qf[:, :, q0:q0 + 16], (0, 0, 0, max(0, q0 + 16 - N)))   # (B, H, 16, D)
@@ -118,13 +155,15 @@ def strip_attention_emulation(q, k, v, scale: float, p_mode: str = "hi_lo",
             pad = -nk % 16
             kb = F.pad(kf[:, :, k0:k0 + nk], (0, 0, 0, pad))
             vb = F.pad(vf[:, :, k0:k0 + nk], (0, 0, 0, pad))
-            s = (qs @ kb.transpose(-1, -2)) * scale
+            s = mm(qs, kb.transpose(-1, -2)) * scale
             s[..., nk:] = float("-inf")
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             corr = torch.exp(m - m_new)
             p = torch.exp(s - m_new)
             l = l * corr + p.sum(-1, keepdim=True)
-            if p_mode == "hi_lo":
+            if split:
+                pv = mm(p, vb)
+            elif p_mode == "hi_lo":
                 hi = _bf16(p)
                 pv = hi @ vb + _bf16(p - hi) @ vb
             else:

@@ -14,20 +14,23 @@ kernel's TPU-only switches (the ``paired``/``packedN``/``global-masked``
 layouts, the inexact ``none`` and ``debug_skip`` profiling modes,
 ``block_f``, ``pad_d_head`` and ``interpret``) have no counterpart here.
 
-The source holds two hand-written instances, chosen by shape in its C
-launcher (``spatial_table.instance`` names the one the last launch took):
-the fast one (bf16: ``wgmma`` products, register-resident attention, the
-last layer for the cls rows only), one design compiled for each entry of
-``FAST_INSTANCES`` (the flagship ViViT's D 128 / d_head 64 with several
+The source holds three hand-written instances, chosen by shape and dtype
+in its C launcher (``spatial_table.instance`` names the one the last launch
+took): the fast one (bf16: ``wgmma`` products, register-resident attention,
+the last layer for the cls rows only), one design compiled for each entry
+of ``FAST_INSTANCES`` (the flagship ViViT's D 128 / d_head 64 with several
 frames per block up to N 80, one frame per block up to N 144 and one frame
 per two-block cluster up to N 257, the full 256 px frame at patch 16; the
-demo ViViT's D 64 / d_head 32 up to N 80), and the general one (f32, and
-bf16 at any other accepted width, N <= 128). The wrapper packs the weights
-for the instance (``pack_fast``: the kernel's panel stream, in the
-instance's MLP chunks; ``pack_general``) once per weights bundle, dtype and
-chunk. ``packed_walk_reference`` walks the fast instance's stream in plain
-PyTorch (past N 80 with the two-pass attention of blocks of keys), so that
-the packing and the kernel's order of work are tested without a GPU.
+demo ViViT's D 64 / d_head 32 up to N 80); its f32 sibling, the entries of
+``FAST_F32_INSTANCES`` (the flagship widths up to N 80, products on the
+tensor cores in split TF32); and the general one (f32 and bf16 at any other
+accepted width, N <= 128). The wrapper packs the weights for the instance
+(``pack_fast``: the kernel's panel stream, in the instance's MLP chunks and
+panel layout; ``pack_general``) once per weights bundle, dtype and chunk.
+``packed_walk_reference`` walks the fast and f32 instances' streams in
+plain PyTorch (past N 80 with the two-pass attention of blocks of keys; in
+f32 with the split-TF32 products), so that the packing and the kernels'
+order of work are tested without a GPU.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import _build
+from .attention import split_tf32
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_N, MAX_D, MAX_D_HEAD = 128, 256, 128
@@ -252,7 +256,7 @@ def kernel_refusal(T: int, N: int, D: int, depth: int, n_heads: int, d_head: int
     if compute_dtype not in _DTYPES:
         return f"compute dtype {compute_dtype} not supported (float32 or bfloat16)"
     # N <= MAX_N is the general instance's limit; a fast instance sets its own
-    fast = compute_dtype == torch.bfloat16 and fast_applies(N, D, d_head, M)
+    fast = fast_applies(N, D, d_head, M, compute_dtype)
     if not ((0 < N <= MAX_N or fast) and 0 < D <= MAX_D and 0 < d_head <= MAX_D_HEAD
             and T > 0 and depth > 0 and n_heads > 0 and M > 0
             and D % 16 == 0 and d_head % 16 == 0 and M % 16 == 0):
@@ -280,10 +284,14 @@ def kernel_refusal(T: int, N: int, D: int, depth: int, n_heads: int, d_head: int
 
 
 def _fast_limits(D: int, d_head: int) -> str:
-    """The fast instances' own limits at these widths, for a refusal."""
-    max_n = max((i.max_n for i in FAST_INSTANCES if (i.d, i.d_head) == (D, d_head)),
-                default=None)
-    return "" if max_n is None else f" (N <= {max_n} in bfloat16 at D {D}, d_head {d_head})"
+    """The fast and f32 instances' own limits at these widths, for a
+    refusal."""
+    limits = []
+    for name, insts in (("bfloat16", FAST_INSTANCES), ("float32", FAST_F32_INSTANCES)):
+        max_n = max((i.max_n for i in insts if (i.d, i.d_head) == (D, d_head)), default=None)
+        if max_n is not None:
+            limits.append(f"N <= {max_n} in {name}")
+    return f" ({'; '.join(limits)} at D {D}, d_head {d_head})" if limits else ""
 
 
 def _kernel_plan(N, D, n_heads, d_head, M, cd) -> tuple:
@@ -310,14 +318,15 @@ def _launch(tokens, w: SpatialWeights, n_offsets, depth, n_heads, d_head,
         raise ValueError(f"spatial_table: shape not supported by the CUDA kernel "
                          f"({shape}): {refusal}")
     frames, _, cluster, chunk = _kernel_plan(N, D, n_heads, d_head, M, cd)
-    inst = fast_instance(D, d_head, N)
-    expect = ((fast_frames_per_block(N, D, d_head), inst.cluster, inst.mlp_chunk)
-              if cd == torch.bfloat16 and fast_applies(N, D, d_head, M) else (0, 0, 0))
+    inst = fast_instance(D, d_head, N, cd)
+    expect = ((fast_frames_per_block(N, D, d_head, cd), inst.cluster, inst.mlp_chunk)
+              if fast_applies(N, D, d_head, M, cd) else (0, 0, 0))
     if (frames, cluster, chunk) != expect:
         raise RuntimeError(f"spatial_table: the kernel source and its wrapper "
                            f"disagree on the instance for {shape}")
 
-    wmat, wln = _packed_weights(w, depth, n_heads, cd, dev, mlp_chunk=chunk)
+    wmat, wln = _packed_weights(w, depth, n_heads, cd, dev, mlp_chunk=chunk,
+                                layout=inst.layout if frames else None)
     tok = _aligned(tokens.to(cd).contiguous())
     base = _aligned(w.base[:n_offsets, :N].to(device=dev, dtype=cd).contiguous())
     out = torch.empty((n_offsets, T, D), device=dev, dtype=cd)
@@ -328,7 +337,7 @@ def _launch(tokens, w: SpatialWeights, n_offsets, depth, n_heads, d_head,
              float(scale), torch.cuda.current_stream(dev).cuda_stream)
     _build.check("spatial_table", err, "spatial_table")
     spatial_table.launches += 1
-    spatial_table.instance = fast_instance_name(N, D, d_head) if frames else "general"
+    spatial_table.instance = fast_instance_name(N, D, d_head, cd) if frames else "general"
     spatial_table.frames_per_block = frames or 1
     return out
 
@@ -345,7 +354,10 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 # panels, each in the layout it has in shared memory, so that a panel is one
 # flat copy: the blocked layout wgmma reads (csrc/wgmma.cuh), 8 x 8 core
 # matrices of 64 contiguous elements, those of one 8-row group side by side
-# along k.
+# along k ("core8x8"). Its f32 sibling (namespace tf32) takes the same
+# stream in 8 x 16 tiles of 128 contiguous floats, those of one 8-row group
+# side by side along k ("tile8x16"): lane (g, t) of a warp reads row g,
+# columns 4t .. 4t + 3 of a tile as one float4, its split-TF32 B fragment.
 
 
 class FastInstance(NamedTuple):
@@ -361,6 +373,7 @@ class FastInstance(NamedTuple):
     rows: int
     max_n: int = 80
     cluster: int = 1
+    layout: str = "core8x8"
 
 
 # Up to PACKED_MAX_N tokens (five 16-key tiles, one pass of the attention
@@ -375,6 +388,9 @@ FAST_INSTANCES = (FastInstance(128, 64, 128, 144, 160),
                   FastInstance(128, 64, 128, 144, 160, max_n=144),
                   FastInstance(128, 64, 64, 144, 160, max_n=257, cluster=2),
                   FastInstance(64, 32, 64, 128, 144))
+# The f32 instance (products in split TF32, shared memory for 80 f32 rows):
+# the flagship ViViT's widths up to N 80, MLP chunks of 64.
+FAST_F32_INSTANCES = (FastInstance(128, 64, 64, 80, 80, layout="tile8x16"),)
 # the last layer's 16-row cls tile
 FAST_MAX_FRAMES = 16
 
@@ -382,88 +398,108 @@ _GENERAL_ORDER = ("w_qkv", "w_out", "b_out", "w_ff1", "b_ff1", "w_ff2", "b_ff2")
 _LN_ORDER = ("ln_a_s", "ln_a_b", "ln_f_s", "ln_f_b")
 
 
-def fast_instance(D: int, d_head: int, N: int = 1):
-    """The fast instance compiled for these widths that takes frames of N
-    tokens (by default the packed one), or None."""
-    return next((i for i in FAST_INSTANCES
+def fast_instance(D: int, d_head: int, N: int = 1, dtype: torch.dtype = torch.bfloat16):
+    """The fast instance (bf16) or the f32 one compiled for these widths
+    that takes frames of N tokens (by default the packed one), or None."""
+    insts = (FAST_INSTANCES if dtype == torch.bfloat16
+             else FAST_F32_INSTANCES if dtype == torch.float32 else ())
+    return next((i for i in insts
                  if (i.d, i.d_head) == (D, d_head) and 1 <= N <= i.max_n), None)
 
 
-def _instance_of(D: int, d_head: int, N: int = 1) -> FastInstance:
-    inst = fast_instance(D, d_head, N)
+def _instance_of(D: int, d_head: int, N: int = 1,
+                 dtype: torch.dtype = torch.bfloat16) -> FastInstance:
+    inst = fast_instance(D, d_head, N, dtype)
     if inst is None:
-        raise ValueError(f"no fast instance is compiled for D {D}, d_head {d_head}, N {N}")
+        raise ValueError(f"no fast instance is compiled for D {D}, d_head {d_head}, N {N}, "
+                         f"{dtype}")
     return inst
 
 
-def fast_applies(N: int, D: int, d_head: int, M: int) -> bool:
-    """Whether a bf16 call at these widths takes the fast instance."""
-    inst = fast_instance(D, d_head, N)
+def fast_applies(N: int, D: int, d_head: int, M: int,
+                 dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether a call at these widths in ``dtype`` takes the fast instance
+    (bf16) or the f32 one."""
+    inst = fast_instance(D, d_head, N, dtype)
     return inst is not None and M > 0 and M % inst.mlp_chunk == 0
 
 
-def fast_frames_per_block(N: int, D: int, d_head: int) -> int:
+def fast_frames_per_block(N: int, D: int, d_head: int,
+                          dtype: torch.dtype = torch.bfloat16) -> int:
     """Frames one block of the fast instance at these widths owns: packed
     (N <= PACKED_MAX_N), the most whose rows fit in the ``product_rows`` rows
     its products compute and, the last frame's keys padded to a multiple of
     16, in its ``rows`` rows of q, k and v, at most FAST_MAX_FRAMES (the last
     layer's cls tile); past it one (a block or a cluster owns a frame)."""
-    inst = _instance_of(D, d_head, N)
+    inst = _instance_of(D, d_head, N, dtype)
     if inst.max_n > PACKED_MAX_N:
         return 1
     return min((inst.rows - -(-N // 16) * 16) // N + 1, inst.product_rows // N,
                FAST_MAX_FRAMES)
 
 
-def fast_instance_name(N: int, D: int, d_head: int) -> str:
-    """``spatial_table.instance`` for the fast instance at N tokens: by its
-    frames per block where it packs them, else by N and its cluster size."""
-    inst = _instance_of(D, d_head, N)
+def fast_instance_name(N: int, D: int, d_head: int, dtype: torch.dtype = torch.bfloat16) -> str:
+    """``spatial_table.instance`` for the fast (or f32) instance at N
+    tokens: by its frames per block where it packs them, else by N and its
+    cluster size; the f32 one's name starts ``fast_f32``."""
+    inst = _instance_of(D, d_head, N, dtype)
     if inst.max_n > PACKED_MAX_N:
         return f"fast_D{D}_N{N}_C{inst.cluster}"
-    return f"fast_D{D}_F{fast_frames_per_block(N, D, d_head)}"
+    kind = "fast_f32" if dtype == torch.float32 else "fast"
+    return f"{kind}_D{D}_F{fast_frames_per_block(N, D, d_head, dtype)}"
 
 
-def fast_kernel_attributes(D: int, d_head: int, N: int = 1) -> dict:
-    """The fast instance at these widths that takes N tokens as the card
-    takes it (builds the kernel library): registers a thread, dynamic and
-    static shared memory a block, threads a block, blocks resident on one
-    SM, blocks a cluster and clusters resident on the card (0 for a block
-    of its own)."""
+def fast_kernel_attributes(D: int, d_head: int, N: int = 1,
+                           dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The fast (or f32) instance at these widths that takes N tokens as
+    the card takes it (builds the kernel library): registers a thread,
+    dynamic and static shared memory a block, threads a block, blocks
+    resident on one SM, blocks a cluster and clusters resident on the card
+    (0 for a block of its own)."""
     out = (ctypes.c_int * 7)()
     fn = _build.function("spatial_table", "spatial_table_fast_attributes",
-                         [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    _build.check("spatial_table", fn(N, D, d_head, ctypes.addressof(out)),
+                         [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    _build.check("spatial_table", fn(N, D, d_head, torch.finfo(dtype).bits // 8,
+                                     ctypes.addressof(out)),
                  "spatial_table_fast_attributes")
     keys = ("registers", "dynamic_smem_bytes", "static_smem_bytes", "threads",
             "blocks_per_sm", "cluster_size", "active_clusters")
     return dict(zip(keys, out))
 
 
-def _panel(m: torch.Tensor) -> torch.Tensor:
-    """(rows, K) -> flat blocked panel: element (n, k) at
-    ((n // 8) * (K // 8) + k // 8) * 64 + (n % 8) * 8 + k % 8."""
+def _panel(m: torch.Tensor, cols: int = 8) -> torch.Tensor:
+    """(rows, K) -> flat blocked panel of 8 x ``cols`` tiles: element (n, k)
+    at ((n // 8) * (K // cols) + k // cols) * 8 * cols + (n % 8) * cols +
+    k % cols."""
     rows, K = m.shape
-    return m.reshape(rows // 8, 8, K // 8, 8).permute(0, 2, 1, 3).reshape(-1)
+    return m.reshape(rows // 8, 8, K // cols, cols).permute(0, 2, 1, 3).reshape(-1)
 
 
-def _unpanel(flat: torch.Tensor, rows: int, K: int) -> torch.Tensor:
-    """The (rows, K) matrix of a flat blocked panel."""
-    return flat.reshape(rows // 8, K // 8, 8, 8).permute(0, 2, 1, 3).reshape(rows, K)
+def _unpanel(flat: torch.Tensor, rows: int, K: int, cols: int = 8) -> torch.Tensor:
+    """The (rows, K) matrix of a flat blocked panel of 8 x ``cols`` tiles."""
+    return flat.reshape(rows // 8, K // cols, 8, cols).permute(0, 2, 1, 3).reshape(rows, K)
+
+
+# the panel layouts of the instances: columns per 8-row tile
+PANEL_TILE_COLS = {"core8x8": 8, "tile8x16": 16}
 
 
 def pack_fast(w: SpatialWeights, depth: int, n_heads: int,
-              dtype: torch.dtype = torch.bfloat16, mlp_chunk: int = None) -> torch.Tensor:
-    """The fast instance's weight stream, for the instance of the bundle's
-    widths. Per layer, in the order the kernel multiplies: per head h the q
-    rows then the k rows of w_qkv as one panel (2*d_head, D), its v rows
-    (d_head, D), and its columns of w_out (D, d_head); per chunk c of
+              dtype: torch.dtype = torch.bfloat16, mlp_chunk: int = None,
+              layout: str = "core8x8") -> torch.Tensor:
+    """The fast (or f32) instance's weight stream, for the instance of the
+    bundle's widths. Per layer, in the order the kernel multiplies: per head
+    h the q rows then the k rows of w_qkv as one panel (2*d_head, D), its v
+    rows (d_head, D), and its columns of w_out (D, d_head); per chunk c of
     ``mlp_chunk`` MLP columns (by default the packed instance's) the rows of
     w_ff1 (chunk, D) and the columns of w_ff2 (D, chunk); then b_out,
-    b_ff1, b_ff2."""
+    b_ff1, b_ff2. Panels in ``layout`` (``PANEL_TILE_COLS``): the fast
+    instance's "core8x8", the f32 one's "tile8x16"."""
     D = w.w_qkv[0].shape[1]
     dh = w.w_qkv[0].shape[0] // (3 * n_heads)
     mc = mlp_chunk or _instance_of(D, dh).mlp_chunk
+    cols = PANEL_TILE_COLS[layout]
+    panel = lambda m: _panel(m, cols)
     inner = n_heads * dh
     parts = []
     for d in range(depth):
@@ -472,21 +508,23 @@ def pack_fast(w: SpatialWeights, depth: int, n_heads: int,
         for h in range(n_heads):
             rows = slice(h * dh, (h + 1) * dh)
             q, k, v = (qkv[part * inner:(part + 1) * inner][rows] for part in range(3))
-            parts += [_panel(torch.cat([q, k])), _panel(v), _panel(out[:, rows])]
+            parts += [panel(torch.cat([q, k])), panel(v), panel(out[:, rows])]
         for m0 in range(0, ff1.shape[0], mc):
-            parts += [_panel(ff1[m0:m0 + mc]), _panel(ff2[:, m0:m0 + mc])]
+            parts += [panel(ff1[m0:m0 + mc]), panel(ff2[:, m0:m0 + mc])]
         parts += [getattr(w, name)[d].to(dtype).reshape(-1)
                   for name in ("b_out", "b_ff1", "b_ff2")]
     return torch.cat(parts)
 
 
 def fast_panels(packed: torch.Tensor, depth: int, n_heads: int, M: int, D: int,
-                d_head: int, mlp_chunk: int = None):
+                d_head: int, mlp_chunk: int = None, layout: str = "core8x8"):
     """Walk a ``pack_fast`` stream of the instance at (D, d_head) in the
     kernel's order: yields ``(layer, kind, index, matrix)`` with the
-    blocking undone, kind one of "qk", "v", "out" (index = head), "ff1",
-    "ff2" (index = chunk), and "b_out", "b_ff1", "b_ff2" (vectors)."""
+    blocking (of ``layout``) undone, kind one of "qk", "v", "out" (index =
+    head), "ff1", "ff2" (index = chunk), and "b_out", "b_ff1", "b_ff2"
+    (vectors)."""
     dh, mc = d_head, mlp_chunk or _instance_of(D, d_head).mlp_chunk
+    cols = PANEL_TILE_COLS[layout]
     pos = 0
 
     def take(rows, K):
@@ -497,7 +535,7 @@ def fast_panels(packed: torch.Tensor, depth: int, n_heads: int, M: int, D: int,
                              f"walked past its end at {pos + n}")
         pos += n
         flat = packed[pos - n:pos]
-        return flat if rows == 1 else _unpanel(flat, rows, K)
+        return flat if rows == 1 else _unpanel(flat, rows, K, cols)
 
     for d in range(depth):
         for h in range(n_heads):
@@ -515,13 +553,13 @@ def fast_panels(packed: torch.Tensor, depth: int, n_heads: int, M: int, D: int,
 
 
 def unpack_fast(packed: torch.Tensor, depth: int, n_heads: int, M: int, D: int,
-                d_head: int, mlp_chunk: int = None) -> dict:
+                d_head: int, mlp_chunk: int = None, layout: str = "core8x8") -> dict:
     """The matrices and biases a ``pack_fast`` stream of the instance at (D,
     d_head) was made from, as ``{field: tuple over layers}`` in
     ``SpatialWeights`` layout."""
     dh = d_head
     got = {}
-    for d, kind, _, m in fast_panels(packed, depth, n_heads, M, D, d_head, mlp_chunk):
+    for d, kind, _, m in fast_panels(packed, depth, n_heads, M, D, d_head, mlp_chunk, layout):
         got.setdefault((d, kind), []).append(m)
     out = {name: [] for name in _GENERAL_ORDER}
     for d in range(depth):
@@ -559,6 +597,15 @@ def _mm_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.unsqueeze(-2) * b.unsqueeze(-3)).sum(-1)
 
 
+def _mm_rows_split_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``_mm_rows`` as the f32 instance's products compute it: both operands
+    split into TF32 pairs (``ops.attention.split_tf32``), lo_a hi_b + hi_a
+    lo_b + hi_a hi_b, each product exact in f32, the sums in f32."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return (_mm_rows(al, bh) + _mm_rows(ah, bl)) + _mm_rows(ah, bh)
+
+
 def two_pass_probs(scores: torch.Tensor, key_block: int) -> torch.Tensor:
     """Softmax over the last axis as the fast instance takes it past
     PACKED_MAX_N tokens (``attn_strip_two_pass``): a first pass over blocks
@@ -579,27 +626,32 @@ def packed_walk_reference(tokens: torch.Tensor, packed: torch.Tensor, wln: torch
                           base: torch.Tensor, depth: int, n_heads: int, d_head: int, M: int,
                           compute_dtype: torch.dtype = torch.bfloat16,
                           scale: float = None, cls_last: bool = True,
-                          mlp_chunk: int = None, key_block: int = None) -> torch.Tensor:
+                          mlp_chunk: int = None, key_block: int = None,
+                          layout: str = "core8x8", split: bool = False) -> torch.Tensor:
     """The fast instance's walk in plain PyTorch: the same function as
-    ``spatial_table_reference``, computed from a ``pack_fast`` stream panel
-    by panel in the kernel's order (per head q|k, v, attention,
-    out-projection summed over heads in f32; per MLP chunk FF1, GELU, FF2
-    summed over chunks in f32), with the kernel's cast points. With
-    ``cls_last`` the last layer computes K and V for all rows and everything
-    else for the cls row only, which is all the table keeps. ``mlp_chunk``
-    is the stream's chunk (by default the packed instance's); with
-    ``key_block`` the softmax runs as the two-pass core does
-    (``two_pass_probs``), else over all keys at once. Products go through
-    ``_mm_rows``, so the cls row's arithmetic is the same either way, bit
-    for bit; it is meant for small inputs."""
+    ``spatial_table_reference``, computed from a ``pack_fast`` stream (of
+    ``layout``) panel by panel in the kernel's order (per head q|k, v,
+    attention, out-projection summed over heads in f32; per MLP chunk FF1,
+    GELU, FF2 summed over chunks in f32), with the kernel's cast points.
+    With ``cls_last`` the last layer computes K and V for all rows and
+    everything else for the cls row only, which is all the table keeps.
+    ``mlp_chunk`` is the stream's chunk (by default the packed instance's);
+    with ``key_block`` the softmax runs as the two-pass core does
+    (``two_pass_probs``), else over all keys at once. With ``split`` every
+    product runs as the f32 instance's do, in split TF32
+    (``_mm_rows_split_tf32``), and P V takes the unnormalised exponentials
+    and divides by their sum after, as its online softmax does. Products go
+    through ``_mm_rows``, so the cls row's arithmetic is the same either
+    way, bit for bit; it is meant for small inputs."""
     cd = compute_dtype
     D, dh = tokens.shape[-1], d_head
     mc = mlp_chunk or _instance_of(D, dh).mlp_chunk
     scale = dh ** -0.5 if scale is None else scale
     rnd = lambda t: t.to(cd).float()
+    mm = _mm_rows_split_tf32 if split else _mm_rows
     ln = wln.float().reshape(-1, D)
     panels = {(d, kind, i): rnd(m)
-              for d, kind, i, m in fast_panels(packed, depth, n_heads, M, D, dh, mc)}
+              for d, kind, i, m in fast_panels(packed, depth, n_heads, M, D, dh, mc, layout)}
     tokens, base = rnd(tokens), rnd(base[:, :tokens.shape[1]])
     out = []
     for off in range(base.shape[0]):
@@ -610,24 +662,27 @@ def packed_walk_reference(tokens: torch.Tensor, packed: torch.Tensor, wln: torch
             acc = 0.0
             for hh in range(n_heads):
                 qk, wv = panels[d, "qk", hh], panels[d, "v", hh]
-                q, k = rnd(_mm_rows(h[:, rows], qk[:dh])), rnd(_mm_rows(h, qk[dh:]))
-                v = rnd(_mm_rows(h, wv))
-                sc = _mm_rows(q, k) * scale
-                if key_block:
-                    prob = two_pass_probs(sc, key_block)
-                else:
+                q, k = rnd(mm(h[:, rows], qk[:dh])), rnd(mm(h, qk[dh:]))
+                v = rnd(mm(h, wv))
+                sc = mm(q, k) * scale
+                if split:
                     e = torch.exp(sc - sc.amax(-1, keepdim=True))
-                    prob = e / e.sum(-1, keepdim=True)
-                o = rnd(_mm_rows(rnd(prob), v.transpose(-1, -2)))
-                acc = acc + _mm_rows(o, panels[d, "out", hh])
+                    o = mm(e, v.transpose(-1, -2)) / e.sum(-1, keepdim=True)
+                else:
+                    if key_block:
+                        prob = two_pass_probs(sc, key_block)
+                    else:
+                        e = torch.exp(sc - sc.amax(-1, keepdim=True))
+                        prob = e / e.sum(-1, keepdim=True)
+                    o = rnd(_mm_rows(rnd(prob), v.transpose(-1, -2)))
+                acc = acc + mm(o, panels[d, "out", hh])
             x = rnd(x[:, rows] + rnd(rnd(acc) + panels[d, "b_out", 0]))
             f = rnd(_layer_norm(x, ln[4 * d + 2], ln[4 * d + 3]))
             acc = 0.0
             for c in range(M // mc):
                 bias = panels[d, "b_ff1", 0][c * mc:(c + 1) * mc]
-                mid = rnd(rnd(_mm_rows(f, panels[d, "ff1", c])) + bias)
-                acc = acc + _mm_rows(rnd(F.gelu(mid, approximate="tanh")),
-                                     panels[d, "ff2", c])
+                mid = rnd(rnd(mm(f, panels[d, "ff1", c])) + bias)
+                acc = acc + mm(rnd(F.gelu(mid, approximate="tanh")), panels[d, "ff2", c])
             x = rnd(x + rnd(rnd(acc) + panels[d, "b_ff2", 0]))
         out.append(_layer_norm(x[:, 0], ln[4 * depth], ln[4 * depth + 1]).to(cd))
     return torch.stack(out)
@@ -637,16 +692,20 @@ _pack_cache: dict = {}
 _PACK_CACHE_SIZE = 8
 
 
-def _packed_weights(w: SpatialWeights, depth, n_heads, cd, dev, mlp_chunk: int):
+def _packed_weights(w: SpatialWeights, depth, n_heads, cd, dev, mlp_chunk: int,
+                    layout: str = None):
     """(matrices, LayerNorm vectors) on ``dev`` for the instance (the fast
-    one's stream in MLP chunks of ``mlp_chunk``, or with 0 the general
+    or f32 one's stream in MLP chunks of ``mlp_chunk`` and panels of
+    ``layout``, by default the fast one's, or with chunk 0 the general
     one's), cached per weights object (its tensors' identity and version),
-    dtype, device and chunk."""
+    dtype, device, chunk and layout."""
+    layout = (layout or "core8x8") if mlp_chunk else None
     tensors = [t for field in w[1:] for t in (field if isinstance(field, tuple) else (field,))]
-    key = (tuple((id(t), t._version) for t in tensors), depth, n_heads, cd, str(dev), mlp_chunk)
+    key = (tuple((id(t), t._version) for t in tensors), depth, n_heads, cd, str(dev), mlp_chunk,
+           layout)
     hit = _pack_cache.get(key)
     if hit is None:
-        wmat = (pack_fast(w, depth, n_heads, cd, mlp_chunk) if mlp_chunk
+        wmat = (pack_fast(w, depth, n_heads, cd, mlp_chunk, layout) if mlp_chunk
                 else pack_general(w, depth, cd))
         # the entry keeps `tensors` alive, so their ids stay theirs
         hit = (wmat.to(dev), pack_layer_norms(w, depth).to(dev), tensors)

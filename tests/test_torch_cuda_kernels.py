@@ -177,9 +177,81 @@ def test_spatial_table_fast_instances_fit_the_card(dev):
 
 
 def test_spatial_table_f32_flagship_takes_the_general_instance(dev, flagship):
+    """f32 at the flagship widths no longer takes the general instance: up
+    to 80 tokens (N 65, N 17) the f32 instance (split-TF32 products) takes
+    the call, within the f32 limits of the plain version; past it (N 101)
+    the general instance would need 311,168 bytes of shared memory a
+    block, so the kernel refuses the call (the sweep builds the plain
+    table)."""
     model, tokens = flagship
     _table_case(dev, model, tokens[:3], torch.float32, n_off=2)
-    assert tst.spatial_table.instance == "general"
+    assert tst.spatial_table.instance == "fast_f32_D128_F1"
+    _table_case(dev, model, tokens[:7, :17], torch.float32, n_off=2)
+    assert tst.spatial_table.instance == "fast_f32_D128_F3"
+    g = torch.Generator().manual_seed(13)
+    wide = ViViT(image_size=160, generator=g).to(dev)
+    x = F.pad(torch.randn(3, 100, 128, generator=g), (0, 0, 1, 0)).to(dev)
+    assert "shared memory" in tst.kernel_refusal(3, 101, 128, 2, 4, 64, 1024, torch.float32,
+                                                 dev)
+    w = tst.extract_spatial_weights(wide, 2, 2, torch.float32)
+    with pytest.raises(ValueError, match="not supported"):
+        tst.spatial_table(x, w, 2, compute_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("n_tok", [65, 17, 5, 80], ids=["N65", "N17", "N5", "N80"])
+@pytest.mark.parametrize("t_case", ["1", "F-1", "F", "F+1", "61"])
+def test_spatial_table_f32_instance_ragged_frames(dev, flagship, n_tok, t_case):
+    """The f32 instance at the flagship widths: F frames share a block (1
+    at N 65 and 80, 3 at N 17, 13 at N 5) and a frame count that is no
+    multiple of F is masked at the edge; within TABLE_TOL[float32]."""
+    model, tokens = flagship
+    F_blk = tst.fast_frames_per_block(n_tok, 128, 64, torch.float32)
+    T = {"1": 1, "F-1": max(F_blk - 1, 1), "F": F_blk, "F+1": F_blk + 1, "61": 61}[t_case]
+    x = tokens[:T, :n_tok]
+    if n_tok > tokens.shape[1]:
+        g = torch.Generator().manual_seed(14)
+        x = F.pad(torch.randn(T, n_tok - 1, 128, generator=g), (0, 0, 1, 0))
+        model = ViViT(image_size=144, generator=g)
+    _table_case(dev, model, x, torch.float32)
+    assert tst.spatial_table.instance == f"fast_f32_D128_F{F_blk}"
+
+
+def test_spatial_table_f32_instance_frames_do_not_mix(dev, flagship):
+    """Frames that share a block of the f32 instance do not see each other."""
+    model, tokens = flagship
+    full = _table_case(dev, model, tokens[:9, :17], torch.float32)
+    shifted = _table_case(dev, model, tokens[1:9, :17], torch.float32)
+    assert torch.equal(full[:, 1:], shifted)
+
+
+@pytest.mark.parametrize("M", [1024, 512], ids=["MLP1024", "MLP512"])
+def test_spatial_table_f32_instance_at_the_fusion_mlp(dev, M):
+    g = torch.Generator().manual_seed(15)
+    model = ViViT(scale_dim=M // 128, generator=g)
+    tokens = F.pad(torch.randn(11, 64, 128, generator=g), (0, 0, 1, 0))
+    _table_case(dev, model, tokens, torch.float32)
+    assert tst.spatial_table.instance == "fast_f32_D128_F1"
+
+
+@pytest.mark.parametrize("depth,n_heads,scale_dim", [(1, 4, 8), (3, 2, 3)],
+                         ids=["depth1", "depth3_2heads_MLP384"])
+def test_spatial_table_f32_instance_other_depths_and_heads(dev, depth, n_heads, scale_dim):
+    """The f32 instance at D 128 / d_head 64 with one layer (the last layer
+    is the first: its cls tiles start from a zeroed q region) and with
+    three layers of two heads and an MLP of 384 (six chunks of 64)."""
+    g = torch.Generator().manual_seed(16)
+    model = ViViT(depth=depth, n_heads=n_heads, scale_dim=scale_dim, generator=g)
+    tokens = F.pad(torch.randn(9, 64, 128, generator=g), (0, 0, 1, 0))
+    _table_case(dev, model, tokens, torch.float32, depth=depth, n_heads=n_heads)
+    assert tst.spatial_table.instance == "fast_f32_D128_F1"
+
+
+def test_spatial_table_f32_instance_fits_the_card(dev):
+    """The f32 instance as the card takes it: 256 threads, one block per
+    SM, its 226,816 bytes of shared memory."""
+    att = tst.fast_kernel_attributes(128, 64, 65, torch.float32)
+    assert att["threads"] == 256 and att["blocks_per_sm"] == 1
+    assert att["dynamic_smem_bytes"] == 226816 and att["cluster_size"] == 1
 
 
 def test_spatial_table_rejects_unsupported_shapes(dev):
@@ -327,8 +399,9 @@ def test_fused_attention_kernel_shapes(dev, dtype, n, d):
     q, k, v, scale = _attention_case(dev, dtype, n, d)
     got = tat.fused_attention(q, k, v, scale)
     torch.cuda.synchronize()
-    mma = dtype == torch.bfloat16 and d in (16, 32, 64, 128)
-    assert tat.fused_attention.instance.startswith("mma" if mma else "scalar")
+    tensor_cores = d in (16, 32, 64, 128)
+    kind = "mma" if dtype == torch.bfloat16 else "tf32x3"
+    assert tat.fused_attention.instance.startswith(kind if tensor_cores else "scalar")
     want = tat.fused_attention_reference(q, k, v, scale)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
@@ -380,6 +453,50 @@ def test_fused_attention_emulation_tracks_the_kernel(dev):
     got = tat.fused_attention(q, k, v, scale).float().cpu()
     emu = tat.strip_attention_emulation(q.cpu(), k.cpu(), v.cpu(), scale).float()
     torch.testing.assert_close(got, emu, atol=2 ** -8, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("shape", [(168, 4, 65, 64), (8, 4, 22, 64), (336, 4, 65, 64),
+                                   (16, 4, 22, 64)])
+def test_fused_attention_f32_takes_its_tensor_core_instance(dev, shape):
+    """f32 at ViViT's shapes (chip_smoke.py's rows) takes the split-TF32
+    tensor-core instance, within ATTN_TOL of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    got = tat.fused_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    block = 32 if shape[2] <= 32 else 80
+    assert tat.fused_attention.instance == f"tf32x3_keys{block}"
+    want = tat.fused_attention_reference(q, k, v, 0.125)
+    tol = ATTN_TOL[torch.float32]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("n", [65, 130, 300])
+def test_fused_attention_f32_large_logits_against_f64(dev, n):
+    """|s| up to 80 on the split-TF32 instance, against an f64 softmax: at
+    that scale the f32 rounding of the scores alone moves any f32
+    computation by ~2e-5 (the plain version too), so the kernel is held to
+    the plain version's own distance from f64 plus half of ATTN_TOL, what
+    the split adds (tests/test_torch_split_tf32.py)."""
+    q, k, v, scale = _attention_case(dev, torch.float32, n, 64, logit_peak=80.0)
+    got = tat.fused_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert tat.fused_attention.instance.startswith("tf32x3")
+    exact = torch.softmax((q.double() @ k.double().transpose(-1, -2)) * scale, -1) @ v.double()
+    plain = tat.fused_attention_reference(q, k, v, scale).double()
+    plain_err = float((plain - exact).abs().max())
+    assert bool(torch.isfinite(got).all())
+    assert float((got.double() - exact).abs().max()) <= plain_err + ATTN_TOL[torch.float32] / 2
+
+
+def test_fused_attention_f32_emulation_tracks_the_kernel(dev):
+    """The plain-PyTorch walk of the f32 instance's split-TF32 arithmetic
+    lands within ATTN_TOL of the kernel (summation order only)."""
+    q, k, v, scale = _attention_case(dev, torch.float32, 130, 64)
+    got = tat.fused_attention(q, k, v, scale).cpu()
+    emu = tat.strip_attention_emulation(q.cpu(), k.cpu(), v.cpu(), scale, p_mode="split_tf32")
+    tol = ATTN_TOL[torch.float32]
+    torch.testing.assert_close(got, emu, atol=tol, rtol=tol)
 
 
 def test_fused_attention_rejects_wide_heads(dev):
