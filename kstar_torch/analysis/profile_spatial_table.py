@@ -65,7 +65,9 @@ ABLATIONS = {
         "        for (int s = warp; s < n_strips && p.T < 0; s += kWarps) {"),
 }
 # the f32 instance's: the split (three TF32 products per product, in
-# attn_core.cuh, which the source includes), its attention, its GELU
+# attn_core.cuh, which the source includes), its attention, its GELU, and
+# sums taken a k step at a time (from zero on the tensor core, then an f32
+# add) in its attention scores or in every product
 F32_ABLATIONS = {
     "one TF32 product (hi hi) instead of three": (
         "  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n", ""),
@@ -75,6 +77,14 @@ F32_ABLATIONS = {
     "GELU as identity": (
         "  return x * (0.5f * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x))));",
         "  return x;"),
+    "attention scores summed by k step (kStepSums)": (
+        "  attn_strip_block_f32<S::kDh, KT16, true, false>(q_rows,",
+        "  attn_strip_block_f32<S::kDh, KT16, true, true>(q_rows,"),
+    "every product summed by k step": (
+        "  mma_tf32x3(c, ah, al, b.hi[2 * s], b.hi[2 * s + 1], b.lo[2 * s], b.lo[2 * s + 1]);\n",
+        "  float d[4] = {0.f, 0.f, 0.f, 0.f};\n"
+        "  mma_tf32x3(d, ah, al, b.hi[2 * s], b.hi[2 * s + 1], b.lo[2 * s], b.lo[2 * s + 1]);\n"
+        "  for (int i = 0; i < 4; ++i) c[i] += d[i];\n"),
 }
 # the widths, and the other row schemes each could be compiled with (same
 # results, another number of frames per block)
@@ -199,12 +209,13 @@ def main(argv=None) -> int:
             variants[name] = substituted(source, name, line, repl)
     if args.baseline is not None:
         variants[f"baseline {args.baseline}"] = args.baseline.read_text()
-    # one nvcc per variant and the profile build, all at once
+    # one nvcc per variant and the profile build (none for the f32 instance,
+    # which has no phase stamps), all at once
     with ThreadPoolExecutor(len(variants) + 1) as pool:
         built = [pool.submit(_build.build_variant, "spatial_table", f"variant{i}",
                              source_text=text) for i, text in enumerate(variants.values())]
-        profile_build = pool.submit(_build.build_variant, "spatial_table", "profile",
-                                    ("-DKSTAR_PROFILE",))
+        profile_build = None if f32 else pool.submit(
+            _build.build_variant, "spatial_table", "profile", ("-DKSTAR_PROFILE",))
         runs = {name: runner(ctypes.CDLL(str(b.result()))) for name, b in zip(variants, built)}
     readings = {name: [] for name in runs}
     for _ in range(REPEATS):
@@ -216,8 +227,7 @@ def main(argv=None) -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    if f32:                              # the f32 instance has no phase stamps
-        profile_build.result()
+    if profile_build is None:
         print(smi)
         return 0
     lib = ctypes.CDLL(str(profile_build.result()))

@@ -30,20 +30,27 @@
 //    key block is compiled at 32, 80 and 128 keys so that a short row does
 //    not carry 64 score registers. The output strip is staged in the strip's
 //    own (already consumed) Q rows and leaves with 16-byte stores.
-//  * f32 with D in {16, 32, 64, 128} and 16-byte-aligned rows: the same
-//    tensor-core design in split TF32 (attn_strip_block_f32 in
-//    attn_core.cuh). Q, K and V are copied to shared memory in f32 with
-//    16-byte cp.async (Q and K rows at a stride of 16 mod 32 floats, V at
-//    4 mod 32, for conflict-free fragment loads); each warp's strip splits
-//    its fragments into hi + lo TF32 pairs as it loads them and runs S =
-//    Q K^T and P V as three m16n8k8 TF32 products each (lo hi, hi lo, hi
-//    hi), with P unnormalised and split the same way, online softmax
-//    across blocks of 32, 80 or 128 keys as in bf16. Every product term is
-//    off by ~2^-21 relative (the header's argument), so the f32 tolerance
-//    of 2e-5 holds; a single TF32 product (~2^-11) would break it. The
-//    split costs six MMAs where bf16 runs one or two, but the call is
-//    bound by bytes (f32 moves twice bf16's), not by these products.
-//  * f32 and bf16 at any other D <= 256 or alignment: scalar FMAs in f32,
+//  * f32 with D in {16, 32, 64, 128}, 16-byte-aligned rows and N <= 80:
+//    the same tensor-core design in split TF32 (attn_strip_block_f32 in
+//    attn_core.cuh) over one block of 32 or 80 keys. Q, K and V are copied
+//    to shared memory in f32 with 16-byte cp.async (Q and K rows at a
+//    stride of 16 mod 32 floats, V at 4 mod 32, for conflict-free fragment
+//    loads); each warp's strip splits its fragments into hi + lo TF32 pairs
+//    as it loads them and runs S = Q K^T and P V as three m16n8k8 TF32
+//    products each (lo hi, hi lo, hi hi), with P unnormalised and split the
+//    same way. Every product term is off by ~2^-21 relative (the header's
+//    argument), so the f32 tolerance of 2e-5 holds; a single TF32 product
+//    (~2^-11) would break it. The split costs six MMAs where bf16 runs one
+//    or two, but the call is bound by bytes (f32 moves twice bf16's), not by
+//    these products. The scores are summed a k step at a time and added in
+//    f32 (kStepSums, attn_core.cuh), since the MMA's accumulator truncates.
+//    Past 80 keys f32 stays on the scalar instance: with logits near 80 at
+//    N 130 and 300 (tests/test_torch_cuda_kernels.py, large logits) it
+//    keeps within 2e-5 of the plain version, where this design, before its
+//    scores were summed by k step, landed 2.6e-5 and 3.7e-5 on the H100.
+//    ViViT's f32 rows are 22 and 65 long, one block of keys.
+//  * f32 and bf16 at any other D <= 256 or alignment, and f32 past 80
+//    keys: scalar FMAs in f32,
 //    register-tiled: tiles of 32 queries x 64 keys, each thread a 4 x 4
 //    query-by-key tile of the scores and a 4 x 4 query-by-column tile of
 //    P V, so eight shared loads feed sixteen FMAs; online softmax across
@@ -197,9 +204,8 @@ attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Vs = Ks + kKeys * kLd;                        // kKeys rows, stride kLdv
 
   const size_t row = static_cast<size_t>(blockIdx.x) * N * D;
-  const int q0 = blockIdx.y * (kMaxWarps * 16);
-  const int nq = min(N - q0, nwarps * 16);
-  copy_rows_async<D>(Qs, kLd, q + row + static_cast<size_t>(q0) * D, nq);
+  const int nq = N;                                    // one block holds every query
+  copy_rows_async<D>(Qs, kLd, q + row, nq);
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[D / 8][4];
@@ -208,23 +214,20 @@ attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[t][i] = 0.f;
 
-  for (int k0 = 0; k0 < N; k0 += kKeys) {
-    const int nk = min(N - k0, kKeys);
-    if (k0 > 0) __syncthreads();             // the previous key block is consumed
-    copy_rows_async<D>(Ks, kLd, k + row + static_cast<size_t>(k0) * D, nk);
-    copy_rows_async<D>(Vs, kLdv, v + row + static_cast<size_t>(k0) * D, nk);
-    // V rows up to the next multiple of 16 enter P V with p = 0: make them 0
-    const int pad_rows = ((nk + 15) & ~15) - nk;
-    for (int i = threadIdx.x; i < pad_rows * (D / 4); i += blockDim.x)
-      *reinterpret_cast<float4*>(Vs + (nk + i / (D / 4)) * kLdv + (i % (D / 4)) * 4) =
-          make_float4(0.f, 0.f, 0.f, 0.f);
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
-    if (warp * 16 < nq)
-      attn_strip_block_f32<D, KT16>(Qs + warp * 16 * kLd, kLd, Ks, kLd, Vs, kLdv, nk, scale,
-                                    m, l, acc);
-  }
+  // all N <= kKeys keys are one block (the launcher's plan)
+  copy_rows_async<D>(Ks, kLd, k + row, N);
+  copy_rows_async<D>(Vs, kLdv, v + row, N);
+  // V rows up to the next multiple of 16 enter P V with p = 0: make them 0
+  const int pad_rows = ((N + 15) & ~15) - N;
+  for (int i = threadIdx.x; i < pad_rows * (D / 4); i += blockDim.x)
+    *reinterpret_cast<float4*>(Vs + (N + i / (D / 4)) * kLdv + (i % (D / 4)) * 4) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  if (warp * 16 < nq)
+    attn_strip_block_f32<D, KT16>(Qs + warp * 16 * kLd, kLd, Ks, kLd, Vs, kLdv, N, scale, m,
+                                  l, acc);
 
   // stage the strip in its own Q rows (only this warp reads or writes them),
   // then 16 bytes per lane to global
@@ -241,7 +244,7 @@ attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         make_float2(acc[t][2] * inv1, acc[t][3] * inv1);
   }
   __syncwarp();
-  float* dst = o + row + static_cast<size_t>(q0 + warp * 16) * D;
+  float* dst = o + row + static_cast<size_t>(warp * 16) * D;
   const int rows = min(16, nq - warp * 16);
   for (int i = lane; i < rows * (D / 4); i += 32) {
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
@@ -253,14 +256,13 @@ attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D, int KT16>
 int launch_tf32(const void* q, const void* k, const void* v, void* o, int rows, int N,
                 float scale, cudaStream_t stream) {
-  const int nwarps = min(kMaxWarps, (N + 15) / 16);
-  const int qtiles = (N + kMaxWarps * 16 - 1) / (kMaxWarps * 16);
+  const int nwarps = (N + 15) / 16;                    // N <= 80: at most 5 strips
   const size_t bytes = tf32_smem_bytes<D, KT16>(nwarps);
   cudaError_t err = cudaFuncSetAttribute(attention_tf32_kernel<D, KT16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  attention_tf32_kernel<D, KT16><<<dim3(rows, qtiles), nwarps * 32, bytes, stream>>>(
+  attention_tf32_kernel<D, KT16><<<rows, nwarps * 32, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), N, scale);
   return cudaGetLastError();
@@ -270,8 +272,7 @@ template <int D>
 int launch_tf32_d(const void* q, const void* k, const void* v, void* o, int rows, int N,
                   float scale, cudaStream_t stream) {
   if (N <= 32) return launch_tf32<D, 2>(q, k, v, o, rows, N, scale, stream);
-  if (N <= 80) return launch_tf32<D, 5>(q, k, v, o, rows, N, scale, stream);
-  return launch_tf32<D, 8>(q, k, v, o, rows, N, scale, stream);
+  return launch_tf32<D, 5>(q, k, v, o, rows, N, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -463,11 +464,11 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 extern "C" {
 
 // Which instance a call takes: 0 the scalar one; otherwise the tensor-core
-// one of the element type (bf16, or f32 in split TF32), the value being its
-// key block (32, 80 or 128 keys).
+// one of the element type (bf16, or f32 in split TF32 up to 80 keys), the
+// value being its key block (32, 80 or 128 keys).
 int fused_attention_plan(int N, int D, int elem_bytes, int aligned) {
   if ((elem_bytes != 2 && elem_bytes != 4) || !aligned ||
-      (D != 16 && D != 32 && D != 64 && D != 128))
+      (D != 16 && D != 32 && D != 64 && D != 128) || (elem_bytes == 4 && N > 80))
     return 0;
   return N <= 32 ? 32 : N <= 80 ? 80 : 128;
 }

@@ -48,7 +48,18 @@
 // mma.sync.m16n8k8 products with f32 sums and drop lo_a lo_b (<= 2^-22 |a
 // b|), so each term is off by ~2^-21 relative, the order of f32
 // summation noise, and the products differ from a plain f32 product by
-// summation order and that. Fragments come from f32 shared memory as 16-byte
+// summation order and that. The sums: the MMA does not round its f32
+// accumulator to nearest (it truncates), so a running sum kept in the
+// accumulator across k steps drifts toward zero by up to an ulp of the sum
+// at every MMA, three MMAs a k step. A score is the exponent of a
+// probability, so that drift becomes P's relative error: with |s| up to 80
+// over 64 columns at N 80 the fused-attention kernel sat 2.5e-5 from an
+// f64 softmax where the plain f32 version sits 1.5e-5 (H100; the f64 test
+// of tests/test_torch_cuda_kernels.py allows the plain version's distance
+// plus 1e-5). attn_strip_block_f32 therefore (kStepSums) sums each k step
+// from zero on the tensor core and adds it to the running score with an
+// f32 add, which rounds to nearest; so summed, the kernel passes that test.
+// Fragments come from f32 shared memory as 16-byte
 // loads: within a block of 16 columns lane t holds columns 4t .. 4t + 3 of
 // its rows, and k step s (0, 1) of the block takes columns 4t + 2s and 4t +
 // 2s + 1 as its k indices t and t + 4. Both operands follow the same map, so
@@ -410,8 +421,11 @@ __device__ __forceinline__ void mma_k16_step(float (&c)[4], const Split4& r0, co
 // its value rows (stride ldv: 4 mod 32). n_keys (>= 1) of the KT16 * 16 rows
 // are real, the rest masked (their V rows up to the next multiple of 16
 // must be finite); 8-key tiles wholly past n_keys are skipped unless
-// kAllTiles (then all rows must be finite).
-template <int DH, int KT16, bool kAllTiles = false>
+// kAllTiles (then all rows must be finite). kStepSums: each k step of the
+// scores is summed from zero on the tensor core and added to the running
+// score in f32 (the header's summation rule); without it the running score
+// stays in the MMA's accumulator, two f32 registers fewer a score.
+template <int DH, int KT16, bool kAllTiles = false, bool kStepSums = true>
 __device__ __forceinline__ void attn_strip_block_f32(const float* qs, int ldq, const float* ks,
                                                      int ldk, const float* vs, int ldv,
                                                      int n_keys, float scale, float (&m)[2],
@@ -431,8 +445,16 @@ __device__ __forceinline__ void attn_strip_block_f32(const float* qs, int ldq, c
     for (int j = 0; j < 2 * KT16; ++j) {
       if (kAllTiles || j * 8 < n_keys) {
         const Split4 b = split4(ld4(kp + j * 8 * ldk + kb * 16));
-        mma_k16_step(s[j], a0, a1, b, 0);
-        mma_k16_step(s[j], a0, a1, b, 1);
+        if constexpr (kStepSums) {
+          float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_k16_step(c0, a0, a1, b, 0);
+          mma_k16_step(c1, a0, a1, b, 1);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[j][i] += c0[i] + c1[i];
+        } else {
+          mma_k16_step(s[j], a0, a1, b, 0);
+          mma_k16_step(s[j], a0, a1, b, 1);
+        }
       }
     }
   }

@@ -128,11 +128,15 @@
 //      hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), three m16n8k8
 //      products lo hi, hi lo, hi hi; each term ~2^-21 relative, so the f32
 //      tolerance of the plain version holds where one TF32 product, ~2^-11,
-//      would not). Hopper's tf32 wgmma reads B from shared memory, so its
-//      split would need hi and lo panels there; mma.sync takes both
-//      operands from registers, so weights and activations are split as
-//      their fragments are loaded (a float4 per lane of each) and a panel
-//      stays one f32 copy.
+//      would not). Every product keeps its running sum in the MMA's
+//      accumulator, which truncates (attn_core.cuh): within 2e-5 of the
+//      plain table at the flagship against its 1e-4; summing each k step
+//      apart (an ablation of analysis/profile_spatial_table.py) costs
+//      time and registers. Hopper's tf32 wgmma reads B from shared
+//      memory, so its split would need hi and lo panels there; mma.sync
+//      takes both operands from registers, so weights and activations are
+//      split as their fragments are loaded (a float4 per lane of each) and
+//      a panel stays one f32 copy.
 //    - Shared memory is the constraint: 80 rows of x (stride D + 4), h
 //      (D + 16), q and k (d_head + 16) and v (d_head + 4), and two panel
 //      buffers of 64 x 128 floats (32 KB: a head's q, k and v rows, its
@@ -1641,8 +1645,12 @@ __device__ __forceinline__ void attend_strip(const float* q_rows, const float* k
   for (int t = 0; t < S::kDh / 8; ++t)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[t][i] = 0.f;
-  attn_strip_block_f32<S::kDh, KT16, true>(q_rows, S::kLdq, k, S::kLdq, v, S::kLdv, n_keys,
-                                           scale, m, l, o);
+  // the running scores stay in the MMA's accumulator: summing each k step
+  // apart spills this kernel's registers and slows a shot (an ablation of
+  // analysis/profile_spatial_table.py --widths f32), for no gain against
+  // its tolerance (the row products' error is the larger)
+  attn_strip_block_f32<S::kDh, KT16, true, false>(q_rows, S::kLdq, k, S::kLdq, v, S::kLdv,
+                                                  n_keys, scale, m, l, o);
   const float inv[2] = {1.f / l[0], 1.f / l[1]};
 #pragma unroll
   for (int t = 0; t < S::kDh / 8; ++t)
@@ -1959,6 +1967,26 @@ R with_planned(int N, int D, int H, int dh, int M, int elem_bytes, R none, Fn fn
   return elem_bytes == 4 ? tf32::with_instance(N, D, dh, none, fn)
                          : fast::with_instance(N, D, dh, none, fn);
 }
+
+// out[0..6] of spatial_table_fast_attributes for one instance's kernel, err
+// being its prepare()'s result; out[6] (clusters per GPU) is left 0
+template <typename Params>
+cudaError_t instance_attributes(void (*kernel)(Params), cudaError_t err, int threads,
+                                size_t smem, int cluster, int* out) {
+  cudaFuncAttributes attr{};
+  int blocks = 0;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(smem);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  out[3] = threads;
+  out[4] = blocks;
+  out[5] = cluster;
+  out[6] = 0;
+  return err;
+}
 }  // namespace
 
 extern "C" {
@@ -2022,43 +2050,19 @@ int spatial_table_fast_attributes(int N, int D, int dh, int elem_bytes, int* out
   if (elem_bytes == 4)
     return tf32::with_instance(N, D, dh, static_cast<int>(cudaErrorInvalidValue), [&](auto s) {
       using S = decltype(s);
-      cudaFuncAttributes attr{};
-      int blocks = 0;
-      cudaError_t err = tf32::prepare<S>();
-      if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, tf32::spatial_table_tf32_kernel<S>);
-      if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, tf32::spatial_table_tf32_kernel<S>, tf32::kThreads, S::kSmemBytes);
-      out[0] = attr.numRegs;
-      out[1] = static_cast<int>(S::kSmemBytes);
-      out[2] = static_cast<int>(attr.sharedSizeBytes);
-      out[3] = tf32::kThreads;
-      out[4] = blocks;
-      out[5] = 1;
-      out[6] = 0;
-      return static_cast<int>(err);
+      return static_cast<int>(instance_attributes(tf32::spatial_table_tf32_kernel<S>,
+                                                  tf32::prepare<S>(), tf32::kThreads,
+                                                  S::kSmemBytes, 1, out));
     });
   return fast::with_instance(N, D, dh, static_cast<int>(cudaErrorInvalidValue), [&](auto s) {
     using S = decltype(s);
-    cudaFuncAttributes attr{};
-    int blocks = 0, clusters = 0;
-    cudaError_t err = fast::prepare<S>();
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fast::spatial_table_fast_kernel<S>);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, fast::spatial_table_fast_kernel<S>, S::kThreads, S::kSmemBytes);
+    cudaError_t err = instance_attributes(fast::spatial_table_fast_kernel<S>, fast::prepare<S>(),
+                                          S::kThreads, S::kSmemBytes, S::kCluster, out);
     if (err == cudaSuccess && S::kCluster > 1) {
       fast::LaunchConfig<S> lc(1, 1, nullptr);
-      err = cudaOccupancyMaxActiveClusters(&clusters, fast::spatial_table_fast_kernel<S>,
+      err = cudaOccupancyMaxActiveClusters(&out[6], fast::spatial_table_fast_kernel<S>,
                                            &lc.cfg);
     }
-    out[0] = attr.numRegs;
-    out[1] = static_cast<int>(S::kSmemBytes);
-    out[2] = static_cast<int>(attr.sharedSizeBytes);
-    out[3] = S::kThreads;
-    out[4] = blocks;
-    out[5] = S::kCluster;
-    out[6] = clusters;
     return static_cast<int>(err);
   });
 }

@@ -9,12 +9,13 @@ built with ``use_pallas=True`` (models/vivit.py).
 
 The source holds three hand-written instances, chosen by its C launcher:
 two tensor-core ones for D in {16, 32, 64, 128} and 16-byte-aligned tensors
-(bf16, ``mma_keys<block>``; f32 in split TF32, ``tf32x3_keys<block>``) and a
-scalar one for everything else; ``fused_attention.instance`` names the one
-the last launch took. ``strip_attention_emulation`` repeats the tensor-core
-instances' arithmetic in plain PyTorch (``tf32_round`` and
-``split_tf32_matmul`` the f32 one's products), so that their tolerances can
-be checked without a GPU.
+(bf16, ``mma_keys<block>``; f32 in split TF32 up to 80 keys,
+``tf32x3_keys<block>``) and a scalar one for everything else;
+``fused_attention.instance`` names the one the last launch took.
+``strip_attention_emulation`` repeats the tensor-core instances'
+arithmetic in plain PyTorch (``tf32_round`` and ``split_tf32_matmul`` the
+f32 one's products), so that their tolerances can be checked without a
+GPU.
 """
 
 from __future__ import annotations

@@ -106,10 +106,11 @@ def _qkv(n, d=64, seed=0, logit_peak=None):
 
 @pytest.mark.parametrize("n", [22, 65, 130])
 def test_strip_emulation_split_tf32_matches_pallas_interpret(n):
-    """The f32 tensor-core instance's arithmetic (16-query strips, key
-    blocks of 32, 80 or 128 with the running max, both products in split
-    TF32, P unnormalised) against JAX's fused_attention in interpret mode,
-    f32, at 2e-5; 130 keys cross two key blocks."""
+    """The f32 tensor-core instance's arithmetic (16-query strips, one
+    block of 32 or 80 keys, both products in split TF32, P unnormalised)
+    against JAX's fused_attention in interpret mode, f32, at 2e-5; 130
+    keys (the scalar instance's in f32 on the card) cross two of the
+    emulation's key blocks, with the running max."""
     q, k, v, scale = _qkv(n, seed=n)
     want = np.asarray(jat.fused_attention(*map(jnp.asarray, (q, k, v)), scale, interpret=True))
     got = tat.strip_attention_emulation(*map(torch.from_numpy, (q, k, v)), scale,
