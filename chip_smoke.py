@@ -43,6 +43,14 @@ width of the flagship ViViT (dim 128, depth 2, 4 heads x 64, MLP 1024,
                 (101, 145, 197 tokens), each one launch; the table kernel is
                 held against its plain version at each of those crops and
                 over the whole shot at 256 px
+  f32_full_frame_sweep
+                the same in f32 (compute_dtype float32): the whole shot at
+                256 px on the f32 instance's cluster of five 64-row blocks
+                (one launch a sweep), clips/s, the table and window loop
+                apart, the curve against the plain f32 table's (timed once)
+                within F32_CURVE_TOL, and the 160, 192 and 224 px sweeps on
+                clusters of 2, 3 and 4; the kernel is held against its plain
+                version at those crops and over the whole shot
 
 and then the three 0D models at their default widths (Transformer dim 128
 x 4 layers x 8 heads, FF 1024; CnnLSTM conv 64, LSTM 128 x 4 layers,
@@ -3433,24 +3441,33 @@ WIDE_CROPS = (160, 192, 224, 256)  # 101, 145, 197 and 257 tokens with the cls
 WIDE_TABLE_FRAMES = 512           # frames of the kernel_check rows (and of the crop sweeps)
 
 
-def full_frame_model(seed: int, cfg, dev):
+def full_frame_model(seed: int, cfg, dev, dtype=torch.bfloat16):
     """The flagship ViViT at image_size 256 (its positional embedding covers
-    257 tokens, a prefix of it any smaller crop), random weights from seed."""
+    257 tokens, a prefix of it any smaller crop), random weights from seed,
+    computing in ``dtype`` (f32: the same parameters as the bf16 model)."""
     from kstar_torch.models import build_video_model
 
     cfg_ff = dataclasses.replace(cfg, image_size=FULL_FRAME)
-    return build_video_model("ViViT", cfg_ff, dtype=torch.bfloat16,
-                             generator=torch.Generator().manual_seed(seed + 14)).to(dev).eval()
+    model = build_video_model("ViViT", cfg_ff, dtype=torch.bfloat16,
+                              generator=torch.Generator().manual_seed(seed + 14))
+    if dtype == torch.float32:
+        model = f32_twin(model, cfg_ff, dev)
+    return model.to(dev).eval()
 
 
-def wide_table_checks(seed: int, frames, dev, cfg, tol: tuple) -> list:
-    """K1 at the flagship widths past 80 tokens (bf16, 21 offsets): the
-    first 512 frames of ``frames`` at each crop of WIDE_CROPS, and the whole
-    shot at 256 px, each against its plain version within ``tol``, timed
-    (the plain version once), with its bound, instance and attributes. A row
-    is right only if it took the fast instance for its N that owns one frame
-    (``fast_D128_N<N>_C<blocks per frame>``). ``path`` names the sweep whose
-    launches the summary line reports."""
+def full_frame_phase_name(dtype) -> str:
+    return "full_frame_sweep" if dtype == torch.bfloat16 else "f32_full_frame_sweep"
+
+
+def wide_table_checks(seed: int, frames, dev, cfg, tol: tuple, dtype=torch.bfloat16) -> list:
+    """K1 at the flagship widths past 80 tokens (21 offsets, in ``dtype``):
+    the first 512 frames of ``frames`` at each crop of WIDE_CROPS, and the
+    whole shot at 256 px, each against its plain version within ``tol``,
+    timed (the plain version once), with its bound (in f32 both bounds),
+    instance and attributes. A row is right only if it took the fast (or
+    f32) instance for its N that owns one frame (``fast_D128_N<N>_C<blocks
+    per frame>``, ``fast_f32_D128_N<N>_C<blocks>``). ``path`` names the
+    sweep whose launches the summary line reports."""
     import torch.nn.functional as F
 
     from kstar_torch.infer import VideoSweeper
@@ -3458,59 +3475,67 @@ def wide_table_checks(seed: int, frames, dev, cfg, tol: tuple) -> list:
                                                fast_instance_name, spatial_table,
                                                spatial_table_reference)
 
-    model = full_frame_model(seed, cfg, dev)
-    w = extract_spatial_weights(model, SEQ_LEN, cfg.depth, torch.bfloat16)
+    model = full_frame_model(seed, cfg, dev, dtype)
+    w = extract_spatial_weights(model, SEQ_LEN, cfg.depth, dtype)
     hp = dict(depth=cfg.depth, n_heads=cfg.n_heads, d_head=cfg.d_head)
+    dt, phase = str(dtype).split(".")[1], full_frame_phase_name(dtype)
+    short = "bf16" if dtype == torch.bfloat16 else "f32"
     rows = []
     for crop, T in [(c, WIDE_TABLE_FRAMES) for c in WIDE_CROPS] + [(FULL_FRAME, len(frames))]:
-        sw = VideoSweeper(model, SEQ_LEN, crop, BATCH, torch.bfloat16, device=dev)
+        sw = VideoSweeper(model, SEQ_LEN, crop, BATCH, dtype, device=dev)
         tokens = F.pad(sw.embed_tokens(sw.upload_shot(frames[:T])), (0, 0, 1, 0))
-        run = lambda: spatial_table(tokens, w, SEQ_LEN, compute_dtype=torch.bfloat16, **hp)
-        plain = lambda: spatial_table_reference(tokens, w, SEQ_LEN,
-                                                compute_dtype=torch.bfloat16, **hp)
+        run = lambda: spatial_table(tokens, w, SEQ_LEN, compute_dtype=dtype, **hp)
+        plain = lambda: spatial_table_reference(tokens, w, SEQ_LEN, compute_dtype=dtype, **hp)
         res = compare(run(), plain(), *tol)
         T, N, D = tokens.shape
         ops, nbytes = table_work(T, SEQ_LEN, N, D, cfg.depth, cfg.n_heads, cfg.d_head,
                                  cfg.dim * cfg.scale_dim, tokens.element_size())
-        bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
-        path = "full_frame_sweep" if crop == FULL_FRAME else f"full_frame_sweep crop {crop}"
+        path = phase if crop == FULL_FRAME else f"{phase} crop {crop}"
+        # the f32 plain table over the whole shot takes seconds: timed once
+        slow = dtype == torch.float32 and T > WIDE_TABLE_FRAMES
         rows.append(dict(
-            name="spatial_table", case=f"flagship crop {crop} px N={N} T={T} bf16 ({path} path)",
-            dtype="bfloat16", shape=list(tokens.shape), route="cuda",
+            name="spatial_table",
+            case=f"flagship crop {crop} px N={N} T={T} {short} ({path} path)",
+            dtype=dt, shape=list(tokens.shape), route="cuda",
             source="kstar_torch/csrc/spatial_table.cu",
-            replaces="kstar_tpu/ops/spatial_table.py:371", **res, ms=time_ms(run, 3),
-            plain_ms=time_ms(plain, 1), bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, instance=spatial_table.instance,
+            replaces="kstar_tpu/ops/spatial_table.py:371", **res,
+            ms=time_ms(run, 1 if slow else 3),
+            plain_ms=time_once(plain) if slow else time_ms(plain, 1),
+            **row_bounds(ops, nbytes, dt), library_ms=None, instance=spatial_table.instance,
             frames_per_block=spatial_table.frames_per_block, path=path,
-            **table_attributes(D, cfg.d_head, N)))
-        want = (fast_instance_name(N, D, cfg.d_head)
-                if fast_applies(N, D, cfg.d_head, cfg.dim * cfg.scale_dim) else None)
+            **table_attributes(D, cfg.d_head, N, dtype)))
+        want = (fast_instance_name(N, D, cfg.d_head, dtype)
+                if fast_applies(N, D, cfg.d_head, cfg.dim * cfg.scale_dim, dtype) else None)
         rows[-1]["ok"] = (res["ok"] and want is not None and "_N" in want
                           and spatial_table.instance == want)
         del tokens
     return rows
 
 
-def full_frame_sweep_phase(seed: int, frames, dev, cfg) -> tuple:
-    """The flagship ViViT at image_size 256 sweeps the whole shot as the
-    repository stores it (256 px, no crop) with use_fused_table=None: it must
-    take the kernel (K1's cluster instance at 257 tokens) and launch it once
-    per sweep. Clips/s over 3 sweeps after a warm-up, the embedding, table
-    and window loop apart, the curve against the plain table's (the route
-    the sweep took before K1 took 257 tokens, timed once) to M1's limits;
-    and a sweep of the first 512 frames at each smaller crop of WIDE_CROPS,
-    one launch each, against its plain curve. Returns (ok, fields,
-    {path: K1 launches})."""
+def full_frame_sweep_phase(seed: int, frames, dev, cfg, dtype=torch.bfloat16) -> tuple:
+    """The flagship ViViT at image_size 256, computing in ``dtype``, sweeps
+    the whole shot as the repository stores it (256 px, no crop) with
+    use_fused_table=None: it must take the kernel (K1's cluster instance at
+    257 tokens, bf16 or f32) and launch it once per sweep. Clips/s over 3
+    sweeps after a warm-up, the embedding, table and window loop apart, the
+    curve against the plain table's (the route the sweep took before K1 took
+    257 tokens, timed once) to M1's limits (f32: F32_CURVE_TOL); and a sweep
+    of the first 512 frames at each smaller crop of WIDE_CROPS, one launch
+    each, against its plain curve. Returns (ok, fields, {path: K1
+    launches})."""
     import numpy as np
     import torch.nn.functional as F
 
     from kstar_torch.infer import VideoSweeper
-    from kstar_torch.ops.spatial_table import extract_spatial_weights, spatial_table
+    from kstar_torch.ops.spatial_table import (extract_spatial_weights, fast_instance_name,
+                                               spatial_table)
 
-    model = full_frame_model(seed, cfg, dev)
+    model = full_frame_model(seed, cfg, dev, dtype)
+    phase = full_frame_phase_name(dtype)
+    curve_tol = (5e-2, 5e-3) if dtype == torch.bfloat16 else F32_CURVE_TOL
     hp = dict(depth=cfg.depth, n_heads=cfg.n_heads, d_head=cfg.d_head)
     starts = np.arange(len(frames) - SEQ_LEN - 1, dtype=np.int64)
-    sw = VideoSweeper(model, SEQ_LEN, FULL_FRAME, BATCH, torch.bfloat16, device=dev)
+    sw = VideoSweeper(model, SEQ_LEN, FULL_FRAME, BATCH, dtype, device=dev)
     shot = sw.upload_shot(frames)
     sw.sweep_device(shot, starts)                       # warm-up
     torch.cuda.synchronize()
@@ -3520,49 +3545,52 @@ def full_frame_sweep_phase(seed: int, frames, dev, cfg) -> tuple:
         t0 = time.perf_counter()
         probs = sw.sweep_device(shot, starts)          # ends in a host copy
         walls.append(time.perf_counter() - t0)
-    launches = {"full_frame_sweep": spatial_table.launches}
+    launches = {phase: spatial_table.launches}
     instance = spatial_table.instance
     sweep_s = float(np.median(walls))
-    w = extract_spatial_weights(model, SEQ_LEN, cfg.depth, torch.bfloat16)
+    w = extract_spatial_weights(model, SEQ_LEN, cfg.depth, dtype)
     tokens = F.pad(sw.embed_tokens(shot), (0, 0, 1, 0))
     table = sw.embed_all(shot)
     phases = {"embed_ms": wall_ms(lambda: sw.embed_tokens(shot)),
               "table_ms": wall_ms(lambda: spatial_table(
-                  tokens, w, SEQ_LEN, compute_dtype=torch.bfloat16, **hp)),
+                  tokens, w, SEQ_LEN, compute_dtype=dtype, **hp)),
               "windows_ms": wall_ms(lambda: sw.sweep_table(table, starts))}
     del tokens, table
-    plain_sw = VideoSweeper(model, SEQ_LEN, FULL_FRAME, BATCH, torch.bfloat16,
+    plain_sw = VideoSweeper(model, SEQ_LEN, FULL_FRAME, BATCH, dtype,
                             use_fused_table=False, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     probs_plain = plain_sw.sweep_device(shot, starts)
     plain_s = time.perf_counter() - t0
     err = np.abs(probs - probs_plain)
-    fields = dict(frames=len(frames), frame_px=FULL_FRAME, tokens=(FULL_FRAME // 16) ** 2 + 1,
-                  windows=len(starts), batch=BATCH, fused_table_active=sw.fused_table_active,
+    n_tok = (FULL_FRAME // 16) ** 2 + 1
+    fields = dict(frames=len(frames), frame_px=FULL_FRAME, tokens=n_tok,
+                  dtype=str(dtype).split(".")[1], windows=len(starts), batch=BATCH,
+                  fused_table_active=sw.fused_table_active,
                   plain_fused_table_active=plain_sw.fused_table_active,
-                  spatial_table_launches=launches["full_frame_sweep"], instance=instance,
+                  spatial_table_launches=launches[phase], instance=instance,
                   clips_per_s=len(starts) / sweep_s, sweep_ms=sweep_s * 1e3,
                   sweep_runs_ms=[x * 1e3 for x in walls], **phases,
                   plain_table_sweep_ms=plain_s * 1e3,
                   plain_table_clips_per_s=len(starts) / plain_s,
                   curve_vs_plain_max_abs=float(err.max()),
-                  curve_vs_plain_mean_abs=float(err.mean()))
+                  curve_vs_plain_mean_abs=float(err.mean()), curve_tol=curve_tol)
     ok = bool(fields["fused_table_active"] is True and fields["plain_fused_table_active"] is False
-          and launches["full_frame_sweep"] == 3 and probs.shape == starts.shape
-          and bool(np.isfinite(probs).all()) and fields["curve_vs_plain_max_abs"] <= 5e-2
-          and fields["curve_vs_plain_mean_abs"] <= 5e-3)
+          and launches[phase] == 3 and probs.shape == starts.shape
+          and instance == fast_instance_name(n_tok, cfg.dim, cfg.d_head, dtype)
+          and bool(np.isfinite(probs).all()) and fields["curve_vs_plain_max_abs"] <= curve_tol[0]
+          and fields["curve_vs_plain_mean_abs"] <= curve_tol[1])
     del shot
     sub = frames[:WIDE_TABLE_FRAMES]
     sub_starts = np.arange(len(sub) - SEQ_LEN - 1, dtype=np.int64)
     fields["crops"] = {}
     for crop in WIDE_CROPS[:-1]:
-        csw = VideoSweeper(model, SEQ_LEN, crop, BATCH, torch.bfloat16, device=dev)
+        csw = VideoSweeper(model, SEQ_LEN, crop, BATCH, dtype, device=dev)
         spatial_table.launches = 0
         p_k = csw.sweep(sub, sub_starts)
-        path = f"full_frame_sweep crop {crop}"
+        path = f"{phase} crop {crop}"
         launches[path] = spatial_table.launches
-        p_p = VideoSweeper(model, SEQ_LEN, crop, BATCH, torch.bfloat16, use_fused_table=False,
+        p_p = VideoSweeper(model, SEQ_LEN, crop, BATCH, dtype, use_fused_table=False,
                            device=dev).sweep(sub, sub_starts)
         e = np.abs(p_k - p_p)
         fields["crops"][crop] = dict(tokens=(crop // 16) ** 2 + 1, frames=len(sub),
@@ -3572,7 +3600,8 @@ def full_frame_sweep_phase(seed: int, frames, dev, cfg) -> tuple:
                                      curve_vs_plain_max_abs=float(e.max()),
                                      curve_vs_plain_mean_abs=float(e.mean()))
         ok = bool(ok and csw.fused_table_active is True and launches[path] == 1
-                  and np.isfinite(p_k).all() and e.max() <= 5e-2 and e.mean() <= 5e-3)
+                  and np.isfinite(p_k).all() and e.max() <= curve_tol[0]
+                  and e.mean() <= curve_tol[1])
     return ok, fields, launches
 
 
@@ -3836,6 +3865,10 @@ def main() -> int:
     checks += wide_table_checks(args.seed, frames, dev, cfg, TOL["bfloat16"])
     for c in checks[-len(WIDE_CROPS) - 1:]:
         emit("kernel_check", **c)
+    # and in f32, each on the f32 instance's cluster of blocks for its N
+    checks += wide_table_checks(args.seed, frames, dev, cfg, TOL["float32"], torch.float32)
+    for c in checks[-len(WIDE_CROPS) - 1:]:
+        emit("kernel_check", **c)
     # the ragged case must take the fast instance with several frames per block
     ragged = next(c for c in checks if "T=61" in c["case"])
     if ragged["frames_per_block"] < 2 or 61 % ragged["frames_per_block"] == 0:
@@ -3989,6 +4022,14 @@ def main() -> int:
     emit("full_frame_sweep", **ff_fields, seconds=time.perf_counter() - t0, ok=ff_ok)
     if not ff_ok:
         failures.append("full_frame_sweep")
+
+    # ---- f32_full_frame_sweep: the same in f32 (K1's f32 clusters) ----
+    t0 = time.perf_counter()
+    ff32_ok, ff32_fields, k1_full32 = full_frame_sweep_phase(args.seed, frames, dev, cfg,
+                                                             torch.float32)
+    emit("f32_full_frame_sweep", **ff32_fields, seconds=time.perf_counter() - t0, ok=ff32_ok)
+    if not ff32_ok:
+        failures.append("f32_full_frame_sweep")
 
     # ---- vivit_pallas: ViViT with the fused-attention kernel ----
     # ViViT's defaults are the flagship ViViTConfig
@@ -4428,7 +4469,7 @@ def main() -> int:
                                      + k3_cli + k3_reload)
     launches["spatial_table"] += (k1_reload + k1_prediction + k1_etl + k1_ensemble
                                   + k1_parallel + k1_jax + k1_soak + k1_demos + k1_campaign
-                                  + sum(k1_full.values()))
+                                  + sum(k1_full.values()) + sum(k1_full32.values()))
     launches["gather_normalize"] += k3_jax + k3_soak
 
     kernel_rows = []
@@ -4437,7 +4478,7 @@ def main() -> int:
         n_launch = {"multimodal_sweep": k1_multimodal, "conv SlowFast": k3_slowfast,
                     "soak": k1_soak, "demos": k1_demos, "campaign": k1_campaign,
                     "f32": k1_f32 + k1_prediction_f32, "f32 attention": k2_f32,
-                    **k1_full}.get(c.get("path"), launches[c["name"]])
+                    **k1_full, **k1_full32}.get(c.get("path"), launches[c["name"]])
         entry.update(launches=n_launch, max_abs_err=c["max_abs_err"],
                      ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
                      bound_by=c["bound_by"], library_ms=c["library_ms"],

@@ -14,8 +14,8 @@ frames by default) or ``full_frame`` (the flagship widths at image_size
 256: N 257, one frame per two-block cluster, or with ``--crop`` a smaller
 crop of it, 160 px for N 101 on one block; 512 frames by default), or
 ``f32`` (the flagship widths in f32 on the f32 instance, products in split
-TF32; 4096 frames by default; variants only, its source has no phase
-stamps):
+TF32; 4096 frames by default; with ``--crop`` 144 .. 256 one frame over an
+f32 cluster, N 82 .. 257; variants only, its source has no phase stamps):
 
 * the phase profile: a ``-DKSTAR_PROFILE`` build in which thread 0 of every
   block adds its ``clock64()`` cycles per phase to a counter (the phases are
@@ -24,7 +24,8 @@ stamps):
   that ends it;
 * variants: whole-kernel CUDA-event times of builds with one piece of work
   taken out by a one-line source substitution (results then differ, only the
-  time is read), of the other row schemes the width could have, and of
+  time is read), of the other row schemes the width could have (for the f32
+  cluster its other register schemes), and of
   ``--baseline`` (another version of the source, an earlier commit's say),
   taken round-robin ``REPEATS`` times so that they share the card's
   state. A phase's share in the profile is what warp 0 waits for it; an
@@ -66,25 +67,61 @@ ABLATIONS = {
 }
 # the f32 instance's: the split (three TF32 products per product, in
 # attn_core.cuh, which the source includes), its attention, its GELU, and
-# sums taken a k step at a time (from zero on the tensor core, then an f32
-# add) in its attention scores or in every product
+# every product summed a k step at a time (from zero on the tensor core,
+# then an f32 add)
 F32_ABLATIONS = {
     "one TF32 product (hi hi) instead of three": (
         "  mma_tf32(c, al, bh0, bh1);\n  mma_tf32(c, ah, bl0, bl1);\n", ""),
-    "no attention in the all-row layers": (
-        "        for (int s = warp; s < F * spf; s += kWarps) {",
-        "        for (int s = warp; s < F * spf && p.T < 0; s += kWarps) {"),
     "GELU as identity": (
         "  return x * (0.5f * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x))));",
         "  return x;"),
-    "attention scores summed by k step (kStepSums)": (
-        "  attn_strip_block_f32<S::kDh, KT16, true, false>(q_rows,",
-        "  attn_strip_block_f32<S::kDh, KT16, true, true>(q_rows,"),
     "every product summed by k step": (
         "  mma_tf32x3(c, ah, al, b.hi[2 * s], b.hi[2 * s + 1], b.lo[2 * s], b.lo[2 * s + 1]);\n",
         "  float d[4] = {0.f, 0.f, 0.f, 0.f};\n"
         "  mma_tf32x3(d, ah, al, b.hi[2 * s], b.hi[2 * s + 1], b.lo[2 * s], b.lo[2 * s + 1]);\n"
         "  for (int i = 0; i < 4; ++i) c[i] += d[i];\n"),
+}
+# packed frames (N <= 80) only: its all-row attention, and the attention
+# scores summed by k step
+F32_PACKED_ABLATIONS = {
+    "no attention in the all-row layers": (
+        "          for (int s = warp; s < strips; s += kWarps) {",
+        "          for (int s = warp; s < strips && p.T < 0; s += kWarps) {"),
+    "attention scores summed by k step (kStepSums)": (
+        "  attn_strip_block_f32<S::kDh, KT16, true, false>(q_rows,",
+        "  attn_strip_block_f32<S::kDh, KT16, true, true>(q_rows,"),
+}
+# one frame over a cluster (N > 80) only: its all-row attention, its scores
+# kept in the MMA's accumulator, the last layer's cls attention, and the keys
+# read from the block's own shared memory instead of the other blocks' (what
+# distributed shared memory costs; wrong results, the same work)
+F32_CLUSTER_ABLATIONS = {
+    "no attention in the all-row layers": (
+        "          const bool active = s < strips;\n",
+        "          const bool active = s < strips && p.T < 0;\n"),
+    "cluster scores in the accumulator (running sums)": (
+        "      attn_strip_block_f32<S::kDh, kClusterKeyTiles, false, true, true>(",
+        "      attn_strip_block_f32<S::kDh, kClusterKeyTiles, false, false, true>("),
+    "no attention in the last layer": (
+        "          cls_attend_cluster();\n", "          if (p.T < 0) cls_attend_cluster();\n"),
+    "keys from the block's own shared memory": (
+        "  return reinterpret_cast<T*>(a);\n", "  return p;\n"),
+}
+# the f32 cluster's other register schemes (same results): a block's keys
+# in one call of the attention core (64 keys: four times the scores in
+# registers), with all of V's loads of a tile in flight or four of them,
+# and two k blocks of each product in flight
+_KEYS64 = ("constexpr int kClusterKeyTiles = 1;", "constexpr int kClusterKeyTiles = 4;")
+_V4 = ("#pragma unroll\n      for (int dn = 0; dn < DH / 8; ++dn) {\n"
+       "        const Split4 b = split4(ld4(vp + dn * 8 * ldvt + kt * 16));",
+       "#pragma unroll 4\n      for (int dn = 0; dn < DH / 8; ++dn) {\n"
+       "        const Split4 b = split4(ld4(vp + dn * 8 * ldvt + kt * 16));")
+F32_CLUSTER_SCHEMES = {
+    "keys 64 a call": [_KEYS64],
+    "keys 64 a call, four V loads in flight": [_KEYS64, _V4],
+    "two k blocks of each product in flight": [(
+        "#pragma unroll 1\n    for (int kb = 0; kb < K / 16; ++kb) k_block(kb);",
+        "#pragma unroll 2\n    for (int kb = 0; kb < K / 16; ++kb) k_block(kb);")],
 }
 # the widths, and the other row schemes each could be compiled with (same
 # results, another number of frames per block)
@@ -149,6 +186,9 @@ def main(argv=None) -> int:
 
     frames = args.frames or DEFAULT_FRAMES[args.widths]
     cfg, n_off, dev = ViViTConfig(**WIDTHS[args.widths]), 21, torch.device("cuda")
+    if args.crop and args.crop > cfg.image_size:
+        # a positional embedding that covers the crop's tokens
+        cfg = ViViTConfig(**{**WIDTHS[args.widths], "image_size": args.crop})
     f32 = args.widths == "f32"
     cd = torch.float32 if f32 else torch.bfloat16
     gen = torch.Generator().manual_seed(args.seed)
@@ -202,8 +242,15 @@ def main(argv=None) -> int:
         # of the header can be substituted too
         include = '#include "attn_core.cuh"'
         inlined = source.replace(include, (_build.CSRC / "attn_core.cuh").read_text())
-        for name, (line, repl) in F32_ABLATIONS.items():
+        more = F32_CLUSTER_ABLATIONS if n_tok > st.PACKED_MAX_N else F32_PACKED_ABLATIONS
+        for name, (line, repl) in {**F32_ABLATIONS, **more}.items():
             variants[name] = substituted(inlined, name, line, repl)
+        if n_tok > st.PACKED_MAX_N:
+            for name, pairs in F32_CLUSTER_SCHEMES.items():
+                text = inlined
+                for line, repl in pairs:
+                    text = substituted(text, name, line, repl)
+                variants[name] = text
     else:
         for name, (line, repl) in {**ABLATIONS, **ROW_SCHEMES[args.widths]}.items():
             variants[name] = substituted(source, name, line, repl)

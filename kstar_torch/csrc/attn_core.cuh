@@ -414,6 +414,68 @@ __device__ __forceinline__ void mma_k16_step(float (&c)[4], const Split4& r0, co
   mma_tf32x3(c, ah, al, b.hi[2 * s], b.hi[2 * s + 1], b.lo[2 * s], b.lo[2 * s + 1]);
 }
 
+// o += P V for one 16-query strip, f32 operands in split TF32: s holds the
+// strip's probabilities (of any scale) for the KT16 * 16 keys whose value
+// rows are at vs (stride ldv: 4 mod 32); 8-key tiles wholly past n_keys are
+// skipped unless kAllTiles. Keys 2t, 2t + 1 of tile j are the MMA's k
+// indices t, t + 4, so V's B fragment is single words of two rows.
+template <int DH, int KT16, bool kAllTiles>
+__device__ __forceinline__ void attn_pv_f32(const float (&s)[2 * KT16][4], const float* vs,
+                                            int ldv, int n_keys, float (&o)[DH / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c2 = (lane & 3) * 2;
+  const float* vp = vs + c2 * ldv + g;
+#pragma unroll
+  for (int j = 0; j < 2 * KT16; ++j) {
+    if (kAllTiles || j * 8 < n_keys) {
+      const Split4 p = split4(make_float4(s[j][0], s[j][2], s[j][1], s[j][3]));
+#pragma unroll
+      for (int dn = 0; dn < DH / 8; ++dn) {
+        const float* v = vp + j * 8 * ldv + dn * 8;
+        const float v0 = v[0], v1 = v[ldv];
+        const uint32_t h0 = tf32_rna(v0), h1 = tf32_rna(v1);
+        mma_tf32x3(o[dn], p.hi, p.lo, h0, h1, tf32_rna(v0 - __uint_as_float(h0)),
+                   tf32_rna(v1 - __uint_as_float(h1)));
+      }
+    }
+  }
+}
+
+// attn_pv_f32 with V stored transposed: row c of vt (stride ldvt: 16 mod 32
+// floats) holds column c of V over the keys, the keys of each 16-key tile in
+// the order 2t, 2t + 1, 8 + 2t, 9 + 2t for t = 0 .. 3 (attn_vt_slot), so
+// that a lane's B fragments for both 8-key halves of a tile are one float4.
+// 16-key tiles wholly past n_keys are skipped unless kAllTiles; the rows of
+// the tiles taken must be finite. Each tile's P V is summed from zero on the
+// tensor core and added to o in f32, so that o does not stay in the MMA's
+// truncating accumulator however many keys a strip takes.
+__host__ __device__ constexpr int attn_vt_slot(int key) {
+  return (key & ~15) + 4 * ((key & 7) >> 1) + 2 * ((key >> 3) & 1) + (key & 1);
+}
+template <int DH, int KT16, bool kAllTiles>
+__device__ __forceinline__ void attn_pv_f32_t(const float (&s)[2 * KT16][4], const float* vt,
+                                              int ldvt, int n_keys, float (&o)[DH / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* vp = vt + g * ldvt + 4 * t;
+#pragma unroll
+  for (int kt = 0; kt < KT16; ++kt) {
+    if (kAllTiles || kt * 16 < n_keys) {
+      const float* sa = s[2 * kt];
+      const float* sb = s[2 * kt + 1];
+      const Split4 pa = split4(make_float4(sa[0], sa[2], sa[1], sa[3]));
+      const Split4 pb = split4(make_float4(sb[0], sb[2], sb[1], sb[3]));
+#pragma unroll
+      for (int dn = 0; dn < DH / 8; ++dn) {
+        const Split4 b = split4(ld4(vp + dn * 8 * ldvt + kt * 16));
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32x3(c, pa.hi, pa.lo, b.hi[0], b.hi[1], b.lo[0], b.lo[1]);
+        mma_tf32x3(c, pb.hi, pb.lo, b.hi[2], b.hi[3], b.lo[2], b.lo[3]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[dn][i] += c[i];
+      }
+    }
+  }
+}
+
 // One block of keys for one 16-query strip, f32 operands in split TF32:
 // the contract of attn_strip_block's kPHiLo mode (o unnormalised, m, l the
 // running max and sum; start them at -inf, 0, 0). qs: the strip's 16 query
@@ -424,8 +486,11 @@ __device__ __forceinline__ void mma_k16_step(float (&c)[4], const Split4& r0, co
 // kAllTiles (then all rows must be finite). kStepSums: each k step of the
 // scores is summed from zero on the tensor core and added to the running
 // score in f32 (the header's summation rule); without it the running score
-// stays in the MMA's accumulator, two f32 registers fewer a score.
-template <int DH, int KT16, bool kAllTiles = false, bool kStepSums = true>
+// stays in the MMA's accumulator, two f32 registers fewer a score. kVT: vs
+// is V stored transposed (attn_pv_f32_t, which sums P V a 16-key tile at a
+// time; ldv its row stride); without it P V adds to o in the MMA's
+// accumulator (attn_pv_f32).
+template <int DH, int KT16, bool kAllTiles = false, bool kStepSums = true, bool kVT = false>
 __device__ __forceinline__ void attn_strip_block_f32(const float* qs, int ldq, const float* ks,
                                                      int ldk, const float* vs, int ldv,
                                                      int n_keys, float scale, float (&m)[2],
@@ -487,21 +552,8 @@ __device__ __forceinline__ void attn_strip_block_f32(const float* qs, int ldq, c
   for (int t8 = 0; t8 < DH / 8; ++t8)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[t8][i] *= corr[i >> 1];
-
-  // P V: keys 2t, 2t + 1 of tile j as k indices t, t + 4
-  const float* vp = vs + c2 * ldv + g;
-#pragma unroll
-  for (int j = 0; j < 2 * KT16; ++j) {
-    if (kAllTiles || j * 8 < n_keys) {
-      const Split4 p = split4(make_float4(s[j][0], s[j][2], s[j][1], s[j][3]));
-#pragma unroll
-      for (int dn = 0; dn < DH / 8; ++dn) {
-        const float* v = vp + j * 8 * ldv + dn * 8;
-        const float v0 = v[0], v1 = v[ldv];
-        const uint32_t h0 = tf32_rna(v0), h1 = tf32_rna(v1);
-        mma_tf32x3(o[dn], p.hi, p.lo, h0, h1, tf32_rna(v0 - __uint_as_float(h0)),
-                   tf32_rna(v1 - __uint_as_float(h1)));
-      }
-    }
-  }
+  if constexpr (kVT)
+    attn_pv_f32_t<DH, KT16, kAllTiles>(s, vs, ldv, n_keys, o);
+  else
+    attn_pv_f32<DH, KT16, kAllTiles>(s, vs, ldv, n_keys, o);
 }

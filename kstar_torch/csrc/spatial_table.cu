@@ -115,10 +115,11 @@
 //    cluster barrier pair per head.
 //  * f32 (namespace tf32), at the flagship's D 128 / d_head 64 with an MLP
 //    a multiple of 64, N up to 80 (the 128 px crop's 65 tokens, the 64 px
-//    crop's 17): a sibling of the fast template rather than an instance of
-//    it, because f32 doubles every row and the wgmma layout does not carry
-//    over. The order of work is the fast instance's: frames packed without
-//    padding into one block of 80 rows (F = 1 at N 65, 3 at N 17), the
+//    crop's 17) in a block, up to 257 on a cluster: a sibling of the fast
+//    template rather than an instance of it, because f32 doubles every row
+//    and the wgmma layout does not carry over. The order of work is the fast
+//    instance's: frames packed without padding into one block of 80 rows
+//    (F = 1 at N 65, 3 at N 17), the
 //    weights as a stream of panels double-buffered through shared memory
 //    with cp.async and one barrier per product, out-projection and FF2
 //    summed in registers, the register-resident attention core
@@ -150,11 +151,45 @@
 //      weights a block, stream from L2 once per block.
 //    LayerNorm, softmax, GELU, biases and residuals are f32, as the plain
 //    version computes them.
+//    Past N 80 (the 144 .. 256 px crops of the stored 256 px frames, up to
+//    the whole frame's 257 tokens) one f32 frame does not fit a block: a
+//    head's k and v for 272 rows alone are 161 KB. The frame spreads over a
+//    cluster of C blocks on neighbouring SMs, each of 64 rows (four 16-row
+//    tiles: C = 2 up to N 128, 3 up to 192, 4 up to 256, 5 at 257), in the
+//    same order of work. Each block runs its own rows through every product
+//    and keeps only its own rows' k and v.
+//    - Its query strips read the other blocks' keys over distributed shared
+//      memory (mapa, then ordinary loads), 16 keys a call of the core, with
+//      the online softmax's running max and sum; the scores (a k step at a
+//      time) and P V (a 16-key tile at a time) are summed apart from the
+//      MMA's truncating accumulator and added in f32. Two warps share a
+//      strip (a block has at most four), each taking half of the cluster's
+//      blocks, and merge their parts through the panel buffer the v
+//      product has freed.
+//    - V is stored transposed, each 16-key tile's keys permuted, so that a
+//      lane's V fragments for 16 keys are one float4 over DSMEM (eight
+//      scalar loads row-major); h is kept as its split-TF32 pair, split
+//      once by the LayerNorm, so that the q, k, v and FF1 products read their A
+//      fragments as they are; the products sum a k step at a time. The 64
+//      rows leave room for both (230,400 bytes).
+//    - A cluster barrier in two halves per head orders the k and v rows: no
+//      block overwrites them while another may read them, none reads before
+//      they have landed. In the last layer the cls query's attention runs
+//      where the keys are: every block attends block 0's cls tile to its own
+//      keys and stores its part (output row, max, sum) into block 0, which
+//      merges them in rank order; then the other blocks leave.
+//    What bounds it: at N 257 a 4096-frame shot is 26.2 TFLOP, 158.7 ms at
+//    the TF32 tensor peak in three products each. A cluster's blocks keep
+//    pace at two barriers a head; the all-row attention (17 strips against
+//    272 keys, a third over DSMEM) is about a third of a block and the split
+//    products most of the rest (analysis/profile_spatial_table.py --widths
+//    f32 --crop 256).
 //  * general (f32 and bf16 at any other width the wrapper accepts, N up to
-//    128: f32 at N 81..128 or at the demo's D 64, bf16 at widths no fast
-//    instance is compiled for): one block per (offset, frame), 16 x 16 warp
-//    tiles with 32-bit fragment loads, scores through shared memory, f32 on
-//    scalar FMAs with the weights read from global memory. It holds the
+//    128: f32 at the demo's D 64 or with an MLP no multiple of 64, bf16 at
+//    widths no fast instance is compiled for): one block per (offset,
+//    frame), 16 x 16 warp tiles with 32-bit fragment loads, scores through
+//    shared memory, f32 on scalar FMAs with the weights read from global
+//    memory. It holds the
 //    algorithm to the f32 tolerance, is not tuned, and stays for the
 //    shapes the other two leave.
 
@@ -577,6 +612,25 @@ int launch(const void* tokens, const void* base, const void* wmat, const void* w
   return cudaGetLastError();
 }
 
+// The launch configuration of a grid whose blocks go in clusters of
+// `cluster` neighbours along x (a frame's blocks: x = frame * cluster + rank).
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(dim3 grid, int threads, size_t smem, int cluster, void* stream) {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
 // ---------------------------------------------------------------------------
 // fast instance: one design, compiled for each width in the list below
 // ---------------------------------------------------------------------------
@@ -628,6 +682,7 @@ struct Shape {
   static constexpr int kD = D_, kDh = DH_, kMc = MC_, kWg = WG_, kRem = REM_;
   static constexpr int kMaxN = MAXN_, kCluster = CLUSTER_;
   static constexpr bool kPacked = kMaxN <= kPackedMaxN;
+  static constexpr int blocks_per_frame(int) { return kCluster; }
   static constexpr int kProdRows = 64 * kWg + kRem;   // rows the products compute
   static constexpr int kRows = kProdRows + 16;         // rows of x, h, q (and of k, v
                                                        // packed): the last frame's
@@ -1414,26 +1469,6 @@ cudaError_t prepare() {
                               static_cast<int>(S::kSmemBytes));
 }
 
-// The launch configuration of a call over T frames and n_off offsets: a
-// cluster's blocks are neighbours along x.
-template <class S>
-struct LaunchConfig {
-  cudaLaunchConfig_t cfg{};
-  cudaLaunchAttribute attr[1];
-  LaunchConfig(int T, int n_off, void* stream) {
-    cfg.blockDim = dim3(S::kThreads);
-    cfg.dynamicSmemBytes = S::kSmemBytes;
-    cfg.stream = static_cast<cudaStream_t>(stream);
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = S::kCluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    cfg.gridDim = dim3(T * S::kCluster, n_off);
-  }
-};
-
 template <class S>
 int launch(const void* tokens, const void* base, const void* wmat, const void* wln,
            void* out, int T, int n_off, int N, int depth, int H, int M, float scale,
@@ -1462,7 +1497,8 @@ int launch(const void* tokens, const void* base, const void* wmat, const void* w
     spatial_table_fast_kernel<S><<<dim3((T + p.F - 1) / p.F, n_off), S::kThreads,
                                    S::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
   } else {
-    LaunchConfig<S> lc(T, n_off, stream);
+    ClusterLaunch lc(dim3(T * S::kCluster, n_off), S::kThreads, S::kSmemBytes, S::kCluster,
+                     stream);
     err = cudaLaunchKernelEx(&lc.cfg, spatial_table_fast_kernel<S>, p);
     if (err != cudaSuccess) return err;
   }
@@ -1481,19 +1517,41 @@ namespace tf32 {
 constexpr int kWarps = 8, kThreads = kWarps * 32;
 
 // One compiled width: D and DH the model's and a head's width, MC the MLP
-// columns of one FF panel, ROWS the rows of a block (frames packed without
-// padding, the last frame's keys padded to 16 inside them). Row strides in
+// columns of one FF panel, ROWS the rows of a block. With MAXC 1 a block
+// packs frames without padding into its rows (the last frame's keys padded to
+// 16 inside them), up to N = ROWS; with MAXC > 1 one frame of up to MAXN
+// tokens spreads over a cluster of ceil(N / ROWS) <= MAXC blocks on
+// neighbouring SMs, each with its share of the frame's rows (cluster_rows),
+// its own rows' q, k and v, and the other blocks' keys read from their
+// shared memory (distributed shared memory). Row strides in
 // floats: the products' A operands and q, k are read as float4 fragments
 // (16 mod 32, attn_core.cuh), v as single words (4 mod 32), x by LayerNorm
 // and the residual epilogues only. Every weight panel is 64 x D or D x 64
 // (kPanel floats), in 8 x 16 tiles: its 8-row group g, 16-column block b is
 // 128 contiguous floats, so a lane's B fragment is one float4 and a panel
 // is one flat copy.
-template <int D_, int DH_, int MC_, int ROWS_>
+template <int D_, int DH_, int MC_, int ROWS_, int MAXN_ = ROWS_, int MAXC_ = 1>
 struct Shape {
   static constexpr int kD = D_, kDh = DH_, kMc = MC_, kRows = ROWS_, kMt = ROWS_ / 16;
-  static constexpr int kMaxN = ROWS_, kCluster = 1;
-  static constexpr int kLdx = kD + 4, kLdh = kD + 16, kLdq = kDh + 16, kLdv = kDh + 4;
+  static constexpr int kMaxN = MAXN_, kMaxCluster = MAXC_;
+  static constexpr bool kClustered = MAXC_ > 1;
+  // A cluster's block keeps h as split-TF32 pairs, each row the LayerNorm's
+  // output rounded to TF32 (hi) and then the rest (lo, kHLo floats on), so
+  // that the products that read h (q, k, v, FF1) take its fragments as they
+  // are instead of every warp splitting every row; and V transposed
+  // (attn_pv_f32_t), so that the other blocks read a lane's V fragments of
+  // 16 keys as one float4 over distributed shared memory. Its 64 rows leave
+  // room for both.
+  static constexpr bool kSplitH = kClustered;
+  static constexpr int kHLo = kSplitH ? kD : 0;
+  // blocks that share one frame of N tokens: at most kMt of its 16-row
+  // tiles a block
+  static constexpr int blocks_per_frame(int N) {
+    return kClustered ? ((N + 15) / 16 + kMt - 1) / kMt : 1;
+  }
+  static constexpr int kLdx = kD + 4, kLdh = (kSplitH ? 2 * kD : kD) + 16, kLdq = kDh + 16;
+  static constexpr int kLdv = kClustered ? kRows + 16 : kDh + 4;
+  static constexpr int kVRows = kClustered ? kDh : kRows;   // rows of v (of v^T)
   static constexpr int kLdm = kMc + 16;
   static constexpr int kPanel = fast::cmax(kDh * kD, kMc * kD);
   static constexpr size_t kOffX = 0;
@@ -1501,38 +1559,65 @@ struct Shape {
   static constexpr size_t kOffQ = kOffH + sizeof(float) * kRows * kLdh;
   static constexpr size_t kOffK = kOffQ + sizeof(float) * kRows * kLdq;
   static constexpr size_t kOffV = kOffK + sizeof(float) * kRows * kLdq;
-  static constexpr size_t kOffPanel = kOffV + sizeof(float) * kRows * kLdv;
+  static constexpr size_t kOffPanel = kOffV + sizeof(float) * kVRows * kLdv;
   static constexpr size_t kSmemBytes = kOffPanel + 2 * sizeof(float) * kPanel;
 
   static_assert(kDh == 8 * kWarps && kMc == 8 * kWarps,
                 "64-column panels: one 8-column tile a warp");
   static_assert(kD == 16 * kWarps, "D-column products: two 8-column tiles a warp");
-  static_assert(kLdh % 32 == 16 && kLdq % 32 == 16 && kLdm % 32 == 16 && kLdv % 32 == 4,
+  static_assert(kLdh % 32 == 16 && kLdq % 32 == 16 && kLdm % 32 == 16 &&
+                    kLdv % 32 == (kClustered ? 16 : 4),
                 "fragment strides");
   static_assert(kRows % 16 == 0 && kRows >= 48, "16-row tiles; q holds the cls tiles");
   static_assert(kRows * kLdm <= 2 * kRows * kLdq, "the FF chunk fits in q and k");
   static_assert(48 * kLdq + 16 * kLdm <= kRows * kLdq, "the cls tiles fit in q");
   static_assert(kSmemBytes <= 232448, "fits in one block's shared memory");
+  static_assert(!kClustered || (kMaxN <= kMaxCluster * kRows && kMaxCluster <= 8),
+                "a frame's rows in a portable cluster's blocks");
+  static_assert(!kClustered || kRows * kLdm <= kRows * kLdq,
+                "the FF chunk stays in q: the cluster's other blocks read k");
+  static_assert(!kClustered || (kLdq >= kDh + 2 && kMaxCluster < 16),
+                "a block's cls part (output row, max, sum) in a row of oc");
 };
 
-// The flagship ViViT (D 128, d_head 64): one frame of up to 80 tokens a
-// block (F = 1 at N 65, 3 at N 17), 226,816 bytes, one block per SM.
+// The flagship ViViT (D 128, d_head 64): frames of up to 80 tokens packed
+// into a block of 80 rows (F = 1 at N 65, 3 at N 17), 226,816 bytes, one
+// block per SM; past 80 tokens (the 144 .. 256 px crops of the stored 256 px
+// frames) one frame over a cluster of blocks of 64 rows, 4 tiles: 2 up to N
+// 128, 3 up to 192, 4 up to 256 and 5 at 257. Four strips a block let two
+// warps share each strip's keys (attend_cluster).
 using Flagship = Shape<128, 64, 64, 80>;
+using FlagshipCluster = Shape<128, 64, 64, 64, 257, 5>;
 
 template <typename R, typename Fn>
 R with_instance(int N, int D, int dh, R none, Fn fn) {
-  if (N >= 1 && D == Flagship::kD && dh == Flagship::kDh && N <= Flagship::kMaxN)
-    return fn(Flagship());
+  if (N >= 1 && D == Flagship::kD && dh == Flagship::kDh) {
+    if (N <= Flagship::kMaxN) return fn(Flagship());
+    if (N <= FlagshipCluster::kMaxN) return fn(FlagshipCluster());
+  }
   return none;
 }
 
-// Frames per block: the most whose rows fit, the last frame's keys padded
-// to a multiple of 16, at most the cls tile's 16; 0 where none fits.
+// Frames per block: packed, the most whose rows fit, the last frame's keys
+// padded to a multiple of 16, at most the cls tile's 16; one in a cluster;
+// 0 where none fits.
 template <class S>
 __host__ __device__ inline int frames_per_block(int N) {
+  if (S::kClustered) return N >= 1 && N <= S::kMaxN ? 1 : 0;
   const int pad = (N + 15) / 16 * 16;
   if (N < 1 || pad > S::kRows) return 0;
   return fast::cmin((S::kRows - pad) / N + 1, fast::kMaxFrames);
+}
+
+// The rows of a frame of N tokens that block r of a cluster of C owns: its
+// first row (x) and how many (y). The frame's 16-row tiles are shared out as
+// evenly as they go, the odd ones to the last blocks, so block 0, which
+// alone carries the cls row through the last layer, has the fewest. Every
+// block owns at least one tile (N > 16 (C - 1)).
+__host__ __device__ inline int2 cluster_rows(int N, int C, int r) {
+  const int tiles = (N + 15) / 16, base = tiles / C, big = C - tiles % C;
+  const int row0 = 16 * (r * base + (r > big ? r - big : 0));
+  return make_int2(row0, fast::cmin(16 * (base + (r >= big ? 1 : 0)), N - row0));
 }
 
 template <class S>
@@ -1546,36 +1631,71 @@ struct Params {
   const float* wmat;    // packed panels and biases (pack_fast, layout "tile8x16")
   const float* wln;     // per layer 4 x D, then 2 x D
   float* out;           // (n_off, T, D)
-  int T, N, F, depth, H, M;
+  int T, N, F, C, depth, H, M;   // C: blocks per frame (1 where frames are packed)
   float scale;
 };
 
-// acc[i][j] (+)= A x panel^T in split TF32 for MT 16-row tiles of A (row r
-// at arow(r), K floats) and the warp's NT 8-column tiles of the panel
-// (output columns 8 NT w .. 8 NT w + 8 NT - 1 for warp w). Per 16-column
-// block each lane loads one float4 of B per tile and two of A per row tile
-// and splits them as it loads.
-template <int MT, int NT, int K, typename ARow>
+// The split pair of four floats already split: hi (TF32 values) and lo
+__device__ __forceinline__ Split4 as_split4(const float4& hi, const float4& lo) {
+  Split4 r;
+  const float h[4] = {hi.x, hi.y, hi.z, hi.w}, l[4] = {lo.x, lo.y, lo.z, lo.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    r.hi[i] = __float_as_uint(h[i]);
+    r.lo[i] = __float_as_uint(l[i]);
+  }
+  return r;
+}
+
+// acc[i][j] (+)= A x panel^T in split TF32 for the first mt (<= MT) 16-row
+// tiles of A (row r at arow(r), K floats) and the warp's NT 8-column tiles
+// of the panel (output columns 8 NT w .. 8 NT w + 8 NT - 1 for warp w). Per
+// 16-column block each lane loads one float4 of B per tile and two of A per
+// row tile and splits them as it loads; with ALO, A is stored split, its lo
+// part ALO floats past its hi part, and is loaded as it is. With STEP each
+// k step is summed from zero on the tensor core and added to acc in f32
+// (rounded to nearest, and the MMAs of two steps do not wait on one
+// accumulator); without it acc stays in the MMA's accumulator.
+template <int MT, int NT, int K, int ALO = 0, bool STEP = false, typename ARow>
 __device__ __forceinline__ void tc_rows(float (&acc)[MT][NT][4], ARow arow,
-                                        const float* panel) {
+                                        const float* panel, int mt = MT) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const float* bp = panel + warp * NT * (K / 16) * 128 + lane * 4;
-#pragma unroll 2
-  for (int kb = 0; kb < K / 16; ++kb) {
+  auto k_block = [&](int kb) {
     Split4 b[NT];
 #pragma unroll
     for (int j = 0; j < NT; ++j) b[j] = split4(ld4(bp + (j * (K / 16) + kb) * 128));
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
-      const Split4 a0 = split4(ld4(arow(16 * i + g) + kb * 16 + 4 * t));
-      const Split4 a1 = split4(ld4(arow(16 * i + g + 8) + kb * 16 + 4 * t));
+      if (i >= mt) break;
+      const float* r0 = arow(16 * i + g) + kb * 16 + 4 * t;
+      const float* r1 = arow(16 * i + g + 8) + kb * 16 + 4 * t;
+      const Split4 a0 = ALO ? as_split4(ld4(r0), ld4(r0 + ALO)) : split4(ld4(r0));
+      const Split4 a1 = ALO ? as_split4(ld4(r1), ld4(r1 + ALO)) : split4(ld4(r1));
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        mma_k16_step(acc[i][j], a0, a1, b[j], 0);
-        mma_k16_step(acc[i][j], a0, a1, b[j], 1);
+        if constexpr (STEP) {
+          float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_k16_step(d0, a0, a1, b[j], 0);
+          mma_k16_step(d1, a0, a1, b[j], 1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += d0[e] + d1[e];
+        } else {
+          mma_k16_step(acc[i][j], a0, a1, b[j], 0);
+          mma_k16_step(acc[i][j], a0, a1, b[j], 1);
+        }
       }
     }
+  };
+  // the step-summed products (a cluster's) one k block at a time: two in
+  // flight spill registers in the kernel that has the cluster's attention
+  if constexpr (STEP) {
+#pragma unroll 1
+    for (int kb = 0; kb < K / 16; ++kb) k_block(kb);
+  } else {
+#pragma unroll 2
+    for (int kb = 0; kb < K / 16; ++kb) k_block(kb);
   }
 }
 
@@ -1606,7 +1726,8 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 
 // flax LayerNorm in f32 (eps 1e-6) of `rows` rows of x: kD / 4 lanes share
 // a row, a float4 each. Row r is read at x + src(r) * kLdx and written at
-// y + r * ldy.
+// y + r * ldy; where S keeps h split (kHLo), as its TF32 pair, hi there and
+// lo kHLo floats past it.
 template <class S, typename Src>
 __device__ __forceinline__ void layer_norm(const float* x, float* y, int ldy, int rows, Src src,
                                            const float* scale, const float* bias) {
@@ -1627,10 +1748,20 @@ __device__ __forceinline__ void layer_norm(const float* x, float* y, int ldy, in
     }
     const float mean = s / S::kD;
     const float inv = rsqrtf(fmaxf(s2 / S::kD - mean * mean, 0.f) + 1e-6f);
-    if (r0 + sub < rows)
-      *reinterpret_cast<float4*>(y + r * ldy + c0) =
-          make_float4((v.x - mean) * (inv * sc.x) + bi.x, (v.y - mean) * (inv * sc.y) + bi.y,
-                      (v.z - mean) * (inv * sc.z) + bi.z, (v.w - mean) * (inv * sc.w) + bi.w);
+    const float4 out =
+        make_float4((v.x - mean) * (inv * sc.x) + bi.x, (v.y - mean) * (inv * sc.y) + bi.y,
+                    (v.z - mean) * (inv * sc.z) + bi.z, (v.w - mean) * (inv * sc.w) + bi.w);
+    if (r0 + sub < rows) {
+      if constexpr (S::kHLo > 0) {
+        const Split4 p = split4(out);
+        *reinterpret_cast<uint4*>(y + r * ldy + c0) =
+            make_uint4(p.hi[0], p.hi[1], p.hi[2], p.hi[3]);
+        *reinterpret_cast<uint4*>(y + r * ldy + c0 + S::kHLo) =
+            make_uint4(p.lo[0], p.lo[1], p.lo[2], p.lo[3]);
+      } else {
+        *reinterpret_cast<float4*>(y + r * ldy + c0) = out;
+      }
+    }
   }
 }
 
@@ -1658,19 +1789,105 @@ __device__ __forceinline__ void attend_strip(const float* q_rows, const float* k
     for (int i = 0; i < 4; ++i) o[t][i] *= inv[i >> 1];
 }
 
+// The address p has in the shared memory of the cluster's block `rank`, as
+// a generic pointer (ordinary loads and stores reach it over distributed
+// shared memory)
+template <typename T>
+__device__ __forceinline__ T* cluster_peer(T* p, int rank) {
+  uint64_t a;
+  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(a) : "l"(p), "r"(rank));
+  return reinterpret_cast<T*>(a);
+}
+
+// 16-key tiles the cluster's attention core takes at a call: one, so that
+// its scores leave room for all eight of a tile's V loads in flight without
+// a spill (a block's 64 keys in one call would hold four times the scores)
+constexpr int kClusterKeyTiles = 1;
+
+// One 16-query strip against the keys that blocks r0 .. r1 - 1 of a
+// cluster of C hold of a frame of N tokens (block r's cluster_rows(N, C, r)
+// keys lie in its k and v at the addresses this block's have), read over
+// distributed shared memory 16 keys a call of the core, with the running
+// max m and sum l of the online softmax; the scores are summed a k step at a
+// time and P V a 16-key tile at a time, each from zero and added in f32, so
+// that no sum stays in the MMA's truncating accumulator across the frame
+// (attn_core.cuh). o is left unnormalised.
+template <class S>
+__device__ __forceinline__ void attend_cluster(const float* q_rows, const float* k, const float* v,
+                                               int N, int C, int r0, int r1, float scale,
+                                               float (&m)[2], float (&l)[2],
+                                               float (&o)[S::kDh / 8][4]) {
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
+#pragma unroll
+  for (int t = 0; t < S::kDh / 8; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[t][i] = 0.f;
+  constexpr int kKeys = 16 * kClusterKeyTiles;   // keys a call of the core takes
+  for (int r = r0; r < r1; ++r) {
+    const float* kr = cluster_peer(k, r);
+    const float* vr = cluster_peer(v, r);
+    const int n = cluster_rows(N, C, r).y;
+    for (int k0 = 0; k0 < n; k0 += kKeys)
+      attn_strip_block_f32<S::kDh, kClusterKeyTiles, false, true, true>(
+          q_rows, S::kLdq, kr + k0 * S::kLdq, S::kLdq, vr + k0, S::kLdv, n - k0, scale, m, l, o);
+  }
+}
+
+// A strip's part (m, l, o of attend_cluster) as one lane holds it, in a
+// scratch slot of 32 lanes x 36 floats (lane-major: a quarter warp's float4s
+// fall into different banks)
+constexpr int kPartFloats = 36;
+template <int DH>
+__device__ __forceinline__ void store_part(float* slot, const float (&m)[2], const float (&l)[2],
+                                           const float (&o)[DH / 8][4]) {
+  static_assert(DH / 8 * 4 + 4 == kPartFloats, "a lane's part fills its slot");
+  float4* d = reinterpret_cast<float4*>(slot + (threadIdx.x & 31) * kPartFloats);
+#pragma unroll
+  for (int t = 0; t < DH / 8; ++t) d[t] = make_float4(o[t][0], o[t][1], o[t][2], o[t][3]);
+  d[DH / 8] = make_float4(m[0], m[1], l[0], l[1]);
+}
+// o <- (o e^(m - M) + o' e^(m' - M)) / (l e^(m - M) + l' e^(m' - M)), M the
+// larger max, with (m', l', o') the part in the slot: the strip's output
+template <int DH>
+__device__ __forceinline__ void merge_part(const float* slot, const float (&m)[2],
+                                           const float (&l)[2], float (&o)[DH / 8][4]) {
+  const float4* d = reinterpret_cast<const float4*>(slot + (threadIdx.x & 31) * kPartFloats);
+  const float4 ml = d[DH / 8];
+  const float m2[2] = {ml.x, ml.y}, l2[2] = {ml.z, ml.w};
+  float a[2], b[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mx = fmaxf(m[r], m2[r]);
+    a[r] = expf(m[r] - mx);
+    b[r] = expf(m2[r] - mx);
+    inv[r] = 1.f / (l[r] * a[r] + l2[r] * b[r]);
+  }
+#pragma unroll
+  for (int t = 0; t < DH / 8; ++t) {
+    const float4 p = d[t];
+    const float o2[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o[t][i] = (o[t][i] * a[i >> 1] + o2[i] * b[i >> 1]) * inv[i >> 1];
+  }
+}
+
 template <class S>
 __global__ void __launch_bounds__(kThreads, 1)
 spatial_table_tf32_kernel(Params p) {
   constexpr int kD = S::kD, kDh = S::kDh, kMc = S::kMc, kMt = S::kMt, kRows = S::kRows;
   constexpr int kLdx = S::kLdx, kLdh = S::kLdh, kLdq = S::kLdq, kLdv = S::kLdv;
   constexpr int kLdm = S::kLdm;
+  // a cluster's products sum each k step apart (tc_rows)
+  constexpr bool kStep = S::kClustered;
   extern __shared__ __align__(128) unsigned char smem[];
   float* xs = reinterpret_cast<float*>(smem + S::kOffX);
   float* hs = reinterpret_cast<float*>(smem + S::kOffH);
   float* qs = reinterpret_cast<float*>(smem + S::kOffQ);
   float* ks = reinterpret_cast<float*>(smem + S::kOffK);
   float* vs = reinterpret_cast<float*>(smem + S::kOffV);
-  float* mid = qs;                          // the FF chunk reuses q (and k)
+  float* mid = qs;                          // the FF chunk reuses q
   // The last layer's 16-row cls tiles (row f = frame f's cls token): q (32
   // rows: strip f reads rows f..f+15), the attention output and the FF
   // chunk in q's region; the LayerNorm output in h's.
@@ -1678,13 +1895,23 @@ spatial_table_tf32_kernel(Params p) {
   float* oc = qc + 32 * kLdq;
   float* midc = oc + 16 * kLdq;
   float* hc = hs;
-  float* const buf[2] = {reinterpret_cast<float*>(smem + S::kOffPanel),
-                         reinterpret_cast<float*>(smem + S::kOffPanel) + S::kPanel};
+  // panel buffer i % 2 (an address, not a pointer array a thread would
+  // keep in local memory)
+  float* const panels = reinterpret_cast<float*>(smem + S::kOffPanel);
+  auto buf = [=](int i) { return panels + (i & 1) * S::kPanel; };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
   const int N = p.N, F = p.F, H = p.H, M = p.M;
-  const int frame0 = blockIdx.x * F, off = blockIdx.y;
+  // In a cluster the C blocks of a frame are neighbours along x; block
+  // `rank` owns the frame's rows own.x .. own.x + own.y - 1 in mt 16-row
+  // tiles, block 0 the cls row. Packed, a block owns all its rows.
+  const int C = S::kClustered ? p.C : 1;
+  const int rank = S::kClustered ? static_cast<int>(fast::cluster_rank()) : 0;
+  const int2 own = S::kClustered ? cluster_rows(N, C, rank) : make_int2(0, kRows);
+  const int mt = S::kClustered ? (own.y + 15) / 16 : kMt;
+  const bool has_cls = rank == 0;
+  const int frame0 = blockIdx.x / C * F, off = blockIdx.y;
   const int n_chunks = M / kMc;
   const int per_layer = 4 * H + 2 * n_chunks;
   const int n_panels = p.depth * per_layer;
@@ -1701,7 +1928,7 @@ spatial_table_tf32_kernel(Params p) {
     if (issued < n_panels) {
       const int i = issued % per_layer;
       const int n = i < 4 * H ? kDh * kD : kMc * kD;
-      float* dst = buf[issued & 1];
+      float* dst = buf(issued);
       for (int e = tid * 4; e < n; e += kThreads * 4)
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst + e)),
                      "l"(wnext + e));
@@ -1718,19 +1945,20 @@ spatial_table_tf32_kernel(Params p) {
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
     issue_next();
-    return buf[consumed++ & 1];
+    return buf(consumed++);
   };
   issue_next();
 
   // x = tokens + base, frames packed without padding: row f * N + i is token
-  // i of frame frame0 + f. Rows of frames past T and past F * N are zero
-  // (finite through every layer, never stored). q's region starts at zero,
-  // so that the cls strips' padding rows are finite at any depth.
+  // i of frame frame0 + f (in a cluster row i is the frame's token own.x +
+  // i). Rows of frames past T and past F * N (past own.y) are zero (finite
+  // through every layer, never stored). q's region starts at zero, so that
+  // the cls strips' padding rows are finite at any depth.
   for (int i = tid; i < kRows * (kD / 4); i += kThreads) {
     const int r = i / (kD / 4), c = (i % (kD / 4)) * 4;
-    const int f = r / N, tok = r % N;
+    const int f = S::kClustered ? 0 : r / N, tok = S::kClustered ? own.x + r : r % N;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (f < F && frame0 + f < p.T) {
+    if (S::kClustered ? r < own.y : f < F && frame0 + f < p.T) {
       const float4 a = ld4(p.tokens + (static_cast<size_t>(frame0 + f) * N + tok) * kD + c);
       const float4 b = ld4(p.base + (static_cast<size_t>(off) * N + tok) * kD + c);
       val = make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -1739,6 +1967,9 @@ spatial_table_tf32_kernel(Params p) {
   }
   for (int i = tid; i < kRows * kLdq; i += kThreads) qs[i] = 0.f;
   __syncthreads();
+  // The cluster's barrier runs in two halves around each head's k and v:
+  // this first arrival pairs with the wait before the first k store.
+  if constexpr (S::kClustered) fast::cluster_arrive();
 
   auto rows_of = [](const float* base, int ld) {
     return [=](int r) { return base + r * ld; };
@@ -1750,9 +1981,10 @@ spatial_table_tf32_kernel(Params p) {
     const float2 x = *xp;
     *xp = make_float2(x.x + (v0 + b.x), x.y + (v1 + b.y));
   };
-  // One warp, one 16-query strip of one frame: the frame's keys are its N
-  // rows at row0; the rows up to the next multiple of 16 belong to the next
-  // frame or the zero tail and are masked in the core.
+  // One warp, one 16-query strip of one frame: packed, the frame's keys are
+  // its N rows at row0, and the rows up to the next multiple of 16 belong to
+  // the next frame or the zero tail and are masked in the core; in a
+  // cluster, the frame's keys are every block's rows.
   auto attend = [&](const float* q_rows, int row0, float (&o)[kDh / 8][4]) {
     const float* k = ks + row0 * kLdq;
     const float* v = vs + row0 * kLdv;
@@ -1765,23 +1997,64 @@ spatial_table_tf32_kernel(Params p) {
     }
     __syncwarp();
   };
-  // the all-row product of h with the next 64-row panel into dst (stride ld)
-  auto project = [&](float* dst, int ld) {
+  // the strip's output o (16 rows at dst, left of them real) over its q rows
+  auto store_strip = [&](float* dst, int left, const float (&o)[kDh / 8][4]) {
+#pragma unroll
+    for (int t = 0; t < kDh / 8; ++t) {
+      if (g < left)
+        *reinterpret_cast<float2*>(dst + g * kLdq + t * 8 + c2) = make_float2(o[t][0], o[t][1]);
+      if (g + 8 < left)
+        *reinterpret_cast<float2*>(dst + (g + 8) * kLdq + t * 8 + c2) =
+            make_float2(o[t][2], o[t][3]);
+    }
+  };
+  // the all-row product of h with the next 64-row panel into dst (stride
+  // ld); for v in a cluster transposed, row r to column attn_vt_slot(r)
+  auto project = [&](float* dst, int ld, bool vt = false) {
     float acc[kMt][1][4];
     zero(acc);
-    tc_rows<kMt, 1, kD>(acc, rows_of(hs, kLdh), next_panel());
+    tc_rows<kMt, 1, kD, S::kHLo, kStep>(acc, rows_of(hs, kLdh), next_panel(), mt);
     for_each_pair(acc, [&](int r, int c, float v0, float v1) {
-      *reinterpret_cast<float2*>(dst + r * ld + c) = make_float2(v0, v1);
+      if (S::kClustered && vt) {
+        dst[c * ld + attn_vt_slot(r)] = v0;
+        dst[(c + 1) * ld + attn_vt_slot(r)] = v1;
+      } else {
+        *reinterpret_cast<float2*>(dst + r * ld + c) = make_float2(v0, v1);
+      }
     });
+  };
+  // In a cluster the other blocks read this block's k and v: before the
+  // first store of a head's k every block must be done reading the last
+  // head's (wait), and after the head's v every block's rows must be there
+  // before the strips read them (arrive, wait); a block's strips done, it
+  // arrives again. Alone, a block barrier makes k and v visible.
+  auto kv_before_store = [&]() {
+    if constexpr (S::kClustered) fast::cluster_wait();
+  };
+  auto kv_complete = [&]() {
+    if constexpr (S::kClustered) {
+      fast::cluster_arrive();
+      fast::cluster_wait();
+    } else {
+      __syncthreads();
+    }
+  };
+  auto kv_read_done = [&]() {
+    if constexpr (S::kClustered) fast::cluster_arrive();
   };
 
   const int spf = (N + 15) / 16;            // strips per frame
+  // query strips of this block: spf per packed frame, else its row tiles
+  const int strips = S::kClustered ? mt : F * spf;
+  static_assert(!S::kClustered || (2 * kMt <= kWarps && kWarps / 2 * 32 * kPartFloats <= S::kPanel),
+                "two warps a strip in a cluster, their parts in a panel buffer");
+  const int ln_rows = S::kClustered ? 16 * mt : kRows;
   for (int l = 0; l < p.depth; ++l) {
     const float* b_out = p.wmat + l * layer_elems + layer_panels;
     const float* b_ff1 = b_out + kD;
     const float* b_ff2 = b_ff1 + M;
     const float* ln = p.wln + 4 * l * kD;
-    layer_norm<S>(xs, hs, kLdh, kRows, [](int r) { return r; }, ln, ln + kD);
+    layer_norm<S>(xs, hs, kLdh, ln_rows, [](int r) { return r; }, ln, ln + kD);
     __syncthreads();
 
     if (l < p.depth - 1) {
@@ -1790,26 +2063,42 @@ spatial_table_tf32_kernel(Params p) {
       zero(oacc);
       for (int hh = 0; hh < H; ++hh) {
         project(qs, kLdq);
+        kv_before_store();
         project(ks, kLdq);
-        project(vs, kLdv);
-        __syncthreads();
+        project(vs, kLdv, true);
+        kv_complete();
         // the output replaces the strip's own q rows (rows past the frame's
         // end are left alone: they are the next frame's q)
-        for (int s = warp; s < F * spf; s += kWarps) {
-          const int row0 = s / spf * N, q0 = s % spf * 16, left = N - q0;
-          float* dst = qs + (row0 + q0) * kLdq;
-          float o[kDh / 8][4];
-          attend(dst, row0, o);
-#pragma unroll
-          for (int t = 0; t < kDh / 8; ++t) {
-            if (g < left)
-              *reinterpret_cast<float2*>(dst + g * kLdq + t * 8 + c2) = make_float2(o[t][0], o[t][1]);
-            if (g + 8 < left)
-              *reinterpret_cast<float2*>(dst + (g + 8) * kLdq + t * 8 + c2) =
-                  make_float2(o[t][2], o[t][3]);
+        if constexpr (S::kClustered) {
+          // two warps a strip (kMt <= kWarps / 2): warp s takes the keys of
+          // the cluster's first half of blocks, warp s + 4 the rest, and
+          // leaves its part in the panel buffer the v product has freed;
+          // warp s merges the two
+          const int s = warp % (kWarps / 2), half = (C + 1) / 2;
+          const bool second = warp >= kWarps / 2;
+          const bool active = s < strips;
+          float* slot = buf(consumed + 1) + s * 32 * kPartFloats;
+          float m[2], lsum[2], o[kDh / 8][4];
+          if (active)
+            attend_cluster<S>(qs + s * 16 * kLdq, ks, vs, N, C, second ? half : 0,
+                              second ? C : half, p.scale, m, lsum, o);
+          if (active && second) store_part<kDh>(slot, m, lsum, o);
+          __syncthreads();
+          if (active && !second) {
+            merge_part<kDh>(slot, m, lsum, o);
+            store_strip(qs + s * 16 * kLdq, own.y - s * 16, o);
+          }
+        } else {
+          for (int s = warp; s < strips; s += kWarps) {
+            const int row0 = s / spf * N, q0 = s % spf * 16, left = N - q0;
+            float* dst = qs + (row0 + q0) * kLdq;
+            float o[kDh / 8][4];
+            attend(dst, row0, o);
+            store_strip(dst, left, o);
           }
         }
-        tc_rows<kMt, 2, kDh>(oacc, rows_of(qs, kLdq), next_panel());
+        kv_read_done();
+        tc_rows<kMt, 2, kDh, 0, kStep>(oacc, rows_of(qs, kLdq), next_panel(), mt);
       }
       for_each_pair(oacc, [&](int r, int c, float v0, float v1) {
         residual_pair(r, c, b_out, v0, v1);
@@ -1817,20 +2106,20 @@ spatial_table_tf32_kernel(Params p) {
       __syncthreads();
 
       // ---- feed-forward, all rows, over chunks of kMc MLP columns ----
-      layer_norm<S>(xs, hs, kLdh, kRows, [](int r) { return r; }, ln + 2 * kD, ln + 3 * kD);
+      layer_norm<S>(xs, hs, kLdh, ln_rows, [](int r) { return r; }, ln + 2 * kD, ln + 3 * kD);
       zero(oacc);                           // FF2, summed over the chunks
       for (int ch = 0; ch < n_chunks; ++ch) {
         {
           float acc[kMt][1][4];
           zero(acc);
-          tc_rows<kMt, 1, kD>(acc, rows_of(hs, kLdh), next_panel());
+          tc_rows<kMt, 1, kD, S::kHLo, kStep>(acc, rows_of(hs, kLdh), next_panel(), mt);
           const float* bias = b_ff1 + ch * kMc;
           for_each_pair(acc, [&](int r, int c, float v0, float v1) {
             *reinterpret_cast<float2*>(mid + r * kLdm + c) =
                 make_float2(gelu_tanh(v0 + bias[c]), gelu_tanh(v1 + bias[c + 1]));
           });
         }
-        tc_rows<kMt, 2, kMc>(oacc, rows_of(mid, kLdm), next_panel());
+        tc_rows<kMt, 2, kMc, 0, kStep>(oacc, rows_of(mid, kLdm), next_panel(), mt);
       }
       for_each_pair(oacc, [&](int r, int c, float v0, float v1) {
         residual_pair(r, c, b_ff2, v0, v1);
@@ -1840,33 +2129,94 @@ spatial_table_tf32_kernel(Params p) {
       // ---- last layer: the table keeps the cls row after the final
       // LayerNorm, so K and V are needed for all rows and everything else
       // for the F cls rows, as 16-row tiles (row f = frame f; rows past F
-      // repeat frame 0 or hold finite leftovers, and are never stored).
+      // repeat frame 0 or hold finite leftovers, and are never stored). In
+      // a cluster block 0 holds the cls row; the others add their k and v
+      // rows and leave once block 0 has read them.
       auto cls_h = [&](int r) { return hs + (r < F ? r * N : 0) * kLdh; };
+      // In a cluster the cls query's attention runs where the keys are:
+      // every block attends block 0's cls tile (qc) to its own keys, warp 0,
+      // and stores the cls row's unnormalised output, its max and its sum
+      // into block 0's oc row 1 + rank; block 0 merges them into oc row 0,
+      // in rank order.
+      auto cls_attend_cluster = [&]() {
+        if (warp == 0) {
+          float m[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.f, 0.f}, o[kDh / 8][4];
+#pragma unroll
+          for (int t = 0; t < kDh / 8; ++t)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) o[t][i] = 0.f;
+          attn_strip_block_f32<kDh, kMt, false, true, true>(
+              cluster_peer(qc, 0), kLdq, ks, kLdq, vs, kLdv, own.y, p.scale, m, lsum, o);
+          float* part = cluster_peer(oc + (1 + rank) * kLdq, 0);
+          if (g == 0) {
+#pragma unroll
+            for (int t = 0; t < kDh / 8; ++t)
+              *reinterpret_cast<float2*>(part + t * 8 + c2) = make_float2(o[t][0], o[t][1]);
+            if (lane == 0) *reinterpret_cast<float2*>(part + kDh) = make_float2(m[0], lsum[0]);
+          }
+        }
+        fast::cluster_arrive();
+        fast::cluster_wait();               // every block's part is in block 0
+        if (has_cls && warp == 0) {
+          float mx = -INFINITY;
+          for (int r = 0; r < C; ++r) mx = fmaxf(mx, oc[(1 + r) * kLdq + kDh]);
+          for (int c = lane; c < kDh; c += 32) {
+            float num = 0.f, den = 0.f;
+            for (int r = 0; r < C; ++r) {
+              const float* part = oc + (1 + r) * kLdq;
+              const float e = expf(part[kDh] - mx);
+              num += part[c] * e;
+              den += part[kDh + 1] * e;
+            }
+            oc[c] = num / den;
+          }
+        }
+      };
       float cacc[1][2][4];                  // out-projection of the cls rows
       zero(cacc);
       for (int hh = 0; hh < H; ++hh) {
         {
-          float qa[1][1][4];
-          zero(qa);
-          tc_rows<1, 1, kD>(qa, cls_h, next_panel());
-          for_each_pair(qa, [&](int r, int c, float v0, float v1) {
-            *reinterpret_cast<float2*>(qc + r * kLdq + c) = make_float2(v0, v1);
-          });
-        }
-        project(ks, kLdq);
-        project(vs, kLdv);
-        __syncthreads();
-        // strip f: queries qc rows f..f+15, of which row 0 is frame f's cls
-        for (int f = warp; f < F; f += kWarps) {
-          float o[kDh / 8][4];
-          attend(qc + f * kLdq, f * N, o);
-          if (g == 0) {
-#pragma unroll
-            for (int t = 0; t < kDh / 8; ++t)
-              *reinterpret_cast<float2*>(oc + f * kLdq + t * 8 + c2) = make_float2(o[t][0], o[t][1]);
+          const float* w = next_panel();
+          if (has_cls) {
+            float qa[1][1][4];
+            zero(qa);
+            tc_rows<1, 1, kD, S::kHLo, kStep>(qa, cls_h, w);
+            for_each_pair(qa, [&](int r, int c, float v0, float v1) {
+              *reinterpret_cast<float2*>(qc + r * kLdq + c) = make_float2(v0, v1);
+            });
           }
         }
-        tc_rows<1, 2, kDh>(cacc, rows_of(oc, kLdq), next_panel());
+        kv_before_store();
+        project(ks, kLdq);
+        project(vs, kLdv, true);
+        kv_complete();
+        if constexpr (S::kClustered) {
+          cls_attend_cluster();
+        } else {
+          // strip f: queries qc rows f..f+15, of which row 0 is frame f's cls
+          for (int f = warp; has_cls && f < F; f += kWarps) {
+            float o[kDh / 8][4];
+            attend(qc + f * kLdq, f * N, o);
+            if (g == 0) {
+#pragma unroll
+              for (int t = 0; t < kDh / 8; ++t)
+                *reinterpret_cast<float2*>(oc + f * kLdq + t * 8 + c2) =
+                    make_float2(o[t][0], o[t][1]);
+            }
+          }
+        }
+        kv_read_done();
+        {
+          const float* w = next_panel();
+          if (has_cls) tc_rows<1, 2, kDh, 0, kStep>(cacc, rows_of(oc, kLdq), w);
+        }
+      }
+      if constexpr (S::kClustered) {
+        fast::cluster_wait();               // block 0 has read every block's k and v
+        if (!has_cls) {
+          asm volatile("cp.async.wait_all;\n" ::: "memory");
+          return;
+        }
       }
       auto cls_residual = [&](const float* bias) {
         for_each_pair(cacc, [&](int r, int c, float v0, float v1) {
@@ -1882,14 +2232,14 @@ spatial_table_tf32_kernel(Params p) {
         {
           float acc[1][1][4];
           zero(acc);
-          tc_rows<1, 1, kD>(acc, rows_of(hc, kLdh), next_panel());
+          tc_rows<1, 1, kD, S::kHLo, kStep>(acc, rows_of(hc, kLdh), next_panel());
           const float* bias = b_ff1 + ch * kMc;
           for_each_pair(acc, [&](int r, int c, float v0, float v1) {
             *reinterpret_cast<float2*>(midc + r * kLdm + c) =
                 make_float2(gelu_tanh(v0 + bias[c]), gelu_tanh(v1 + bias[c + 1]));
           });
         }
-        tc_rows<1, 2, kMc>(cacc, rows_of(midc, kLdm), next_panel());
+        tc_rows<1, 2, kMc, 0, kStep>(cacc, rows_of(midc, kLdm), next_panel());
       }
       cls_residual(b_ff2);
       __syncthreads();
@@ -1941,14 +2291,21 @@ int launch(const void* tokens, const void* base, const void* wmat, const void* w
   p.T = T;
   p.N = N;
   p.F = frames_per_block<S>(N);
+  p.C = S::blocks_per_frame(N);
   p.depth = depth;
   p.H = H;
   p.M = M;
   p.scale = scale;
   cudaError_t err = prepare<S>();
   if (err != cudaSuccess) return err;
-  spatial_table_tf32_kernel<S><<<dim3((T + p.F - 1) / p.F, n_off), kThreads, S::kSmemBytes,
-                                 static_cast<cudaStream_t>(stream)>>>(p);
+  if constexpr (!S::kClustered) {
+    spatial_table_tf32_kernel<S><<<dim3((T + p.F - 1) / p.F, n_off), kThreads, S::kSmemBytes,
+                                   static_cast<cudaStream_t>(stream)>>>(p);
+  } else {
+    ClusterLaunch lc(dim3(T * p.C, n_off), kThreads, S::kSmemBytes, p.C, stream);
+    err = cudaLaunchKernelEx(&lc.cfg, spatial_table_tf32_kernel<S>, p);
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
 }
 
@@ -1969,7 +2326,8 @@ R with_planned(int N, int D, int H, int dh, int M, int elem_bytes, R none, Fn fn
 }
 
 // out[0..6] of spatial_table_fast_attributes for one instance's kernel, err
-// being its prepare()'s result; out[6] (clusters per GPU) is left 0
+// being its prepare()'s result; out[6] (clusters resident on the card) is 0
+// for a block of its own
 template <typename Params>
 cudaError_t instance_attributes(void (*kernel)(Params), cudaError_t err, int threads,
                                 size_t smem, int cluster, int* out) {
@@ -1985,6 +2343,10 @@ cudaError_t instance_attributes(void (*kernel)(Params), cudaError_t err, int thr
   out[4] = blocks;
   out[5] = cluster;
   out[6] = 0;
+  if (err == cudaSuccess && cluster > 1) {
+    ClusterLaunch lc(dim3(cluster), threads, smem, cluster, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&out[6], kernel, &lc.cfg);
+  }
   return err;
 }
 }  // namespace
@@ -2019,7 +2381,7 @@ int spatial_table_plan(int N, int D, int H, int dh, int M, int elem_bytes) {
 // (1 or 2), 0 for the general one.
 int spatial_table_cluster_size(int N, int D, int H, int dh, int M, int elem_bytes) {
   return with_planned(N, D, H, dh, M, elem_bytes, 0,
-                      [](auto s) { return decltype(s)::kCluster; });
+                      [&](auto s) { return decltype(s)::blocks_per_frame(N); });
 }
 
 // The MLP columns of one FF panel of the fast or f32 instance a call takes
@@ -2052,18 +2414,13 @@ int spatial_table_fast_attributes(int N, int D, int dh, int elem_bytes, int* out
       using S = decltype(s);
       return static_cast<int>(instance_attributes(tf32::spatial_table_tf32_kernel<S>,
                                                   tf32::prepare<S>(), tf32::kThreads,
-                                                  S::kSmemBytes, 1, out));
+                                                  S::kSmemBytes, S::blocks_per_frame(N), out));
     });
   return fast::with_instance(N, D, dh, static_cast<int>(cudaErrorInvalidValue), [&](auto s) {
     using S = decltype(s);
-    cudaError_t err = instance_attributes(fast::spatial_table_fast_kernel<S>, fast::prepare<S>(),
-                                          S::kThreads, S::kSmemBytes, S::kCluster, out);
-    if (err == cudaSuccess && S::kCluster > 1) {
-      fast::LaunchConfig<S> lc(1, 1, nullptr);
-      err = cudaOccupancyMaxActiveClusters(&out[6], fast::spatial_table_fast_kernel<S>,
-                                           &lc.cfg);
-    }
-    return static_cast<int>(err);
+    return static_cast<int>(instance_attributes(fast::spatial_table_fast_kernel<S>,
+                                                fast::prepare<S>(), S::kThreads,
+                                                S::kSmemBytes, S::kCluster, out));
   });
 }
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -80,6 +81,7 @@ def build(names=None) -> dict:
             failed.append(f"{name}.cu:\n{out}")
             continue
         os.replace(tmp, target)
+        target.with_suffix(".ptxas").write_text(out)
         reports[name] = out
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
@@ -103,6 +105,24 @@ def build_variant(name: str, tag: str, extra_flags=(), source_text: str = None) 
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} ({tag}):\n{proc.stdout}")
     return target
+
+
+def ptxas_report(name: str) -> str:
+    """The ptxas lines of the build of ``csrc/<name>.cu`` that ``load``
+    takes (registers, stack, spills per kernel), built first if needed."""
+    build([name])
+    return _target(name).with_suffix(".ptxas").read_text()
+
+
+def spills(report: str, entry: str) -> tuple:
+    """(spill store bytes, spill load bytes) ptxas reports for the one
+    kernel whose mangled name contains every string of ``entry``."""
+    blocks = report.split("Compiling entry function")[1:]
+    found = [b for b in blocks if all(part in b.split("\n")[0] for part in entry)]
+    if len(found) != 1:
+        raise ValueError(f"{len(found)} kernels match {entry}")
+    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", found[0])
+    return int(m.group(1)), int(m.group(2))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -22,15 +22,17 @@ of ``FAST_INSTANCES`` (the flagship ViViT's D 128 / d_head 64 with several
 frames per block up to N 80, one frame per block up to N 144 and one frame
 per two-block cluster up to N 257, the full 256 px frame at patch 16; the
 demo ViViT's D 64 / d_head 32 up to N 80); its f32 sibling, the entries of
-``FAST_F32_INSTANCES`` (the flagship widths up to N 80, products on the
-tensor cores in split TF32); and the general one (f32 and bf16 at any other
-accepted width, N <= 128). The wrapper packs the weights for the instance
-(``pack_fast``: the kernel's panel stream, in the instance's MLP chunks and
-panel layout; ``pack_general``) once per weights bundle, dtype and chunk.
-``packed_walk_reference`` walks the fast and f32 instances' streams in
-plain PyTorch (past N 80 with the two-pass attention of blocks of keys; in
-f32 with the split-TF32 products), so that the packing and the kernels'
-order of work are tested without a GPU.
+``FAST_F32_INSTANCES`` (the flagship widths, products on the tensor cores
+in split TF32: frames packed into a block up to N 80, one frame over a
+cluster of ceil(N / 80) blocks up to N 257); and the general one (f32 and
+bf16 at any other accepted width, N <= 128). The wrapper packs the weights
+for the instance (``pack_fast``: the kernel's panel stream, in the
+instance's MLP chunks and panel layout; ``pack_general``) once per weights
+bundle, dtype and chunk. ``packed_walk_reference`` walks the fast and f32
+instances' streams in plain PyTorch (past N 80 with the attention over
+blocks of keys: two passes in bf16, the f32 cluster's online softmax over
+its blocks' rows; in f32 with the split-TF32 products), so that the packing
+and the kernels' order of work are tested without a GPU.
 """
 
 from __future__ import annotations
@@ -388,9 +390,18 @@ FAST_INSTANCES = (FastInstance(128, 64, 128, 144, 160),
                   FastInstance(128, 64, 128, 144, 160, max_n=144),
                   FastInstance(128, 64, 64, 144, 160, max_n=257, cluster=2),
                   FastInstance(64, 32, 64, 128, 144))
-# The f32 instance (products in split TF32, shared memory for 80 f32 rows):
-# the flagship ViViT's widths up to N 80, MLP chunks of 64.
-FAST_F32_INSTANCES = (FastInstance(128, 64, 64, 80, 80, layout="tile8x16"),)
+# The f32 instance (products in split TF32): the flagship ViViT's widths,
+# MLP chunks of 64; frames packed into a block of 80 rows up to N 80, past
+# it one frame over a cluster of blocks of 64 rows (one compiled kernel; the
+# cluster size is the launch's), each with its share of the frame's 16-row
+# tiles (``cluster_row_split``), at most four: 2 blocks up to N 128, 3 up to
+# 192, 4 up to 256, 5 at 257.
+F32_CLUSTER_TILES = 4
+_F32_CLUSTER_ROWS = 16 * F32_CLUSTER_TILES
+FAST_F32_INSTANCES = (FastInstance(128, 64, 64, 80, 80, layout="tile8x16"),
+                      *(FastInstance(128, 64, 64, _F32_CLUSTER_ROWS, _F32_CLUSTER_ROWS,
+                                     max_n=min(_F32_CLUSTER_ROWS * c, 257), cluster=c,
+                                     layout="tile8x16") for c in (2, 3, 4, 5)))
 # the last layer's 16-row cls tile
 FAST_MAX_FRAMES = 16
 
@@ -443,10 +454,24 @@ def fast_instance_name(N: int, D: int, d_head: int, dtype: torch.dtype = torch.b
     tokens: by its frames per block where it packs them, else by N and its
     cluster size; the f32 one's name starts ``fast_f32``."""
     inst = _instance_of(D, d_head, N, dtype)
-    if inst.max_n > PACKED_MAX_N:
-        return f"fast_D{D}_N{N}_C{inst.cluster}"
     kind = "fast_f32" if dtype == torch.float32 else "fast"
+    if inst.max_n > PACKED_MAX_N:
+        return f"{kind}_D{D}_N{N}_C{inst.cluster}"
     return f"{kind}_D{D}_F{fast_frames_per_block(N, D, d_head, dtype)}"
+
+
+def cluster_row_split(N: int, C: int) -> list:
+    """The f32 cluster's rows of a frame of N tokens, as ``(first row,
+    rows)`` for each of its C blocks (``cluster_rows`` in the source): the
+    frame's 16-row tiles shared out as evenly as they go, the odd ones to
+    the last blocks, so block 0 (the cls row's) has the fewest."""
+    tiles = -(-N // 16)
+    base, big = tiles // C, C - tiles % C
+    split = []
+    for r in range(C):
+        row0 = 16 * (r * base + max(r - big, 0))
+        split.append((row0, min(16 * (base + (r >= big)), N - row0)))
+    return split
 
 
 def fast_kernel_attributes(D: int, d_head: int, N: int = 1,
@@ -627,7 +652,8 @@ def packed_walk_reference(tokens: torch.Tensor, packed: torch.Tensor, wln: torch
                           compute_dtype: torch.dtype = torch.bfloat16,
                           scale: float = None, cls_last: bool = True,
                           mlp_chunk: int = None, key_block: int = None,
-                          layout: str = "core8x8", split: bool = False) -> torch.Tensor:
+                          layout: str = "core8x8", split: bool = False,
+                          cluster: int = None) -> torch.Tensor:
     """The fast instance's walk in plain PyTorch: the same function as
     ``spatial_table_reference``, computed from a ``pack_fast`` stream (of
     ``layout``) panel by panel in the kernel's order (per head q|k, v,
@@ -640,9 +666,15 @@ def packed_walk_reference(tokens: torch.Tensor, packed: torch.Tensor, wln: torch
     (``two_pass_probs``), else over all keys at once. With ``split`` every
     product runs as the f32 instance's do, in split TF32
     (``_mm_rows_split_tf32``), and P V takes the unnormalised exponentials
-    and divides by their sum after, as its online softmax does. Products go
-    through ``_mm_rows``, so the cls row's arithmetic is the same either
-    way, bit for bit; it is meant for small inputs."""
+    and divides by their sum after, as its online softmax does; with
+    ``cluster`` (the f32 cluster's blocks per frame) the keys come in the
+    blocks of its row split (``cluster_row_split``), as the cluster's
+    attention takes them (``_split_attention_parts``): in the all-row layers
+    two parts, the first half of the blocks and the rest, merged; in the
+    last layer one part per block, merged (the products are row by row, so
+    the row split itself changes nothing else).
+    Products go through ``_mm_rows``, so the cls row's arithmetic is the
+    same either way, bit for bit; it is meant for small inputs."""
     cd = compute_dtype
     D, dh = tokens.shape[-1], d_head
     mc = mlp_chunk or _instance_of(D, dh).mlp_chunk
@@ -665,7 +697,13 @@ def packed_walk_reference(tokens: torch.Tensor, packed: torch.Tensor, wln: torch
                 q, k = rnd(mm(h[:, rows], qk[:dh])), rnd(mm(h, qk[dh:]))
                 v = rnd(mm(h, wv))
                 sc = mm(q, k) * scale
-                if split:
+                if split and cluster:
+                    blocks = cluster_row_split(sc.shape[-1], cluster)
+                    half = -(-cluster // 2)
+                    parts = ([[b] for b in blocks] if cls_last and d == depth - 1
+                             else [blocks[:half], blocks[half:]])
+                    o = _split_attention_parts(sc, v, parts)
+                elif split:
                     e = torch.exp(sc - sc.amax(-1, keepdim=True))
                     o = mm(e, v.transpose(-1, -2)) / e.sum(-1, keepdim=True)
                 else:
@@ -686,6 +724,39 @@ def packed_walk_reference(tokens: torch.Tensor, packed: torch.Tensor, wln: torch
             x = rnd(x + rnd(rnd(acc) + panels[d, "b_ff2", 0]))
         out.append(_layer_norm(x[:, 0], ln[4 * depth], ln[4 * depth + 1]).to(cd))
     return torch.stack(out)
+
+
+def _split_attention_parts(scores: torch.Tensor, v: torch.Tensor, parts) -> torch.Tensor:
+    """softmax(scores) v as the f32 cluster's attention takes it: ``parts``
+    is a list of lists of key blocks (``(first key, keys)``). Within a part
+    the blocks' keys come in order, 16 at a time (a block's last tile may be
+    short), each tile growing the running max, rescaling the running sum and
+    output and adding its P V (split TF32, unnormalised P); the parts'
+    outputs and sums are then merged in order, each scaled by exp(its max -
+    the overall max), and the sum divides at the end."""
+    merged = []
+    for blocks in parts:
+        m = torch.full_like(scores[..., :1], float("-inf"))
+        total = torch.zeros_like(m)
+        o = 0.0
+        tiles = [(k0 + t0, min(16, n - t0)) for k0, n in blocks for t0 in range(0, n, 16)]
+        for k0, n in tiles:
+            blk = scores[..., k0:k0 + n]
+            m_new = torch.maximum(m, blk.amax(-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            e = torch.exp(blk - m_new)
+            total = total * corr + e.sum(-1, keepdim=True)
+            o = o * corr + _mm_rows_split_tf32(e, v[..., k0:k0 + n, :].transpose(-1, -2))
+            m = m_new
+        merged.append((m, total, o))
+    if len(merged) == 1:
+        return merged[0][2] / merged[0][1]
+    mx = torch.stack([m for m, _, _ in merged]).amax(0)
+    num, den = 0.0, 0.0
+    for m, total, o in merged:
+        e = torch.exp(m - mx)
+        num, den = num + o * e, den + total * e
+    return num / den
 
 
 _pack_cache: dict = {}

@@ -178,24 +178,28 @@ def test_spatial_table_fast_instances_fit_the_card(dev):
 
 def test_spatial_table_f32_flagship_takes_the_f32_instance(dev, flagship):
     """f32 at the flagship widths no longer takes the general instance: up
-    to 80 tokens (N 65, N 17) the f32 instance (split-TF32 products) takes
-    the call, within the f32 limits of the plain version; past it (N 101)
-    the general instance would need 311,168 bytes of shared memory a
-    block, so the kernel refuses the call (the sweep builds the plain
-    table)."""
+    to 80 tokens (N 65, N 17) the packed f32 instance (split-TF32 products)
+    takes the call, within the f32 limits of the plain version; past it (N
+    101) an f32 cluster of two blocks does; where no instance takes the call
+    (N 145, an MLP of 368) it is refused."""
     model, tokens = flagship
     _table_case(dev, model, tokens[:3], torch.float32, n_off=2)
     assert tst.spatial_table.instance == "fast_f32_D128_F1"
     _table_case(dev, model, tokens[:7, :17], torch.float32, n_off=2)
     assert tst.spatial_table.instance == "fast_f32_D128_F3"
     g = torch.Generator().manual_seed(13)
-    wide = ViViT(image_size=160, generator=g).to(dev)
-    x = F.pad(torch.randn(3, 100, 128, generator=g), (0, 0, 1, 0)).to(dev)
-    assert "shared memory" in tst.kernel_refusal(3, 101, 128, 2, 4, 64, 1024, torch.float32,
-                                                 dev)
-    w = tst.extract_spatial_weights(wide, 2, 2, torch.float32)
+    wide = ViViT(image_size=160, generator=g)
+    x = F.pad(torch.randn(3, 100, 128, generator=g), (0, 0, 1, 0))
+    assert tst.kernel_refusal(3, 101, 128, 2, 4, 64, 1024, torch.float32, dev) is None
+    _table_case(dev, wide, x, torch.float32, n_off=2)
+    assert tst.spatial_table.instance == "fast_f32_D128_N101_C2"
+    odd = ViViT(image_size=192, scale_dim=3, generator=g).to(dev)     # MLP 384: chunks of 64
+    w = tst.extract_spatial_weights(odd, 2, 2, torch.float32)
+    w = w._replace(w_ff1=tuple(m[:368] for m in w.w_ff1), b_ff1=tuple(b[:368] for b in w.b_ff1),
+                   w_ff2=tuple(m[:, :368] for m in w.w_ff2))            # MLP 368: none
     with pytest.raises(ValueError, match="not supported"):
-        tst.spatial_table(x, w, 2, compute_dtype=torch.float32)
+        tst.spatial_table(F.pad(torch.randn(2, 144, 128, generator=g), (0, 0, 1, 0)).to(dev),
+                          w, 2, compute_dtype=torch.float32)
 
 
 @pytest.mark.parametrize("n_tok", [65, 17, 5, 80], ids=["N65", "N17", "N5", "N80"])
@@ -360,6 +364,115 @@ def test_spatial_table_one_frame_instances_fit_the_card(dev):
     assert one["blocks_per_sm"] == 1 and one["threads"] == 384 and one["cluster_size"] == 1
     assert two["blocks_per_sm"] == 1 and two["threads"] == 384 and two["cluster_size"] == 2
     assert two["active_clusters"] >= 1 and two["dynamic_smem_bytes"] <= 232448
+
+
+# the f32 cluster's shapes: the patch-16 crops of the stored 256 px frame
+# past 128 px (101, 145, 197, 257) and the edges of each cluster size
+F32_CLUSTER_N = [81, 101, 128, 129, 145, 160, 161, 192, 193, 197, 240, 241, 256, 257]
+
+
+def _f32_cluster_name(n_tok):
+    return f"fast_f32_D128_N{n_tok}_C{tst.fast_instance(128, 64, n_tok, torch.float32).cluster}"
+
+
+@pytest.mark.parametrize("M", [1024, 512], ids=["MLP1024", "MLP512"])
+@pytest.mark.parametrize("n_tok", F32_CLUSTER_N)
+def test_spatial_table_f32_cluster_instances(dev, full_frame, n_tok, M):
+    """Past 80 tokens at the flagship widths in f32: one frame over a
+    cluster of 64-row blocks of the f32 instance (2 up to N 128, 3 up to
+    192, 4 up to 256, 5 at 257), 23 frames, against the plain version within
+    TABLE_TOL[float32] and a mean of 1e-5; frames are independent (a frame's
+    row is the same in another call)."""
+    models, tokens = full_frame
+    x = tokens[:, :n_tok]
+    full = _table_case(dev, models[M], x, torch.float32)
+    assert tst.spatial_table.instance == _f32_cluster_name(n_tok)
+    want = tst.spatial_table_reference(x.to(dev), tst.extract_spatial_weights(
+        models[M], 3, 2, torch.float32), 3, compute_dtype=torch.float32)
+    assert float((full - want).abs().mean()) <= 1e-5
+    assert torch.equal(full[:, 3:5], _table_case(dev, models[M], x[3:5], torch.float32))
+
+
+@pytest.mark.parametrize("n_tok", [101, 197, 257])
+def test_spatial_table_f32_cluster_two_heads(dev, n_tok):
+    """Two heads of 64 (inner 128), MLP 512, one layer and three layers."""
+    g = torch.Generator().manual_seed(17)
+    for depth in (1, 3):
+        model = ViViT(image_size=256, n_heads=2, depth=depth, scale_dim=4, generator=g)
+        x = F.pad(torch.randn(9, n_tok - 1, 128, generator=g), (0, 0, 1, 0))
+        _table_case(dev, model, x, torch.float32, depth=depth, n_heads=2)
+        assert tst.spatial_table.instance == _f32_cluster_name(n_tok)
+
+
+def _large_logits(w, x, peak=80.0):
+    """The bundle with every layer's q rows scaled so that the first layer's
+    scores (offset 0) peak at |s| = ``peak``."""
+    inner = w.w_qkv[0].shape[0] // 3
+    h = tst._layer_norm(x + w.base[0, :x.shape[1]], w.ln_a_s[0], w.ln_a_b[0])
+    q, k = h @ w.w_qkv[0][:inner].T, h @ w.w_qkv[0][inner:2 * inner].T
+    s = torch.einsum("tnhd,tmhd->thnm", q.unflatten(-1, (-1, 64)), k.unflatten(-1, (-1, 64)))
+    a = peak / float((s * 64 ** -0.5).abs().max())
+    return w._replace(w_qkv=tuple(torch.cat([m[:inner] * a, m[inner:]]) for m in w.w_qkv))
+
+
+@pytest.mark.parametrize("n_tok", [101, 145, 257])
+def test_spatial_table_f32_cluster_large_logits(dev, full_frame, n_tok):
+    """Scores up to |s| 80 (every layer's q rows scaled): the cluster's
+    exponentials, running max and merged parts stay within the f32 limits
+    of the plain version (1e-4 + 1e-4 |x|, mean 1e-5)."""
+    models, tokens = full_frame
+    x = tokens[:7, :n_tok].to(dev)
+    w = _large_logits(tst.extract_spatial_weights(models[1024].to(dev), 3, 2, torch.float32), x)
+    got = tst.spatial_table(x, w, 3, compute_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert tst.spatial_table.instance == _f32_cluster_name(n_tok)
+    want = tst.spatial_table_reference(x, w, 3, compute_dtype=torch.float32)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert float((got - want).abs().mean()) <= 1e-5
+
+
+@pytest.mark.parametrize("n_tok", [101, 145, 197, 257])
+def test_spatial_table_f32_cluster_fits_the_card(dev, n_tok):
+    """The f32 cluster as the card takes it: 256 threads and one block an
+    SM, its shared memory under the device's opt-in limit, no spill (as
+    ptxas reports it), the cluster size of its N, and clusters of it
+    resident."""
+    from kstar_torch.ops import _build
+
+    att = tst.fast_kernel_attributes(128, 64, n_tok, torch.float32)
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert att["threads"] == 256 and att["blocks_per_sm"] == 1 and att["registers"] <= 255
+    assert att["dynamic_smem_bytes"] + att["static_smem_bytes"] <= limit
+    report = _build.ptxas_report("spatial_table")
+    assert _build.spills(report, ("spatial_table_tf32_kernel", "ELi257E")) == (0, 0)
+    assert att["cluster_size"] == tst.fast_instance(128, 64, n_tok, torch.float32).cluster
+    assert att["active_clusters"] > 0
+
+
+def test_video_sweep_takes_the_f32_cluster_at_257_tokens(dev):
+    """An f32 sweep at 257 tokens (patch 4 over 64 px) takes the f32
+    cluster with ``use_fused_table=None`` and with ``True``, one launch a
+    shot, and its curve is the plain f32 table's within the f32 curve
+    limits (1e-4, mean 1e-5)."""
+    import numpy as np
+
+    from kstar_torch.infer.continuous import VideoSweeper
+
+    model = ViViT(image_size=64, patch_size=4, n_frames=5, dim=128, depth=1, n_heads=2,
+                  d_head=64, scale_dim=2, generator=torch.Generator().manual_seed(8))
+    frames = np.random.default_rng(0).integers(0, 255, (40, 64, 64, 3), dtype=np.uint8)
+    starts = np.arange(30)
+    for fused in (None, True):
+        before = tst.spatial_table.launches
+        sw = VideoSweeper(model, 5, 64, 16, torch.float32, use_fused_table=fused, device=dev)
+        assert sw.fused_table_active is True
+        p_kernel = sw.sweep(frames, starts)
+        assert tst.spatial_table.launches == before + 1
+        assert tst.spatial_table.instance == "fast_f32_D128_N257_C5"
+    p_plain = VideoSweeper(model, 5, 64, 16, torch.float32, use_fused_table=False,
+                           device=dev).sweep(frames, starts)
+    err = np.abs(p_kernel - p_plain)
+    assert np.isfinite(p_kernel).all() and err.max() <= 1e-4 and err.mean() <= 1e-5
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -1,10 +1,12 @@
 """The spatial-cls table past 80 tokens: every patch-16 crop of the stored
 256 px frames (N 81..257) at the flagship ViViT's widths takes a fast
-instance of the CUDA kernel (one frame a block up to N 144, a two-block
-cluster up to N 257). On the CPU: the wrapper's plan, the weight stream in
+instance of the CUDA kernel (bf16: one frame a block up to N 144, a
+two-block cluster up to N 257; f32: one frame over a cluster of
+ceil(N / 80) blocks). On the CPU: the wrapper's plan, the weight stream in
 the cluster's MLP chunks and the two-pass attention walked in plain
-PyTorch against the plain version, and the plain version at N 257 against
-the JAX package's table.
+PyTorch against the plain version, the plain version at N 257 against the
+JAX package's table, and the f32 cluster's walk against JAX's XLA table at
+N 257 and its Pallas kernel (interpret mode) at N 101.
 
 Tolerances: f32, summation order only (1e-5, and the JAX test's 2e-5);
 bf16, the kernel's limit against the plain version (6.25e-2 + 6.25e-2 |x|,
@@ -69,23 +71,29 @@ def test_the_patch16_crops_of_the_stored_frame(n_heads):
 
 
 def test_what_stays_refused():
-    """N 258 and past at the flagship widths, f32 past the general
-    instance's N 128, a bf16 MLP that is no multiple of the instance's
-    chunk, and every N past 128 at widths no fast instance is compiled for
+    """N 258 and past at the flagship widths (in both dtypes), an MLP that
+    is no multiple of the instance's chunk past the general instance's N
+    128, and every N past 128 at widths no fast instance is compiled for
     (D 32, the demo's D 64) keep their refusals, the last with the old
-    message."""
+    message. f32 at N 129..257 at the flagship widths takes the f32
+    cluster."""
     for N in (258, 289, 401):
         assert not tst.fast_applies(N, 128, 64, 1024)
         assert "N <= 128" in _refusal(N) and "N <= 257" in _refusal(N)
+        assert not tst.fast_applies(N, 128, 64, 1024, torch.float32)
+        assert "N <= 257 in float32" in _refusal(N, dtype=torch.float32)
     for N in (129, 145, 257):
-        assert _refusal(N, dtype=torch.float32) is not None
+        assert _refusal(N, dtype=torch.float32) is None         # the f32 cluster
         assert _refusal(N, M=1024 + 16) is not None            # no multiple of 64 or 128
-    assert _refusal(128, dtype=torch.float32) is None           # the general instance
+        assert _refusal(N, M=1024 + 16, dtype=torch.float32) is not None
+    assert _refusal(128, dtype=torch.float32) is None
     assert _refusal(145, M=192) is None and _refusal(129, M=192) is not None   # chunks 64, 128
     assert _refusal(257, M=64, D=32, n_heads=2, d_head=16) == OLD_REFUSAL
     assert _refusal(257, M=64, D=32, n_heads=2, d_head=16, dtype=torch.float32) == OLD_REFUSAL
     assert _refusal(97, M=256, D=64, d_head=32) is None          # the general instance
     assert "N <= 80 in bfloat16" in _refusal(129, M=256, D=64, d_head=32)
+    assert _refusal(129, M=256, D=64, d_head=32, dtype=torch.float32) == OLD_REFUSAL + (
+        " (N <= 80 in bfloat16 at D 64, d_head 32)")
 
 
 def _flagship(image_size, seed=11, n_frames=2, scale_dim=8, depth=2, frames=2):
@@ -160,6 +168,7 @@ def test_cluster_stream_unpacks_to_the_bundle():
 
 SEQ_LEN, T_JAX = 3, 16
 SMALL = dict(dim=32, depth=2, n_heads=2, d_head=16)
+SMALL_HP = dict(depth=2, n_heads=2, d_head=16)
 
 
 @pytest.fixture(scope="module")
@@ -193,3 +202,72 @@ def test_plain_table_at_n257_matches_jax(jax_full_frame):
     assert got.shape == (SEQ_LEN, T_JAX, 32)
     want = np.asarray(jst.spatial_table_xla(model, variables, jnp.asarray(tokens), SEQ_LEN))
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def _f32_cluster_walk(params, tokens, N, C):
+    """The f32 cluster's walk (a cluster of C blocks over N tokens, split
+    TF32, MLP chunks of 64, tiles of 8 x 16) at the small JAX widths."""
+    w = tst.extract_spatial_weights(params, SEQ_LEN, depth=2, dtype=torch.float32)
+    M = w.w_ff1[0].shape[0]
+    packed = tst.pack_fast(w, 2, 2, torch.float32, mlp_chunk=64, layout="tile8x16")
+    padded = F.pad(torch.from_numpy(tokens), (0, 0, 1, 0))
+    assert padded.shape[1] == N
+    return tst.packed_walk_reference(padded, packed, tst.pack_layer_norms(w, 2), w.base, 2, 2,
+                                     16, M, torch.float32, mlp_chunk=64, layout="tile8x16",
+                                     split=True, cluster=C).numpy()
+
+
+def test_f32_cluster_walk_at_n257_matches_jax(jax_full_frame):
+    """The f32 cluster's arithmetic at N 257 (five blocks' rows, the online
+    softmax over them in two merged halves, split TF32) against the JAX
+    package's XLA table, f32, to the JAX test's 2e-5."""
+    model, variables, params, tokens = jax_full_frame
+    got = _f32_cluster_walk(params, tokens, 257, 5)
+    want = np.asarray(jst.spatial_table_xla(model, variables, jnp.asarray(tokens), SEQ_LEN))
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_f32_cluster_walk_at_n101_matches_pallas_interpret():
+    """At the 160 px crop (N 101, a cluster of two) the f32 cluster's walk
+    against JAX's spatial_table kernel in interpret mode, f32, at the
+    smallest frame count it takes (one block of two frames), to 2e-5."""
+    model = JaxViViT(image_size=160, patch_size=16, n_frames=SEQ_LEN, dtype=jnp.float32,
+                     **SMALL)
+    key = jax.random.key(7)
+    shapes = jax.eval_shape(lambda: model.init({"params": key, "dropout": key},
+                                               jnp.zeros((1, SEQ_LEN, 160, 160, 3)),
+                                               train=False))
+    rng = np.random.default_rng(8)
+    params = jax.tree_util.tree_map(
+        lambda s: (rng.standard_normal(s.shape) * 0.2).astype(np.float32), shapes["params"])
+    tokens = np.random.default_rng(9).standard_normal((2, 100, 32)).astype(np.float32)
+    got = _f32_cluster_walk(params, tokens, 101, 2)
+    jw = jst.extract_spatial_weights(jax.tree_util.tree_map(jnp.asarray, params), SEQ_LEN,
+                                     depth=2, dtype=jnp.float32)
+    jpad = jnp.pad(jnp.asarray(tokens), ((0, 0), (1, 0), (0, 0)))
+    want = np.asarray(jst.spatial_table(jpad, jw, SEQ_LEN, block_f=2,
+                                        compute_dtype=jnp.float32, interpret=True, **SMALL_HP))
+    assert got.shape == want.shape == (SEQ_LEN, 2, 32)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_spills_reads_one_kernel_of_a_ptxas_report():
+    """``_build.spills`` picks the one kernel whose mangled name holds every
+    given part (the f32 cluster's test names its Shape) and reads its spill
+    bytes; an ambiguous or missing match raises."""
+    from kstar_torch.ops import _build
+
+    report = "\n".join([
+        "ptxas info    : Compiling entry function '_Z4tf32I5ShapeILi128ELi64ELi64ELi80ELi80ELi1EEE' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z4tf32I5ShapeILi128ELi64ELi64ELi80ELi80ELi1EEE",
+        "16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 213 registers, used 1 barriers, 16 bytes cumulative stack size",
+        "ptxas info    : Compiling entry function '_Z4tf32I5ShapeILi128ELi64ELi64ELi64ELi257ELi5EEE' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z4tf32I5ShapeILi128ELi64ELi64ELi64ELi257ELi5EEE",
+        "32 bytes stack frame, 52 bytes spill stores, 92 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers, 32 bytes cumulative stack size"])
+    assert _build.spills(report, ("tf32", "ELi257E")) == (52, 92)
+    assert _build.spills(report, ("tf32", "ELi80ELi1E")) == (0, 0)
+    for entry in (("tf32",), ("bf16",)):
+        with pytest.raises(ValueError):
+            _build.spills(report, entry)

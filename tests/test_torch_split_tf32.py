@@ -280,21 +280,23 @@ def _instance(N, D, d_head, M, dtype):
 
 @pytest.mark.parametrize("M", [1024, 512], ids=["MLP1024", "fusion_MLP512"])
 def test_f32_routing(M):
-    """f32 at the flagship widths: N 17 and 65 take the f32 instance, N
-    81..128 the general one by the wrapper's limits (on the H100 its shared
-    memory then refuses D 128, and the sweep builds the plain table), N
-    129..257 are refused; an MLP that is no multiple of 64 keeps the
-    general instance. bf16 routes are unchanged, and the demo widths (D 64)
-    stay on the general instance in f32."""
+    """f32 at the flagship widths: N 17 and 65 take the packed f32
+    instance, N 81..257 one frame over an f32 cluster, N 258 and past are
+    refused; an MLP that is no multiple of 64 keeps the general instance up
+    to N 128 and is refused past it.
+    bf16 routes are unchanged, and the demo widths (D 64) stay on the
+    general instance in f32."""
     f32, bf16 = torch.float32, torch.bfloat16
     assert _instance(65, 128, 64, M, f32) == "fast_f32_D128_F1"
     assert _instance(17, 128, 64, M, f32) == "fast_f32_D128_F3"
-    for n in (81, 101, 128):
-        assert _instance(n, 128, 64, M, f32) == "general"
-    for n in (129, 145, 257):
+    for n, c in ((81, 2), (101, 2), (128, 2), (129, 3), (145, 3), (197, 4), (256, 4), (257, 5)):
+        assert _instance(n, 128, 64, M, f32) == f"fast_f32_D128_N{n}_C{c}"
+    for n in (258, 289, 401):
         assert _instance(n, 128, 64, M, f32) is None
-        assert "N <= 80 in float32" in tst.kernel_refusal(1, n, 128, 2, 4, 64, M, f32)
+        assert "N <= 257 in float32" in tst.kernel_refusal(1, n, 128, 2, 4, 64, M, f32)
     assert _instance(65, 128, 64, M + 16, f32) == "general"
+    assert _instance(101, 128, 64, M + 16, f32) == "general"
+    assert _instance(145, 128, 64, M + 16, f32) is None
     assert _instance(65, 128, 64, M, bf16) == "fast_D128_F2"
     assert _instance(17, 128, 64, M, bf16) == "fast_D128_F8"
     assert _instance(101, 128, 64, M, bf16) == "fast_D128_N101_C1"
@@ -302,6 +304,102 @@ def test_f32_routing(M):
     assert _instance(17, 64, 32, 256, bf16) == "fast_D64_F7"
     assert _instance(17, 64, 32, 256, f32) == "general"
     assert _instance(17, 96, 48, 192, f32) == "general"
+
+
+@pytest.mark.parametrize("M", [1024, 512], ids=["MLP1024", "fusion_MLP512"])
+def test_every_n_from_81_to_257_takes_an_f32_cluster(M):
+    """Past 80 tokens at D 128 / d_head 64 in f32 one frame spreads over a
+    cluster of blocks of 64 rows, C = ceil(ceil(N / 16) / 4) of them (at
+    most four 16-row tiles a block: 2 up to N 128, 3 up to 192, 4 up to 256,
+    5 at 257), MLP chunks of 64, any head count; the kernel's plan is asked
+    for nothing a CPU cannot answer."""
+    for N in range(81, 258):
+        inst = tst.fast_instance(128, 64, N, torch.float32)
+        C = -(-(-(-N // 16)) // tst.F32_CLUSTER_TILES)
+        assert (inst.cluster, inst.mlp_chunk, inst.rows, inst.layout) == (C, 64, 64, "tile8x16")
+        assert tst.fast_applies(N, 128, 64, M, torch.float32), N
+        assert tst.fast_frames_per_block(N, 128, 64, torch.float32) == 1
+        for n_heads in (4, 2):
+            assert tst.kernel_refusal(1, N, 128, 2, n_heads, 64, M, torch.float32) is None, N
+        assert tst.fast_instance_name(N, 128, 64, torch.float32) == f"fast_f32_D128_N{N}_C{C}"
+    # the patch-16 crops of the stored 256 px frame past 128 px
+    crops = [(c // 16) ** 2 + 1 for c in range(144, 257, 16)]
+    assert crops == [82, 101, 122, 145, 170, 197, 226, 257]
+
+
+def test_cluster_row_split():
+    """A frame's rows over its cluster, at every N 81..257: every row in
+    exactly one block, in whole 16-row tiles but the frame's last, at most
+    64 rows (4 tiles) a block, the tile counts within one of each other and
+    block 0 (the cls row's) among the smallest."""
+    assert tst.cluster_row_split(257, 5) == [(0, 48), (48, 48), (96, 48), (144, 64), (208, 49)]
+    assert tst.cluster_row_split(101, 2) == [(0, 48), (48, 53)]
+    for N in range(81, 258):
+        C = tst.fast_instance(128, 64, N, torch.float32).cluster
+        split = tst.cluster_row_split(N, C)
+        assert len(split) == C and split[0][0] == 0
+        for (r0, n), (r1, _) in zip(split, split[1:]):
+            assert r0 + n == r1 and n % 16 == 0
+        assert split[-1][0] + split[-1][1] == N
+        tiles = [-(-n // 16) for _, n in split]
+        assert max(tiles) <= 4 and max(tiles) - min(tiles) <= 1 and tiles[0] == min(tiles)
+
+
+def _cluster_walk(w, tokens, depth=2, n_heads=4, M=1024):
+    N = tokens.shape[1]
+    inst = tst.fast_instance(128, 64, N, torch.float32)
+    packed = tst.pack_fast(w, depth, n_heads, torch.float32, mlp_chunk=inst.mlp_chunk,
+                           layout=inst.layout)
+    return tst.packed_walk_reference(tokens, packed, tst.pack_layer_norms(w, depth), w.base,
+                                     depth, n_heads, 64, M, torch.float32,
+                                     mlp_chunk=inst.mlp_chunk, layout=inst.layout, split=True,
+                                     cluster=inst.cluster)
+
+
+@pytest.mark.parametrize("image_size", [160, 192, 256], ids=["N101", "N145", "N257"])
+def test_f32_cluster_walk_is_the_plain_function(image_size):
+    """The f32 cluster's walk at the flagship widths (its stream in 8 x 16
+    tiles and MLP chunks of 64, every product in split TF32, the attention
+    over the blocks of its row split with a running max and sum and each
+    block's P V summed apart, in two merged halves of the blocks, the last
+    layer for the cls row, one merged part per block): the plain f32 table
+    up to summation order and the split's ~2^-21 per product (1e-5)."""
+    w, tokens = _flagship(image_size, frames=2)
+    got = _cluster_walk(w, tokens)
+    want = tst.spatial_table_reference(tokens, w, 4, compute_dtype=torch.float32)
+    assert got.shape == want.shape == (4, 2, 128)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _large_logits(w, tokens, peak=80.0):
+    """The bundle with every layer's q rows scaled so that the first layer's
+    scores (offset 0) peak at |s| = ``peak``."""
+    inner = w.w_qkv[0].shape[0] // 3
+    h = tst._layer_norm(tokens + w.base[0, :tokens.shape[1]], w.ln_a_s[0], w.ln_a_b[0])
+    q, k = h @ w.w_qkv[0][:inner].T, h @ w.w_qkv[0][inner:2 * inner].T
+    s = torch.einsum("tnhd,tmhd->thnm", q.unflatten(-1, (-1, 64)), k.unflatten(-1, (-1, 64)))
+    a = peak / float((s * 64 ** -0.5).abs().max())
+    return w._replace(w_qkv=tuple(torch.cat([m[:inner] * a, m[inner:]]) for m in w.w_qkv))
+
+
+def test_f32_cluster_walk_large_logits():
+    """Scores up to |s| 80 at N 257: there the f32 rounding of the scores
+    alone moves the table (the same walk without the split, summation order
+    only, lands 1.6e-5 from the plain table on these draws), so the split
+    walk is held to what it adds, 1e-5 beyond that, and to the limits the
+    kernel is held to on the card (1e-4 + 1e-4 |x|, mean 1e-5)."""
+    w, tokens = _flagship(256, frames=2)
+    w = _large_logits(w, tokens)
+    got = _cluster_walk(w, tokens)
+    want = tst.spatial_table_reference(tokens, w, 4, compute_dtype=torch.float32)
+    packed = tst.pack_fast(w, 2, 4, torch.float32, mlp_chunk=64, layout="tile8x16")
+    order_only = tst.packed_walk_reference(tokens, packed, tst.pack_layer_norms(w, 2), w.base, 2,
+                                           4, 64, 1024, torch.float32, mlp_chunk=64,
+                                           layout="tile8x16")
+    err = (got - want).abs()
+    assert bool(torch.isfinite(got).all())
+    assert float(err.max()) <= float((order_only - want).abs().max()) + 1e-5
+    assert bool((err <= 1e-4 + 1e-4 * want.abs()).all()) and float(err.mean()) <= 1e-5
 
 
 def test_f32_stream_is_cached_apart_from_bf16():
