@@ -1,0 +1,9 @@
+"""Train step: the device's idle time whose gap midpoint falls in one of the
+program's ``train.forward`` spans, per ``train.step`` span in the traced
+window (device trace)."""
+
+from benchmark.core.program_spans import idle_ms_per_step
+
+
+def read(run):
+    return idle_ms_per_step(run, "train.forward")

@@ -3706,6 +3706,8 @@ def main() -> int:
     from kstar_torch.ops.spatial_table import (extract_spatial_weights,
                                                spatial_table,
                                                spatial_table_reference)
+    from kstar_torch.analysis.soak_library_sweep import library_phases
+    from kstar_torch.utils.profiling import recording
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in full f32
@@ -4243,14 +4245,14 @@ def main() -> int:
     lib = [frames[a:a + n] for a, n in zip((0, 300, 2048, 1700, 2900, 600), lengths)]
     lib_starts = [np.arange(n - SEQ_LEN - 1, dtype=np.int64) for n in lengths]
     shot_bytes = 2048 * CROP * CROP * 3                      # the largest bucket
-    timings = {}
     spatial_table.launches = gather_normalize.launches = 0
-    t0 = time.perf_counter()
-    lib_probs = sweeper.sweep_shots(lib, lib_starts, hbm_budget_bytes=3 * shot_bytes + 1,
-                                    timings=timings)
-    lib_s = time.perf_counter() - t0
+    with recording() as lib_spans:
+        t0 = time.perf_counter()
+        lib_probs = sweeper.sweep_shots(lib, lib_starts, hbm_budget_bytes=3 * shot_bytes + 1)
+        lib_s = time.perf_counter() - t0
     lib_launches = spatial_table.launches
-    shapes = [[list(f), list(c)] for f, c in timings.pop("group_shapes")]
+    timings, shapes = library_phases(lib_spans)
+    shapes = [[list(f), list(c)] for f, c in shapes]
     lib_max = lib_mean = 0.0
     for shot, st, got in zip(lib, lib_starts, lib_probs):
         alone = sweeper.sweep_device(sweeper.upload_shot(shot), st)

@@ -12,8 +12,9 @@ uint8 frames made from --seed (~7.7 GiB for 50), and the flagship ViViT
      (``_hbm_budget_bytes``, half the free device memory), once with the
      sub-octave frame ladder (``bucket_len``) and once with the pow2 ladder
      swapped in: frame padding, cold and steady seconds, clips/s, groups,
-     peak device memory and the ``timings`` breakdown (host prep, upload,
-     sweep);
+     peak device memory and the breakdown of the library spans
+     (``library_phases``: host prep, upload, sweep), recorded under a
+     profiler session;
   2. the same with the budget forced to a quarter of the library's cropped
      bytes, so that the library is swept in several groups;
   3. the per-shot path (``upload_shot`` + ``sweep_device``) on 8 shots, with
@@ -78,6 +79,21 @@ def _curve_err(got: list, want: list) -> tuple:
     return (max(float(e.max()) for e in err), max(float(e.mean()) for e in err))
 
 
+def library_phases(records) -> tuple:
+    """The ``_sweep_group`` spans among ``records`` (``utils/profiling.py``)
+    as ({host_prep_s, h2d_s, dispatch_s: summed host walls; h2d_bytes},
+    [(frames stack shape, chunks stack shape) per group]). The upload's
+    wall is the host's: the spans do not synchronise."""
+    def wall(name):
+        return sum(s.end_ns - s.start_ns for s in records if s.name == name) / 1e9
+
+    h2d = [s for s in records if s.name == "library.h2d"]
+    return ({"host_prep_s": wall("library.prep"), "h2d_s": wall("library.h2d"),
+             "dispatch_s": wall("library.sweep"),
+             "h2d_bytes": sum(s.attrs["bytes"] for s in h2d)},
+            [(s.attrs["frames"], s.attrs["chunks"]) for s in h2d])
+
+
 def main(n_shots: int = 50, device=None, lengths: Sequence[int] = LENGTHS,
          cfg: Optional[ViViTConfig] = None, crop: int = CROP, batch: int = BATCH,
          compute_dtype: torch.dtype = torch.bfloat16, tol: tuple = LIB_TOL,
@@ -87,6 +103,7 @@ def main(n_shots: int = 50, device=None, lengths: Sequence[int] = LENGTHS,
     from ..infer import continuous as C
     from ..models import build_video_model
     from ..ops.spatial_table import spatial_table
+    from ..utils.profiling import recording
 
     dev = resolve_device(device)
     cfg = cfg or ViViTConfig(image_size=crop, n_frames=SEQ_LEN)
@@ -127,15 +144,14 @@ def main(n_shots: int = 50, device=None, lengths: Sequence[int] = LENGTHS,
             t0 = time.perf_counter()
             sw.sweep_shots(frames_list, starts_list, hbm_budget_bytes=run_budget)
             cold = time.perf_counter() - t0
-            tm = {}
             reset_peak(dev)
             spatial_table.launches = 0
-            t0 = time.perf_counter()
-            probs = sw.sweep_shots(frames_list, starts_list, hbm_budget_bytes=run_budget,
-                                   timings=tm)
-            warm = time.perf_counter() - t0
+            with recording() as rec:
+                t0 = time.perf_counter()
+                probs = sw.sweep_shots(frames_list, starts_list, hbm_budget_bytes=run_budget)
+                warm = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-            shapes = tm.pop("group_shapes")
+            tm, shapes = library_phases(rec)
             err = _curve_err(probs, alone)
             run = dict(frame_padding=pad, cold_s=cold, steady_s=warm,
                        clips_per_s=n_windows / warm, ms_per_shot=warm / n_shots * 1e3,

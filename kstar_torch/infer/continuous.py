@@ -35,7 +35,6 @@ Output alignment and startup suppression follow the reference:
 
 from __future__ import annotations
 
-import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -47,6 +46,7 @@ from ..ops.preprocess import gather_normalize
 from ..parallel.comm import all_gather_objects
 from ..ops.spatial_table import (extract_spatial_weights, kernel_refusal,
                                  spatial_table, spatial_table_reference)
+from ..utils.profiling import span
 
 
 def moving_average(x: np.ndarray, k: int, method: str = "backward") -> np.ndarray:
@@ -196,6 +196,7 @@ class VideoSweeper:
                 self.model, seq_len, crop_size, compute_dtype,
                 self.device, use_fused_table)
         self._frames_dev = None
+        self._shot = 0        # shots through embed_all: the sweep spans' ``shot``
 
     def _normalize(self, frames_u8: torch.Tensor) -> torch.Tensor:
         return frames_u8.to(self.compute_dtype) - self._mean
@@ -208,10 +209,15 @@ class VideoSweeper:
     @torch.no_grad()
     def embed_all(self, frames_dev: torch.Tensor) -> torch.Tensor:
         """Per-shot preprocessing: the (L, T, D) spatial-cls table (ViViT),
-        or the frames themselves for a model without the token path."""
+        or the frames themselves for a model without the token path. Starts
+        the next shot of the spans (``sweep.embed``, ``sweep.table``)."""
+        self._shot += 1
         if not self._use_tokens:
             return frames_dev
-        return self._cls_table(self.embed_tokens(frames_dev))
+        with span("sweep.embed", shot=self._shot, frames=frames_dev.shape[0]):
+            tokens = self.embed_tokens(frames_dev)
+        with span("sweep.table", shot=self._shot, fused=self.fused_table_active):
+            return self._cls_table(tokens)
 
     @torch.no_grad()
     def chunk_probs(self, data: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
@@ -229,16 +235,25 @@ class VideoSweeper:
 
     @torch.no_grad()
     def sweep_table(self, data: torch.Tensor, starts: np.ndarray) -> np.ndarray:
-        """All windows over preprocessed ``data`` (``embed_all``'s output)."""
+        """All windows over preprocessed ``data`` (``embed_all``'s output),
+        in a ``sweep.windows`` span: ``windows`` real, ``dispatched`` in
+        ``chunks`` padded chunks."""
         n = len(starts)
         if n == 0:
             return np.zeros(0, np.float32)
-        chunks = torch.from_numpy(chunkify_starts(starts, self.batch_size)).to(self.device)
-        return self._sweep_chunks(data, chunks).cpu().numpy()[:n]
+        with span("sweep.windows", shot=self._shot, windows=n) as sp:
+            chunks = torch.from_numpy(chunkify_starts(starts, self.batch_size)).to(self.device)
+            sp.set(dispatched=chunks.numel(), chunks=chunks.shape[0])
+            return self._sweep_chunks(data, chunks).cpu().numpy()[:n]
 
     def _sweep_chunks(self, data: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
-        """(n_buck, B) window starts on the device -> (n_buck * B,) p_disrupt."""
-        return torch.cat([self.chunk_probs(data, c) for c in chunks])
+        """(n_buck, B) window starts on the device -> (n_buck * B,) p_disrupt;
+        each chunk's launches in a ``sweep.chunk`` span."""
+        out = []
+        for c in chunks:
+            with span("sweep.chunk", shot=self._shot):
+                out.append(self.chunk_probs(data, c))
+        return torch.cat(out)
 
     def load_shot(self, frames_u8: np.ndarray) -> torch.Tensor:
         """Crop, upload once and preprocess (ViViT: embed + cls table)."""
@@ -280,60 +295,44 @@ class VideoSweeper:
         return max(free // 2, 512 << 20)
 
     @torch.no_grad()
-    def _sweep_group(self, cropped_list, starts_list, s_pad: int = 0,
-                     timings: Optional[dict] = None) -> list:
+    def _sweep_group(self, cropped_list, starts_list, s_pad: int = 0) -> list:
         """One upload and one download for a group of already-cropped shots:
         pad to the group's half-octave frame/chunk buckets (plus ``s_pad``
         repeats of the last shot so groups share one shape), stack, sweep
         the real shots one by one on the device, slice.
 
-        ``timings``: optional dict accumulating the group's phase walls
-        (``host_prep_s`` pad+stack, ``h2d_s`` host->device transfer,
-        ``dispatch_s`` sweep+fetch), ``h2d_bytes`` and, per group, the
-        shapes of the two stacks it uploaded (``group_shapes``)."""
-        t0 = time.perf_counter()
-        if s_pad:
-            cropped_list = list(cropped_list) + [cropped_list[-1]] * s_pad
-            starts_list = list(starts_list) + [starts_list[-1]] * s_pad
-        S, n_real = len(cropped_list), len(cropped_list) - s_pad
-        B = self.batch_size
-        t_buck = bucket_len(max(len(f) for f in cropped_list))
-        n_buck = max(bucket_len(max((len(s) + B - 1) // B, 1))
-                     for s in starts_list)
+        Spans: ``library.prep`` (pad and stack on the host), ``library.h2d``
+        (the two stacks' uploads: ``bytes``, and ``frames`` and ``chunks``,
+        the stacks' shapes) and ``library.sweep`` (the ``shots`` real shots'
+        sweeps and the fetch)."""
+        with span("library.prep"):
+            if s_pad:
+                cropped_list = list(cropped_list) + [cropped_list[-1]] * s_pad
+                starts_list = list(starts_list) + [starts_list[-1]] * s_pad
+            S, n_real = len(cropped_list), len(cropped_list) - s_pad
+            B = self.batch_size
+            t_buck = bucket_len(max(len(f) for f in cropped_list))
+            n_buck = max(bucket_len(max((len(s) + B - 1) // B, 1))
+                         for s in starts_list)
 
-        frames_stack = np.empty((S, t_buck) + cropped_list[0].shape[1:], np.uint8)
-        chunks_stack = np.zeros((S, n_buck * B), np.int64)
-        for i, (cropped, starts) in enumerate(zip(cropped_list, starts_list)):
-            frames_stack[i, :len(cropped)] = cropped
-            frames_stack[i, len(cropped):] = cropped[-1]      # repeat the last frame
-            chunks_stack[i, :len(starts)] = starts
-        chunks_stack = chunks_stack.reshape(S, n_buck, B)
-        if timings is not None:
-            t1 = time.perf_counter()
-            timings["host_prep_s"] = timings.get("host_prep_s", 0.0) + t1 - t0
-            timings["h2d_bytes"] = (timings.get("h2d_bytes", 0)
-                                    + frames_stack.nbytes + chunks_stack.nbytes)
-            timings.setdefault("group_shapes", []).append(
-                (frames_stack.shape, chunks_stack.shape))
-            t0 = t1
-        fd = torch.from_numpy(frames_stack).to(self.device)
-        cd = torch.from_numpy(chunks_stack).to(self.device)
-        if timings is not None:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            t1 = time.perf_counter()
-            timings["h2d_s"] = timings.get("h2d_s", 0.0) + t1 - t0
-            t0 = t1
-        probs = torch.stack([self._sweep_chunks(self.embed_all(fd[i]), cd[i])
-                             for i in range(n_real)]).cpu().numpy()
-        if timings is not None:
-            timings["dispatch_s"] = (timings.get("dispatch_s", 0.0)
-                                     + time.perf_counter() - t0)
+            frames_stack = np.empty((S, t_buck) + cropped_list[0].shape[1:], np.uint8)
+            chunks_stack = np.zeros((S, n_buck * B), np.int64)
+            for i, (cropped, starts) in enumerate(zip(cropped_list, starts_list)):
+                frames_stack[i, :len(cropped)] = cropped
+                frames_stack[i, len(cropped):] = cropped[-1]      # repeat the last frame
+                chunks_stack[i, :len(starts)] = starts
+            chunks_stack = chunks_stack.reshape(S, n_buck, B)
+        with span("library.h2d", bytes=frames_stack.nbytes + chunks_stack.nbytes,
+                  frames=frames_stack.shape, chunks=chunks_stack.shape):
+            fd = torch.from_numpy(frames_stack).to(self.device)
+            cd = torch.from_numpy(chunks_stack).to(self.device)
+        with span("library.sweep", shots=n_real):
+            probs = torch.stack([self._sweep_chunks(self.embed_all(fd[i]), cd[i])
+                                 for i in range(n_real)]).cpu().numpy()
         return [probs[i, :len(starts_list[i])] for i in range(n_real)]
 
     def sweep_shots(self, frames_list, starts_list,
-                    hbm_budget_bytes: Optional[int] = None,
-                    timings: Optional[dict] = None) -> list:
+                    hbm_budget_bytes: Optional[int] = None) -> list:
         """Sweep a whole shot library: shots are cropped on the host, grouped
         so that a group's stacked frames fit the device-memory budget (half
         the free memory by default: stacking hundreds of full-length shots
@@ -365,12 +364,12 @@ class VideoSweeper:
             per = len(frames_list) // d
             mine = self._sweep_library(frames_list[i * per:(i + 1) * per],
                                        starts_list[i * per:(i + 1) * per],
-                                       hbm_budget_bytes, timings)
+                                       hbm_budget_bytes)
             parts = all_gather_objects(mine, self.mesh.data_group, d)
             return [p for part in parts for p in part][:S]
-        return self._sweep_library(frames_list, starts_list, hbm_budget_bytes, timings)
+        return self._sweep_library(frames_list, starts_list, hbm_budget_bytes)
 
-    def _sweep_library(self, frames_list, starts_list, hbm_budget_bytes, timings) -> list:
+    def _sweep_library(self, frames_list, starts_list, hbm_budget_bytes) -> list:
         S = len(frames_list)
         if S == 0:
             return []
@@ -390,7 +389,7 @@ class VideoSweeper:
                 bucket_len(len(g)), s_chunk)
             probs = self._sweep_group([cropped_list[i] for i in g],
                                       [starts_list[i] for i in g],
-                                      s_pad=target - len(g), timings=timings)
+                                      s_pad=target - len(g))
             for i, p in zip(g, probs):
                 out[i] = p
         return out

@@ -52,6 +52,7 @@ from ..data.loader import (epoch_batches, eval_batches, grouped_batches,
 from ..losses import (classification_loss, drw_weights, gradient_blending_loss,
                       inverse_freq_weights, ldam_margins)
 from ..parallel.comm import all_gather_cat, all_reduce_, barrier, data_parallel
+from ..utils.profiling import span
 from .early_stopping import EarlyStopping
 from .logging import MetricWriter
 from .metrics import accuracy, macro_f1
@@ -114,23 +115,30 @@ def make_train_step(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None,
     generators, the loss (``model_type``), backward, and the guarded
     update. ``loss`` and ``preds`` stay on the device. On a ``mesh`` the
     batch is this rank's rows, ``loss`` the global batch's and ``preds``
-    this rank's rows'."""
+    this rank's rows'. Spans (``utils/profiling.py``): ``train.step``
+    around ``train.forward`` (generators to the loss), ``train.backward``
+    and ``train.update``, each with ``step``, the step's ``state.draws``."""
     _check_model_type(model_type)
 
     def step(state: TrainState, batch, labels, weight, m_list, gb_w=None):
-        gen_pre, gen_drop, gen_noise = state.next_generators()
-        with data_parallel(mesh):
-            if pre_fn is not None:
-                batch = pre_fn(gen_pre, batch)
-            for p in state.params:
-                p.grad = None
-            stats_before = state.snapshot_stats()
-            out = _model_outputs(state.model, batch, model_type, train=True,
-                                 generator=gen_drop, noise_generator=gen_noise)
-            loss, logits = _loss_and_logits(out, labels, loss_cfg, model_type, weight,
-                                            m_list, gb_w)
-            loss.backward()
-        loss = guarded_update(state, loss.detach(), stats_before, mesh)
+        n = state.draws
+        with span("train.step", step=n):
+            with span("train.forward", step=n):
+                gen_pre, gen_drop, gen_noise = state.next_generators()
+                with data_parallel(mesh):
+                    if pre_fn is not None:
+                        batch = pre_fn(gen_pre, batch)
+                    for p in state.params:
+                        p.grad = None
+                    stats_before = state.snapshot_stats()
+                    out = _model_outputs(state.model, batch, model_type, train=True,
+                                         generator=gen_drop, noise_generator=gen_noise)
+                    loss, logits = _loss_and_logits(out, labels, loss_cfg, model_type,
+                                                    weight, m_list, gb_w)
+            with span("train.backward", step=n), data_parallel(mesh):
+                loss.backward()
+            with span("train.update", step=n):
+                loss = guarded_update(state, loss.detach(), stats_before, mesh)
         return state, loss, logits.detach().argmax(-1)
 
     return step

@@ -18,6 +18,7 @@ from kstar_torch.eval import alarms as ta
 from kstar_torch.infer import continuous as tc
 from kstar_torch.infer import latency as tl
 from kstar_torch.models.vivit import ViViT as TorchViViT
+from kstar_torch.utils.profiling import recording
 from kstar_torch.weights import state_dict_from_flax
 from kstar_tpu.eval import alarms as ja
 from kstar_tpu.infer import continuous as jc
@@ -111,20 +112,25 @@ def test_sweep_shots_groups_under_a_budget(budget_shots, groups):
     sweeper = tc.VideoSweeper(TorchBrightness(), SEQ_LEN, 8, batch_size=8,
                               compute_dtype=torch.float32, device="cpu")
     item = 8 * 8 * 3 * tc.bucket_len(max(LENGTHS))
-    timings = {}
-    got = sweeper.sweep_shots(frames, starts, hbm_budget_bytes=budget_shots * item,
-                              timings=timings)
+    with recording() as rec:
+        got = sweeper.sweep_shots(frames, starts, hbm_budget_bytes=budget_shots * item)
     for f, s, g in zip(frames, starts, got):
         np.testing.assert_allclose(g, sweeper.sweep(f, s), **TOL)
-    shapes = timings["group_shapes"]
+    h2d = [sp for sp in rec if sp.name == "library.h2d"]
+    shapes = [(sp.attrs["frames"], sp.attrs["chunks"]) for sp in h2d]
     assert [(f[0], f[1]) for f, _ in shapes] == groups
     for f_shape, c_shape in shapes:
         assert f_shape[2:] == (8, 8, 3) and c_shape[0] == f_shape[0] and c_shape[2] == 8
         # enough chunks for the longest shot the frame bucket can hold, bucketed
         assert c_shape[1] == tc.bucket_len(c_shape[1])
-    assert timings["h2d_bytes"] == sum(int(np.prod(f)) + 8 * int(np.prod(c))
-                                       for f, c in shapes)
-    assert min(timings[k] for k in ("host_prep_s", "h2d_s", "dispatch_s")) > 0
+    for sp, (f, c) in zip(h2d, shapes):
+        assert sp.attrs["bytes"] == int(np.prod(f)) + 8 * int(np.prod(c))
+    # each group: prep, upload and sweep, one after another, each taking time
+    phases = [sp for sp in rec if sp.name.startswith("library.")]
+    assert [sp.name for sp in phases] == ["library.prep", "library.h2d",
+                                          "library.sweep"] * len(groups)
+    assert all(sp.end_ns > sp.start_ns and sp.parent is None for sp in phases)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(phases, phases[1:]))
 
 
 def test_sweep_shots_edge_cases():

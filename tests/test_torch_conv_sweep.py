@@ -16,6 +16,7 @@ import torch
 
 from kstar_torch.infer import continuous as tc
 from kstar_torch.infer import streaming as ts
+from kstar_torch.utils.profiling import recording
 from kstar_tpu.infer import continuous as jc
 from kstar_tpu.infer import streaming as js
 from test_torch_models_conv import clips, conv_pair
@@ -107,10 +108,10 @@ def test_sweep_shots_groups_match_single_sweeps(key, pairs):
                               device="cpu")
     shots = [frames[:40], frames[3:52], frames[10:45]]
     starts = [np.arange(len(s) - L - 1) for s in shots]
-    timings = {}
     # room for two 64-frame buckets per group: the three shots take two groups
     budget = 2 * 64 * CROP * CROP * 3
-    got = sweeper.sweep_shots(shots, starts, hbm_budget_bytes=budget, timings=timings)
-    assert len(timings["group_shapes"]) == 2
+    with recording() as rec:
+        got = sweeper.sweep_shots(shots, starts, hbm_budget_bytes=budget)
+    assert [sp.attrs["frames"][0] for sp in rec if sp.name == "library.h2d"] == [2, 1]
     for shot, st, p in zip(shots, starts, got):
         np.testing.assert_allclose(p, sweeper.sweep(shot, st), **TOL)

@@ -18,6 +18,7 @@ from kstar_torch.models import MultiModalConcat as TMultiModalConcat
 from kstar_torch.models import build_0d_model, build_video_model
 from kstar_torch.utils import (device_memory_stats, model_summary, param_count,
                                profile_trace, render_model_graph)
+from kstar_torch.utils.profiling import span
 from kstar_tpu import config as jconfig
 from kstar_tpu.models import TFN, MultiModalConcat
 from kstar_tpu.models import build_0d_model as j_build_0d_model
@@ -82,10 +83,20 @@ def test_render_model_graph_writes_its_png(tmp_path):
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    with span("before"):                # no session: not recorded
+        pass
     with profile_trace(str(tmp_path / "trace")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with span("sweep.windows", shot=3):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert any("mm" in ev.get("name", "") for ev in trace["traceEvents"])
+    events = trace["traceEvents"]
+    assert any("mm" in ev.get("name", "") for ev in events)
+    # the program's span, on the trace's time base, around the op it holds
+    (sp,) = [ev for ev in events if ev.get("cat") == "kstar_torch"]
+    assert sp["name"] == "sweep.windows" and sp["args"]["shot"] == "3"
+    assert not any(ev.get("name") == "before" for ev in events)
+    (mm,) = [ev for ev in events if ev.get("name") == "aten::mm"]
+    assert sp["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= sp["ts"] + sp["dur"]
 
 
 def test_device_memory_stats_is_none_on_the_cpu():
