@@ -5,9 +5,11 @@ Port of ``kstar_tpu/infer/continuous.py``. A shot's frames (centre-cropped)
 or its 0D table are uploaded to the device once; windows are gathered on
 the device (raw frames by the window-gather kernel, ops/preprocess.py;
 ViViT's cls table and 0D tables with a (B, L) index matrix); the sweep runs
-over fixed-size window chunks,
-bucketed so that ragged shot lengths give a handful of shapes (CUDA graphs
-will want them fixed).
+over fixed-size window chunks, bucketed so that ragged shot lengths give a
+handful of shapes. On a GPU, ``VideoSweeper``'s token path replays one
+captured CUDA graph per chunk: the temporal transformer, pool, head and
+softmax of B gathered (L, D) windows, read from and written to buffers of
+fixed shape, so that one capture serves every shot length.
 ``sweep_shots`` sweeps a shot library in groups that fit a device-memory
 budget.
 
@@ -35,7 +37,7 @@ Output alignment and startup suppression follow the reference:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -160,6 +162,15 @@ def _make_cls_table_fn(model, seq_len: int, crop_size: int, compute_dtype,
     return cls_table, fused
 
 
+class _WindowGraph(NamedTuple):
+    """A captured chunk forward: ``windows`` (B, L, D) in, ``probs`` (B,)
+    out, both fixed buffers; ``key`` what it was captured for."""
+    key: tuple
+    graph: torch.cuda.CUDAGraph
+    windows: torch.Tensor
+    probs: torch.Tensor
+
+
 class VideoSweeper:
     """Stride-1 sliding-window sweep over device-resident frames.
 
@@ -173,6 +184,11 @@ class VideoSweeper:
     ``False`` the plain version; ``fused_table_active`` says which one the
     sweeper took. A model without the token path (the conv models) gathers
     raw windows per chunk with the window-gather kernel.
+
+    On a GPU the token path replays a captured CUDA graph per chunk
+    (``_window_graph``); the raw-frame path and the CPU launch eagerly.
+    ``graph_captures`` counts the captures, ``graphed_chunks`` the chunks
+    replayed.
     """
 
     def __init__(self, model, seq_len: int, crop_size: int, batch_size: int = 64,
@@ -197,6 +213,8 @@ class VideoSweeper:
                 self.device, use_fused_table)
         self._frames_dev = None
         self._shot = 0        # shots through embed_all: the sweep spans' ``shot``
+        self._graph: Optional[_WindowGraph] = None
+        self.graph_captures = self.graphed_chunks = 0
 
     def _normalize(self, frames_u8: torch.Tensor) -> torch.Tensor:
         return frames_u8.to(self.compute_dtype) - self._mean
@@ -219,41 +237,105 @@ class VideoSweeper:
         with span("sweep.table", shot=self._shot, fused=self.fused_table_active):
             return self._cls_table(tokens)
 
+    def _window_probs(self, windows: torch.Tensor) -> torch.Tensor:
+        """p_disrupt of (B, L, D) gathered spatial-cls windows."""
+        return torch.softmax(self.model.forward_spatial_cls(windows).float(), dim=-1)[:, 0]
+
     @torch.no_grad()
     def chunk_probs(self, data: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-        """p_disrupt for the windows starting at ``starts`` (B,)."""
+        """p_disrupt for the windows starting at ``starts`` (B,), launched
+        eagerly."""
         if self._use_tokens:
             idx = torch.clamp(starts[:, None] + self._offsets[None, :], 0,
                               data.shape[1] - 1)
             off_idx = torch.arange(self.seq_len, device=self.device)[None, :]
-            logits = self.model.forward_spatial_cls(data[off_idx, idx])  # (B, L, D)
-        else:
-            # raw frames: the window-gather kernel (ops/preprocess.py)
-            logits = self.model(gather_normalize(data, starts, self.seq_len,
-                                                 self.compute_dtype))  # (B, L, h, w, C)
+            return self._window_probs(data[off_idx, idx])  # (B, L, D)
+        # raw frames: the window-gather kernel (ops/preprocess.py)
+        logits = self.model(gather_normalize(data, starts, self.seq_len,
+                                             self.compute_dtype))  # (B, L, h, w, C)
         return torch.softmax(logits.float(), dim=-1)[:, 0]
 
     @torch.no_grad()
     def sweep_table(self, data: torch.Tensor, starts: np.ndarray) -> np.ndarray:
         """All windows over preprocessed ``data`` (``embed_all``'s output),
         in a ``sweep.windows`` span: ``windows`` real, ``dispatched`` in
-        ``chunks`` padded chunks."""
+        ``chunks`` padded chunks, ``graphed`` of them replayed as a graph."""
         n = len(starts)
         if n == 0:
             return np.zeros(0, np.float32)
         with span("sweep.windows", shot=self._shot, windows=n) as sp:
             chunks = torch.from_numpy(chunkify_starts(starts, self.batch_size)).to(self.device)
-            sp.set(dispatched=chunks.numel(), chunks=chunks.shape[0])
-            return self._sweep_chunks(data, chunks).cpu().numpy()[:n]
+            graphed = self.graphed_chunks
+            probs = self._sweep_chunks(data, chunks).cpu().numpy()[:n]
+            sp.set(dispatched=chunks.numel(), chunks=chunks.shape[0],
+                   graphed=self.graphed_chunks - graphed)
+            return probs
 
     def _sweep_chunks(self, data: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
         """(n_buck, B) window starts on the device -> (n_buck * B,) p_disrupt;
-        each chunk's launches in a ``sweep.chunk`` span."""
-        out = []
-        for c in chunks:
+        each chunk's launches in a ``sweep.chunk`` span. With a window graph
+        a chunk is three launches: the gather of its windows into the
+        graph's input, the replay, the copy of its probabilities out."""
+        graph = self._window_graph(data)
+        if graph is None:
+            out = []
+            for c in chunks:
+                with span("sweep.chunk", shot=self._shot):
+                    out.append(self.chunk_probs(data, c))
+            return torch.cat(out)
+        rows = self._window_rows(data, chunks)
+        D = data.shape[-1]
+        table, windows = data.reshape(-1, D), graph.windows.view(-1, D)
+        out = torch.empty(chunks.shape, dtype=torch.float32, device=self.device)
+        for c in range(len(chunks)):
             with span("sweep.chunk", shot=self._shot):
-                out.append(self.chunk_probs(data, c))
-        return torch.cat(out)
+                torch.index_select(table, 0, rows[c], out=windows)
+                graph.graph.replay()
+                out[c].copy_(graph.probs)
+        self.graphed_chunks += len(chunks)
+        return out.view(-1)
+
+    def _window_rows(self, data: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
+        """(n_buck, B * L): the row of the flattened (L * T, D) table
+        ``data`` that each window frame of ``chunks`` reads, clamped as
+        ``chunk_probs`` clamps."""
+        L, T = data.shape[0], data.shape[1]
+        rows = (torch.clamp(chunks[:, :, None] + self._offsets, 0, T - 1)
+                + torch.arange(L, device=self.device) * T)
+        return rows.view(len(chunks), -1)
+
+    def _window_graph(self, data: torch.Tensor) -> Optional[_WindowGraph]:
+        """The chunk forward captured as a CUDA graph, for the token path on
+        a GPU; None elsewhere. Captured at first use, and again when the
+        table's width or dtype or the storage of a parameter changed; the
+        graph reads the weights in place, so a weight updated in place is
+        seen at the next replay."""
+        if not self._use_tokens or self.device.type != "cuda":
+            return None
+        key = (data.dtype, data.shape[-1]) + tuple(p.data_ptr()
+                                                   for p in self.model.parameters())
+        if self._graph is None or self._graph.key != key:
+            self._graph = None                   # the old graph's pool goes first
+            self._graph = self._capture(key, data.shape[-1], data.dtype)
+        return self._graph
+
+    @torch.no_grad()
+    def _capture(self, key: tuple, width: int, dtype: torch.dtype) -> _WindowGraph:
+        """Warm up and capture ``_window_probs`` on a side stream over a
+        fixed (B, L, width) input."""
+        windows = torch.zeros(self.batch_size, self.seq_len, width, dtype=dtype,
+                              device=self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):      # lazy set-up (cuBLAS handles, workspaces) outside capture
+                self._window_probs(windows)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            probs = self._window_probs(windows)
+        self.graph_captures += 1
+        return _WindowGraph(key, graph, windows, probs)
 
     def load_shot(self, frames_u8: np.ndarray) -> torch.Tensor:
         """Crop, upload once and preprocess (ViViT: embed + cls table)."""

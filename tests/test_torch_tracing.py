@@ -81,8 +81,9 @@ def test_untraced_sweep_and_step_read_no_clock(monkeypatch, name):
 def test_sweep_records_its_spans(name):
     """Two shots through ``embed_all`` and ``sweep_table``: ViViT's embed
     and table spans (the conv models have neither), one ``sweep.windows``
-    per shot with ``chunkify_starts``'s counts, one ``sweep.chunk`` per
-    chunk row under it, all with the sweeper's shot number."""
+    per shot with ``chunkify_starts``'s counts (none of them replayed as a
+    graph on the CPU), one ``sweep.chunk`` per chunk row under it, all with
+    the sweeper's shot number."""
     sweeper = VideoSweeper(_model(name), L, CROP, BATCH, torch.float32, device="cpu")
     shots = _shots([30, 17])
     starts = [np.arange(len(f) - L - 1) for f in shots]
@@ -101,7 +102,7 @@ def test_sweep_records_its_spans(name):
         windows = mine[-1]
         assert windows.parent is None and windows.attrs == {
             "shot": shot, "windows": len(st), "dispatched": chunks.size,
-            "chunks": len(chunks)}
+            "chunks": len(chunks), "graphed": 0}
         assert all(s.parent == "sweep.windows" and windows.start_ns <= s.start_ns
                    and s.end_ns <= windows.end_ns for s in mine if s.name == "sweep.chunk")
         if tokens:
