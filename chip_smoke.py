@@ -1292,7 +1292,7 @@ def multimodal_sweep_phase(frames, values, dev, models: dict) -> tuple:
         parts = {"load_ms": wall_ms(lambda: sw.load_shot(frames, data), warmup=False),
                  "embed_ms": wall_ms(lambda: sw.embed_tokens(frames_dev), warmup=False),
                  "table_ms": wall_ms(lambda: sw._cls_table(tokens), warmup=False),
-                 "windows_ms": wall_ms(lambda: sw.sweep_windows(loaded, vk, tk),
+                 "windows_ms": wall_ms(lambda: sw.sweep_table(*loaded, vk, tk),
                                        warmup=False)}
         del frames_dev, tokens
         # device busy time: the load and 16 of the window chunks under the
@@ -1302,7 +1302,7 @@ def multimodal_sweep_phase(frames, values, dev, models: dict) -> tuple:
         sub = PROFILED_CHUNKS * FUSION_BATCH
         n_load, busy_load, _, _ = step_launches(lambda: sw.load_shot(frames, data))
         n_sub, busy_sub, _, top = step_launches(
-            lambda: sw.sweep_windows(loaded, vk[:sub], tk[:sub]))
+            lambda: sw.sweep_table(*loaded, vk[:sub], tk[:sub]))
         n_chunks = -(-len(vk) // FUSION_BATCH)
         busy_ms = (None if busy_sub is None
                    else busy_load + busy_sub * n_chunks / PROFILED_CHUNKS)

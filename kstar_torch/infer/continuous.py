@@ -6,9 +6,12 @@ or its 0D table are uploaded to the device once; windows are gathered on
 the device (raw frames by the window-gather kernel, ops/preprocess.py;
 ViViT's cls table and 0D tables with a (B, L) index matrix); the sweep runs
 over fixed-size window chunks, bucketed so that ragged shot lengths give a
-handful of shapes. On a GPU, ``VideoSweeper``'s token path replays one
-captured CUDA graph per chunk: the temporal transformer, pool, head and
-softmax of B gathered (L, D) windows, read from and written to buffers of
+handful of shapes. On a GPU, the token paths of ``VideoSweeper`` and
+``MultiModalSweeper`` replay one captured CUDA graph per chunk
+(``_WindowLoop``, which both share): ViViT's temporal transformer, pool,
+head and softmax of B gathered (L, D) windows, or a fusion model's
+temporal transformer, 0D encoder, fusion head and softmax of B paired
+(L, D) windows and (L, F) 0D rows, read from and written to buffers of
 fixed shape, so that one capture serves every shot length.
 ``sweep_shots`` sweeps a shot library in groups that fit a device-memory
 budget.
@@ -163,15 +166,96 @@ def _make_cls_table_fn(model, seq_len: int, crop_size: int, compute_dtype,
 
 
 class _WindowGraph(NamedTuple):
-    """A captured chunk forward: ``windows`` (B, L, D) in, ``probs`` (B,)
-    out, both fixed buffers; ``key`` what it was captured for."""
+    """A captured chunk forward: ``inputs`` the (B, L, width) buffers it
+    reads (the windows, and a fusion model's 0D rows), ``probs`` (B,) out,
+    all fixed buffers; ``key`` what it was captured for."""
     key: tuple
     graph: torch.cuda.CUDAGraph
-    windows: torch.Tensor
+    inputs: tuple
     probs: torch.Tensor
 
 
-class VideoSweeper:
+class _WindowLoop:
+    """The window loop that ``VideoSweeper`` and ``MultiModalSweeper``
+    share: a chunk's windows are gathered from flattened (rows, width)
+    device tables, one table per model input, and on the token path on a
+    GPU replayed through one captured CUDA graph of ``_window_probs``. A
+    sweeper sets ``model``, ``device``, ``seq_len``, ``batch_size``,
+    ``_use_tokens`` and the window's frame offsets ``_offsets``, calls
+    ``_init_loop`` and defines ``_window_probs``.
+    ``graph_captures`` counts the captures, ``graphed_chunks`` the chunks
+    replayed."""
+
+    def _init_loop(self) -> None:
+        self._shot = 0        # shots through embed_all: the sweep spans' ``shot``
+        self._graph: Optional[_WindowGraph] = None
+        self.graph_captures = self.graphed_chunks = 0
+
+    def _window_rows(self, data: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
+        """(n_buck, B * L): the row of the flattened (L * T, D) spatial-cls
+        table ``data`` that each window frame of ``chunks`` reads (frame
+        start + ``_offsets[k]`` at offset k), clamped as ``chunk_probs``
+        clamps."""
+        L, T = data.shape[0], data.shape[1]
+        rows = (torch.clamp(chunks[:, :, None] + self._offsets, 0, T - 1)
+                + torch.arange(L, device=self.device) * T)
+        return rows.view(len(chunks), -1)
+
+    def _window_graph(self, tables) -> Optional[_WindowGraph]:
+        """The chunk forward captured as a CUDA graph over inputs as wide as
+        ``tables`` and of their dtypes, for the token path on a GPU; None
+        elsewhere. Captured at first use, and again when a table's width or
+        dtype or the storage of a parameter or buffer changed; the graph
+        reads the weights in place, so a weight updated in place is seen at
+        the next replay."""
+        if not self._use_tokens or self.device.type != "cuda":
+            return None
+        key = tuple((t.dtype, t.shape[-1]) for t in tables) + tuple(
+            t.data_ptr() for t in (*self.model.parameters(), *self.model.buffers()))
+        if self._graph is None or self._graph.key != key:
+            self._graph = None                   # the old graph's pool goes first
+            self._graph = self._capture(key, tables)
+        return self._graph
+
+    @torch.no_grad()
+    def _capture(self, key: tuple, tables) -> _WindowGraph:
+        """Warm up and capture ``_window_probs`` on a side stream over fixed
+        (B, L, width) inputs. The warm-up makes what the forward makes once
+        (cuBLAS handles and workspaces, the 0D encoder's position table)
+        outside the capture."""
+        inputs = tuple(torch.zeros(self.batch_size, self.seq_len, t.shape[-1], dtype=t.dtype,
+                                   device=self.device) for t in tables)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._window_probs(*inputs)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            probs = self._window_probs(*inputs)
+        self.graph_captures += 1
+        return _WindowGraph(key, graph, inputs, probs)
+
+    def _replay(self, graph: _WindowGraph, tables, rows) -> torch.Tensor:
+        """(n_buck * B,) p_disrupt: per chunk, in a ``sweep.chunk`` span, the
+        gather of ``rows[i][c]`` of each table into the graph's input i
+        (one ``index_select`` each), the replay and the copy of its
+        probabilities out."""
+        n = rows[0].shape[0]
+        bufs = [b.view(-1, t.shape[-1]) for t, b in zip(tables, graph.inputs)]
+        out = torch.empty((n, self.batch_size), dtype=torch.float32, device=self.device)
+        for c in range(n):
+            with span("sweep.chunk", shot=self._shot):
+                for table, buf, r in zip(tables, bufs, rows):
+                    torch.index_select(table, 0, r[c], out=buf)
+                graph.graph.replay()
+                out[c].copy_(graph.probs)
+        self.graphed_chunks += n
+        return out.view(-1)
+
+
+class VideoSweeper(_WindowLoop):
     """Stride-1 sliding-window sweep over device-resident frames.
 
     The shot is cropped and uploaded once; per chunk of B windows the sweep
@@ -186,7 +270,7 @@ class VideoSweeper:
     raw windows per chunk with the window-gather kernel.
 
     On a GPU the token path replays a captured CUDA graph per chunk
-    (``_window_graph``); the raw-frame path and the CPU launch eagerly.
+    (``_WindowLoop``); the raw-frame path and the CPU launch eagerly.
     ``graph_captures`` counts the captures, ``graphed_chunks`` the chunks
     replayed.
     """
@@ -212,9 +296,7 @@ class VideoSweeper:
                 self.model, seq_len, crop_size, compute_dtype,
                 self.device, use_fused_table)
         self._frames_dev = None
-        self._shot = 0        # shots through embed_all: the sweep spans' ``shot``
-        self._graph: Optional[_WindowGraph] = None
-        self.graph_captures = self.graphed_chunks = 0
+        self._init_loop()
 
     def _normalize(self, frames_u8: torch.Tensor) -> torch.Tensor:
         return frames_u8.to(self.compute_dtype) - self._mean
@@ -276,66 +358,15 @@ class VideoSweeper:
         each chunk's launches in a ``sweep.chunk`` span. With a window graph
         a chunk is three launches: the gather of its windows into the
         graph's input, the replay, the copy of its probabilities out."""
-        graph = self._window_graph(data)
+        graph = self._window_graph((data,))
         if graph is None:
             out = []
             for c in chunks:
                 with span("sweep.chunk", shot=self._shot):
                     out.append(self.chunk_probs(data, c))
             return torch.cat(out)
-        rows = self._window_rows(data, chunks)
-        D = data.shape[-1]
-        table, windows = data.reshape(-1, D), graph.windows.view(-1, D)
-        out = torch.empty(chunks.shape, dtype=torch.float32, device=self.device)
-        for c in range(len(chunks)):
-            with span("sweep.chunk", shot=self._shot):
-                torch.index_select(table, 0, rows[c], out=windows)
-                graph.graph.replay()
-                out[c].copy_(graph.probs)
-        self.graphed_chunks += len(chunks)
-        return out.view(-1)
-
-    def _window_rows(self, data: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
-        """(n_buck, B * L): the row of the flattened (L * T, D) table
-        ``data`` that each window frame of ``chunks`` reads, clamped as
-        ``chunk_probs`` clamps."""
-        L, T = data.shape[0], data.shape[1]
-        rows = (torch.clamp(chunks[:, :, None] + self._offsets, 0, T - 1)
-                + torch.arange(L, device=self.device) * T)
-        return rows.view(len(chunks), -1)
-
-    def _window_graph(self, data: torch.Tensor) -> Optional[_WindowGraph]:
-        """The chunk forward captured as a CUDA graph, for the token path on
-        a GPU; None elsewhere. Captured at first use, and again when the
-        table's width or dtype or the storage of a parameter changed; the
-        graph reads the weights in place, so a weight updated in place is
-        seen at the next replay."""
-        if not self._use_tokens or self.device.type != "cuda":
-            return None
-        key = (data.dtype, data.shape[-1]) + tuple(p.data_ptr()
-                                                   for p in self.model.parameters())
-        if self._graph is None or self._graph.key != key:
-            self._graph = None                   # the old graph's pool goes first
-            self._graph = self._capture(key, data.shape[-1], data.dtype)
-        return self._graph
-
-    @torch.no_grad()
-    def _capture(self, key: tuple, width: int, dtype: torch.dtype) -> _WindowGraph:
-        """Warm up and capture ``_window_probs`` on a side stream over a
-        fixed (B, L, width) input."""
-        windows = torch.zeros(self.batch_size, self.seq_len, width, dtype=dtype,
-                              device=self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(2):      # lazy set-up (cuBLAS handles, workspaces) outside capture
-                self._window_probs(windows)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-            probs = self._window_probs(windows)
-        self.graph_captures += 1
-        return _WindowGraph(key, graph, windows, probs)
+        return self._replay(graph, (data.reshape(-1, data.shape[-1]),),
+                            (self._window_rows(data, chunks),))
 
     def load_shot(self, frames_u8: np.ndarray) -> torch.Tensor:
         """Crop, upload once and preprocess (ViViT: embed + cls table)."""
@@ -589,11 +620,11 @@ def predict_0d_shot(
     return np.arange(len(fine)) / fps, fine
 
 
-class MultiModalSweeper:
+class MultiModalSweeper(_WindowLoop):
     """Paired video + 0D window sweep for the fusion models, the multimodal
-    counterpart of ``VideoSweeper``. Frame and 0D row counts are
-    edge-replicated up to their half-octave buckets and the chunk counts
-    bucketed (``chunkify_starts``), as in the JAX sweeper, so a library
+    counterpart of ``VideoSweeper``. ``upload_shot`` edge-replicates frame
+    and 0D row counts up to their half-octave buckets and the chunk counts
+    are bucketed (``chunkify_starts``), as in the JAX sweeper, so a library
     sweep sees a handful of shapes.
 
     A model with ``spatial_cls`` takes the fast path: the shot's (L, T, D)
@@ -601,8 +632,17 @@ class MultiModalSweeper:
     spatial-table kernel where it takes the shape, ``use_fused_table`` as
     in ``VideoSweeper``, ``fused_table_active`` reports the route), and each
     window runs only the temporal transformer, the 0D encoder and the
-    fusion head (``forward_spatial_cls``). Another model takes raw frames,
-    gathered by indexing. ``device=None`` means the GPU."""
+    fusion head (``forward_spatial_cls``). On a GPU that path replays a
+    captured CUDA graph per chunk (``_WindowLoop``), the windows and the 0D
+    rows gathered into its two inputs; ``graph_captures`` counts the
+    captures, ``graphed_chunks`` the chunks replayed. Another model takes
+    raw frames, gathered by indexing, and launches eagerly, as the CPU
+    does. ``device=None`` means the GPU.
+
+    ``sweep_device`` sweeps a shot already on the device in its two
+    halves, ``embed_all`` (spans ``sweep.embed``, ``sweep.table``) and
+    ``sweep_table`` (``sweep.windows`` around one ``sweep.chunk`` a chunk),
+    the spans ``VideoSweeper`` records."""
 
     def __init__(self, model, seq_len: int, tau: int = 1, crop_size: int = 128,
                  batch_size: int = 32, compute_dtype: torch.dtype = torch.bfloat16,
@@ -615,7 +655,7 @@ class MultiModalSweeper:
         # the video window ends at v+1 (frames v+1-tau*(L-1) .. v+1, reference
         # paths[idx+1 : idx-tau*L+1 : -tau][::-1]); the 0D window ends at t
         back = tau * torch.arange(seq_len - 1, -1, -1, device=self.device)
-        self._v_offsets, self._t_offsets = 1 - back, -back
+        self._offsets, self._t_offsets = 1 - back, -back
         self._mean = torch.tensor(PIXEL_MEAN_BGR, dtype=compute_dtype, device=self.device)
         self._use_tokens = hasattr(model, "spatial_cls")
         self.fused_table_active = False
@@ -623,6 +663,7 @@ class MultiModalSweeper:
             self._cls_table, self.fused_table_active = _make_cls_table_fn(
                 self.model, seq_len, crop_size, compute_dtype,
                 self.device, use_fused_table)
+        self._init_loop()
 
     @staticmethod
     def _pad_bucket(arr: np.ndarray) -> np.ndarray:
@@ -649,45 +690,105 @@ class MultiModalSweeper:
         return self.model.embed_frames(frames_dev.to(self.compute_dtype) - self._mean)
 
     @torch.no_grad()
-    def load_shot(self, frames_u8: np.ndarray, data: np.ndarray):
-        """Upload a shot (``upload_shot``); the fast path also embeds the
-        frames and builds the (L, T, D) cls table. Returns the device pair
-        ``sweep_windows`` reads."""
-        frames_dev, rows_dev = self.upload_shot(frames_u8, data)
+    def embed_all(self, frames_dev: torch.Tensor) -> torch.Tensor:
+        """Per-shot preprocessing: the (L, T, D) spatial-cls table (fast
+        path), or the frames themselves for a model without it. Starts the
+        next shot of the spans (``sweep.embed``, ``sweep.table``)."""
+        self._shot += 1
         if not self._use_tokens:
-            return frames_dev, rows_dev
-        return self._cls_table(self.embed_tokens(frames_dev)), rows_dev
+            return frames_dev
+        with span("sweep.embed", shot=self._shot, frames=frames_dev.shape[0]):
+            tokens = self.embed_tokens(frames_dev)
+        with span("sweep.table", shot=self._shot, fused=self.fused_table_active):
+            return self._cls_table(tokens)
+
+    @torch.no_grad()
+    def load_shot(self, frames_u8: np.ndarray, data: np.ndarray):
+        """Upload a shot (``upload_shot``) and preprocess its frames
+        (``embed_all``). Returns the device pair ``sweep_table`` reads
+        before its ladders."""
+        frames_dev, rows_dev = self.upload_shot(frames_u8, data)
+        return self.embed_all(frames_dev), rows_dev
+
+    def _window_probs(self, windows: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """p_disrupt of (B, L, D) spatial-cls windows paired with (B, L, F)
+        0D rows."""
+        return torch.softmax(self.model.forward_spatial_cls(windows, rows).float(),
+                             dim=-1)[:, 0]
 
     @torch.no_grad()
     def chunk_probs(self, video: torch.Tensor, rows: torch.Tensor,
                     v_starts: torch.Tensor, t_starts: torch.Tensor) -> torch.Tensor:
         """p_disrupt of the paired windows ending at ``v_starts`` + 1 and
-        ``t_starts`` (B,), indices clipped to the table."""
+        ``t_starts`` (B,), indices clipped to the table, launched eagerly."""
         ti = torch.clamp(t_starts[:, None] + self._t_offsets[None, :], 0, rows.shape[0] - 1)
         if self._use_tokens:
-            vi = torch.clamp(v_starts[:, None] + self._v_offsets[None, :], 0,
+            vi = torch.clamp(v_starts[:, None] + self._offsets[None, :], 0,
                              video.shape[1] - 1)
             off = torch.arange(self.seq_len, device=self.device)[None, :]
-            logits = self.model.forward_spatial_cls(video[off, vi], rows[ti])
-        else:
-            vi = torch.clamp(v_starts[:, None] + self._v_offsets[None, :], 0,
-                             video.shape[0] - 1)
-            out = self.model(video[vi].to(self.compute_dtype) - self._mean, rows[ti])
-            logits = out[0] if isinstance(out, tuple) else out
+            return self._window_probs(video[off, vi], rows[ti])
+        vi = torch.clamp(v_starts[:, None] + self._offsets[None, :], 0,
+                         video.shape[0] - 1)
+        out = self.model(video[vi].to(self.compute_dtype) - self._mean, rows[ti])
+        logits = out[0] if isinstance(out, tuple) else out
         return torch.softmax(logits.float(), dim=-1)[:, 0]
 
-    def sweep_windows(self, loaded, video_keep, ts_keep) -> np.ndarray:
-        """All paired windows of a ``load_shot`` result -> p_disrupt each."""
-        m = len(video_keep)
-        if m == 0:
+    @torch.no_grad()
+    def sweep_table(self, video: torch.Tensor, rows: torch.Tensor, video_keep,
+                    ts_keep) -> np.ndarray:
+        """All paired windows over ``embed_all``'s output and the (R, F) 0D
+        rows on the device -> p_disrupt each, in a ``sweep.windows`` span:
+        ``windows`` real, ``dispatched`` in ``chunks`` padded chunks,
+        ``graphed`` of them replayed as a graph. The two ladders' chunks go
+        up in one copy."""
+        n = len(video_keep)
+        if n == 0:
             return np.zeros(0, np.float32)
-        v_chunks = torch.from_numpy(chunkify_starts(
-            np.asarray(video_keep, np.int64), self.batch_size)).to(self.device)
-        t_chunks = torch.from_numpy(chunkify_starts(
-            np.asarray(ts_keep, np.int64), self.batch_size)).to(self.device)
-        probs = torch.cat([self.chunk_probs(*loaded, v, t)
-                           for v, t in zip(v_chunks, t_chunks)])
-        return probs.cpu().numpy()[:m]
+        with span("sweep.windows", shot=self._shot, windows=n) as sp:
+            chunks = torch.from_numpy(np.stack([
+                chunkify_starts(np.asarray(video_keep, np.int64), self.batch_size),
+                chunkify_starts(np.asarray(ts_keep, np.int64), self.batch_size)])
+            ).to(self.device)
+            graphed = self.graphed_chunks
+            probs = self._sweep_chunks(video, rows, chunks[0], chunks[1]).cpu().numpy()[:n]
+            sp.set(dispatched=chunks[0].numel(), chunks=chunks.shape[1],
+                   graphed=self.graphed_chunks - graphed)
+            return probs
+
+    def _sweep_chunks(self, video: torch.Tensor, rows: torch.Tensor,
+                      v_chunks: torch.Tensor, t_chunks: torch.Tensor) -> torch.Tensor:
+        """(n_buck, B) paired window ends on the device -> (n_buck * B,)
+        p_disrupt; each chunk's launches in a ``sweep.chunk`` span. With a
+        window graph a chunk is four launches: the gathers of its windows
+        and its 0D rows into the graph's inputs, the replay, the copy of its
+        probabilities out."""
+        graph = self._window_graph((video, rows))
+        if graph is None:
+            out = []
+            for v, t in zip(v_chunks, t_chunks):
+                with span("sweep.chunk", shot=self._shot):
+                    out.append(self.chunk_probs(video, rows, v, t))
+            return torch.cat(out)
+        return self._replay(graph, (video.reshape(-1, video.shape[-1]), rows),
+                            self._chunk_rows(video, rows, v_chunks, t_chunks))
+
+    def _chunk_rows(self, video: torch.Tensor, rows: torch.Tensor, v_chunks: torch.Tensor,
+                    t_chunks: torch.Tensor) -> tuple:
+        """(n_buck, B * L) each: the rows of the flattened (L * T, D) table
+        and of the (R, F) 0D rows that each chunk's paired windows read,
+        clamped as ``chunk_probs`` clamps."""
+        t_rows = torch.clamp(t_chunks[:, :, None] + self._t_offsets, 0, rows.shape[0] - 1)
+        return self._window_rows(video, v_chunks), t_rows.view(len(t_chunks), -1)
+
+    def sweep_device(self, frames_dev: torch.Tensor, rows_dev: torch.Tensor, video_keep,
+                     ts_keep) -> np.ndarray:
+        """Whole-shot paired sweep over device-resident cropped uint8 frames
+        (T, h, w, C) and scaled 0D rows (R, F), with their matched
+        window-end ladders: the per-shot preprocessing (``embed_all``) and
+        the window loop (``sweep_table``)."""
+        if len(video_keep) == 0:
+            return np.zeros(0, np.float32)
+        return self.sweep_table(self.embed_all(frames_dev), rows_dev, video_keep, ts_keep)
 
     def sweep(self, frames_u8: np.ndarray, data: np.ndarray, video_keep,
               ts_keep) -> np.ndarray:
@@ -695,7 +796,7 @@ class MultiModalSweeper:
         rows, matched window-end ladders -> p_disrupt per window."""
         if len(video_keep) == 0:
             return np.zeros(0, np.float32)
-        return self.sweep_windows(self.load_shot(frames_u8, data), video_keep, ts_keep)
+        return self.sweep_device(*self.upload_shot(frames_u8, data), video_keep, ts_keep)
 
 
 def multimodal_ladders(times: np.ndarray, frame_srt: int, frame_end: int,
