@@ -168,11 +168,13 @@ def main(argv=None):
     _trial_ids = itertools.count()      # .__next__ is atomic in CPython
 
     def trainable(config, n_epochs, carry, trial_device=None):
-        """Train n_epochs more; carry = (model, state, steps, puts) for
+        """Train n_epochs more; carry = (model, state, eval_step, puts) for
         resume. ``trial_device`` is this trial's (parallel rungs; default
-        ``--device``). Vision trials train under the real run's augmentation
-        (the reference's HPO forwards its augmentation args,
-        hyperparameter_tuning.py:84-92 / :199-207), each from its own
+        ``--device``). The train step is made anew each rung, so a trial
+        waiting for its next rung holds no captured graph
+        (``train/loop.py _TrainStep``). Vision trials train under the real
+        run's augmentation (the reference's HPO forwards its augmentation
+        args, hyperparameter_tuning.py:84-92 / :199-207), each from its own
         train-mode preprocessor seeded from a fresh trial id, so concurrent
         trials are augmented independently."""
         dev = device if trial_device is None else trial_device
@@ -183,7 +185,7 @@ def main(argv=None):
             model = make_model(config, torch.Generator().manual_seed(args.random_seed))
             state = create_train_state(model.to(dev), OptimConfig(lr=config.get("lr", 1e-3)),
                                        seed=args.random_seed)
-            steps = (make_train_step(loss_cfg), make_eval_step(loss_cfg))
+            eval_step = make_eval_step(loss_cfg)
             if kind == "vision":
                 puts = (DevicePreprocessor(crop, AugmentConfig(), train=True,
                                            out_dtype=torch.float32, device=dev,
@@ -194,8 +196,8 @@ def main(argv=None):
                 put = lambda item: to_device(item, dev)
                 puts = (put, put)
         else:
-            model, state, steps, puts = carry
-        train_step, eval_step = steps
+            model, state, eval_step, puts = carry
+        train_step = make_train_step(loss_cfg)
 
         counts = train_ds.class_counts()
         rng = np.random.default_rng(args.random_seed)
@@ -207,7 +209,7 @@ def main(argv=None):
             _, _, f1 = run_eval_epoch(eval_step, state.model, valid_ds, batch_size,
                                       w, m, put=puts[1])
             scores.append(f1)
-        return (model, state, steps, puts), scores
+        return (model, state, eval_step, puts), scores
 
     space = (search_space_video(args.model) if kind == "vision"
              else search_space_0d(args.model))

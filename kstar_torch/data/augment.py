@@ -27,6 +27,8 @@ The arithmetic is the JAX module's (reference quirks kept as it keeps them):
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -41,10 +43,16 @@ N_PARAMS = 10
 
 
 def _const(values, device) -> torch.Tensor:
-    """A small f32 constant on ``device``. ``non_blocking``: a blocking copy
-    would synchronise the stream on every call; from pageable memory the
-    bytes are staged before the call returns, so the source may go."""
-    return torch.as_tensor(values, dtype=torch.float32).to(device, non_blocking=True)
+    """A small f32 constant on ``device``, uploaded once per device and kept:
+    an upload on every call would be a host copy inside a captured train
+    step (``train/loop.py``)."""
+    return _uploaded(tuple(np.asarray(values, np.float32).tolist()),
+                     torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _uploaded(values: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32).to(device)
 
 
 def center_crop(video: torch.Tensor, crop_size: int) -> torch.Tensor:

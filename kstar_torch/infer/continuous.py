@@ -51,6 +51,7 @@ from ..ops.preprocess import gather_normalize
 from ..parallel.comm import all_gather_objects
 from ..ops.spatial_table import (extract_spatial_weights, kernel_refusal,
                                  spatial_table, spatial_table_reference)
+from ..utils.graphs import capture, on_capture_stream, storage_key
 from ..utils.profiling import span
 
 
@@ -205,13 +206,12 @@ class _WindowLoop:
         """The chunk forward captured as a CUDA graph over inputs as wide as
         ``tables`` and of their dtypes, for the token path on a GPU; None
         elsewhere. Captured at first use, and again when a table's width or
-        dtype or the storage of a parameter or buffer changed; the graph
-        reads the weights in place, so a weight updated in place is seen at
-        the next replay."""
+        dtype or the storage (or shape) of a parameter or buffer changed;
+        the graph reads the weights in place, so a weight updated in place
+        is seen at the next replay."""
         if not self._use_tokens or self.device.type != "cuda":
             return None
-        key = tuple((t.dtype, t.shape[-1]) for t in tables) + tuple(
-            t.data_ptr() for t in (*self.model.parameters(), *self.model.buffers()))
+        key = tuple((t.dtype, t.shape[-1]) for t in tables) + storage_key(self.model)
         if self._graph is None or self._graph.key != key:
             self._graph = None                   # the old graph's pool goes first
             self._graph = self._capture(key, tables)
@@ -219,20 +219,17 @@ class _WindowLoop:
 
     @torch.no_grad()
     def _capture(self, key: tuple, tables) -> _WindowGraph:
-        """Warm up and capture ``_window_probs`` on a side stream over fixed
-        (B, L, width) inputs. The warm-up makes what the forward makes once
-        (cuBLAS handles and workspaces, the 0D encoder's position table)
-        outside the capture."""
+        """Warm up and capture ``_window_probs`` on the capture stream
+        (``utils/graphs.py``) over fixed (B, L, width) inputs. The warm-up
+        makes what the forward makes once (cuBLAS handles and workspaces,
+        the 0D encoder's position table) outside the capture."""
         inputs = tuple(torch.zeros(self.batch_size, self.seq_len, t.shape[-1], dtype=t.dtype,
                                    device=self.device) for t in tables)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
+        with on_capture_stream(self.device):
             for _ in range(2):
                 self._window_probs(*inputs)
-        torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        with capture(graph, self.device):
             probs = self._window_probs(*inputs)
         self.graph_captures += 1
         return _WindowGraph(key, graph, inputs, probs)

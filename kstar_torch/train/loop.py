@@ -18,6 +18,9 @@ train_per_epoch/valid_per_epoch/train/train_DRW):
     guard puts them back on a skipped step, as ``guarded_update`` does;
   * per-step losses and predictions stay on the device; the host fetches
     them once per epoch, so step N+1 is queued while step N runs;
+  * since nothing in a step waits for the host, on one CUDA device the
+    whole step is captured once as a CUDA graph and replayed (``_TrainStep``):
+    one launch a step in place of several hundred;
   * metrics (macro-F1) accumulate host-side like the reference's sklearn
     f1_score over the epoch's predictions.
 
@@ -39,7 +42,9 @@ predictions come from the multi logits).
 from __future__ import annotations
 
 import os
+import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Tuple
 
@@ -52,6 +57,7 @@ from ..data.loader import (epoch_batches, eval_batches, grouped_batches,
 from ..losses import (classification_loss, drw_weights, gradient_blending_loss,
                       inverse_freq_weights, ldam_margins)
 from ..parallel.comm import all_gather_cat, all_reduce_, barrier, data_parallel
+from ..utils.graphs import capture, on_capture_stream, storage_key
 from ..utils.profiling import span
 from .early_stopping import EarlyStopping
 from .logging import MetricWriter
@@ -104,6 +110,190 @@ def guarded_update(state: TrainState, loss: torch.Tensor, stats_before, mesh):
     return buf[-1]
 
 
+@dataclass
+class _StepGraph:
+    """One captured train step: the key it was captured under, the graph,
+    its static inputs (batch, labels, weight, m_list, gb_w), its three
+    registered generators and its outputs (loss, preds)."""
+    key: tuple
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple
+    gens: tuple
+    loss: torch.Tensor
+    preds: torch.Tensor
+
+
+_THREAD = threading.local()
+
+
+def _thread_token() -> object:
+    """An object of the calling thread's own, for a graph's key: a state
+    stepped on another thread recaptures there."""
+    if not hasattr(_THREAD, "token"):
+        _THREAD.token, _THREAD.newest = object(), {}
+    return _THREAD.token
+
+
+def _shared_pool(device) -> Optional[tuple]:
+    """The memory pool of this thread's newest live train-step graph on
+    ``device`` (None: a new pool). A thread replays its graphs one at a time
+    on one stream, and each replay's outputs are cloned before the next
+    replay, so one step's working set serves every state the thread steps
+    (an ensemble's members, the Gradient-Blending probes). A pool is taken
+    from a live graph only: CUDA frees a pool with its last graph."""
+    ref = getattr(_THREAD, "newest", {}).get(torch.device(device))
+    graph = ref() if ref is not None else None
+    return None if graph is None else graph.graph.pool()
+
+
+def _tensors(inputs) -> list:
+    """The step's inputs as a flat list (a dict batch key by key; None
+    kept)."""
+    batch, *rest = inputs
+    return ([batch[k] for k in sorted(batch)] if isinstance(batch, dict) else [batch]) + rest
+
+
+def _signature(inputs) -> tuple:
+    """The inputs' shapes and dtypes (and a dict batch's keys)."""
+    batch = inputs[0]
+    return (tuple(sorted(batch)) if isinstance(batch, dict) else None,
+            tuple(None if t is None else (t.shape, t.dtype) for t in _tensors(inputs)))
+
+
+def _static_like(inputs) -> tuple:
+    """Fresh device buffers of the inputs' shapes and dtypes."""
+    make = lambda t: None if t is None else torch.empty(t.shape, dtype=t.dtype,
+                                                        device=t.device)
+    batch, *rest = inputs
+    batch = ({k: make(v) for k, v in batch.items()} if isinstance(batch, dict)
+             else make(batch))
+    return (batch, *(make(t) for t in rest))
+
+
+class _TrainStep:
+    """``make_train_step``'s step (its docstring). On one CUDA device
+    (``state.device`` CUDA and no mesh) the step is one captured CUDA graph
+    per state, keyed by the inputs' shapes and dtypes, the storage of every
+    parameter, buffer, optimizer tensor and of ``state.step``, ``pre_fn``,
+    ``model_type``, the loss, and the calling thread (``_thread_token``;
+    one thread's graphs share a memory pool, ``_shared_pool``). A step whose
+    key is neither the graph's nor that of the state's last eager step runs
+    eagerly on the capture stream (``utils/graphs.py``); the next step of
+    that key captures the whole step (``pre_fn``, forward, loss, backward,
+    guarded update) and replays it; each later one copies its inputs into
+    the graph's, reseeds the graph's generators as ``next_generators``
+    seeds new ones and replays, drawing and computing what the eager step
+    does. Elsewhere (the CPU, a mesh) every step runs eagerly.
+
+    The step function holds each state's graph weakly by the state
+    (``graph_of``): a graph goes with its state or with the step function,
+    whichever goes first, so a finished ``fit`` (an HPO trial's rung) holds
+    no graph however long its state is kept. The graphs of one step
+    function share their static inputs (an ensemble's members take the same
+    batch). ``graph_captures`` counts the captures, ``graphed_steps`` the
+    steps replayed."""
+
+    def __init__(self, loss_cfg: LossConfig, pre_fn: Optional[Callable],
+                 model_type: str, mesh):
+        _check_model_type(model_type)
+        self.loss_cfg, self.pre_fn, self.model_type, self.mesh = (
+            loss_cfg, pre_fn, model_type, mesh)
+        self.graph_captures = self.graphed_steps = 0
+        self._held = weakref.WeakKeyDictionary()    # state -> [last eager key, graph]
+        self._static: dict = {}                     # (signature, thread) -> static inputs
+
+    def graph_of(self, state: TrainState) -> Optional[_StepGraph]:
+        """The graph this step function holds for ``state``, if any."""
+        return self._held.get(state, (None, None))[1]
+
+    def _forward(self, state: TrainState, gens, batch, labels, weight, m_list, gb_w):
+        """(loss, logits, statistics before): ``pre_fn``, the gradients
+        cleared, the forward in training mode and the loss."""
+        gen_pre, gen_drop, gen_noise = gens
+        with data_parallel(self.mesh):
+            if self.pre_fn is not None:
+                batch = self.pre_fn(gen_pre, batch)
+            for p in state.params:
+                p.grad = None
+            stats_before = state.snapshot_stats()
+            out = _model_outputs(state.model, batch, self.model_type, train=True,
+                                 generator=gen_drop, noise_generator=gen_noise)
+            loss, logits = _loss_and_logits(out, labels, self.loss_cfg, self.model_type,
+                                            weight, m_list, gb_w)
+        return loss, logits, stats_before
+
+    def _eager(self, state: TrainState, inputs):
+        n = state.draws
+        with span("train.step", step=n, graphed=0):
+            with span("train.forward", step=n):
+                gens = state.next_generators()
+                loss, logits, stats_before = self._forward(state, gens, *inputs)
+            with span("train.backward", step=n), data_parallel(self.mesh):
+                loss.backward()
+            with span("train.update", step=n):
+                loss = guarded_update(state, loss.detach(), stats_before, self.mesh)
+        return loss, logits.detach().argmax(-1)
+
+    def _key(self, state: TrainState, inputs) -> tuple:
+        return (_signature(inputs), storage_key(state.model),
+                tuple(v.data_ptr() for v in state.opt_state.values()), state.step.data_ptr(),
+                self.pre_fn, self.model_type, self.loss_cfg, _thread_token())
+
+    def _capture(self, state: TrainState, key: tuple, inputs) -> _StepGraph:
+        """The whole step captured over static inputs, on the capture
+        stream into the pool of the thread's graphs, with three generators
+        registered with the graph."""
+        sig = (key[0], key[-1])                 # the thread's graphs of the signature
+        static = self._static.get(sig)
+        if static is None:
+            static = self._static[sig] = _static_like(inputs)
+        gens = tuple(torch.Generator(device=state.device) for _ in range(3))
+        graph = torch.cuda.CUDAGraph()
+        for gen in gens:
+            graph.register_generator_state(gen)
+        with capture(graph, state.device, pool=_shared_pool(state.device)):
+            loss, logits, stats_before = self._forward(state, gens, *static)
+            loss.backward()
+            loss = guarded_update(state, loss.detach(), stats_before, None)
+            preds = logits.detach().argmax(-1)
+        self.graph_captures += 1
+        step_graph = _StepGraph(key, graph, static, gens, loss, preds)
+        _THREAD.newest[torch.device(state.device)] = weakref.ref(step_graph)
+        return step_graph
+
+    def __call__(self, state: TrainState, batch, labels, weight, m_list, gb_w=None):
+        inputs = (batch, labels, weight, m_list, gb_w)
+        if self.mesh is not None or state.device.type != "cuda":
+            loss, preds = self._eager(state, inputs)
+            return state, loss, preds
+        key = self._key(state, inputs)
+        held = self._held.setdefault(state, [None, None])
+        graph = held[1]
+        if graph is None or graph.key != key:
+            if held[0] != key:
+                # the key's first step: eagerly, on the capture stream
+                held[0] = key
+                with on_capture_stream(state.device):
+                    loss, preds = self._eager(state, inputs)
+                main = torch.cuda.current_stream(state.device)
+                loss.record_stream(main)
+                preds.record_stream(main)
+                return state, loss, preds
+            held[1] = None                  # the old graph gives its memory back first
+            graph = held[1] = self._capture(state, key, inputs)
+        n = state.draws
+        with span("train.step", step=n, graphed=1):
+            with span("train.inputs", step=n):
+                for buf, t in zip(_tensors(graph.inputs), _tensors(inputs)):
+                    if buf is not None:
+                        buf.copy_(t)
+                state.seed_generators(graph.gens)
+            with span("train.replay", step=n):
+                graph.graph.replay()
+        self.graphed_steps += 1
+        return state, graph.loss.clone(), graph.preds.clone()
+
+
 def make_train_step(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None,
                     model_type: str = "single", mesh=None) -> Callable:
     """step(state, batch, labels, weight, m_list, gb_w=None)
@@ -115,33 +305,14 @@ def make_train_step(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None,
     generators, the loss (``model_type``), backward, and the guarded
     update. ``loss`` and ``preds`` stay on the device. On a ``mesh`` the
     batch is this rank's rows, ``loss`` the global batch's and ``preds``
-    this rank's rows'. Spans (``utils/profiling.py``): ``train.step``
-    around ``train.forward`` (generators to the loss), ``train.backward``
-    and ``train.update``, each with ``step``, the step's ``state.draws``."""
-    _check_model_type(model_type)
-
-    def step(state: TrainState, batch, labels, weight, m_list, gb_w=None):
-        n = state.draws
-        with span("train.step", step=n):
-            with span("train.forward", step=n):
-                gen_pre, gen_drop, gen_noise = state.next_generators()
-                with data_parallel(mesh):
-                    if pre_fn is not None:
-                        batch = pre_fn(gen_pre, batch)
-                    for p in state.params:
-                        p.grad = None
-                    stats_before = state.snapshot_stats()
-                    out = _model_outputs(state.model, batch, model_type, train=True,
-                                         generator=gen_drop, noise_generator=gen_noise)
-                    loss, logits = _loss_and_logits(out, labels, loss_cfg, model_type,
-                                                    weight, m_list, gb_w)
-            with span("train.backward", step=n), data_parallel(mesh):
-                loss.backward()
-            with span("train.update", step=n):
-                loss = guarded_update(state, loss.detach(), stats_before, mesh)
-        return state, loss, logits.detach().argmax(-1)
-
-    return step
+    this rank's rows'. On one CUDA device the step is replayed from a
+    captured CUDA graph (``_TrainStep``). Spans (``utils/profiling.py``):
+    ``train.step`` with ``step``, the step's ``state.draws``, and
+    ``graphed`` (1 on a replay, 0 when eager); eagerly it encloses
+    ``train.forward`` (generators to the loss), ``train.backward`` and
+    ``train.update``, on a replay ``train.inputs`` (the copies and the
+    reseeding) and ``train.replay``, each with ``step``."""
+    return _TrainStep(loss_cfg, pre_fn, model_type, mesh)
 
 
 def make_scan_steps(loss_cfg: LossConfig, pre_fn: Optional[Callable] = None,

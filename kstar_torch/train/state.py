@@ -228,13 +228,20 @@ class TrainState:
         """(pre, dropout, noise) generators on the device for the next step,
         each seeded from (seed, draws, its stream index) alone, so one
         stream's draws do not depend on the others; advances ``draws``."""
-        gens = []
-        for stream in range(3):
+        return self.seed_generators(tuple(torch.Generator(device=self.device)
+                                          for _ in range(3)))
+
+    def seed_generators(self, gens):
+        """Seed the three (pre, dropout, noise) generators ``gens`` for the
+        next step as ``next_generators`` seeds its new ones (a captured step
+        keeps its generators and reseeds them before each replay); advances
+        ``draws``. Returns ``gens``."""
+        for stream, gen in enumerate(gens):
             s = np.random.SeedSequence([self.seed, self.draws, stream]).generate_state(
                 1, np.uint64)[0]
-            gens.append(torch.Generator(device=self.device).manual_seed(int(s)))
+            gen.manual_seed(int(s))
         self.draws += 1
-        return tuple(gens)
+        return gens
 
     def copy(self) -> "TrainState":
         """An independent copy (model, flat buffers, batch statistics,
@@ -284,15 +291,17 @@ class TrainState:
         ``finite`` (a device bool): otherwise parameters, optimizer state,
         step and the batch statistics (back to ``stats_before``, the step's
         ``snapshot_stats``) stay bit-identical. Decided on the device, with
-        no host sync (``guarded_update``, ``kstar_tpu/train/loop.py:91-104``)."""
+        no host sync (``guarded_update``, ``kstar_tpu/train/loop.py:91-104``).
+        Every tensor of the state is written in place, so a captured step
+        reads and writes the same storage at each replay."""
         if grads is None:
             grads = self.flat_grads()
         updates, new_opt = self.tx.update(grads, self.opt_state, self.flat,
                                           norm=self.grad_norm(grads))
         self.flat.copy_(torch.where(finite, self.flat + updates, self.flat))
-        self.opt_state = {k: torch.where(finite, v, self.opt_state[k])
-                          for k, v in new_opt.items()}
-        self.step = torch.where(finite, self.step + 1, self.step)
+        for k, v in new_opt.items():
+            self.opt_state[k].copy_(torch.where(finite, v, self.opt_state[k]))
+        self.step.copy_(torch.where(finite, self.step + 1, self.step))
         if stats_before is not None:
             self.stats_flat.copy_(torch.where(finite, self.stats_flat, stats_before))
 

@@ -140,7 +140,10 @@ def test_train_step_records_its_stages():
     rec = profiling.spans()
     assert [s.name for s in rec] == ["train.forward", "train.backward", "train.update",
                                      "train.step"]
-    assert all(s.attrs == {"step": 1} for s in rec) and state.draws == 2
+    assert all(s.attrs == {"step": 1} for s in rec[:-1]) and state.draws == 2
+    # on the CPU the step launches eagerly: nothing captured or replayed
+    assert rec[-1].attrs == {"step": 1, "graphed": 0}
+    assert step.graph_captures == step.graphed_steps == 0 and step.graph_of(state) is None
     outer = rec[-1]
     assert outer.parent is None and all(s.parent == "train.step" for s in rec[:-1])
     for a, b in zip(rec[:-1], rec[1:-1]):
