@@ -4,7 +4,8 @@ multimodal).
 Port of ``kstar_tpu/infer/continuous.py``. A shot's frames (centre-cropped)
 or its 0D table are uploaded to the device once; windows are gathered on
 the device (raw frames by the window-gather kernel, ops/preprocess.py;
-ViViT's cls table and 0D tables with a (B, L) index matrix); the sweep runs
+ViViT's cls table and 0D tables by the clamped rows of ``window_rows``,
+one ``index_select`` each); the sweep runs
 over fixed-size window chunks, bucketed so that ragged shot lengths give a
 handful of shapes. On a GPU, the token paths of ``VideoSweeper`` and
 ``MultiModalSweeper`` replay one captured CUDA graph per chunk
@@ -47,6 +48,7 @@ import torch
 
 from .. import resolve_device
 from ..config import FPS, PIXEL_MEAN_BGR
+from ..data.augment import center_crop
 from ..ops.preprocess import gather_normalize
 from ..parallel.comm import all_gather_objects
 from ..ops.spatial_table import (extract_spatial_weights, kernel_refusal,
@@ -127,8 +129,7 @@ def video_encoder(model):
 def _make_cls_table_fn(model, seq_len: int, crop_size: int, compute_dtype,
                        device, use_fused: Optional[bool] = None):
     """``tokens (T, N-1, D) -> (L, T, D)`` spatial-cls-table closure, and
-    whether it runs the kernel. Shared by ``VideoSweeper`` and
-    ``MultiModalSweeper``.
+    whether it runs the kernel: the window loop's (``_WindowLoop``).
 
     The widths come from the ViViT encoder the table is built from
     (``video_encoder``). ``use_fused`` is tri-state, as in the JAX sweep:
@@ -166,6 +167,39 @@ def _make_cls_table_fn(model, seq_len: int, crop_size: int, compute_dtype,
     return cls_table, fused
 
 
+def window_rows(table: torch.Tensor, chunks: torch.Tensor,
+                offsets: torch.Tensor) -> torch.Tensor:
+    """(n, B * L): the row of ``table`` that each window frame of the
+    (n, B) window starts ``chunks`` reads, frame start + ``offsets[k]`` at
+    offset k, clamped to the table; the rows of ``table_rows(table)``. A
+    3-D table is an offset-major (L, T, D) spatial-cls table, read
+    flattened to (L * T, D): offset k reads clamp(start + offsets[k], 0,
+    T - 1) + k * T. Any other table is R rows along its first axis (0D
+    rows, raw frames): offset k reads clamp(start + offsets[k], 0, R - 1).
+    The one gather of the window loop: the graph's and ``gather_windows``."""
+    offset_major = table.dim() == 3
+    n_rows = table.shape[1] if offset_major else table.shape[0]
+    rows = torch.clamp(chunks[:, :, None] + offsets, 0, n_rows - 1)
+    if offset_major:
+        rows = rows + torch.arange(table.shape[0], device=rows.device) * n_rows
+    return rows.view(len(chunks), -1)
+
+
+def table_rows(table: torch.Tensor) -> torch.Tensor:
+    """``table`` as the rows ``window_rows`` numbers: a spatial-cls table
+    (L, T, D) flattened to (L * T, D), any other table as it is."""
+    return table.flatten(0, 1) if table.dim() == 3 else table
+
+
+def gather_windows(table: torch.Tensor, starts: torch.Tensor,
+                   offsets: torch.Tensor) -> torch.Tensor:
+    """(B, L, ...) the windows starting at ``starts`` (B,): the rows
+    ``window_rows`` gives, read with one ``index_select``."""
+    rows = table_rows(table)
+    picked = torch.index_select(rows, 0, window_rows(table, starts[None], offsets)[0])
+    return picked.view(len(starts), len(offsets), *rows.shape[1:])
+
+
 class _WindowGraph(NamedTuple):
     """A captured chunk forward: ``inputs`` the (B, L, width) buffers it
     reads (the windows, and a fusion model's 0D rows), ``probs`` (B,) out,
@@ -177,30 +211,112 @@ class _WindowGraph(NamedTuple):
 
 
 class _WindowLoop:
-    """The window loop that ``VideoSweeper`` and ``MultiModalSweeper``
-    share: a chunk's windows are gathered from flattened (rows, width)
-    device tables, one table per model input, and on the token path on a
-    GPU replayed through one captured CUDA graph of ``_window_probs``. A
-    sweeper sets ``model``, ``device``, ``seq_len``, ``batch_size``,
-    ``_use_tokens`` and the window's frame offsets ``_offsets``, calls
-    ``_init_loop`` and defines ``_window_probs``.
-    ``graph_captures`` counts the captures, ``graphed_chunks`` the chunks
-    replayed."""
+    """The window loop of ``VideoSweeper`` and ``MultiModalSweeper``:
+    everything between a device-resident shot and its probabilities.
 
-    def _init_loop(self) -> None:
+    The constructor moves the model to the device in eval mode and, for a
+    model with the token path (``spatial_cls``), builds the spatial-cls
+    table's route (``_make_cls_table_fn``). ``upload_shot`` crops on the
+    host (``_crop``), ``embed_all`` turns a shot's frames into its table.
+    ``_sweep_windows`` sweeps the windows of the model's inputs, each a
+    (table, starts, offsets) triple, in padded chunks of ``batch_size``
+    (``_sweep_chunks``): on the token path on a GPU one captured CUDA graph
+    of ``_window_probs`` a chunk, elsewhere the sweeper's ``chunk_probs``,
+    launched eagerly. Token windows are gathered through ``window_rows``
+    on both paths. A sweeper adds its window offsets, ``_window_probs``
+    and ``chunk_probs``. ``graph_captures`` counts the captures,
+    ``graphed_chunks`` the chunks replayed."""
+
+    def __init__(self, model, seq_len: int, crop_size: int, batch_size: int,
+                 compute_dtype: torch.dtype, use_fused_table: Optional[bool], device):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.seq_len, self.crop_size = seq_len, crop_size
+        self.batch_size, self.compute_dtype = batch_size, compute_dtype
+        # uint8 values and the integer channel means are exact in bf16, so
+        # normalising directly in the compute dtype is lossless
+        self._mean = torch.tensor(PIXEL_MEAN_BGR, dtype=compute_dtype, device=self.device)
+        self._use_tokens = hasattr(model, "spatial_cls")
+        self.fused_table_active = False
+        if self._use_tokens:
+            self._cls_table, self.fused_table_active = _make_cls_table_fn(
+                self.model, seq_len, crop_size, compute_dtype, self.device, use_fused_table)
         self._shot = 0        # shots through embed_all: the sweep spans' ``shot``
         self._graph: Optional[_WindowGraph] = None
         self.graph_captures = self.graphed_chunks = 0
 
-    def _window_rows(self, data: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
-        """(n_buck, B * L): the row of the flattened (L * T, D) spatial-cls
-        table ``data`` that each window frame of ``chunks`` reads (frame
-        start + ``_offsets[k]`` at offset k), clamped as ``chunk_probs``
-        clamps."""
-        L, T = data.shape[0], data.shape[1]
-        rows = (torch.clamp(chunks[:, :, None] + self._offsets, 0, T - 1)
-                + torch.arange(L, device=self.device) * T)
-        return rows.view(len(chunks), -1)
+    def _crop(self, frames_u8: np.ndarray) -> np.ndarray:
+        """(T, H, W, C) frames centre-cropped on the host, contiguous."""
+        return np.ascontiguousarray(center_crop(frames_u8, self.crop_size))
+
+    @torch.no_grad()
+    def embed_tokens(self, frames_dev: torch.Tensor) -> torch.Tensor:
+        """(T, h, w, C) uint8 on the device -> (T, N-1, D) patch embeddings."""
+        return self.model.embed_frames(frames_dev.to(self.compute_dtype) - self._mean)
+
+    @torch.no_grad()
+    def embed_all(self, frames_dev: torch.Tensor) -> torch.Tensor:
+        """Per-shot preprocessing: the (L, T, D) spatial-cls table (token
+        path), or the frames themselves for a model without it. Starts the
+        next shot of the spans (``sweep.embed``, ``sweep.table``)."""
+        self._shot += 1
+        if not self._use_tokens:
+            return frames_dev
+        with span("sweep.embed", shot=self._shot, frames=frames_dev.shape[0]):
+            tokens = self.embed_tokens(frames_dev)
+        with span("sweep.table", shot=self._shot, fused=self.fused_table_active):
+            return self._cls_table(tokens)
+
+    @torch.no_grad()
+    def _sweep_windows(self, inputs) -> np.ndarray:
+        """p_disrupt of every window of ``inputs``, one (table, starts,
+        offsets) triple per model input, the starts host arrays of one
+        length, in a ``sweep.windows`` span: ``windows`` real,
+        ``dispatched`` in ``chunks`` padded chunks (``chunkify_starts``,
+        the inputs' chunks up in one copy), ``graphed`` of them replayed as
+        a graph."""
+        tables, starts, offsets = zip(*inputs)
+        n = len(starts[0])
+        if n == 0:
+            return np.zeros(0, np.float32)
+        with span("sweep.windows", shot=self._shot, windows=n) as sp:
+            chunks = torch.from_numpy(np.stack([
+                chunkify_starts(np.asarray(s, np.int64), self.batch_size) for s in starts
+            ])).to(self.device)
+            graphed = self.graphed_chunks
+            probs = self._sweep_chunks(tables, chunks, offsets).cpu().numpy()[:n]
+            sp.set(dispatched=chunks[0].numel(), chunks=chunks.shape[1],
+                   graphed=self.graphed_chunks - graphed)
+            return probs
+
+    def _sweep_chunks(self, tables, chunks, offsets) -> torch.Tensor:
+        """(n_buck * B,) p_disrupt over ``tables``, one per model input,
+        each with its (n_buck, B) window starts ``chunks`` on the device and
+        its window ``offsets``; each chunk's launches in a ``sweep.chunk``
+        span. Eagerly a chunk is the sweeper's ``chunk_probs``. With a
+        window graph it is the gather of each input's ``window_rows`` into
+        the graph's input (one ``index_select`` each), the replay and the
+        copy of its probabilities out."""
+        graph = self._window_graph(tables)
+        if graph is None:
+            out = []
+            for starts in zip(*chunks):
+                with span("sweep.chunk", shot=self._shot):
+                    out.append(self.chunk_probs(*tables, *starts))
+            return torch.cat(out)
+        rows = [window_rows(*i) for i in zip(tables, chunks, offsets)]
+        flat = [table_rows(table) for table in tables]
+        bufs = [b.view(-1, t.shape[-1]) for t, b in zip(flat, graph.inputs)]
+        out = torch.empty((len(rows[0]), self.batch_size), dtype=torch.float32,
+                          device=self.device)
+        for c in range(len(out)):
+            with span("sweep.chunk", shot=self._shot):
+                for table, buf, r in zip(flat, bufs, rows):
+                    torch.index_select(table, 0, r[c], out=buf)
+                graph.graph.replay()
+                out[c].copy_(graph.probs)
+        self.graphed_chunks += len(out)
+        return out.view(-1)
 
     def _window_graph(self, tables) -> Optional[_WindowGraph]:
         """The chunk forward captured as a CUDA graph over inputs as wide as
@@ -234,23 +350,6 @@ class _WindowLoop:
         self.graph_captures += 1
         return _WindowGraph(key, graph, inputs, probs)
 
-    def _replay(self, graph: _WindowGraph, tables, rows) -> torch.Tensor:
-        """(n_buck * B,) p_disrupt: per chunk, in a ``sweep.chunk`` span, the
-        gather of ``rows[i][c]`` of each table into the graph's input i
-        (one ``index_select`` each), the replay and the copy of its
-        probabilities out."""
-        n = rows[0].shape[0]
-        bufs = [b.view(-1, t.shape[-1]) for t, b in zip(tables, graph.inputs)]
-        out = torch.empty((n, self.batch_size), dtype=torch.float32, device=self.device)
-        for c in range(n):
-            with span("sweep.chunk", shot=self._shot):
-                for table, buf, r in zip(tables, bufs, rows):
-                    torch.index_select(table, 0, r[c], out=buf)
-                graph.graph.replay()
-                out[c].copy_(graph.probs)
-        self.graphed_chunks += n
-        return out.view(-1)
-
 
 class VideoSweeper(_WindowLoop):
     """Stride-1 sliding-window sweep over device-resident frames.
@@ -275,46 +374,12 @@ class VideoSweeper(_WindowLoop):
     def __init__(self, model, seq_len: int, crop_size: int, batch_size: int = 64,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  use_fused_table: Optional[bool] = None, device=None, mesh=None):
+        super().__init__(model, seq_len, crop_size, batch_size, compute_dtype,
+                         use_fused_table, mesh.device if mesh is not None else device)
         self.mesh = mesh     # sweep_shots splits the shot axis over its data ranks
-        self.device = mesh.device if mesh is not None else resolve_device(device)
-        self.model = model.to(self.device).eval()
-        self.seq_len, self.crop_size = seq_len, crop_size
-        self.batch_size, self.compute_dtype = batch_size, compute_dtype
         # window s covers frames [s+1, s+L]: frame s+1+k sits at offset k
         self._offsets = torch.arange(1, seq_len + 1, device=self.device)
-        # uint8 values and the integer channel means are exact in bf16, so
-        # normalising directly in the compute dtype is lossless
-        self._mean = torch.tensor(PIXEL_MEAN_BGR, dtype=compute_dtype,
-                                  device=self.device)
-        self._use_tokens = hasattr(model, "spatial_cls")
-        self.fused_table_active = False
-        if self._use_tokens:
-            self._cls_table, self.fused_table_active = _make_cls_table_fn(
-                self.model, seq_len, crop_size, compute_dtype,
-                self.device, use_fused_table)
         self._frames_dev = None
-        self._init_loop()
-
-    def _normalize(self, frames_u8: torch.Tensor) -> torch.Tensor:
-        return frames_u8.to(self.compute_dtype) - self._mean
-
-    @torch.no_grad()
-    def embed_tokens(self, frames_dev: torch.Tensor) -> torch.Tensor:
-        """(T, h, w, C) uint8 on the device -> (T, N-1, D) patch embeddings."""
-        return self.model.embed_frames(self._normalize(frames_dev))
-
-    @torch.no_grad()
-    def embed_all(self, frames_dev: torch.Tensor) -> torch.Tensor:
-        """Per-shot preprocessing: the (L, T, D) spatial-cls table (ViViT),
-        or the frames themselves for a model without the token path. Starts
-        the next shot of the spans (``sweep.embed``, ``sweep.table``)."""
-        self._shot += 1
-        if not self._use_tokens:
-            return frames_dev
-        with span("sweep.embed", shot=self._shot, frames=frames_dev.shape[0]):
-            tokens = self.embed_tokens(frames_dev)
-        with span("sweep.table", shot=self._shot, fused=self.fused_table_active):
-            return self._cls_table(tokens)
 
     def _window_probs(self, windows: torch.Tensor) -> torch.Tensor:
         """p_disrupt of (B, L, D) gathered spatial-cls windows."""
@@ -325,45 +390,17 @@ class VideoSweeper(_WindowLoop):
         """p_disrupt for the windows starting at ``starts`` (B,), launched
         eagerly."""
         if self._use_tokens:
-            idx = torch.clamp(starts[:, None] + self._offsets[None, :], 0,
-                              data.shape[1] - 1)
-            off_idx = torch.arange(self.seq_len, device=self.device)[None, :]
-            return self._window_probs(data[off_idx, idx])  # (B, L, D)
+            return self._window_probs(gather_windows(data, starts, self._offsets))
         # raw frames: the window-gather kernel (ops/preprocess.py)
         logits = self.model(gather_normalize(data, starts, self.seq_len,
                                              self.compute_dtype))  # (B, L, h, w, C)
         return torch.softmax(logits.float(), dim=-1)[:, 0]
 
-    @torch.no_grad()
     def sweep_table(self, data: torch.Tensor, starts: np.ndarray) -> np.ndarray:
         """All windows over preprocessed ``data`` (``embed_all``'s output),
         in a ``sweep.windows`` span: ``windows`` real, ``dispatched`` in
         ``chunks`` padded chunks, ``graphed`` of them replayed as a graph."""
-        n = len(starts)
-        if n == 0:
-            return np.zeros(0, np.float32)
-        with span("sweep.windows", shot=self._shot, windows=n) as sp:
-            chunks = torch.from_numpy(chunkify_starts(starts, self.batch_size)).to(self.device)
-            graphed = self.graphed_chunks
-            probs = self._sweep_chunks(data, chunks).cpu().numpy()[:n]
-            sp.set(dispatched=chunks.numel(), chunks=chunks.shape[0],
-                   graphed=self.graphed_chunks - graphed)
-            return probs
-
-    def _sweep_chunks(self, data: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
-        """(n_buck, B) window starts on the device -> (n_buck * B,) p_disrupt;
-        each chunk's launches in a ``sweep.chunk`` span. With a window graph
-        a chunk is three launches: the gather of its windows into the
-        graph's input, the replay, the copy of its probabilities out."""
-        graph = self._window_graph((data,))
-        if graph is None:
-            out = []
-            for c in chunks:
-                with span("sweep.chunk", shot=self._shot):
-                    out.append(self.chunk_probs(data, c))
-            return torch.cat(out)
-        return self._replay(graph, (data.reshape(-1, data.shape[-1]),),
-                            (self._window_rows(data, chunks),))
+        return self._sweep_windows(((data, starts, self._offsets),))
 
     def load_shot(self, frames_u8: np.ndarray) -> torch.Tensor:
         """Crop, upload once and preprocess (ViViT: embed + cls table)."""
@@ -380,13 +417,6 @@ class VideoSweeper(_WindowLoop):
     def upload_shot(self, frames_u8: np.ndarray) -> torch.Tensor:
         """Centre-crop on the host and upload the raw uint8 frames."""
         return torch.from_numpy(self._crop(frames_u8)).to(self.device)
-
-    def _crop(self, frames_u8: np.ndarray) -> np.ndarray:
-        H, W = frames_u8.shape[1], frames_u8.shape[2]
-        y0 = H // 2 - self.crop_size // 2
-        x0 = W // 2 - self.crop_size // 2
-        return np.ascontiguousarray(
-            frames_u8[:, y0:y0 + self.crop_size, x0:x0 + self.crop_size, :])
 
     def sweep_device(self, frames_dev: torch.Tensor, starts: np.ndarray) -> np.ndarray:
         """Whole-shot sweep including the per-shot preprocessing (embedding
@@ -437,7 +467,8 @@ class VideoSweeper(_WindowLoop):
             fd = torch.from_numpy(frames_stack).to(self.device)
             cd = torch.from_numpy(chunks_stack).to(self.device)
         with span("library.sweep", shots=n_real):
-            probs = torch.stack([self._sweep_chunks(self.embed_all(fd[i]), cd[i])
+            probs = torch.stack([self._sweep_chunks((self.embed_all(fd[i]),), cd[i][None],
+                                                    (self._offsets,))
                                  for i in range(n_real)]).cpu().numpy()
         return [probs[i, :len(starts_list[i])] for i in range(n_real)]
 
@@ -557,8 +588,7 @@ class TSSweeper:
 
     @torch.no_grad()
     def chunk_probs(self, data: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-        idx = torch.clamp(starts[:, None] + self._offsets[None, :], 0, data.shape[0] - 1)
-        logits = self.model(data[idx])
+        logits = self.model(gather_windows(data, starts, self._offsets))
         return torch.softmax(logits.float(), dim=-1)[:, 0]
 
     def sweep(self, data: np.ndarray, starts: np.ndarray) -> np.ndarray:
@@ -633,8 +663,8 @@ class MultiModalSweeper(_WindowLoop):
     captured CUDA graph per chunk (``_WindowLoop``), the windows and the 0D
     rows gathered into its two inputs; ``graph_captures`` counts the
     captures, ``graphed_chunks`` the chunks replayed. Another model takes
-    raw frames, gathered by indexing, and launches eagerly, as the CPU
-    does. ``device=None`` means the GPU.
+    raw frames, gathered through the same ``window_rows``, and launches
+    eagerly, as the CPU does. ``device=None`` means the GPU.
 
     ``sweep_device`` sweeps a shot already on the device in its two
     halves, ``embed_all`` (spans ``sweep.embed``, ``sweep.table``) and
@@ -644,23 +674,13 @@ class MultiModalSweeper(_WindowLoop):
     def __init__(self, model, seq_len: int, tau: int = 1, crop_size: int = 128,
                  batch_size: int = 32, compute_dtype: torch.dtype = torch.bfloat16,
                  use_fused_table: Optional[bool] = None, device=None):
-        self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
-        self.seq_len, self.tau = seq_len, tau
-        self.crop_size, self.batch_size = crop_size, batch_size
-        self.compute_dtype = compute_dtype
+        super().__init__(model, seq_len, crop_size, batch_size, compute_dtype,
+                         use_fused_table, device)
+        self.tau = tau
         # the video window ends at v+1 (frames v+1-tau*(L-1) .. v+1, reference
         # paths[idx+1 : idx-tau*L+1 : -tau][::-1]); the 0D window ends at t
         back = tau * torch.arange(seq_len - 1, -1, -1, device=self.device)
         self._offsets, self._t_offsets = 1 - back, -back
-        self._mean = torch.tensor(PIXEL_MEAN_BGR, dtype=compute_dtype, device=self.device)
-        self._use_tokens = hasattr(model, "spatial_cls")
-        self.fused_table_active = False
-        if self._use_tokens:
-            self._cls_table, self.fused_table_active = _make_cls_table_fn(
-                self.model, seq_len, crop_size, compute_dtype,
-                self.device, use_fused_table)
-        self._init_loop()
 
     @staticmethod
     def _pad_bucket(arr: np.ndarray) -> np.ndarray:
@@ -673,31 +693,10 @@ class MultiModalSweeper(_WindowLoop):
     def upload_shot(self, frames_u8: np.ndarray, data: np.ndarray):
         """Crop the frames (T, H, W, C) uint8 on the host, edge-replicate
         them and the scaled 0D rows (R, F) to their buckets, upload both."""
-        H, W = frames_u8.shape[1], frames_u8.shape[2]
-        y0, x0 = H // 2 - self.crop_size // 2, W // 2 - self.crop_size // 2
-        cropped = self._pad_bucket(np.ascontiguousarray(
-            frames_u8[:, y0:y0 + self.crop_size, x0:x0 + self.crop_size, :]))
+        cropped = self._pad_bucket(self._crop(frames_u8))
         rows = self._pad_bucket(np.ascontiguousarray(data, dtype=np.float32))
         return (torch.from_numpy(cropped).to(self.device),
                 torch.from_numpy(rows).to(self.device))
-
-    @torch.no_grad()
-    def embed_tokens(self, frames_dev: torch.Tensor) -> torch.Tensor:
-        """(T, h, w, C) uint8 on the device -> (T, N-1, D) patch embeddings."""
-        return self.model.embed_frames(frames_dev.to(self.compute_dtype) - self._mean)
-
-    @torch.no_grad()
-    def embed_all(self, frames_dev: torch.Tensor) -> torch.Tensor:
-        """Per-shot preprocessing: the (L, T, D) spatial-cls table (fast
-        path), or the frames themselves for a model without it. Starts the
-        next shot of the spans (``sweep.embed``, ``sweep.table``)."""
-        self._shot += 1
-        if not self._use_tokens:
-            return frames_dev
-        with span("sweep.embed", shot=self._shot, frames=frames_dev.shape[0]):
-            tokens = self.embed_tokens(frames_dev)
-        with span("sweep.table", shot=self._shot, fused=self.fused_table_active):
-            return self._cls_table(tokens)
 
     @torch.no_grad()
     def load_shot(self, frames_u8: np.ndarray, data: np.ndarray):
@@ -718,19 +717,14 @@ class MultiModalSweeper(_WindowLoop):
                     v_starts: torch.Tensor, t_starts: torch.Tensor) -> torch.Tensor:
         """p_disrupt of the paired windows ending at ``v_starts`` + 1 and
         ``t_starts`` (B,), indices clipped to the table, launched eagerly."""
-        ti = torch.clamp(t_starts[:, None] + self._t_offsets[None, :], 0, rows.shape[0] - 1)
+        windows = gather_windows(video, v_starts, self._offsets)
+        samples = gather_windows(rows, t_starts, self._t_offsets)
         if self._use_tokens:
-            vi = torch.clamp(v_starts[:, None] + self._offsets[None, :], 0,
-                             video.shape[1] - 1)
-            off = torch.arange(self.seq_len, device=self.device)[None, :]
-            return self._window_probs(video[off, vi], rows[ti])
-        vi = torch.clamp(v_starts[:, None] + self._offsets[None, :], 0,
-                         video.shape[0] - 1)
-        out = self.model(video[vi].to(self.compute_dtype) - self._mean, rows[ti])
+            return self._window_probs(windows, samples)
+        out = self.model(windows.to(self.compute_dtype) - self._mean, samples)
         logits = out[0] if isinstance(out, tuple) else out
         return torch.softmax(logits.float(), dim=-1)[:, 0]
 
-    @torch.no_grad()
     def sweep_table(self, video: torch.Tensor, rows: torch.Tensor, video_keep,
                     ts_keep) -> np.ndarray:
         """All paired windows over ``embed_all``'s output and the (R, F) 0D
@@ -738,44 +732,8 @@ class MultiModalSweeper(_WindowLoop):
         ``windows`` real, ``dispatched`` in ``chunks`` padded chunks,
         ``graphed`` of them replayed as a graph. The two ladders' chunks go
         up in one copy."""
-        n = len(video_keep)
-        if n == 0:
-            return np.zeros(0, np.float32)
-        with span("sweep.windows", shot=self._shot, windows=n) as sp:
-            chunks = torch.from_numpy(np.stack([
-                chunkify_starts(np.asarray(video_keep, np.int64), self.batch_size),
-                chunkify_starts(np.asarray(ts_keep, np.int64), self.batch_size)])
-            ).to(self.device)
-            graphed = self.graphed_chunks
-            probs = self._sweep_chunks(video, rows, chunks[0], chunks[1]).cpu().numpy()[:n]
-            sp.set(dispatched=chunks[0].numel(), chunks=chunks.shape[1],
-                   graphed=self.graphed_chunks - graphed)
-            return probs
-
-    def _sweep_chunks(self, video: torch.Tensor, rows: torch.Tensor,
-                      v_chunks: torch.Tensor, t_chunks: torch.Tensor) -> torch.Tensor:
-        """(n_buck, B) paired window ends on the device -> (n_buck * B,)
-        p_disrupt; each chunk's launches in a ``sweep.chunk`` span. With a
-        window graph a chunk is four launches: the gathers of its windows
-        and its 0D rows into the graph's inputs, the replay, the copy of its
-        probabilities out."""
-        graph = self._window_graph((video, rows))
-        if graph is None:
-            out = []
-            for v, t in zip(v_chunks, t_chunks):
-                with span("sweep.chunk", shot=self._shot):
-                    out.append(self.chunk_probs(video, rows, v, t))
-            return torch.cat(out)
-        return self._replay(graph, (video.reshape(-1, video.shape[-1]), rows),
-                            self._chunk_rows(video, rows, v_chunks, t_chunks))
-
-    def _chunk_rows(self, video: torch.Tensor, rows: torch.Tensor, v_chunks: torch.Tensor,
-                    t_chunks: torch.Tensor) -> tuple:
-        """(n_buck, B * L) each: the rows of the flattened (L * T, D) table
-        and of the (R, F) 0D rows that each chunk's paired windows read,
-        clamped as ``chunk_probs`` clamps."""
-        t_rows = torch.clamp(t_chunks[:, :, None] + self._t_offsets, 0, rows.shape[0] - 1)
-        return self._window_rows(video, v_chunks), t_rows.view(len(t_chunks), -1)
+        return self._sweep_windows(((video, video_keep, self._offsets),
+                                    (rows, ts_keep, self._t_offsets)))
 
     def sweep_device(self, frames_dev: torch.Tensor, rows_dev: torch.Tensor, video_keep,
                      ts_keep) -> np.ndarray:

@@ -32,6 +32,7 @@ import torch
 
 from .. import resolve_device
 from ..config import FPS
+from ..data.augment import center_crop
 from ..ops.preprocess import gather_normalize, gather_normalize_reference
 
 
@@ -102,13 +103,10 @@ class StreamingPredictor:
             if H < self.crop_size or W < self.crop_size:
                 raise ValueError(f"frames {H}x{W} smaller than crop_size "
                                  f"{self.crop_size}")
-            # crop BOTH axes like VideoSweeper.upload_shot: a wide frame
+            # both axes, as the sweepers' upload_shot: a wide frame
             # (H == crop < W) must not reach the fixed-shape ring buffer
             # uncropped
-            if H > self.crop_size or W > self.crop_size:
-                y0 = H // 2 - self.crop_size // 2
-                x0 = W // 2 - self.crop_size // 2
-                frames = frames[:, y0:y0 + self.crop_size, x0:x0 + self.crop_size]
+            frames = center_crop(frames, self.crop_size)
         if frames.shape[1:] != self._item_shape:
             raise ValueError(f"expected a block of {self._item_shape} items, got "
                              f"{frames.shape}")

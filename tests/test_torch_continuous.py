@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from kstar_torch import resolve_device
+from kstar_torch.data.augment import center_crop
+from kstar_torch.infer import StreamingPredictor
 from kstar_torch.infer import continuous as tc
 from kstar_torch.models.vivit import ViViT as TorchViViT
 from kstar_torch.weights import state_dict_from_flax
@@ -119,6 +121,24 @@ def test_entry_points_default_to_the_gpu(models):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         tc.predict_video_shot(tm, frames, 0, 10, SEQ_LEN, crop_size=CROP)
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (53, 37), (CROP, 45)], ids=str)
+@pytest.mark.parametrize("entry", ["video_sweeper", "multimodal_sweeper", "streaming"])
+def test_host_crops_are_center_crop(entry, shape):
+    """``VideoSweeper.upload_shot``, ``MultiModalSweeper.upload_shot`` and
+    ``StreamingPredictor``'s block prep crop frames of odd H != W, and a
+    wide frame with H == crop < W, exactly as ``center_crop`` does."""
+    frames = np.random.default_rng(4).integers(0, 256, size=(4, *shape, 3), dtype=np.uint8)
+    model = torch.nn.Identity()
+    if entry == "video_sweeper":
+        got = tc.VideoSweeper(model, SEQ_LEN, CROP, device="cpu").upload_shot(frames)
+    elif entry == "multimodal_sweeper":
+        sw = tc.MultiModalSweeper(model, SEQ_LEN, crop_size=CROP, device="cpu")
+        got = sw.upload_shot(frames, np.zeros((4, 18), np.float32))[0]   # 4 frames: no padding
+    else:
+        got = StreamingPredictor(model, SEQ_LEN, CROP, device="cpu")._prep(frames)
+    np.testing.assert_array_equal(got.numpy(), center_crop(frames, CROP))
 
 
 def test_bucket_and_chunks_match_jax():

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from kstar_torch.config import R2Plus1DConfig, ViViTConfig
-from kstar_torch.infer.continuous import VideoSweeper, chunkify_starts
+from kstar_torch.infer.continuous import (VideoSweeper, chunkify_starts, gather_windows,
+                                          table_rows, window_rows)
 from kstar_torch.models import build_video_model
 from kstar_torch.ops.preprocess import gather_normalize
 from kstar_torch.utils import profiling
@@ -73,20 +74,25 @@ def test_cpu_sweep_captures_nothing(name):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-def test_window_rows_gather_what_chunk_probs_gathers(dtype):
-    """The graphed loop's gather (one ``index_select`` of each chunk's rows
-    of the flattened table) reads the windows that ``chunk_probs`` indexes,
-    the clamp at the shot's end and the bucket padding included."""
+def test_window_rows_read_what_a_clamped_advanced_index_reads(dtype):
+    """The one gather (``window_rows`` of the flattened table, read with
+    one ``index_select`` in the graphed loop and in ``chunk_probs``) reads
+    the windows that a clamp and advanced indexing of the (L, T, D) table
+    read, the clamp at the shot's end and the bucket padding included."""
     sw = VideoSweeper(_model("ViViT"), L, CROP, BATCH, DTYPES[dtype], device="cpu")
     T, D = 23, 32
     data = torch.randn(L, T, D).to(DTYPES[dtype])
     chunks = torch.from_numpy(chunkify_starts(np.arange(T - 2), BATCH))
-    rows = sw._window_rows(data, chunks)
+    rows = window_rows(data, chunks, sw._offsets)
     assert rows.shape == (len(chunks), BATCH * L)
     off = torch.arange(L)[None, :]
     for c, r in zip(chunks, rows):
         idx = torch.clamp(c[:, None] + sw._offsets[None, :], 0, T - 1)
-        assert torch.equal(data.reshape(L * T, D)[r].view(BATCH, L, D), data[off, idx])
+        want = data[off, idx]
+        got = torch.index_select(table_rows(data), 0, r).view(BATCH, L, D)
+        assert torch.equal(got, want)
+        assert torch.equal(gather_windows(data, c, sw._offsets), want)
+        assert torch.equal(sw.chunk_probs(data, c), sw._window_probs(want))
 
 
 # ---------------------------------------------------------------------------

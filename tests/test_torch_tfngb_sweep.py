@@ -27,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from kstar_torch.infer.continuous import MultiModalSweeper, chunkify_starts, multimodal_ladders
+from kstar_torch.infer.continuous import (MultiModalSweeper, chunkify_starts, gather_windows,
+                                          multimodal_ladders, table_rows, window_rows)
 from kstar_torch.models import TFNGB, MultiModalConcat
 from kstar_torch.utils import profiling
 
@@ -161,24 +162,32 @@ def test_cpu_sweep_is_eager_and_its_spans_add_up():
     assert sum(1 for r in rec if r.name == "sweep.chunk") == _n_chunks(shots)
 
 
-def test_graph_gathers_read_what_chunk_probs_indexes():
-    """The graphed loop's gathers (one ``index_select`` of each chunk's
-    rows of the flattened table and of the 0D rows) read the windows that
-    ``chunk_probs`` indexes, the clamps at the table's ends and the bucket
-    padding included."""
+def test_window_rows_of_both_inputs_read_what_a_clamped_advanced_index_reads():
+    """The one gather (``window_rows`` of the flattened table and of the 0D
+    rows, read with one ``index_select`` each in the graphed loop and in
+    ``chunk_probs``) reads the paired windows that a clamp and advanced
+    indexing of the (L, T, D) table and the (R, F) rows read, the clamps at
+    the tables' ends and the bucket padding included."""
     sw = MultiModalSweeper(_model(), L, 1, CROP, BATCH, torch.float32, device="cpu")
     T, R, D = 23, 21, 32
     video, rows = torch.randn(L, T, D), torch.randn(R, F)
     vk = np.arange(3, T + 2)                # the last windows run past both tables
     v, t = (torch.from_numpy(chunkify_starts(k, BATCH)) for k in (vk, vk - 1))
-    v_rows, t_rows = sw._chunk_rows(video, rows, v, t)
+    v_rows, t_rows = window_rows(video, v, sw._offsets), window_rows(rows, t, sw._t_offsets)
     assert v_rows.shape == t_rows.shape == (len(v), BATCH * L)
     off = torch.arange(L)[None, :]
     for c in range(len(v)):
         vi = torch.clamp(v[c][:, None] + sw._offsets[None, :], 0, T - 1)
         ti = torch.clamp(t[c][:, None] + sw._t_offsets[None, :], 0, R - 1)
-        assert torch.equal(video.reshape(-1, D)[v_rows[c]].view(BATCH, L, D), video[off, vi])
-        assert torch.equal(rows[t_rows[c]].view(BATCH, L, F), rows[ti])
+        want_v, want_t = video[off, vi], rows[ti]
+        got_v = torch.index_select(table_rows(video), 0, v_rows[c]).view(BATCH, L, D)
+        assert torch.equal(got_v, want_v)
+        assert torch.equal(torch.index_select(table_rows(rows), 0, t_rows[c]).view(BATCH, L, F),
+                           want_t)
+        assert torch.equal(gather_windows(video, v[c], sw._offsets), want_v)
+        assert torch.equal(gather_windows(rows, t[c], sw._t_offsets), want_t)
+        assert torch.equal(sw.chunk_probs(video, rows, v[c], t[c]),
+                           sw._window_probs(want_v, want_t))
 
 
 def test_untraced_sweep_reads_no_clock(monkeypatch):
