@@ -4,7 +4,10 @@
     python3 chip_smoke.py [--seed 0] [--frames 4096]
 
 Builds the hand-written kernels from kstar_torch/csrc, holds each against
-its plain PyTorch version on the card, then drives the port's paths at the
+its plain PyTorch version on the card (the conv epilogue kernel at every
+shape a bf16 R(2+1)D forward at B = 128 hands it, then that whole forward
+on the kernel against the eager chain, bit for bit: ``conv_epilogue``),
+then drives the port's paths at the
 width of the flagship ViViT (dim 128, depth 2, 4 heads x 64, MLP 1024,
 128 px crop, 21-frame windows, bf16, random weights from --seed):
 
@@ -56,7 +59,7 @@ and then the three 0D models at their default widths (Transformer dim 128
 x 4 layers x 8 heads, FF 1024; CnnLSTM conv 64, LSTM 128 x 4 layers,
 bidirectional; MLSTM-FCN FCN 128, LSTM 128 bidirectional; 18 features,
 21-sample windows, random weights from --seed), paths that run none of the
-three kernels (each phase reads their launch counts as 0):
+kernels (each phase reads their launch counts as 0):
 
   ts_models       eval forward at batch 256: f32 card against CPU, bf16
                   against f32, times, launches
@@ -574,23 +577,28 @@ TS_BF16_PROB_TOL = {"Transformer": 1e-2, "CnnLSTM": 2e-3, "MLSTM_FCN": 2e-3}
 
 
 def kernel_launches(reset: bool = False) -> dict:
-    """The launch counts of the three kernels' wrappers (set to 0 first
-    with ``reset``): the 0D paths must launch none of them."""
+    """The launch counts of the four kernels' wrappers (set to 0 first
+    with ``reset``): the conv epilogue's is ``bn_act.fused``, one a launch.
+    The 0D paths must launch none of them."""
     from kstar_torch.ops.attention import fused_attention
+    from kstar_torch.ops.bn_act import bn_act
     from kstar_torch.ops.preprocess import gather_normalize
     from kstar_torch.ops.spatial_table import spatial_table
 
-    fns = {"spatial_table": spatial_table, "fused_attention": fused_attention,
-           "gather_normalize": gather_normalize}
+    counters = {"spatial_table": (spatial_table, "launches"),
+                "fused_attention": (fused_attention, "launches"),
+                "gather_normalize": (gather_normalize, "launches"),
+                "bn_act": (bn_act, "fused")}
     if reset:
-        for fn in fns.values():
-            fn.launches = 0
-    return {name: fn.launches for name, fn in fns.items()}
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
 
 def run_cli(main_fn, argv) -> tuple:
     """One CLI ``main(argv)`` with its stdout echoed to stderr: (its result,
-    the text, wall seconds, K1-K3 launches counted from 0 over the run)."""
+    the text, wall seconds, the kernels' launches counted from 0 over the
+    run)."""
     import contextlib
     import io
 
@@ -1596,6 +1604,9 @@ def train_multimodal_cli_phase(root: str) -> tuple:
 # ---------------------------------------------------------------------------
 
 CONV_SEQ = {"R2Plus1D": 21, "SlowFast": 20, "SlowFast_subbn2": 20}
+# conv epilogue kernel (bn_act) launches in one bf16 evaluation forward on
+# the card: R(2+1)D's 32 conv outputs; SlowFast runs its own BatchNorm chain
+CONV_EPILOGUES = {"R2Plus1D": 32, "SlowFast": 0, "SlowFast_subbn2": 0}
 CONV_BATCH, CONV_TRAIN_BATCH = 32, 64
 PLAIN_CHUNKS = 8                  # conv_sweep: chunks compared with the plain gather
 # conv_models: bf16 against f32 probabilities at batch 32, per model. The
@@ -1691,13 +1702,113 @@ def conv_clips(frames_dev, L: int, batch: int):
     return frames_dev[starts[:, None] + torch.arange(L, device=frames_dev.device)]
 
 
+def bn_act_checks(seed: int, frames_dev, dev) -> tuple:
+    """The conv epilogue kernel (ops/bn_act.py) on the main path's own data:
+    a bf16 R(2+1)D at kstar_torch/config.py's widths (random weights from
+    ``seed``, BatchNorm statistics calibrated on 8 windows of the cropped
+    shot) over ``BATCH`` windows hands each BatchNorm its conv output and,
+    at the residual joins, the shortcut. For every distinct (shape,
+    residual) among the 32, and at the largest shape once more with a
+    residual (the batch's conv output in reverse order), a kernel_check
+    row: the kernel against its plain version bit for bit, device ms by
+    CUDA events against the plain version's, GB/s over the bytes it must
+    move (2 read and 2 written an element, 2 more read with the residual)
+    and the byte bound at 3.35 TB/s. Then the whole forward on the kernel
+    and on the eager chain (a module forward hook sends every BatchNorm to
+    the eager chain), cuDNN deterministic: the logits equal bit for bit,
+    device ms of each, and the kernel's launches a forward (32, none on the
+    eager chain). Returns (rows, forward fields, forward ok)."""
+    from kstar_torch.config import PIXEL_MEAN_BGR
+    from kstar_torch.models.common import BN_EPS, BatchNorm
+    from kstar_torch.ops.bn_act import bn_act, bn_act_reference
+
+    model = conv_model("R2Plus1D", torch.bfloat16, seed=seed * 10 + 30).to(dev)
+    L = CONV_SEQ["R2Plus1D"]
+    x = (conv_clips(frames_dev, L, BATCH).to(torch.bfloat16)
+         - torch.tensor(PIXEL_MEAN_BGR, dtype=torch.bfloat16, device=dev))
+    calibrate_bn(model, x[:8])
+    cases = {}
+
+    def capture(mod, args, kwargs):
+        if "alpha" in kwargs:
+            r = kwargs["residual"]
+            cases.setdefault((tuple(args[0].shape), r is not None),
+                             (mod, args[0], r, kwargs["alpha"]))
+
+    hooks = [m.register_forward_pre_hook(capture, with_kwargs=True)
+             for m in model.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    (shape, _), (bn, big, _, alpha) = max(cases.items(), key=lambda kv: kv[1][1].numel())
+    cases.setdefault((shape, True), (bn, big, big.flip(0), alpha))
+    rows = []
+    for (shape, has_res), (bn, inp, res, alpha) in cases.items():
+        with torch.no_grad():
+            mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
+            args = (inp, bn.running_mean, mul, bn.bias, alpha, torch.bfloat16, res)
+            got, want = bn_act(*args), bn_act_reference(*args)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, want)
+            res_cmp = compare(got, want, 0.0, 0.0, 0.0)
+            del got, want
+            ms = time_ms(lambda: bn_act(*args), 20)
+            plain_ms = time_ms(lambda: bn_act_reference(*args), 5)
+        moved = inp.numel() * (6 if has_res else 4) + 3 * 4 * shape[-1]
+        bound_ms, bound_by = bound(4.0 * inp.numel(), moved, "float32")  # no tensor-core work
+        rows.append(dict(
+            name="bn_act", case=f"R(2+1)D {list(shape)}{' + residual' if has_res else ''} "
+                                f"bf16 (conv path)",
+            dtype="bfloat16", shape=list(shape), route="cuda",
+            source="kstar_torch/csrc/bn_act.cu",
+            replaces="none (XLA fuses kstar_tpu/models/r2plus1d.py:57-58, :115)", **res_cmp,
+            bit_equal=equal, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, instance="residual" if has_res else "plain",
+            gb_s=moved / ms / 1e6, hbm_share=moved / ms / 1e-3 / HBM_BYTES_PER_S))
+        rows[-1]["ok"] = res_cmp["ok"] and equal
+    del cases, big, bn, inp, res
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    fwd = torch.no_grad()(lambda: model(x))
+    counts, logits, ms = {}, {}, {}
+    try:
+        for path in ("kernel", "eager"):
+            hook = (torch.nn.modules.module.register_module_forward_hook(lambda *a: None)
+                    if path == "eager" else None)
+            try:
+                before = (bn_act.fused, bn_act.eager)
+                logits[path] = fwd()
+                counts[path] = (bn_act.fused - before[0], bn_act.eager - before[1])
+                ms[path] = time_ms(fwd, 3)
+            finally:
+                if hook is not None:
+                    hook.remove()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    fields = dict(
+        batch=BATCH, frames=L, crop=CROP, cases=len(rows),
+        forward_ms_kernel=ms["kernel"], forward_ms_eager=ms["eager"],
+        forward_epilogues_kernel=dict(zip(("fused", "eager"), counts["kernel"])),
+        forward_epilogues_eager=dict(zip(("fused", "eager"), counts["eager"])),
+        forward_bit_equal=torch.equal(logits["kernel"], logits["eager"]),
+        forward_finite=bool(torch.isfinite(logits["kernel"]).all()))
+    ok = (fields["forward_bit_equal"] and fields["forward_finite"]
+          and counts["kernel"] == (CONV_EPILOGUES["R2Plus1D"], 0)
+          and counts["eager"] == (0, CONV_EPILOGUES["R2Plus1D"]))
+    return rows, fields, ok
+
+
 def conv_models_phase(seed: int, frames_dev, dev, batch: int = CONV_BATCH) -> tuple:
     """Each conv model's eval forward at ``batch`` windows of the cropped
     shot, with its BatchNorm statistics calibrated on 8 of them
     (``calibrate_bn``): bf16 against f32 probabilities on the card (within
     CONV_BF16_PROB_TOL), f32 card against CPU at batch 2 (atol 1e-4 + rtol
     1e-4; TF32 is off), device ms by CUDA events, launches and busy ms of
-    one bf16 forward, operations per clip; no K1-K3 launch. SlowFast with
+    one bf16 forward, operations per clip; no K1-K3 launch, and the conv
+    epilogue kernel's 32 a bf16 R(2+1)D forward (three: the forward, the
+    encoding, the profiled forward), none for SlowFast. SlowFast with
     SubBatchNorm: after two train-mode forwards and an aggregation, its
     eval forward equals a plain SlowFast's holding the aggregated
     statistics in its BatchNorms (f32, atol 1e-4 + rtol 1e-4). Returns
@@ -1744,7 +1855,9 @@ def conv_models_phase(seed: int, frames_dev, dev, batch: int = CONV_BATCH) -> tu
             launches_per_forward_bf16=n_launch, forward_device_busy_ms_bf16=busy_ms,
             top_kernels_bf16=None if top is None else top[:5], kernel_launches=launches_k)
         entry_ok = (res["ok"] and p_err <= tol and out_bf.shape == (batch, 2)
-                    and bool(torch.isfinite(out_bf).all()) and not any(launches_k.values()))
+                    and bool(torch.isfinite(out_bf).all())
+                    and launches_k == dict.fromkeys(launches_k, 0) | {
+                        "bn_act": 3 * CONV_EPILOGUES[key]})
         if key == "SlowFast_subbn2":
             sub = conv_twin(f32, key, torch.float32).to(dev)
             with torch.no_grad():
@@ -1779,9 +1892,11 @@ def conv_sweep_phase(frames, frames_dev, dev, models: dict, flops: dict) -> tupl
     counted from the conv shapes over the bf16 peak) and the share of it the
     sweep reaches; launches and busy ms of two chunks under the profiler,
     scaled to the sweep; peak memory; predict_video_shot over the shot's
-    first 1024 frames. An R(2+1)D sweep takes ~5 s, so the warm-up, the
-    plain-gather curve and predict_video_shot run on parts of the shot.
-    Returns (ok, fields, window-gather launches)."""
+    first 1024 frames; each chunk's R(2+1)D forward runs its 32 conv
+    epilogues on the epilogue kernel. An R(2+1)D sweep takes ~5 s, so the
+    warm-up, the plain-gather curve and predict_video_shot run on parts of
+    the shot. Returns (ok, fields, window-gather launches, epilogue-kernel
+    launches)."""
     import numpy as np
 
     from kstar_torch.config import FPS
@@ -1789,7 +1904,7 @@ def conv_sweep_phase(frames, frames_dev, dev, models: dict, flops: dict) -> tupl
     from kstar_torch.ops.preprocess import gather_normalize_reference
 
     T = frames_dev.shape[0]
-    ok, fields, k3 = True, {}, {}
+    ok, fields, k3, epi = True, {}, {}, {}
     for key in ("R2Plus1D", "SlowFast"):
         L, model = CONV_SEQ[key], models[key]
         starts = np.arange(T - L - 1, dtype=np.int64)
@@ -1817,7 +1932,8 @@ def conv_sweep_phase(frames, frames_dev, dev, models: dict, flops: dict) -> tupl
         kernel_launches(reset=True)
         time_x, curve = predict_video_shot(model, frames[:1024], 0, 1024 - int(FPS), L,
                                            crop_size=CROP, batch_size=BATCH, device=dev)
-        pred_launches = kernel_launches()["gather_normalize"]
+        pred_k = kernel_launches()
+        pred_launches = pred_k["gather_normalize"]
         pred_chunks = len(chunkify_starts(np.arange(1024 - L - 3), BATCH))
         sweep_s = float(np.median(walls))
         bound_ms = len(starts) * flops[key] / PEAK_OPS_PER_S["bfloat16"] * 1e3
@@ -1838,15 +1954,18 @@ def conv_sweep_phase(frames, frames_dev, dev, models: dict, flops: dict) -> tupl
             predict_gather_launches=pred_launches)
         entry_ok = (launches["gather_normalize"] == 3 * n_chunks
                     and launches["spatial_table"] == 0 and launches["fused_attention"] == 0
+                    and launches["bn_act"] == CONV_EPILOGUES[key] * 3 * n_chunks
                     and probs.shape == starts.shape and bool(np.isfinite(probs).all())
                     and err.max() <= 5e-2 and err.mean() <= 5e-3
                     and len(curve) == len(time_x) == expect_len
-                    and bool(np.isfinite(curve).all()) and pred_launches == pred_chunks)
+                    and bool(np.isfinite(curve).all()) and pred_launches == pred_chunks
+                    and pred_k["bn_act"] == CONV_EPILOGUES[key] * pred_chunks)
         entry["ok"] = entry_ok
         ok = ok and entry_ok
         fields[key] = entry
         k3[key] = launches["gather_normalize"] + pred_launches
-    return ok, fields, k3
+        epi[key] = launches["bn_act"] + pred_k["bn_act"]
+    return ok, fields, k3, epi
 
 
 def conv_stream_phase(frames, dev, models: dict, n_blocks: int = 30) -> tuple:
@@ -1856,7 +1975,9 @@ def conv_stream_phase(frames, dev, models: dict, n_blocks: int = 30) -> tuple:
     p50 frame-to-alarm by M2's definition; blocks against single pushes
     (|dp| <= 2e-2, equal alarms where the threshold gap decides them).
     Whether a block keeps up with the camera is reported, not required.
-    Returns (ok, fields, window-gather launches)."""
+    Each timed block's R(2+1)D forward runs its 32 conv epilogues on the
+    epilogue kernel. Returns (ok, fields, window-gather launches,
+    epilogue-kernel launches)."""
     import numpy as np
 
     from kstar_torch.config import FPS
@@ -1864,7 +1985,7 @@ def conv_stream_phase(frames, dev, models: dict, n_blocks: int = 30) -> tuple:
 
     c0 = RESIZE // 2 - CROP // 2
     cropped = np.ascontiguousarray(frames[:, c0:c0 + CROP, c0:c0 + CROP])
-    ok, fields, k3 = True, {}, {}
+    ok, fields, k3, epi = True, {}, {}, {}
     for key in ("R2Plus1D", "SlowFast"):
         L, model = CONV_SEQ[key], models[key]
         mk = lambda **kw: StreamingPredictor(model, seq_len=L, crop_size=CROP,
@@ -1910,7 +2031,9 @@ def conv_stream_phase(frames, dev, models: dict, n_blocks: int = 30) -> tuple:
             threshold=thr, threshold_gap=gap, alarms_decidable=bool(decidable),
             alarms_equal=bool(np.array_equal(blk_a, one_a)))
         entry_ok = (launches["gather_normalize"] == n_blocks and launches["spatial_table"] == 0
-                    and launches["fused_attention"] == 0 and bool(np.isfinite(blk_p).all())
+                    and launches["fused_attention"] == 0
+                    and launches["bn_act"] == CONV_EPILOGUES[key] * n_blocks
+                    and bool(np.isfinite(blk_p).all())
                     and push_err <= 2e-2
                     and (not decidable or (np.array_equal(blk_a, one_a)
                                            and blk.alarm_time == one.alarm_time)))
@@ -1918,7 +2041,8 @@ def conv_stream_phase(frames, dev, models: dict, n_blocks: int = 30) -> tuple:
         ok = ok and entry_ok
         fields[key] = entry
         k3[key] = launches["gather_normalize"]
-    return ok, fields, k3
+        epi[key] = launches["bn_act"]
+    return ok, fields, k3, epi
 
 
 def train_conv_phase(seed: int, frames, dev, cpu_models: dict,
@@ -2382,7 +2506,8 @@ def compute_time_phase(root: str) -> tuple:
     (seven models, batch 1 and 64, 16 timed forwards each; bf16), one
     compact line per model, then python -m kstar_torch.cli.model_summary for
     each of its eight choices with the total parameters (R(2+1)D 1,587,523
-    and SlowFast 2,451,846 as PERF.md counts them); no K1-K3 launch."""
+    and SlowFast 2,451,846 as PERF.md counts them); no K1-K3 launch, and
+    R(2+1)D's bf16 forwards on the conv epilogue kernel, 32 launches each."""
     import json as _json
     import re
 
@@ -2395,7 +2520,10 @@ def compute_time_phase(root: str) -> tuple:
     with open(out_path) as f:
         saved = _json.load(f)
     want_keys = {f"{m}_b{b}" for m in COMPUTE_TIME_MODELS for b in (1, 64)}
-    ok = set(saved) == want_keys and not any(launches_k.values())
+    epilogues = launches_k["bn_act"]
+    ok = (set(saved) == want_keys and epilogues > 0
+          and epilogues % CONV_EPILOGUES["R2Plus1D"] == 0
+          and not any(n for k, n in launches_k.items() if k != "bn_act"))
     per_model = {}
     for m in COMPUTE_TIME_MODELS:
         row = {"model": m}
@@ -3953,6 +4081,17 @@ def main() -> int:
         if L == 20:
             checks[-1]["path"] = "conv SlowFast"
         emit("kernel_check", **checks[-1])
+    # the conv epilogue: exact (the kernel rounds where the plain version
+    # does), at R(2+1)D's own shapes; then its whole forward on both routes
+    t0 = time.perf_counter()
+    epi_rows, epi_fields, epi_ok = bn_act_checks(args.seed, frames_dev, dev)
+    for c in epi_rows:
+        checks.append(c)
+        emit("kernel_check", **c)
+    emit("conv_epilogue", **epi_fields, seconds=time.perf_counter() - t0, ok=epi_ok)
+    if not epi_ok:
+        failures.append("conv_epilogue")
+    torch.cuda.empty_cache()
     failures += [f"{c['name']} {c['case']}" for c in checks if not c["ok"]]
 
     # ---- sweep: the main path ----
@@ -4347,10 +4486,11 @@ def main() -> int:
                                                                         dev)
     emit("conv_models", **cm_fields, seconds=time.perf_counter() - t0, ok=cm_ok)
     t0 = time.perf_counter()
-    cs_ok, cs_fields, k3_sweep = conv_sweep_phase(frames, frames_dev, dev, conv_bf16, conv_ops)
+    cs_ok, cs_fields, k3_sweep, epi_sweep = conv_sweep_phase(frames, frames_dev, dev, conv_bf16,
+                                                             conv_ops)
     emit("conv_sweep", **cs_fields, seconds=time.perf_counter() - t0, ok=cs_ok)
     t0 = time.perf_counter()
-    ct_ok, ct_fields, k3_stream = conv_stream_phase(frames, dev, conv_bf16)
+    ct_ok, ct_fields, k3_stream, epi_stream = conv_stream_phase(frames, dev, conv_bf16)
     emit("conv_stream", **ct_fields, seconds=time.perf_counter() - t0, ok=ct_ok)
     del conv_bf16
     t0 = time.perf_counter()
@@ -4473,6 +4613,9 @@ def main() -> int:
                                   + k1_parallel + k1_jax + k1_soak + k1_demos + k1_campaign
                                   + sum(k1_full.values()) + sum(k1_full32.values()))
     launches["gather_normalize"] += k3_jax + k3_soak
+    # the conv epilogue kernel's on the main paths: R(2+1)D's sweeps (and
+    # predict_video_shot) and stream blocks
+    launches["bn_act"] = sum(epi_sweep.values()) + sum(epi_stream.values())
 
     kernel_rows = []
     for c in checks:
@@ -4486,7 +4629,7 @@ def main() -> int:
                      bound_by=c["bound_by"], library_ms=c["library_ms"],
                      case=c["case"], max_rel_err=c["max_rel_err"],
                      atol=c["atol"], rtol=c["rtol"], ok=c["ok"], instance=c["instance"])
-        for key in ("frames_per_block", "kernel_attributes"):
+        for key in ("frames_per_block", "kernel_attributes", "gb_s", "hbm_share"):
             if key in c:
                 entry[key] = c[key]
         kernel_rows.append(entry)

@@ -49,6 +49,7 @@ import torch
 from .. import resolve_device
 from ..config import FPS, PIXEL_MEAN_BGR
 from ..data.augment import center_crop
+from ..ops.bn_act import bn_act
 from ..ops.preprocess import gather_normalize
 from ..parallel.comm import all_gather_objects
 from ..ops.spatial_table import (extract_spatial_weights, kernel_refusal,
@@ -293,7 +294,10 @@ class _WindowLoop:
         """(n_buck * B,) p_disrupt over ``tables``, one per model input,
         each with its (n_buck, B) window starts ``chunks`` on the device and
         its window ``offsets``; each chunk's launches in a ``sweep.chunk``
-        span. Eagerly a chunk is the sweeper's ``chunk_probs``. With a
+        span. Eagerly a chunk is the sweeper's ``chunk_probs``, its span
+        carrying the conv epilogues it ran (``epilogues``) and how many of
+        them ran as one kernel pass (``fused_epilogues``, ``ops/bn_act.py``'s
+        counters). With a
         window graph it is the gather of each input's ``window_rows`` into
         the graph's input (one ``index_select`` each), the replay and the
         copy of its probabilities out."""
@@ -301,8 +305,11 @@ class _WindowLoop:
         if graph is None:
             out = []
             for starts in zip(*chunks):
-                with span("sweep.chunk", shot=self._shot):
+                with span("sweep.chunk", shot=self._shot) as sp:
+                    fused, eager = bn_act.fused, bn_act.eager
                     out.append(self.chunk_probs(*tables, *starts))
+                    sp.set(epilogues=bn_act.fused + bn_act.eager - fused - eager,
+                           fused_epilogues=bn_act.fused - fused)
             return torch.cat(out)
         rows = [window_rows(*i) for i in zip(tables, chunks, offsets)]
         flat = [table_rows(table) for table in tables]

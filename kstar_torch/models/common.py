@@ -34,13 +34,16 @@ module reads its switch at trace time and must keep it away from jit).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.modules.module import _global_forward_hooks
 
+from ..ops import bn_act as epilogue
 from ..parallel.comm import current_mesh, data_size, draw_rows, gather_rows, reduce_data
 from .vivit import Dense, LayerNorm, _lecun_normal_
 
@@ -148,7 +151,23 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, alpha: Optional[float] = None,
+                out_dtype: Optional[torch.dtype] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The f32 normalised ``x``. Given ``alpha`` (evaluation only), the
+        conv epilogue instead: LeakyReLU, the cast to ``out_dtype`` and, with
+        ``residual``, the residual join, in one kernel pass
+        (``ops/bn_act.py``, CUDA only); ``bn_leaky_relu`` chooses between
+        the two. The epilogue's arguments come through this call, and not
+        around the module, so that the forward pre-hooks that read or set
+        the running statistics from the conv output (``calibrate_bn``) fire
+        on both routes."""
+        if alpha is not None:
+            if train:
+                raise ValueError("BatchNorm: the fused epilogue is for evaluation")
+            mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+            return epilogue.bn_act(x, self.running_mean, mul, self.bias, alpha, out_dtype,
+                                   residual)
         x = x.float()
         if train:
             axes = tuple(range(x.dim() - 1))
@@ -167,6 +186,26 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         return (x - mean) * mul + self.bias
+
+
+def bn_leaky_relu(bn: BatchNorm, x: torch.Tensor, train: bool, alpha: float,
+                  dtype: torch.dtype, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A conv output's epilogue: ``bn``, LeakyReLU, the cast to ``dtype``;
+    with ``residual``, then LeakyReLU(residual + that) in ``dtype`` (a
+    residual block's join). The one-pass kernel (``ops/bn_act.py``), through
+    ``bn``'s own call so that its forward pre-hooks fire, wherever it
+    computes the same thing: evaluation, no guided backprop, no forward hook
+    on ``bn`` to see its f32 output, and bf16 on a CUDA device with no
+    gradient to record (``takes``). A strided input or residual is made
+    contiguous for it; one the kernel still refuses raises. Else the eager
+    chain, counted in ``bn_act.eager``."""
+    if (train or GUIDED_BACKPROP[0] or bn._forward_hooks or _global_forward_hooks
+            or not epilogue.takes(x, residual, dtype, (bn.weight, bn.bias))):
+        epilogue.bn_act.eager += 1
+        return epilogue.act_join(bn(x, train), partial(act_leaky_relu, alpha=alpha), dtype,
+                                 residual)
+    return bn(x.contiguous(), train, alpha=alpha, out_dtype=dtype,
+              residual=None if residual is None else residual.contiguous())
 
 
 class Conv1d(nn.Module):

@@ -11,8 +11,9 @@ global average pool; a BatchNorm + ELU MLP head.
 Numerics follow the JAX module: convs in the compute ``dtype`` with
 torch-style symmetric padding (a stride-2 conv under flax's "SAME" would
 pad differently), BatchNorm and the activation in f32, the result cast to
-``dtype``; the pool is a ``dtype`` mean cast to f32; the head runs in f32
-with the backbone's alpha (0.01) as its ELU alpha. Submodules carry the
+``dtype`` (in bf16 evaluation on the GPU one kernel pass, rounding where the
+eager chain rounds, ``ops/bn_act.py``); the pool is a ``dtype`` mean cast to
+f32; the head runs in f32 with the backbone's alpha (0.01) as its ELU alpha. Submodules carry the
 flax names (``backbone.conv1.spatial.Conv_0`` ...), so
 ``weights.state_dict_from_flax`` maps the JAX parameters one to one.
 Clips are channels-last (B, T, H, W, C).
@@ -26,7 +27,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from .common import BatchNorm, Conv3d, MLPHead, act_leaky_relu
+from .common import BatchNorm, Conv3d, MLPHead, bn_leaky_relu
 
 
 def _middle_channels(kt: int, ks: int, cin: int, cout: int) -> int:
@@ -36,7 +37,10 @@ def _middle_channels(kt: int, ks: int, cin: int, cout: int) -> int:
 
 
 class Conv3dBN(nn.Module):
-    """Conv3d + BatchNorm + LeakyReLU (reference Conv3dBlock, :25-59)."""
+    """Conv3d + BatchNorm + LeakyReLU (reference Conv3dBlock, :25-59); with
+    ``residual``, then a residual block's join, LeakyReLU(residual + that),
+    in the same epilogue (``common.bn_leaky_relu``: one kernel pass in bf16
+    evaluation on the GPU)."""
 
     def __init__(self, in_channels: int, features: int, kernel: Tuple[int, int, int],
                  stride=(1, 1, 1), padding=(1, 1, 1), alpha: float = 0.01,
@@ -48,15 +52,17 @@ class Conv3dBN(nn.Module):
                              generator=generator)
         self.BatchNorm_0 = BatchNorm(features)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = self.BatchNorm_0(self.Conv_0(x), train)
-        return act_leaky_relu(x, self.alpha).to(self.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return bn_leaky_relu(self.BatchNorm_0, self.Conv_0(x), train, self.alpha, self.dtype,
+                             residual)
 
 
 class SpatioTemporalConv(nn.Module):
     """Factorised (2+1)D conv: spatial (1, k, k) then temporal (kt, 1, 1),
     each a Conv3dBN (reference SpatioTemporalConv, :115-161). The stem
-    (``is_first``) has the fixed middle width 45 and a 3x1x1 temporal conv."""
+    (``is_first``) has the fixed middle width 45 and a 3x1x1 temporal conv.
+    A ``residual`` joins in the temporal conv's epilogue."""
 
     def __init__(self, in_channels: int, features: int, kernel=(3, 3, 3),
                  stride=(1, 1, 1), alpha: float = 0.01, is_first: bool = False,
@@ -76,21 +82,22 @@ class SpatioTemporalConv(nn.Module):
         self.temporal = Conv3dBN(mid, features, t_kernel, (st, 1, 1), t_pad, alpha, dtype,
                                  generator)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return self.temporal(self.spatial(x, train), train)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.temporal(self.spatial(x, train), train, residual)
 
 
 class STResBlock(nn.Module):
     """Two (2+1)D convs and a residual; a downsampling block strides (2, 2, 2)
     with a 1x1x1 (2+1)D projection shortcut (reference
-    SpatioTemporalResBlock, :164-188)."""
+    SpatioTemporalResBlock, :164-188). The shortcut comes first and joins in
+    ``conv2``'s last epilogue, LeakyReLU(shortcut + conv2's output)."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
                  downsample: bool = False, alpha: float = 0.01,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.alpha = alpha
         k = (kernel,) * 3
         stride = (2, 2, 2) if downsample else (1, 1, 1)
         self.conv1 = SpatioTemporalConv(in_channels, features, k, stride, alpha, dtype=dtype,
@@ -102,10 +109,8 @@ class STResBlock(nn.Module):
                          if downsample else None)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        res = self.conv2(self.conv1(x, train), train)
-        if self.shortcut is not None:
-            x = self.shortcut(x, train)
-        return act_leaky_relu(x + res, self.alpha).to(res.dtype)
+        short = x if self.shortcut is None else self.shortcut(x, train)
+        return self.conv2(self.conv1(x, train), train, short)
 
 
 class STResLayer(nn.Module):
